@@ -1,0 +1,64 @@
+"""One-vs-rest multiclass layer over the fused engine.
+
+A k-class SVM in the one-vs-rest (OVR) reduction is k binary QPs that
+differ only in the sign pattern of ``y``; they share ``X`` and run as the
+k lanes of one fused solve.
+
+Conventions: ``y_idx`` integer class indices (l,) in [0, k); ``Y``
+stacked signed label vectors (k, l) with rows in {-1, +1}.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.solver import SolverConfig
+from repro_torch.core.solver_fused import solve_fused_batched
+
+
+def class_index(y) -> Tuple[np.ndarray, np.ndarray]:
+    """Sorted unique labels and each sample's position among them (host
+    numpy: label vocabularies are data-dependent shapes)."""
+    classes, y_idx = np.unique(np.asarray(y), return_inverse=True)
+    return classes, y_idx.astype(np.int32)
+
+
+def ovr_labels(y_idx, n_classes: int, dtype=torch.float64,
+               device="cpu") -> torch.Tensor:
+    """(k, l) signed labels: row ``c`` is +1 where ``y_idx == c``, else -1."""
+    y_idx = torch.as_tensor(np.asarray(y_idx), device=device)
+    onehot = y_idx[None, :] == torch.arange(n_classes, device=device)[:, None]
+    return torch.where(onehot, 1.0, -1.0).to(dtype)
+
+
+def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
+                    impl: str = "auto", precompute: bool = False,
+                    device=None, dtype=None):
+    """Solve all one-vs-rest heads as the lanes of one fused solve.
+
+    ``C`` is a scalar, (k,) per-class or (k, l) per-sample budgets;
+    ``gamma`` the shared RBF width.  ``precompute`` is accepted for the
+    reference's signature: in this slice the rows are recomputed from
+    ``X`` on every backend (the Gram-bank row source is a later slice).
+    ``device`` defaults to the CUDA card and raises without one.  Returns a
+    :class:`~repro_torch.core.solver_fused.FusedResult` with a leading
+    class axis.
+    """
+    del precompute
+    return solve_fused_batched(X, Y, C, gamma, cfg, impl=impl, device=device,
+                               dtype=dtype)
+
+
+def ovr_decision(Kq: torch.Tensor, alpha: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """(m, k) OVR scores for the query cross-kernel ``Kq`` (m, l)."""
+    return Kq @ alpha.T + b[None, :]
+
+
+def ovr_predict(Kq: torch.Tensor, alpha: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """argmax-of-scores OVR prediction -> (m,) int32 class indices."""
+    return torch.argmax(ovr_decision(Kq, alpha, b), dim=-1).to(torch.int32)

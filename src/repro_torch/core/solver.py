@@ -1,0 +1,39 @@
+"""Solver configuration (the classic engine itself is a later slice)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Soft-shrinking cadence when a config has none of its own.
+DEFAULT_SHRINK_EVERY = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Static solver configuration, field for field as
+    ``repro.core.solver.SolverConfig``."""
+
+    algorithm: str = "pasmo"       # smo | pasmo | pasmo_simple | overshoot
+    wss: str = "wss2"              # wss2 | mvp
+    eps: float = 1e-3              # KKT stopping accuracy (paper default)
+    eta: float = 0.9               # Alg. 3 ratio window (paper fixes 0.9)
+    overshoot: float = 1.1         # §7.3 factor (only algorithm="overshoot")
+    max_iter: int = 1_000_000
+    plan_candidates: int = 1       # N of §7.4; 1 = plain PA-SMO
+    record_trace: bool = False     # record mu/mu* of planning steps (Fig. 3)
+    trace_cap: int = 16384
+    shrink_every: int = 0          # 0 = off; else re-evaluate mask every k its
+    record_steps: bool = False     # record (i, j, mu) per iteration (debug /
+    step_cap: int = 4096           # trajectory-parity tests)
+    step: str = "plain"            # plain | conjugate (Conjugate-SMO 2-dir)
+
+    def __post_init__(self):
+        assert self.algorithm in ("smo", "pasmo", "pasmo_simple", "overshoot")
+        assert self.wss in ("wss2", "mvp")
+        assert self.plan_candidates >= 1
+        assert self.step in ("plain", "conjugate")
+        # The conjugate step replaces the planning-ahead machinery (both
+        # re-use the previous working set as the second direction), so it
+        # only composes with the plain SMO base algorithm.
+        assert self.step == "plain" or self.algorithm == "smo", \
+            "step='conjugate' requires algorithm='smo'"

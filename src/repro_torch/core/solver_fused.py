@@ -1,0 +1,321 @@
+"""Fused two-pass PA-SMO solver over a batch of QP lanes (main path of
+``repro.core.solver_fused``).
+
+One host loop advances B *general* dual QPs over a shared ``X``: per-lane
+linear term ``P`` (B, n), box ``L``/``U`` (B, n) and RBF width.  Each
+iteration launches the batched pass A (WSS2 selection) and pass B (both
+rows + gradient update + stopping scan) and does O(B) step algebra in
+between: Alg. 3's B^(t-2) candidate, the truncated Newton step and, with
+``algorithm="pasmo"``, the planning-ahead step (eq. 8).  Kernel rows are
+recomputed from ``X`` in the passes (the rbf row source); no Gram matrix
+is built.
+
+Converged lanes are frozen in the passes: their step size is 0, so pass B
+leaves their gradient bitwise unchanged and every per-lane state update is
+a select on ``active``.  That makes the host loop exact while it checks
+``any(~done)`` only every ``check_every`` iterations (one device sync per
+check, none inside the body): once every lane is done, further iterations
+change nothing that is returned, and each chunk is capped at
+``max_iter - t`` so ``max_iter`` stays exact.
+
+This slice covers the plain step, ``algorithm`` in ``{smo, pasmo}``, one
+state half and no shrinking, telemetry, conjugate step, Gram bank or warm
+start.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import qp as qp_mod
+from repro_torch.core import step as step_mod
+from repro_torch.core.qp import TAU
+from repro_torch.core.solver import SolverConfig
+from repro_torch.device import resolve_device, resolve_dtype
+from repro_torch.kernels import ops, row_source
+
+# Host-check cadence of the loop: iterations between reads of any(~done).
+CHECK_EVERY = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedResult:
+    """Per-lane results; every field has a leading lane axis."""
+
+    alpha: torch.Tensor
+    b: torch.Tensor
+    G: torch.Tensor
+    iterations: torch.Tensor     # per lane, until that lane converged
+    objective: torch.Tensor
+    kkt_gap: torch.Tensor
+    converged: torch.Tensor
+    n_planning: torch.Tensor
+    n_unshrink: torch.Tensor     # always 0: shrinking is a later slice
+
+    def lane(self, k: int) -> "FusedResult":
+        """The result of lane ``k`` alone (leading axis dropped)."""
+        return FusedResult(**{f.name: getattr(self, f.name)[k]
+                              for f in dataclasses.fields(self)})
+
+
+class _BatchState(NamedTuple):
+    alpha: torch.Tensor          # (B, n), updated in place
+    G: torch.Tensor              # (B, n)
+    i: torch.Tensor              # (B,) int32 next working-set first index
+    g_i: torch.Tensor            # (B,) G[i] == max gradient over I_up
+    gap: torch.Tensor            # (B,)
+    iters: torch.Tensor          # (B,) int32 iterations until convergence
+    done: torch.Tensor           # (B,) bool
+    pi: torch.Tensor             # (B,) int32 planning history B^(t-1)
+    pj: torch.Tensor
+    qi: torch.Tensor             # (B,) int32 planning history B^(t-2)
+    qj: torch.Tensor
+    n_hist: torch.Tensor         # (B,) int32
+    p_smo: torch.Tensor          # (B,) bool
+    prev_free: torch.Tensor      # (B,) bool
+    prev_ratio_ok: torch.Tensor  # (B,) bool
+    n_planning: torch.Tensor     # (B,) int32
+
+
+def _check_config(cfg: SolverConfig) -> None:
+    if cfg.algorithm not in ("smo", "pasmo"):
+        raise ValueError(f"the fused engine runs algorithm smo or pasmo, got "
+                         f"{cfg.algorithm!r}")
+    if cfg.plan_candidates != 1:
+        raise ValueError("the fused engine plans one candidate "
+                         "(plan_candidates == 1)")
+    if cfg.wss != "wss2":
+        raise ValueError("the fused passes hardcode WSS2 selection")
+    if cfg.record_trace or cfg.record_steps:
+        raise ValueError("the fused solver does not record traces/steps")
+    if cfg.step != "plain":
+        raise NotImplementedError(
+            "step='conjugate' in the port is a later slice (ROADMAP queue "
+            "1, step 8)")
+    if cfg.shrink_every:
+        raise NotImplementedError(
+            "shrinking in the port is a later slice (ROADMAP queue 1, "
+            "step 7)")
+
+
+def solve_fused_batched_qp(X, P, L, U, gamma,
+                           cfg: SolverConfig = SolverConfig(), *,
+                           impl: str = "auto",
+                           check_every: int = CHECK_EVERY) -> FusedResult:
+    """Solve B general dual QPs over the shared ``X`` (n, d) in one loop.
+
+    ``X``, ``P`` (B, n), ``L``/``U`` (B, n) are tensors on one device with
+    one dtype; ``gamma`` is a scalar or (B,).  ``impl`` picks the passes'
+    backend (:func:`repro_torch.kernels.ops.resolve_impl`).  The loop
+    reads ``any(~done)`` every ``check_every`` iterations; the result does
+    not depend on it.  Returns a :class:`FusedResult` whose
+    ``iterations`` count per-lane iterations until that lane converged.
+    """
+    _check_config(cfg)
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    dtype, device = P.dtype, P.device
+    B, n = P.shape
+    if X.shape[0] != n:
+        raise ValueError(f"X has {X.shape[0]} rows, the lanes {n} "
+                         f"coordinates")
+    impl = ops.resolve_impl(impl, device)
+    eps, eta = cfg.eps, cfg.eta
+    planning = cfg.algorithm == "pasmo"
+    src = row_source.rbf_source(X, gamma, B)
+    lanes = torch.arange(B, device=device)
+    lane_base = lanes * n
+    idx2 = torch.cat([lanes, lanes])
+    no_lanes = torch.zeros((B,), dtype=torch.bool, device=device)
+
+    def take(M, idx):
+        """Per-lane gathers at (k, B) or (B,) int indices -> same shape,
+        each row contiguous (the passes take per-lane vectors by
+        pointer)."""
+        return M.take(lane_base + idx.long())
+
+    def body(s: _BatchState) -> _BatchState:
+        alpha, G = s.alpha, s.G
+        active = ~s.done
+        use_exact = (~s.p_smo) & (~s.prev_ratio_ok) if planning else no_lanes
+
+        # ---- gathers at the historic indices, stacked (k, B) -------------
+        hist = (torch.stack([s.i, s.qi, s.qj, s.pi, s.pj]) if planning
+                else s.i[None])
+        A, Gh, Lh, Uh = (take(alpha, hist), take(G, hist), take(L, hist),
+                         take(U, hist))
+        a_i, L_i, U_i = A[0], Lh[0], Uh[0]
+
+        # ---- pass A: j-selection ------------------------------------------
+        j0, gain0 = ops.source_row_wss(src, G, alpha, L, U, s.i, a_i, L_i,
+                                       U_i, s.g_i, use_exact, impl=impl)
+        a_j0, G_j0, L_j0, U_j0 = (take(alpha, j0), take(G, j0),
+                                  take(L, j0), take(U, j0))
+
+        # ---- Alg. 3 extra candidate B^(t-2) (O(B d)) -----------------------
+        if planning:
+            e2 = src.entry_pairs(torch.cat([s.qi, s.pi]),
+                                 torch.cat([s.qj, s.pj]), 2)
+            K_qq, K_pp = e2[:B], e2[B:]
+            a_qi, G_qi, L_qi, U_qi = A[1], Gh[1], Lh[1], Uh[1]
+            a_qj, G_qj, L_qj, U_qj = A[2], Gh[2], Lh[2], Uh[2]
+            l_q = G_qi - G_qj
+            q_q = torch.clamp_min(2.0 - 2.0 * K_qq, TAU)
+            sb_q = step_mod.step_bounds(a_qi, a_qj, L_qi, U_qi, L_qj, U_qj)
+            mu_q = step_mod.clip_step(l_q / q_q, sb_q)
+            cg_exact = step_mod.gain_of_step(mu_q, l_q, q_q)
+            cg_tilde = 0.5 * l_q * l_q / q_q
+            cg = torch.where(use_exact, cg_exact, cg_tilde)
+            adm = ((a_qi < U_qi) & (a_qj > L_qj)
+                   & (l_q > 0) & (s.qi != s.qj) & (s.n_hist > 1))
+            take_q = (~s.p_smo) & adm & (cg > gain0)
+            i_sel = torch.where(take_q, s.qi, s.i)
+            j_sel = torch.where(take_q, s.qj, j0)
+            g_i_sel = torch.where(take_q, G_qi, s.g_i)
+            a_isel = torch.where(take_q, a_qi, a_i)
+            L_isel = torch.where(take_q, L_qi, L_i)
+            U_isel = torch.where(take_q, U_qi, U_i)
+            a_jsel = torch.where(take_q, a_qj, a_j0)
+            G_jsel = torch.where(take_q, G_qj, G_j0)
+            L_jsel = torch.where(take_q, L_qj, L_j0)
+            U_jsel = torch.where(take_q, U_qj, U_j0)
+        else:
+            i_sel, j_sel, g_i_sel = s.i, j0, s.g_i
+            a_isel, L_isel, U_isel = a_i, L_i, U_i
+            a_jsel, G_jsel, L_jsel, U_jsel = a_j0, G_j0, L_j0, U_j0
+
+        # ---- O(B) step computation ----------------------------------------
+        lw = g_i_sel - G_jsel
+        K_ij = src.entry_pairs(i_sel, j_sel, 1)
+        q11 = torch.clamp_min(2.0 - 2.0 * K_ij, TAU)
+        sb = step_mod.step_bounds(a_isel, a_jsel, L_isel, U_isel,
+                                  L_jsel, U_jsel)
+        mu_star = lw / q11
+        mu_smo, free_smo = step_mod.smo_step(lw, q11, sb)
+
+        do_plan = no_lanes
+        mu_plan = mu_smo
+        ratio_ok = s.prev_ratio_ok
+        if planning:
+            a_pi, G_pi, L_pi, U_pi = A[3], Gh[3], Lh[3], Uh[3]
+            a_pj, G_pj, L_pj, U_pj = A[4], Gh[4], Lh[4], Uh[4]
+            w2 = G_pi - G_pj
+            q22 = torch.clamp_min(2.0 - 2.0 * K_pp, TAU)
+            e4 = src.entry_pairs(
+                torch.cat([i_sel, i_sel, j_sel, j_sel]),
+                torch.cat([s.pi, s.pj, s.pi, s.pj]), 4)
+            q12 = e4[:B] - e4[B:2 * B] - e4[2 * B:3 * B] + e4[3 * B:]
+            terms = step_mod.PlanningTerms(w1=lw, w2=w2, Q11=q11, Q22=q22,
+                                           Q12=q12)
+            mu1, okdet = step_mod.planning_step(terms)
+            mu2 = step_mod.planned_second_step(mu1, terms)
+            interior1 = (sb.lo < mu1) & (mu1 < sb.hi)
+            d_pi = ((s.pi == i_sel).to(dtype) - (s.pi == j_sel).to(dtype))
+            d_pj = ((s.pj == i_sel).to(dtype) - (s.pj == j_sel).to(dtype))
+            sb2 = step_mod.step_bounds(a_pi + mu1 * d_pi, a_pj + mu1 * d_pj,
+                                       L_pi, U_pi, L_pj, U_pj)
+            interior2 = (sb2.lo < mu2) & (mu2 < sb2.hi)
+            feasible = okdet & interior1 & interior2 & (s.n_hist > 0)
+            do_plan = s.prev_free & feasible
+            mu_plan = torch.where(do_plan, mu1, mu_smo)
+            ratio = mu1 / torch.where(torch.abs(mu_star) > 0, mu_star, 1.0)
+            ratio_ok = torch.where(
+                do_plan, (ratio >= 1.0 - eta) & (ratio <= 1.0 + eta),
+                s.prev_ratio_ok)
+
+        # lane freeze: converged lanes take a zero step, so pass B leaves
+        # their G bitwise unchanged and alpha gains exactly 0.  Both
+        # working-set coordinates update through one accumulating scatter,
+        # in place on the carried alpha.
+        mu = torch.where(active & torch.isfinite(lw),
+                         torch.where(do_plan, mu_plan, mu_smo), 0.0)
+        alpha.index_put_((idx2, torch.cat([i_sel, j_sel]).long()),
+                         torch.cat([mu, -mu]), accumulate=True)
+
+        # ---- pass B: k_i/k_j + update + next i + gap -----------------------
+        G_new, i_next, g_i_next, g_dn = ops.source_update_wss(
+            src, G, alpha, L, U, i_sel, j_sel, mu, impl=impl)
+        gap_new = qp_mod.finite_gap(g_i_next - g_dn)
+        return _BatchState(
+            alpha=alpha, G=G_new,
+            i=torch.where(active, i_next, s.i),
+            g_i=torch.where(active, g_i_next, s.g_i),
+            gap=torch.where(active, gap_new, s.gap),
+            iters=s.iters + active.to(torch.int32),
+            done=s.done | (gap_new <= eps),
+            pi=torch.where(active, i_sel, s.pi),
+            pj=torch.where(active, j_sel, s.pj),
+            qi=torch.where(active, s.pi, s.qi),
+            qj=torch.where(active, s.pj, s.qj),
+            n_hist=torch.where(active, torch.clamp_max(s.n_hist + 1, 2),
+                               s.n_hist),
+            p_smo=torch.where(active, ~do_plan, s.p_smo),
+            prev_free=torch.where(active, (~do_plan) & free_smo,
+                                  s.prev_free),
+            prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
+            n_planning=s.n_planning + (do_plan & active).to(torch.int32))
+
+    # ---- init: alpha = 0 is feasible, G0 = P --------------------------------
+    alpha0 = torch.zeros_like(P)
+    v_up = torch.where(alpha0 < U, P, float("-inf"))
+    i0 = torch.argmax(v_up, dim=1).to(torch.int32)
+    g_i0 = take(v_up, i0)
+    gap0 = qp_mod.finite_gap(
+        g_i0 - torch.where(alpha0 > L, P, float("inf")).amin(dim=1))
+    zB = torch.zeros((B,), dtype=torch.int32, device=device)
+    s = _BatchState(alpha=alpha0, G=P, i=i0, g_i=g_i0, gap=gap0, iters=zB,
+                    done=gap0 <= eps, pi=zB, pj=zB, qi=zB, qj=zB, n_hist=zB,
+                    p_smo=~no_lanes, prev_free=no_lanes,
+                    prev_ratio_ok=~no_lanes, n_planning=zB)
+
+    t = 0
+    while t < cfg.max_iter and bool(torch.any(~s.done)):
+        steps = min(check_every, cfg.max_iter - t)
+        for _ in range(steps):
+            s = body(s)
+        t += steps
+
+    up = s.alpha < U
+    dn = s.alpha > L
+    g_up = torch.where(up, s.G, float("-inf")).amax(dim=1)
+    g_dn = torch.where(dn, s.G, float("inf")).amin(dim=1)
+    return FusedResult(
+        alpha=s.alpha, b=qp_mod.safe_bias(g_up, g_dn), G=s.G,
+        iterations=s.iters,
+        objective=0.5 * (torch.sum(P * s.alpha, dim=1)
+                         + torch.sum(s.G * s.alpha, dim=1)),
+        kkt_gap=s.gap, converged=s.done, n_planning=s.n_planning,
+        n_unshrink=torch.zeros_like(s.iters))
+
+
+def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
+                        *, impl: str = "auto", device=None, dtype=None,
+                        check_every: int = CHECK_EVERY) -> FusedResult:
+    """Solve B RBF *classification* QPs over the shared ``X`` in one loop —
+    the ``p = y`` instance of :func:`solve_fused_batched_qp`.
+
+    An entry point: ``X`` (l, d) and ``Y`` (B, l) signed labels (arrays or
+    tensors) move to ``device``, which defaults to the CUDA card and
+    raises without one (``device="cpu"`` runs the plain versions on the
+    CPU).  ``dtype`` defaults to ``Y``'s when it is a floating tensor, else
+    to ``torch.get_default_dtype()``.  ``C`` is a scalar, (B,) per-lane or
+    (B, l) per-sample budgets (class-weighted SVC); ``gamma`` a scalar or
+    (B,).
+    """
+    dev = resolve_device(device)
+    if dtype is None and torch.is_tensor(Y) and Y.is_floating_point():
+        dtype = Y.dtype
+    dtype = resolve_dtype(dtype)
+    X = torch.as_tensor(X, dtype=dtype, device=dev).contiguous()
+    Y = torch.as_tensor(Y, dtype=dtype, device=dev).contiguous()
+    B = Y.shape[0]
+    C = torch.as_tensor(C, dtype=dtype, device=dev)
+    if C.ndim < 2:
+        C = C.broadcast_to((B,))[:, None]
+    YC = Y * C
+    return solve_fused_batched_qp(
+        X, Y, torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0), gamma, cfg,
+        impl=impl, check_every=check_every)

@@ -1,0 +1,162 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; load them with
+``ctypes``.
+
+The sources under ``csrc/`` have a plain ``extern "C"`` interface, so no
+PyTorch header is compiled: each ``.cu`` file is compiled on its own by one
+``nvcc`` process (all started together), then linked into one shared
+library.  The library lands in ``build/repro_torch_kernels/`` at the root
+of the checkout, named by a hash of the sources and flags, so a changed
+source builds anew and an unchanged one loads at once.
+
+Nothing here runs when the module is imported: :func:`load` builds and
+loads on its first call, which is the first kernel launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+# Columns of l per thread block in the pass A / pass B kernels; must equal
+# kBlockL in csrc/common.cuh (checked when the library loads).
+BLOCK_L = 128
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# No --use_fast_math: it swaps exp and division for approximations, and the
+# float32 kernels must match their plain versions to 1e-5.
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of each kernel entry (the _f32 and _f64 variants share it).
+SIGNATURES = {
+    # XT sqn G alpha L U XQ sqq a_i L_i U_i g_i i_idx use_exact gammas
+    # bmax barg | B l d device | stream
+    "rbf_row_wss_batched": [_P] * 17 + [_I] * 4 + [_P],
+    # XT sqn G alpha L U XQi sqqi XQj sqqj mu gammas G_out bmax barg bmin
+    # | B l d device | stream
+    "rbf_update_wss_batched": [_P] * 16 + [_I] * 4 + [_P],
+    # X1 X2 s1 s2 out | gamma | m n d device | stream
+    "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
+}
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    """Hash of every source and of the flags: the library's name."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> pathlib.Path:
+    return BUILD_DIR / f"librepro_torch_kernels-{source_hash()}.so"
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda``, or
+    ``nvcc`` on ``PATH``."""
+    cands = [os.path.join(os.environ[k], "bin", "nvcc")
+             for k in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(k)]
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "the repro_torch CUDA kernels need nvcc to build, and none was "
+            "found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def compile_commands(nvcc: str, out_dir: pathlib.Path,
+                     verbose: bool = False) -> list[list[str]]:
+    """One ``nvcc -c`` command per ``.cu`` source."""
+    extra = ["-Xptxas", "-v"] if verbose else []
+    return [[nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c", str(src),
+             "-o", str(out_dir / (src.stem + ".o"))]
+            for src in sources() if src.suffix == ".cu"]
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Build the shared library unless the current sources already have one.
+
+    Returns its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
+    memory and spills per kernel) and prints the compiler's output.
+    Raises ``RuntimeError`` with the compiler's output when a step fails.
+    """
+    path = library_path()
+    if path.exists():
+        return path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = pathlib.Path(tmp)
+        cmds = compile_commands(nvcc, tmp, verbose)
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(c, log) for c, p, log in zip(cmds, procs, logs)
+                  if p.returncode != 0]
+        if verbose:
+            for c, log in zip(cmds, logs):
+                print(f"[nvcc {pathlib.Path(c[-3]).name}]\n{log}", flush=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"$ {' '.join(c)}\n{log}" for c, log in failed))
+        objs = sorted(str(o) for o in tmp.glob("*.o"))
+        lib = tmp / path.name
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(lib), *objs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(lib, path)
+    return path
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry's ``argtypes``."""
+    lib = ctypes.CDLL(str(build()))
+    lib.repro_block_l.argtypes = []
+    lib.repro_block_l.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    if lib.repro_block_l() != BLOCK_L:
+        raise RuntimeError(f"kernel library has kBlockL = "
+                           f"{lib.repro_block_l()}, the wrappers expect "
+                           f"{BLOCK_L}")
+    for name, argtypes in SIGNATURES.items():
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def entry(name: str, dtype_bits: int):
+    """The loaded C entry ``name`` for float32 (32) or float64 (64)."""
+    return getattr(load(), f"{name}_f{dtype_bits}")
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if err != 0:
+        msg = load().repro_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

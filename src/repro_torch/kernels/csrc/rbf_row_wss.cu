@@ -1,0 +1,193 @@
+// Pass A of the fused PA-SMO iteration, lane-batched: RBF kernel rows of
+// the B working-set points i (one per QP lane) fused with the WSS2
+// second-order choice of j, reduced to a per-block (max, argmax).
+//
+// Replaces: src/repro/kernels/rbf_row_wss.py, rbf_row_wss_batched_pallas
+// (_kernel_batched + _select_from_k), in the variant the SVC main path runs:
+// one state half (H = 1), no active-set mask.
+//
+// What bounds it on an H100: bytes.  Per launch it must read X once
+// (l * d values) plus four (B, l) state rows; it does 2 B l d operations for
+// the distances, so at B <= 16 it sits far below the card's operations per
+// byte and the floor is the X read from device memory (or from the 50 MB L2
+// when X fits, as it does between the two passes of one iteration).
+//
+// Design: X is stored transposed, XT (d, l), once per fit, so the 128
+// threads of a block read 128 neighbouring columns of each feature row
+// (coalesced) and each thread owns one column j.  The B query rows are
+// staged in shared memory in slices of kChunkD features; each thread keeps
+// one accumulator per lane of its lane group (at most 16, more lanes go to
+// gridDim.y), so X is read once for all lanes of a group.  The distance,
+// the kernel value, the gain, the mask and the first-max reduction all stay
+// in registers and shared memory: only (B, nb) pairs reach device memory.
+// The cross-block first-max stays in PyTorch (repro_torch/kernels/ops.py),
+// as the reference keeps it outside its kernel.
+#include "common.cuh"
+
+namespace repro {
+
+template <typename T, int LG>
+__global__ void __launch_bounds__(kBlockL)
+row_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
+               const T* __restrict__ G, const T* __restrict__ alpha,
+               const T* __restrict__ L, const T* __restrict__ U,
+               const T* __restrict__ XQ, const T* __restrict__ sqq,
+               const T* __restrict__ a_i, const T* __restrict__ L_i,
+               const T* __restrict__ U_i, const T* __restrict__ g_i,
+               const int* __restrict__ i_idx,
+               const bool* __restrict__ use_exact,
+               const T* __restrict__ gammas, T* __restrict__ bmax,
+               int* __restrict__ barg, int B, int l, int d) {
+  __shared__ T sq[LG][kChunkD];
+  __shared__ T red_v[LG][kWarps];
+  __shared__ int red_i[LG][kWarps];
+
+  const int tid = threadIdx.x;
+  const int j = blockIdx.x * kBlockL + tid;
+  const int b0 = blockIdx.y * LG;
+  const int nl = min(LG, B - b0);
+  const bool in = j < l;
+
+  T acc[LG];
+#pragma unroll
+  for (int b = 0; b < LG; ++b) acc[b] = T(0);
+
+  for (int k0 = 0; k0 < d; k0 += kChunkD) {
+    const int kn = min(kChunkD, d - k0);
+    for (int e = tid; e < LG * kChunkD; e += kBlockL) {
+      const int b = e / kChunkD, kk = e % kChunkD;
+      sq[b][kk] = (b < nl && kk < kn)
+                      ? XQ[(size_t)(b0 + b) * d + k0 + kk] : T(0);
+    }
+    __syncthreads();
+    if (in) {
+      const T* xcol = XT + (size_t)k0 * l + j;
+#pragma unroll 4
+      for (int kk = 0; kk < kn; ++kk) {
+        const T x = xcol[(size_t)kk * l];
+#pragma unroll
+        for (int b = 0; b < LG; ++b) acc[b] = fma(sq[b][kk], x, acc[b]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const T sn = in ? sqn[j] : T(0);
+  const T tau = T(kTau);
+#pragma unroll
+  for (int b = 0; b < LG; ++b) {
+    T v = -pos_inf<T>();
+    int vi = j;  // out-of-range columns lose every tie to real ones
+    if (b < nl && in) {
+      const int lane = b0 + b;
+      const size_t o = (size_t)lane * l + j;
+      const T k = rbf_entry(sqq[lane], sn, acc[b], gammas[lane]);
+      const T al = alpha[o], lo_b = L[o], up_b = U[o];
+      const T lv = g_i[lane] - G[o];
+      const T q = fmax(T(2) - T(2) * k, tau);  // RBF diag == 1
+      T gain;
+      if (use_exact[lane]) {
+        const T lo = fmax(L_i[lane] - a_i[lane], al - up_b);
+        const T hi = fmin(U_i[lane] - a_i[lane], al - lo_b);
+        const T mu = fmin(fmax(lv / q, lo), hi);
+        gain = lv * mu - T(0.5) * q * mu * mu;
+      } else {
+        gain = T(0.5) * lv * lv / q;
+      }
+      if (al > lo_b && lv > T(0) && j != i_idx[lane]) v = gain;
+    }
+    warp_first_max(v, vi);
+    if ((tid & 31) == 0) {
+      red_v[b][tid >> 5] = v;
+      red_i[b][tid >> 5] = vi;
+    }
+  }
+  __syncthreads();
+  if (tid < nl) {
+    T v = red_v[tid][0];
+    int vi = red_i[tid][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w)
+      take_first_max(v, vi, red_v[tid][w], red_i[tid][w]);
+    const size_t out = (size_t)(b0 + tid) * gridDim.x + blockIdx.x;
+    bmax[out] = v;
+    barg[out] = vi;
+  }
+}
+
+template <typename T, int LG>
+void launch_row_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
+                    const T* L, const T* U, const T* XQ, const T* sqq,
+                    const T* a_i, const T* L_i, const T* U_i, const T* g_i,
+                    const int* i_idx, const bool* use_exact,
+                    const T* gammas, T* bmax, int* barg, int B, int l,
+                    int d, cudaStream_t stream) {
+  const dim3 grid(n_blocks(l), (B + LG - 1) / LG);
+  row_wss_kernel<T, LG><<<grid, kBlockL, 0, stream>>>(
+      XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
+      use_exact, gammas, bmax, barg, B, l, d);
+}
+
+template <typename T>
+int row_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
+            const T* L, const T* U, const T* XQ, const T* sqq, const T* a_i,
+            const T* L_i, const T* U_i, const T* g_i, const int* i_idx,
+            const bool* use_exact, const T* gammas, T* bmax, int* barg,
+            int B, int l, int d, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(LG)                                                   \
+  launch_row_wss<T, LG>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,  \
+                        g_i, i_idx, use_exact, gammas, bmax, barg, B, l, \
+                        d, s)
+  switch (lane_group(B)) {
+    case 1: REPRO_LAUNCH(1); break;
+    case 2: REPRO_LAUNCH(2); break;
+    case 4: REPRO_LAUNCH(4); break;
+    case 8: REPRO_LAUNCH(8); break;
+    default: REPRO_LAUNCH(16); break;
+  }
+#undef REPRO_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // namespace repro
+
+extern "C" {
+
+int repro_block_l() { return repro::kBlockL; }
+
+const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int rbf_row_wss_batched_f32(const float* XT, const float* sqn,
+                            const float* G, const float* alpha,
+                            const float* L, const float* U, const float* XQ,
+                            const float* sqq, const float* a_i,
+                            const float* L_i, const float* U_i,
+                            const float* g_i, const int* i_idx,
+                            const bool* use_exact, const float* gammas,
+                            float* bmax, int* barg, int B, int l, int d,
+                            int device, void* stream) {
+  return repro::row_wss<float>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i,
+                               U_i, g_i, i_idx, use_exact, gammas, bmax,
+                               barg, B, l, d, device, stream);
+}
+
+int rbf_row_wss_batched_f64(const double* XT, const double* sqn,
+                            const double* G, const double* alpha,
+                            const double* L, const double* U,
+                            const double* XQ, const double* sqq,
+                            const double* a_i, const double* L_i,
+                            const double* U_i, const double* g_i,
+                            const int* i_idx, const bool* use_exact,
+                            const double* gammas, double* bmax, int* barg,
+                            int B, int l, int d, int device, void* stream) {
+  return repro::row_wss<double>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i,
+                                U_i, g_i, i_idx, use_exact, gammas, bmax,
+                                barg, B, l, d, device, stream);
+}
+
+}  // extern "C"

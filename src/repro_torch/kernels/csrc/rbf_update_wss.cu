@@ -1,0 +1,193 @@
+// Pass B of the fused PA-SMO iteration, lane-batched: recompute both RBF
+// rows k_i and k_j of the chosen working sets, update the gradient
+// G_new = G - mu (k_i - k_j), and reduce the next-i first-max over
+// alpha < U and the gap's other end, min G over alpha > L, per block.
+//
+// Replaces: src/repro/kernels/rbf_update_wss.py,
+// rbf_update_wss_batched_pallas (_kernel_batched + _update_from_rows), in
+// the variant the SVC main path runs: one state half (H = 1), no
+// active-set mask, no conjugate direction.
+//
+// What bounds it on an H100: bytes.  It reads X once (l * d values) for
+// both query sets, reads four (B, l) state rows and writes one; the
+// 4 B l d operations of the two distance products sit far below the card's
+// operations per byte at B <= 16.
+//
+// Design: the tiling of pass A (rbf_row_wss.cu) with two staged query sets
+// and two accumulators per lane, so X is read once for both rows.  Neither
+// row reaches device memory.  G is written out of place; a lane with
+// mu == 0 writes its G back bitwise unchanged (G - 0 * r == G), which is
+// how the solver freezes converged lanes.  The cross-block reductions stay
+// in PyTorch (repro_torch/kernels/ops.py).
+#include "common.cuh"
+
+namespace repro {
+
+template <typename T, int LG>
+__global__ void __launch_bounds__(kBlockL)
+update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
+                  const T* __restrict__ G, const T* __restrict__ alpha,
+                  const T* __restrict__ L, const T* __restrict__ U,
+                  const T* __restrict__ XQi, const T* __restrict__ sqqi,
+                  const T* __restrict__ XQj, const T* __restrict__ sqqj,
+                  const T* __restrict__ mu, const T* __restrict__ gammas,
+                  T* __restrict__ G_out, T* __restrict__ bmax,
+                  int* __restrict__ barg, T* __restrict__ bmin, int B,
+                  int l, int d) {
+  __shared__ T sqi[LG][kChunkD];
+  __shared__ T sqj[LG][kChunkD];
+  __shared__ T red_v[LG][kWarps];
+  __shared__ int red_i[LG][kWarps];
+  __shared__ T red_m[LG][kWarps];
+
+  const int tid = threadIdx.x;
+  const int j = blockIdx.x * kBlockL + tid;
+  const int b0 = blockIdx.y * LG;
+  const int nl = min(LG, B - b0);
+  const bool in = j < l;
+
+  T acc_i[LG], acc_j[LG];
+#pragma unroll
+  for (int b = 0; b < LG; ++b) {
+    acc_i[b] = T(0);
+    acc_j[b] = T(0);
+  }
+
+  for (int k0 = 0; k0 < d; k0 += kChunkD) {
+    const int kn = min(kChunkD, d - k0);
+    for (int e = tid; e < LG * kChunkD; e += kBlockL) {
+      const int b = e / kChunkD, kk = e % kChunkD;
+      const bool ok = b < nl && kk < kn;
+      const size_t src = (size_t)(b0 + b) * d + k0 + kk;
+      sqi[b][kk] = ok ? XQi[src] : T(0);
+      sqj[b][kk] = ok ? XQj[src] : T(0);
+    }
+    __syncthreads();
+    if (in) {
+      const T* xcol = XT + (size_t)k0 * l + j;
+#pragma unroll 4
+      for (int kk = 0; kk < kn; ++kk) {
+        const T x = xcol[(size_t)kk * l];
+#pragma unroll
+        for (int b = 0; b < LG; ++b) {
+          acc_i[b] = fma(sqi[b][kk], x, acc_i[b]);
+          acc_j[b] = fma(sqj[b][kk], x, acc_j[b]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const T sn = in ? sqn[j] : T(0);
+#pragma unroll
+  for (int b = 0; b < LG; ++b) {
+    T v = -pos_inf<T>();
+    int vi = j;  // out-of-range columns lose every tie to real ones
+    T m = pos_inf<T>();
+    if (b < nl && in) {
+      const int lane = b0 + b;
+      const size_t o = (size_t)lane * l + j;
+      const T gam = gammas[lane];
+      const T ki = rbf_entry(sqqi[lane], sn, acc_i[b], gam);
+      const T kj = rbf_entry(sqqj[lane], sn, acc_j[b], gam);
+      const T g = G[o] - mu[lane] * (ki - kj);
+      G_out[o] = g;
+      const T al = alpha[o];
+      if (al < U[o]) v = g;
+      if (al > L[o]) m = g;
+    }
+    warp_first_max(v, vi);
+    warp_min(m);
+    if ((tid & 31) == 0) {
+      red_v[b][tid >> 5] = v;
+      red_i[b][tid >> 5] = vi;
+      red_m[b][tid >> 5] = m;
+    }
+  }
+  __syncthreads();
+  if (tid < nl) {
+    T v = red_v[tid][0];
+    int vi = red_i[tid][0];
+    T m = red_m[tid][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      take_first_max(v, vi, red_v[tid][w], red_i[tid][w]);
+      m = fmin(m, red_m[tid][w]);
+    }
+    const size_t out = (size_t)(b0 + tid) * gridDim.x + blockIdx.x;
+    bmax[out] = v;
+    barg[out] = vi;
+    bmin[out] = m;
+  }
+}
+
+template <typename T, int LG>
+void launch_update_wss(const T* XT, const T* sqn, const T* G,
+                       const T* alpha, const T* L, const T* U, const T* XQi,
+                       const T* sqqi, const T* XQj, const T* sqqj,
+                       const T* mu, const T* gammas, T* G_out, T* bmax,
+                       int* barg, T* bmin, int B, int l, int d,
+                       cudaStream_t stream) {
+  const dim3 grid(n_blocks(l), (B + LG - 1) / LG);
+  update_wss_kernel<T, LG><<<grid, kBlockL, 0, stream>>>(
+      XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj, mu, gammas, G_out,
+      bmax, barg, bmin, B, l, d);
+}
+
+template <typename T>
+int update_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
+               const T* L, const T* U, const T* XQi, const T* sqqi,
+               const T* XQj, const T* sqqj, const T* mu, const T* gammas,
+               T* G_out, T* bmax, int* barg, T* bmin, int B, int l, int d,
+               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(LG)                                                    \
+  launch_update_wss<T, LG>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj, \
+                           mu, gammas, G_out, bmax, barg, bmin, B, l, d,  \
+                           s)
+  switch (lane_group(B)) {
+    case 1: REPRO_LAUNCH(1); break;
+    case 2: REPRO_LAUNCH(2); break;
+    case 4: REPRO_LAUNCH(4); break;
+    case 8: REPRO_LAUNCH(8); break;
+    default: REPRO_LAUNCH(16); break;
+  }
+#undef REPRO_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // namespace repro
+
+extern "C" {
+
+int rbf_update_wss_batched_f32(const float* XT, const float* sqn,
+                               const float* G, const float* alpha,
+                               const float* L, const float* U,
+                               const float* XQi, const float* sqqi,
+                               const float* XQj, const float* sqqj,
+                               const float* mu, const float* gammas,
+                               float* G_out, float* bmax, int* barg,
+                               float* bmin, int B, int l, int d, int device,
+                               void* stream) {
+  return repro::update_wss<float>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj,
+                                  sqqj, mu, gammas, G_out, bmax, barg, bmin,
+                                  B, l, d, device, stream);
+}
+
+int rbf_update_wss_batched_f64(const double* XT, const double* sqn,
+                               const double* G, const double* alpha,
+                               const double* L, const double* U,
+                               const double* XQi, const double* sqqi,
+                               const double* XQj, const double* sqqj,
+                               const double* mu, const double* gammas,
+                               double* G_out, double* bmax, int* barg,
+                               double* bmin, int B, int l, int d, int device,
+                               void* stream) {
+  return repro::update_wss<double>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj,
+                                   sqqj, mu, gammas, G_out, bmax, barg, bmin,
+                                   B, l, d, device, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,67 @@
+"""Pass B wrapper: the lane-batched two-row RBF recompute + gradient update
++ stopping-scan kernel (``csrc/rbf_update_wss.cu``).
+
+On CUDA tensors it launches the kernel on the current stream and returns
+the new gradient with the per-block next-i (max, first argmax) and gap
+minimum; on CPU tensors it runs the plain version,
+:func:`repro_torch.kernels.ref.rbf_update_wss_batched_blocks`.  There is no
+fallback from one to the other.  ``rbf_update_wss_batched.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.checks import (check_lane_scalars, check_state,
+                                        dtype_bits)
+
+
+def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
+                           mu, gammas, *, XT=None):
+    """Batched pass B over the shared ``X`` (l, d).
+
+    ``G``/``alpha_new``/``L``/``U`` are (B, l); ``XQi``/``XQj`` the (B, d)
+    rows of the working sets; ``sqqi``/``sqqj``/``mu``/``gammas`` (B,) in
+    the data dtype.  ``XT`` is ``X`` transposed to (d, l), made here when
+    not given.  G is written out of place.  Returns (G_new (B, l),
+    bmax (B, nb), barg (B, nb) int32, bmin (B, nb)).
+    """
+    if G.device.type == "cpu":
+        return ref.rbf_update_wss_batched_blocks(
+            X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
+            block_l=build.BLOCK_L)
+    if G.device.type != "cuda":
+        raise ValueError(f"pass B runs on cuda or cpu tensors, got "
+                         f"{G.device}")
+    l, d = X.shape
+    B = G.shape[0]
+    if XT is None:
+        XT = X.T.contiguous()
+    dtype = G.dtype
+    check_state("XT", XT, (d, l), dtype, G.device)
+    check_state("sqn", sqn, (l,), dtype, G.device)
+    for name, t in (("G", G), ("alpha_new", alpha_new), ("L", L), ("U", U)):
+        check_state(name, t, (B, l), dtype, G.device)
+    check_state("XQi", XQi, (B, d), dtype, G.device)
+    check_state("XQj", XQj, (B, d), dtype, G.device)
+    check_lane_scalars(B, G.device, dtype, sqqi=sqqi, sqqj=sqqj, mu=mu,
+                       gammas=gammas)
+    nb = -(-l // build.BLOCK_L)
+    G_out = torch.empty_like(G)
+    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
+    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
+    bmin = torch.empty((B, nb), dtype=dtype, device=G.device)
+    fn = build.entry("rbf_update_wss_batched", dtype_bits(dtype))
+    ptrs = [t.data_ptr() for t in (XT, sqn, G, alpha_new, L, U, XQi, sqqi,
+                                   XQj, sqqj, mu, gammas, G_out, bmax, barg,
+                                   bmin)]
+    err = fn(*ptrs, B, l, d, G.device.index,
+             torch.cuda.current_stream(G.device).cuda_stream)
+    rbf_update_wss_batched.launches += 1
+    build.check(err, "rbf_update_wss_batched")
+    return G_out, bmax, barg, bmin
+
+
+rbf_update_wss_batched.launches = 0

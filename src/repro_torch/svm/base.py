@@ -1,0 +1,93 @@
+"""Shared plumbing for the sklearn-style facades: the solver knobs, the
+``gamma="scale"`` rule, the engine choice and the query Gram.
+
+The port has the fused engine only in this slice; the knobs that pick
+another engine, a device mesh or the flight recorder raise
+``NotImplementedError`` naming the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.solver import SolverConfig
+from repro_torch.device import resolve_dtype
+from repro_torch.kernels import ops
+
+
+class SVMEstimatorBase:
+    """Mixin holding the facade knobs shared by every estimator."""
+
+    _fit_attr = "alpha_"
+
+    def _init_common(self, *, algorithm: str, eps: float, max_iter: int,
+                     plan_candidates: int, impl: str, engine: str,
+                     precompute: bool, dtype, device, step: str = "plain",
+                     mesh=None, devices=None, diagnostics=None) -> None:
+        if engine not in ("auto", "fused", "batched", "sharded"):
+            raise ValueError(f"engine must be auto|fused|batched|sharded, "
+                             f"got {engine!r}")
+        if engine == "batched":
+            raise NotImplementedError(
+                "engine='batched' (the classic vmapped solver) is a later "
+                "slice of the port (ROADMAP queue 1, step 10)")
+        if engine == "sharded" or mesh is not None or devices is not None:
+            raise NotImplementedError(
+                "engine='sharded', mesh and devices (lane sharding over "
+                "several cards) are a later slice of the port (ROADMAP "
+                "queue 1, step 12)")
+        if diagnostics is not None:
+            raise NotImplementedError(
+                "diagnostics (the flight recorder) is a later slice of the "
+                "port (ROADMAP queue 1, step 9)")
+        if step != "plain":
+            raise NotImplementedError(
+                "step='conjugate' is a later slice of the port (ROADMAP "
+                "queue 1, step 8)")
+        if impl not in ops.IMPLS:
+            raise ValueError(f"impl must be one of {ops.IMPLS}, got {impl!r}")
+        self.algorithm = algorithm
+        self.step = step
+        self.eps = eps
+        self.max_iter = max_iter
+        self.plan_candidates = plan_candidates
+        self.impl = impl
+        self.engine = engine
+        self.precompute = precompute
+        self.device = device
+        self.dtype = resolve_dtype(dtype)
+
+    def _config(self) -> SolverConfig:
+        return SolverConfig(algorithm=self.algorithm, step=self.step,
+                            eps=self.eps, max_iter=self.max_iter,
+                            plan_candidates=self.plan_candidates)
+
+    def _resolve_gamma(self, X: torch.Tensor) -> float:
+        if self.gamma == "scale":
+            var = float(X.detach().cpu().numpy().var())
+            return 1.0 / (X.shape[1] * var) if var > 0 else 1.0
+        return float(self.gamma)
+
+    def _resolve_engine(self) -> str:
+        """The fit engine: the fused one, when the config allows it."""
+        if self.algorithm not in ("smo", "pasmo") or self.plan_candidates != 1:
+            raise NotImplementedError(
+                "algorithm other than smo/pasmo, or plan_candidates > 1, "
+                "runs on the classic engine, a later slice of the port "
+                "(ROADMAP queue 1, step 10)")
+        return "fused"
+
+    def _check_fitted(self):
+        if not hasattr(self, self._fit_attr):
+            raise RuntimeError(
+                f"{type(self).__name__} instance is not fitted yet")
+
+    def _query_gram(self, Xq):
+        """Query cross-Gram against the training set -> (Kq, squeeze)."""
+        Xq = torch.as_tensor(Xq, dtype=self.dtype, device=self.device_)
+        squeeze = Xq.ndim == 1
+        if squeeze:
+            Xq = Xq[None, :]
+        Kq = ops.gram(Xq, self.X_, gamma=self.gamma_, impl=self.impl,
+                      device=self.device_, dtype=self.dtype)
+        return Kq, squeeze

@@ -1,0 +1,142 @@
+"""The port stands alone: no JAX and nothing of the reference in
+``src/repro_torch`` or ``chip_smoke.py``; entry points default to the
+CUDA card and raise without one; ``impl="cuda"`` never runs on CPU
+tensors; the kernel build is set up for Hopper with IEEE arithmetic."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.solver import SolverConfig
+from repro_torch.core.solver_fused import solve_fused_batched
+from repro_torch.kernels import build, ops
+from repro_torch.svm import SVC
+from repro_torch.svm.data import xor_gaussians
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("import sys, repro_torch.svm, repro_torch.kernels.ops; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_svc_fit_without_a_card_raises(no_cuda):
+    X, y = xor_gaussians(32, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SVC().fit(X, y)
+    assert SVC(device="cpu").fit(X, y).alpha_.device.type == "cpu"
+
+
+def test_entry_points_without_a_card_raise(no_cuda):
+    X, y = xor_gaussians(32, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_fused_batched(X, y[None], 1.0, 0.5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.gram(X, X, 0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.gram(X, X, 0.5, device="cuda")
+
+
+def test_impl_cuda_on_cpu_tensors_raises():
+    X, y = xor_gaussians(32, seed=0)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        solve_fused_batched(X, y[None], 1.0, 0.5, SolverConfig(),
+                            impl="cuda", device="cpu")
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.gram(X, X, 0.5, impl="cuda", device="cpu")
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        SVC(impl="cuda", device="cpu").fit(X, y)
+    assert ops.resolve_impl("auto", "cpu") == "torch"
+    assert ops.resolve_impl("torch", "cpu") == "torch"
+    with pytest.raises(ValueError):
+        ops.resolve_impl("triton", "cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(engine="batched"),
+                                dict(engine="sharded"),
+                                dict(devices=("cuda:0",)),
+                                dict(diagnostics=object()),
+                                dict(step="conjugate", algorithm="smo")])
+def test_later_slices_raise_not_implemented(kw):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        SVC(device="cpu", **kw)
+
+
+def test_default_dtype_follows_torch():
+    X, y = xor_gaussians(32, seed=0)
+    assert SVC(device="cpu").dtype == torch.get_default_dtype()
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        clf = SVC(device="cpu").fit(X, y)
+    finally:
+        torch.set_default_dtype(prev)
+    assert clf.alpha_.dtype == torch.float64
+
+
+def test_build_targets_hopper_with_ieee_math(tmp_path):
+    cmds = build.compile_commands("nvcc", tmp_path)
+    assert {pathlib.Path(c[c.index("-c") + 1]).name for c in cmds} == {
+        "rbf_row_wss.cu", "rbf_update_wss.cu", "gram_block.cu"}
+    for c in cmds:
+        assert "arch=compute_90a,code=sm_90a" in c
+        assert not any("fast_math" in a or "fast-math" in a for a in c)
+    assert build.library_path().parent == ROOT / "build" / \
+        "repro_torch_kernels"
+    assert build.source_hash() == build.source_hash()
+    common = (build.CSRC / "common.cuh").read_text()
+    assert f"kBlockL = {build.BLOCK_L};" in common
+
+
+def test_gitignore_lists_the_build_directory():
+    lines = (ROOT / ".gitignore").read_text().split()
+    assert "build/" in lines
+
+
+def test_cpu_path_launches_no_kernel():
+    from repro_torch import kernels
+    before = kernels.launches()
+    X, y = xor_gaussians(48, seed=2)
+    clf = SVC(C=10.0, gamma=0.5, device="cpu",
+              dtype=torch.float64).fit(X, y)
+    clf.predict(X[:5])
+    assert kernels.launches() == before
+    assert np.isfinite(clf.decision_function(X[:5]).numpy()).all()
