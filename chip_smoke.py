@@ -8,22 +8,32 @@ failure raises and the script exits non-zero without a result line:
 
 1. env    — the card (``nvidia-smi`` name and power limit), torch and CUDA.
 2. build  — ``nvcc`` builds the kernels from ``src/repro_torch/kernels/csrc``.
-3. kernels vs plain — pass A, pass B and the Gram kernel against their
-   plain PyTorch versions on the same inputs on the card, at the main
-   path's shapes and at odd ones, in float64 and float32, with the edge
-   cases of the CPU tests (all-masked lane, ties across blocks, a mu = 0
-   lane, per-lane gammas, both gain rules).  Tolerance: values to rtol
-   1e-12 (f64) / 1e-5 (f32); indices exactly, except that in f32 an argmax
-   may differ where the plain version's gains at both picks agree to 1e-6
+3. kernels vs plain — pass A, pass B, the Gram kernel and the two Gram-bank
+   passes against their plain PyTorch versions on the same inputs on the
+   card, at the main paths' shapes and at odd ones, in float64 and
+   float32, with the edge cases of the CPU tests (all-masked lane, ties
+   across blocks, a mu = 0 lane, per-lane gammas, lanes spread over the
+   bank's entries, both gain rules).  Tolerance: values to rtol 1e-12
+   (f64) / 1e-5 (f32); indices exactly, except that in f32 an argmax may
+   differ where the plain version's gains at both picks agree to 1e-6
    relative (the kernel sums its products in another order).
-4. end to end, small — binary and 3-class SVC, smo and pasmo, f64,
+4. end to end, small — binary and 3-class SVC, smo and pasmo, and a
+   3-class 2 x 2 (C, gamma) grid through both row sources, f64,
    ``impl="cuda"`` against ``impl="torch"``.
-5. end to end, full width (the main path) — a 10-class one-vs-rest SVC at
-   l = 16384, d = 128 in f64 and f32: convergence, gradient drift, KKT gap,
-   held-out agreement, launch counts, and each kernel's device time beside
-   its bound and its plain version's time; then a ``torch.profiler``
-   window over a capped fit: device kernels an iteration and the device's
-   busy share of the iteration's wall time.
+5. SVC, full width (slice 1's main path) — a 10-class one-vs-rest SVC at
+   l = 16384, d = 128 in f64 and f32: convergence, gradient drift, KKT
+   gap, held-out agreement, launch counts, and each kernel's device time
+   beside its bound and its plain version's time; then a
+   ``torch.profiler`` window over a capped fit: device kernels an
+   iteration and the device's busy share of the iteration's wall time.
+6. grid, full width (slice 2's main path) — the (C, gamma) grid of the
+   same data, 3 gammas x 10 classes x 3 Cs = 90 lanes, through the Gram
+   bank (f64 and f32) and through the rbf passes (f64): convergence, bank
+   against rbf objectives, gradient drift and KKT gap, launch counts,
+   held-out accuracy per (gamma, C), peak memory, wall time an iteration,
+   a ``torch.profiler`` window, kernels 1, 2, 4 and 5 timed at B = 90 and
+   the bank build timed; then the one-class grid (3 nus x the 3 gammas)
+   through both row sources.
 
 The line before the last is the kernels' JSON record; the last is the
 contract line ``{"ok": true, "device": {...}}``.  No JAX and nothing of the
@@ -55,6 +65,11 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 TIE_RTOL_F32 = 1e-6
 # Main path: repo's kernel-bench shape, 10 one-vs-rest lanes.
 N_TRAIN, N_TEST, D, K = 16384, 4096, 128, 10
+# Slice 2's grid: gamma_scale times these, C values, one-class nus.
+GRID_GAMMA_FACTORS = (0.5, 1.0, 2.0)
+GRID_CS = (0.5, 2.0, 8.0)
+GRID_NUS = (0.05, 0.1, 0.2)
+GRID_B = len(GRID_GAMMA_FACTORS) * K * len(GRID_CS)
 SOURCES = {
     "rbf_row_wss_batched": ("src/repro_torch/kernels/csrc/rbf_row_wss.cu",
                             "src/repro/kernels/rbf_row_wss.py:193"),
@@ -63,7 +78,14 @@ SOURCES = {
         "src/repro/kernels/rbf_update_wss.py:196"),
     "gram_block": ("src/repro_torch/kernels/csrc/gram_block.cu",
                    "src/repro/kernels/gram_block.py:33"),
+    "row_wss_batched_rows": ("src/repro_torch/kernels/csrc/row_wss_rows.cu",
+                             "src/repro/kernels/rbf_row_wss.py:247"),
+    "update_wss_batched_rows": (
+        "src/repro_torch/kernels/csrc/update_wss_rows.cu",
+        "src/repro/kernels/rbf_update_wss.py:261"),
 }
+BANK_PASSES = ("row_wss_batched_rows", "update_wss_batched_rows")
+RBF_PASSES = ("rbf_row_wss_batched", "rbf_update_wss_batched")
 
 
 def say(*parts):
@@ -302,6 +324,99 @@ def check_pass_b(b, dtype, label, errs):
     return n_ties
 
 
+def bank_state(l, B, n_stack, seed, dtype, device):
+    """Bank pass A and pass B inputs: the pass state of ``kernel_state``
+    (d = 8) over an (n_stack, l, l) Gram bank with the lanes spread over
+    its entries.  The duplicated points' bank rows and columns are set
+    equal, so their gains tie exactly across the first and last block."""
+    a, b = kernel_state(l, 8, B, seed, dtype, device)
+    ta, tb = 5, l - 3
+    rng = np.random.default_rng(seed + 1)
+    from repro_torch.kernels import ref
+    gammas = rng.uniform(0.05, 0.5, n_stack)
+    bank = torch.empty((n_stack, l, l), dtype=dtype, device=device)
+    for g, gam in enumerate(gammas):
+        ref.gram_cross(a["X"], a["X"], float(gam), out=bank[g])
+    bank[:, :, tb] = bank[:, :, ta]
+    bank[:, tb, :] = bank[:, ta, :]
+    gidx = torch.tensor(rng.permutation(np.arange(B) % n_stack),
+                        dtype=torch.int64, device=device)
+    j_idx = torch.tensor(rng.integers(0, l, size=B), dtype=torch.int32,
+                         device=device)
+    ba = dict(gram=bank, gram_idx=gidx, **{
+        k: a[k] for k in ("G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i",
+                          "i_idx", "use_exact")})
+    bb = dict(gram=bank, gram_idx=gidx, **{
+        k: b[k] for k in ("G", "alpha_new", "L", "U")},
+        i_idx=a["i_idx"], j_idx=j_idx, mu=b["mu"])
+    return ba, bb
+
+
+BANK_A = ("gram", "gram_idx", "G", "alpha", "L", "U", "a_i", "L_i", "U_i",
+          "g_i", "i_idx", "use_exact")
+BANK_B = ("gram", "gram_idx", "G", "alpha_new", "L", "U", "i_idx", "j_idx",
+          "mu")
+
+
+def check_bank_a(a, dtype, label, errs):
+    from repro_torch.kernels import build, ops, rbf_row_wss, ref
+    args = [a[k] for k in BANK_A]
+    bmax, barg = rbf_row_wss.row_wss_batched_rows(*args)
+    pmax, parg = ref.row_wss_batched_rows_blocks(*args,
+                                                 block_l=build.BLOCK_L)
+    vals = ref._wss_vals(ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"]),
+                         *[a[k] for k in BANK_A[2:]])
+    err = _close(f"bank pass A bmax {label}", bmax, pmax, TOL[dtype])
+    n_ties = _same_picks(f"bank pass A barg {label}", barg, parg, vals,
+                         dtype)
+    j_c, g_c = ops.row_wss_batched_rows(*args, impl="cuda")
+    j_t, g_t = ops.row_wss_batched_rows(*args, impl="torch")
+    err = max(err, _close(f"bank pass A gain {label}", g_c, g_t, TOL[dtype]))
+    n_ties += _same_picks(f"bank pass A j {label}", j_c[:, None],
+                          j_t[:, None], vals, dtype)
+    B = a["G"].shape[0]
+    if B > 1:
+        assert int(j_c[-1]) == 0 and g_c[-1].item() == -math.inf, label
+    newton = [b for b in range(0, B - (B > 1), 2)]
+    assert (j_c[newton] == 5).all() and (j_t[newton] == 5).all(), label
+    errs.append(err)
+    return n_ties
+
+
+def check_bank_b(b, dtype, label, errs):
+    from repro_torch.kernels import build, ops, rbf_update_wss, ref
+    args = [b[k] for k in BANK_B]
+    G_k, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows(*args)
+    G_p, pmax, parg, pmin = ref.update_wss_batched_rows_blocks(
+        *args, block_l=build.BLOCK_L)
+    if not torch.equal(G_k[0], b["G"][0]):
+        raise AssertionError(f"bank pass B {label}: the mu = 0 lane's G "
+                             f"changed")
+    scale = float(b["G"].abs().max())
+    err = _close(f"bank pass B G {label}", G_k, G_p, TOL[dtype], scale)
+    err = max(err, _close(f"bank pass B bmax {label}", bmax, pmax,
+                          TOL[dtype], scale))
+    err = max(err, _close(f"bank pass B bmin {label}", bmin, pmin,
+                          TOL[dtype], scale))
+    vals = torch.where(b["alpha_new"] < b["U"], G_p, -math.inf)
+    n_ties = _same_picks(f"bank pass B barg {label}", barg, parg, vals,
+                         dtype)
+    _, i_c, gi_c, gdn_c = ops.update_wss_batched_rows(*args, impl="cuda")
+    _, i_t, gi_t, gdn_t = ops.update_wss_batched_rows(*args, impl="torch")
+    err = max(err, _close(f"bank pass B g_i {label}", gi_c, gi_t, TOL[dtype],
+                          scale))
+    err = max(err, _close(f"bank pass B g_dn {label}", gdn_c, gdn_t,
+                          TOL[dtype], scale))
+    n_ties += _same_picks(f"bank pass B i {label}", i_c[:, None],
+                          i_t[:, None], vals, dtype)
+    if G_k.shape[0] > 1:
+        assert int(i_c[-1]) == 0 and gi_c[-1].item() == -math.inf, label
+    else:
+        assert int(i_c[0]) == 5, label
+    errs.append(err)
+    return n_ties
+
+
 def check_gram(X1, X2, gamma, dtype, label, errs):
     from repro_torch.kernels import gram_block, ref
     K_k = gram_block.gram_cross(X1, X2, gamma)
@@ -334,6 +449,18 @@ def phase_kernels(device) -> dict:
             check_gram(X1, X2, 1.0 / (2 * d), dtype, label,
                        errs["gram_block"])
             say(f"[kernels] gram ok: {label}")
+        for l, B, n_stack, kind in ((N_TRAIN, GRID_B, 3, "main"),
+                                    (1000, 1, 1, "odd"), (300, 19, 3, "odd")):
+            label = (f"{kind} l={l} B={B} bank={n_stack} "
+                     f"{str(dtype)[6:]}")
+            a, b = bank_state(l, B, n_stack, seed=l + B, dtype=dtype,
+                              device=device)
+            ta = check_bank_a(a, dtype, label, errs["row_wss_batched_rows"])
+            tb = check_bank_b(b, dtype, label,
+                              errs["update_wss_batched_rows"])
+            del a, b
+            say(f"[kernels] bank pass A ok ({ta} f32 near-ties), bank pass "
+                f"B ok ({tb} f32 near-ties): {label}")
     torch.cuda.synchronize()
     worst = {k: max(v) for k, v in errs.items()}
     say(f"[kernels] all kernels agree with their plain versions; max abs "
@@ -382,6 +509,28 @@ def phase_small(device, impl):
                 f"{rk.iterations.tolist()} (plain "
                 f"{rp.iterations.tolist()}), objective rel diff "
                 f"{float(rel.max()):.3e}, predictions equal")
+
+
+    from repro_torch.core import grid
+    from repro_torch.core.solver import SolverConfig
+    X, y = data.multiclass_blobs(300, seed=2, k=3, d=8, sep=4.0)
+    Y = mc.ovr_labels(mc.class_index(y)[1], 3, torch.float64, device)
+    cfg = SolverConfig(eps=eps)
+    for precompute in (True, False):
+        fits = {which: grid.solve_grid(X, Y, (4.0, 1.0), (0.05, 0.2), cfg,
+                                       impl=which, precompute=precompute,
+                                       device=device, dtype=torch.float64)
+                for which in (impl, "torch")}
+        rk, rp = fits[impl], fits["torch"]
+        assert bool(rk.converged.all()) and bool(rp.converged.all())
+        assert float(rk.kkt_gap.max()) <= eps
+        np.testing.assert_allclose(rk.objective.cpu().numpy(),
+                                   rp.objective.cpu().numpy(), rtol=1e-6)
+        rel = (rk.objective - rp.objective).abs() / rp.objective.abs()
+        say(f"[small] grid 3-class 2x2, {'bank' if precompute else 'rbf'}: "
+            f"iterations {rk.iterations.flatten().tolist()} (plain "
+            f"{rp.iterations.flatten().tolist()}), objective rel diff "
+            f"{float(rel.max()):.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +584,7 @@ def phase_full(device, timer):
     for name in ("rbf_row_wss_batched", "rbf_update_wss_batched"):
         assert counts[name] == t64 + t32, (name, counts, t64, t32)
     assert counts["gram_block"] >= 1, counts
+    assert all(counts[name] == 0 for name in BANK_PASSES), counts
 
     r64, r32 = c64.fit_result_, c32.fit_result_
     for tag, clf, r, pred, wall, t, ps in (
@@ -478,43 +628,48 @@ def phase_full(device, timer):
     say(f"[full] f64 iteration {ms_iter:.4f} ms wall; the two passes' "
         f"device time {rec['rbf_row_wss_batched']['ms']:.4f} + "
         f"{rec['rbf_update_wss_batched']['ms']:.4f} ms = {share:.4f} of it")
-    profile_iterations(Xtr, ytr, device, ms_iter)
+    from repro_torch.svm import SVC
+    profile_iterations(
+        lambda: SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=1e-3,
+                    max_iter=64, device=device,
+                    dtype=torch.float64).fit(Xtr, ytr),
+        "SVC f64 full width", ms_iter)
     return rec, counts
 
 
-def profile_iterations(X, y, device, ms_iter, n_iter=64):
+def profile_iterations(run, label, ms_iter, n_iter=64):
     """Device kernels an iteration launches and the device's busy share of
-    the iteration's wall time, from ``torch.profiler`` over a capped f64
-    fit at full width (the lanes do not converge within ``n_iter``).  The
-    fit's one-off copies (X up, X down for ``gamma="scale"``, results
-    down) are reported apart from the kernels."""
+    the iteration's wall time, from ``torch.profiler`` over ``run()``, a
+    fit capped at ``n_iter`` iterations at full width (the lanes do not
+    converge within it).  The fit's one-off copies (X up, X down for
+    ``gamma="scale"``, results down) and Gram-bank builds are reported
+    apart from the iterations' kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.svm import SVC
-    clf = SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=1e-3,
-              max_iter=n_iter, device=device, dtype=torch.float64)
-    clf.fit(X, y)                            # warm-up, outside the window
+    run()                                    # warm-up, outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        clf.fit(X, y)
+        run()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
-    kern = [e for e in events if e not in copies]
+    once = [e for e in events if e.key.startswith(("Memcpy", "Memset"))
+            or "gram_kernel" in e.key]
+    kern = [e for e in events if e not in once]
     dev_us = sum(e.self_device_time_total for e in kern)
     if dev_us <= 0:
-        say("[profile] torch.profiler recorded no device time: busy share "
-            "not measured")
+        say(f"[profile] {label}: torch.profiler recorded no device time: "
+            f"busy share not measured")
         return
     busy_ms = dev_us / 1e3 / n_iter
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    say(f"[profile] f64 full width, {n_iter} iterations: "
+    say(f"[profile] {label}, {n_iter} iterations: "
         f"{sum(e.count for e in kern) / n_iter:.1f} device kernels an "
         f"iteration, kernels busy {busy_ms:.4f} ms an iteration = "
         f"{busy_ms / ms_iter:.4f} of the unprofiled {ms_iter:.4f} ms wall "
-        f"(idle share {1 - busy_ms / ms_iter:.4f}); the fit's copies "
-        f"{sum(e.self_device_time_total for e in copies) / 1e3:.4f} ms in "
+        f"(idle share {1 - busy_ms / ms_iter:.4f}); once per fit (copies, "
+        f"Gram bank) "
+        f"{sum(e.self_device_time_total for e in once) / 1e3:.4f} ms in "
         f"all; top kernels by device time: "
         + "; ".join(f"{e.key.removeprefix('void ')[:50]} "
                     f"x{e.count / n_iter:.1f} "
@@ -592,6 +747,270 @@ def kernel_times(device, timer):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the (C, gamma) grid at full width
+# ---------------------------------------------------------------------------
+
+
+def fit_grid(solve, device):
+    """Run ``solve()`` with the launch counts set to 0 just before and read
+    just after; returns (result, counts, wall s, loop iterations, peak
+    bytes)."""
+    from repro_torch import kernels
+    from repro_torch.core.solver_fused import CHECK_EVERY
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    r = solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    t = loop_iterations(r.iterations, CHECK_EVERY, 1_000_000)
+    return r, counts, wall, t, torch.cuda.max_memory_allocated(device)
+
+
+def check_counts(counts, t, bank: bool, label):
+    """Each iteration launches one pass A and one pass B of its row source
+    and none of the other; a bank build launches the Gram kernel once per
+    gamma."""
+    on, off = (BANK_PASSES, RBF_PASSES) if bank else (RBF_PASSES,
+                                                      BANK_PASSES)
+    n_gram = len(GRID_GAMMA_FACTORS) if bank else 0
+    for name in on:
+        assert counts[name] == t, (label, name, counts, t)
+    for name in off:
+        assert counts[name] == 0, (label, name, counts)
+    assert counts["gram_block"] == n_gram, (label, counts)
+
+
+def phase_grid(device, timer):
+    from repro_torch.core import grid
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core import qp
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.svm import data
+    X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], y[N_TRAIN:]
+    gamma_scale = 1.0 / (D * float(Xtr.var()))
+    gammas = [gamma_scale * f for f in GRID_GAMMA_FACTORS]
+    eps = 1e-3
+    cfg = SolverConfig(algorithm="pasmo", eps=eps)
+    Y = mc.ovr_labels(mc.class_index(ytr)[1], K, torch.float64, device)
+    runs, bank_counts = {}, {}
+    for tag, dtype, precompute in (("bank f64", torch.float64, True),
+                                   ("rbf f64", torch.float64, False),
+                                   ("bank f32", torch.float32, True)):
+        r, counts, wall, t, peak = fit_grid(
+            lambda: grid.solve_grid(Xtr, Y, GRID_CS, gammas, cfg,
+                                    impl="auto", precompute=precompute,
+                                    device=device, dtype=dtype), device)
+        say(f"[grid] {tag}: launches {counts}")
+        check_counts(counts, t, precompute, tag)
+        if precompute:
+            for name in BANK_PASSES:
+                bank_counts[name] = bank_counts.get(name, 0) + counts[name]
+        df = grid.grid_decision(Xte, Xtr, gammas, r.alpha, r.b)
+        acc = (torch.argmax(df, dim=1).cpu().numpy()
+               == yte[None, None, :]).mean(axis=-1)       # (n_gamma, n_C)
+        its = r.iterations
+        say(f"[grid] {tag}: l={N_TRAIN} d={D} lanes={r.alpha.shape[:3]} "
+            f"gammas={[f'{g:.6g}' for g in gammas]} Cs={list(GRID_CS)}; "
+            f"iterations per lane min {int(its.min())} median "
+            f"{int(its.flatten().median())} max {int(its.max())}; loop "
+            f"iterations {t}; fit {wall:.3f} s = {wall / t * 1e3:.4f} "
+            f"ms/iteration; peak device memory {peak / 1e9:.3f} GB; "
+            f"converged {int(r.converged.sum())}/{r.converged.numel()}; "
+            f"max KKT gap {float(r.kkt_gap.max()):.4e}")
+        for g, gam in enumerate(gammas):
+            say(f"[grid] {tag}: gamma {gam:.6g}: held-out accuracy by C "
+                + ", ".join(f"C={c}: {acc[g, ci]:.4f}"
+                            for ci, c in enumerate(GRID_CS))
+                + f"; free SVs by C (class sums) "
+                + ", ".join(str(int(r.n_free_sv[g, :, ci].sum()))
+                            for ci in range(len(GRID_CS))))
+        assert bool(r.converged.all()), f"{tag}: a lane did not converge"
+        assert float(r.kkt_gap.max()) <= eps, tag
+        runs[tag] = (r, wall, t)
+
+    rb, rr, r32 = (runs[k][0] for k in ("bank f64", "rbf f64", "bank f32"))
+    rel = float(((rb.objective - rr.objective).abs()
+                 / rr.objective.abs()).max())
+    rel32 = float(((r32.objective.double() - rb.objective).abs()
+                   / rb.objective.abs()).max())
+    say(f"[grid] objectives: bank vs rbf (f64) max rel diff {rel:.3e}; "
+        f"f32 bank vs f64 bank {rel32:.3e}")
+    np.testing.assert_allclose(rb.objective.cpu().numpy(),
+                               rr.objective.cpu().numpy(), rtol=1e-6)
+
+    # drift of the carried gradient against G = p - K alpha with the plain
+    # Gram, and the KKT gap recomputed from it
+    Xt = torch.as_tensor(Xtr, dtype=torch.float64, device=device)
+    D2 = grid.sqdist(Xt)
+    YC = Y[:, None, :] * torch.tensor(GRID_CS, dtype=torch.float64,
+                                      device=device)[None, :, None]
+    L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
+    drift, gap = {}, {}
+    for g, gam in enumerate(gammas):
+        Kg = torch.exp(-gam * D2)
+        for tag, r in (("bank", rb), ("rbf", rr)):
+            G_exact = Y[:, None, :] - r.alpha[g] @ Kg
+            drift[tag] = max(drift.get(tag, 0.0),
+                             float((G_exact - r.G[g]).abs().max()))
+            up = torch.where(r.alpha[g] < U, G_exact, -math.inf).amax(-1)
+            dn = torch.where(r.alpha[g] > L, G_exact, math.inf).amin(-1)
+            gap[tag] = max(gap.get(tag, 0.0),
+                           float(qp.finite_gap(up - dn).max()))
+        del Kg
+    del D2
+    say(f"[grid] f64 |G_carried - (p - K alpha)|_max: bank {drift['bank']:.3e}"
+        f", rbf {drift['rbf']:.3e}; KKT gap recomputed from it: bank "
+        f"{gap['bank']:.4e}, rbf {gap['rbf']:.4e}")
+    assert max(drift.values()) <= 1e-8, drift
+    assert max(gap.values()) <= eps, gap
+    _, wall, t = runs["bank f64"]
+    ms_bank = wall / t * 1e3
+    del runs, rb, rr, r32
+
+    recs = grid_kernel_times(device, timer)
+    profile_iterations(
+        lambda: grid.solve_grid(Xtr, Y, GRID_CS, gammas,
+                                SolverConfig(algorithm="pasmo", eps=eps,
+                                             max_iter=64),
+                                impl="auto", precompute=True, device=device,
+                                dtype=torch.float64),
+        "grid bank f64 full width", ms_bank)
+    phase_oneclass(Xtr, gammas, device)
+    return recs, bank_counts
+
+
+def grid_kernel_times(device, timer):
+    """Kernels 1, 2, 4 and 5 at the grid's shapes (l = 16384, B = 90, a
+    3-entry bank), and the bank build: device time, plain version's time
+    and bound."""
+    from repro_torch.kernels import (build, ops, rbf_row_wss, rbf_update_wss,
+                                     ref)
+    recs = {}
+    l, d, B, bl = N_TRAIN, D, GRID_B, build.BLOCK_L
+    nb = -(-l // bl)
+    for dtype in (torch.float64, torch.float32):
+        item = torch.tensor([], dtype=dtype).element_size()
+        ba, bb = bank_state(l, B, 3, seed=1, dtype=dtype, device=device)
+        args_a = [ba[k] for k in BANK_A]
+        args_b = [bb[k] for k in BANK_B]
+        a, b = kernel_state(l, d, B, seed=1, dtype=dtype, device=device)
+        XT = a["X"].T.contiguous()
+        args_ra = [a[k] for k in ("X", "sqn", "G", "alpha", "L", "U", "XQ",
+                                  "sqq", "a_i", "L_i", "U_i", "g_i", "i_idx",
+                                  "use_exact", "gammas")]
+        args_rb = [b[k] for k in ("X", "sqn", "G", "alpha_new", "L", "U",
+                                  "XQi", "sqqi", "XQj", "sqqj", "mu",
+                                  "gammas")]
+        cases = {
+            "row_wss_batched_rows": (
+                lambda: rbf_row_wss.row_wss_batched_rows(*args_a),
+                lambda: ref.row_wss_batched_rows_blocks(*args_a, block_l=bl),
+                # B bank rows + 4 state rows, 4 lane vectors, the int32 i,
+                # int64 bank index and flag in; (B, nb) max and arg out
+                5 * B * l * item + 4 * B * item + 13 * B
+                + B * nb * (item + 4),
+                20 * B * l),
+            "update_wss_batched_rows": (
+                lambda: rbf_update_wss.update_wss_batched_rows(*args_b),
+                lambda: ref.update_wss_batched_rows_blocks(*args_b,
+                                                           block_l=bl),
+                # 2 B bank rows + 4 state rows in, G out, mu, i, j, bank
+                # index in; (B, nb) max, arg and min out
+                7 * B * l * item + B * item + 16 * B
+                + B * nb * (2 * item + 4),
+                6 * B * l),
+            "rbf_row_wss_batched": (
+                lambda: rbf_row_wss.rbf_row_wss_batched(*args_ra, XT=XT),
+                lambda: ref.rbf_row_wss_batched_blocks(*args_ra, block_l=bl),
+                (l * d + l + 4 * B * l + B * d + 6 * B) * item + 5 * B
+                + B * nb * (item + 4),
+                2 * B * l * d + 20 * B * l),
+            "rbf_update_wss_batched": (
+                lambda: rbf_update_wss.rbf_update_wss_batched(*args_rb,
+                                                              XT=XT),
+                lambda: ref.rbf_update_wss_batched_blocks(*args_rb,
+                                                          block_l=bl),
+                (l * d + l + 4 * B * l + 2 * B * d + 4 * B) * item
+                + B * l * item + B * nb * (2 * item + 4),
+                4 * B * l * d + 20 * B * l),
+        }
+        for name, (kern, plain, nbytes, nops) in cases.items():
+            ms_k = timer.ms(kern, 100)
+            ms_p = timer.ms(plain, 10)
+            ms_k2 = timer.ms(kern, 100)
+            ms_p2 = timer.ms(plain, 10)
+            bms, by = bound_ms(nbytes, nops, dtype)
+            say(f"[time] {name} B={B} {str(dtype)[6:]}: kernel {ms_k:.5f} / "
+                f"{ms_k2:.5f} ms, plain {ms_p:.5f} / {ms_p2:.5f} ms, bound "
+                f"{bms:.5f} ms by {by} ({nbytes / 1e6:.3f} MB, "
+                f"{nops / 1e9:.4f} GFLOP)")
+            if dtype == torch.float64 and name in BANK_PASSES:
+                recs[name] = dict(ms=min(ms_k, ms_k2),
+                                  plain_ms=min(ms_p, ms_p2), bound_ms=bms,
+                                  bound_by=by)
+        del ba, bb, a, b, args_a, args_b, args_ra, args_rb, XT
+        # the bank build: one Gram launch per gamma into one (3, l, l) tensor
+        X = torch.tensor(np.random.default_rng(2).normal(size=(l, d)),
+                         dtype=dtype, device=device)
+        gammas = [0.5 / d, 1.0 / d, 2.0 / d]
+        ms_k = timer.ms(lambda: ops.gram_bank(X, gammas, impl="cuda"), 3)
+        ms_p = timer.ms(lambda: ops.gram_bank(X, gammas, impl="torch"), 3)
+        bms, by = bound_ms(3 * l * l * item + l * d * item,
+                           3 * (2 * l * l * d + 6 * l * l), dtype)
+        say(f"[time] bank build 3 x {l}^2 {str(dtype)[6:]}: Gram kernel "
+            f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bms:.4f} ms by {by}")
+        del X
+    return recs
+
+
+def phase_oneclass(Xtr, gammas, device):
+    """The one-class (gamma, nu) grid at full width through both row
+    sources: convergence, objective agreement, launch counts, and each
+    lane's fraction of training outliers beside its nu."""
+    from repro_torch.core import grid
+    from repro_torch.core.solver import SolverConfig
+    eps = 1e-3
+    cfg = SolverConfig(algorithm="pasmo", eps=eps)
+    res = {}
+    for precompute in (True, False):
+        tag = "bank" if precompute else "rbf"
+        r, counts, wall, t, peak = fit_grid(
+            lambda: grid.solve_grid_oneclass(
+                Xtr, GRID_NUS, gammas, cfg, impl="auto",
+                precompute=precompute, device=device, dtype=torch.float64),
+            device)
+        check_counts(counts, t, precompute, f"one-class {tag}")
+        # training decision -G + b: an outlier has G > b (rho = -b)
+        out = (r.G > r.b[..., None]).double().mean(dim=-1)
+        sv = (r.alpha > 0).double().mean(dim=-1)
+        say(f"[oneclass] {tag} f64: l={N_TRAIN} lanes="
+            f"{tuple(r.alpha.shape[:2])}; iterations per lane "
+            f"{r.iterations.flatten().tolist()}; loop iterations {t}; {wall:.3f} s = {wall / t * 1e3:.4f} "
+            f"ms/iteration; peak device memory {peak / 1e9:.3f} GB; "
+            f"launches {counts}; converged "
+            f"{int(r.converged.sum())}/{r.converged.numel()}")
+        for g, gam in enumerate(gammas):
+            say(f"[oneclass] {tag}: gamma {gam:.6g}: "
+                + "; ".join(f"nu {nu}: outlier fraction "
+                            f"{float(out[g, n]):.4f}, SV fraction "
+                            f"{float(sv[g, n]):.4f}"
+                            for n, nu in enumerate(GRID_NUS)))
+        assert bool(r.converged.all()), f"one-class {tag} did not converge"
+        assert float(r.kkt_gap.max()) <= eps
+        res[tag] = r
+    rel = float(((res["bank"].objective - res["rbf"].objective).abs()
+                 / res["rbf"].objective.abs()).max())
+    say(f"[oneclass] objectives bank vs rbf max rel diff {rel:.3e}")
+    np.testing.assert_allclose(res["bank"].objective.cpu().numpy(),
+                               res["rbf"].objective.cpu().numpy(), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -613,6 +1032,10 @@ def main() -> int:
     errs = phase_kernels(device)
     phase_small(device, "cuda")
     recs, counts = phase_full(device, timer)
+    say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
+    grid_recs, bank_counts = phase_grid(device, timer)
+    recs.update(grid_recs)
+    counts.update(bank_counts)
     out = []
     for name, (src, replaces) in SOURCES.items():
         r = recs[name]

@@ -1,0 +1,260 @@
+"""C/gamma model-selection grids as one fused lane batch (the fused drivers
+of ``repro.core.grid``).
+
+A hyper-parameter grid over an RBF-SVM is ``n_gamma * n_class * n_C``
+QPs that share one dataset.  The fused drivers flatten every grid axis
+into the B lanes of one :func:`~repro_torch.core.solver_fused.
+solve_fused_batched_qp` loop: two batched kernel passes per iteration,
+converged lanes frozen in the passes, lane order (gamma, class, C)
+row-major, which is also the order of the result axes.  All lanes start
+cold (one-class lanes from LIBSVM's feasible point), so the C axis needs
+no warm-start chain.
+
+``precompute`` picks the row source: ``True`` builds one Gram matrix per
+gamma into a shared (n_gamma, l, l) bank (the Gram kernel, one launch per
+gamma, on the card) and the bank passes read their rows from it; ``False``
+recomputes rows from ``X`` in the rbf passes and builds no Gram at all;
+``None`` banks on the plain backend only, as the reference does on
+``"jnp"``.
+
+The fused engine does not track the per-step counters ``n_free`` /
+``n_clipped`` / ``n_reverted``: they carry the ``UNTRACKED`` (-1)
+sentinel, never zeros.  ``n_free_sv``, the free support vectors at the
+final ``alpha``, is reported for every lane.
+
+Axis convention for stacked results: ``(n_gamma, n_class, n_C, ...)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import qp as qp_mod
+from repro_torch.core.solver import SolveResult, SolverConfig
+from repro_torch.core.solver_fused import (FusedResult,
+                                           solve_fused_batched_qp)
+from repro_torch.device import resolve_device, resolve_dtype
+from repro_torch.kernels import ops, row_source
+
+UNTRACKED = -1  # sentinel for counters the fused iteration never tracks
+
+
+def sqdist(X: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances (l, l), the gamma-free part of the Gram
+    work: ``K_gamma = exp(-gamma * sqdist(X))``."""
+    sq = torch.sum(X * X, dim=-1)
+    return torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (X @ X.T), 0.0)
+
+
+def _free_sv_count(alpha, L, U) -> torch.Tensor:
+    """Per-lane count of strictly interior (free) support vectors."""
+    return torch.sum((alpha > L) & (alpha < U), dim=-1).to(torch.int32)
+
+
+def _use_bank(impl: str, precompute, device) -> bool:
+    """The row-source policy: ``None`` banks exactly on the plain backend."""
+    if precompute is None:
+        return ops.resolve_impl(impl, device) == "torch"
+    return bool(precompute)
+
+
+def _trace_fields(dims, dtype, device) -> dict:
+    """Placeholder trace/step-recording buffers of a fused-engine
+    :class:`SolveResult` (the flight recorder is a later slice)."""
+    cap = tuple(dims) + (1,)
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return dict(trace=zeros(cap, dtype), n_trace=zeros(dims, torch.int32),
+                steps_i=zeros(cap, torch.int32),
+                steps_j=zeros(cap, torch.int32), steps_mu=zeros(cap, dtype))
+
+
+def _check_later_slices(impl, shrinking, mesh, devices, diagnostics):
+    if impl is None:
+        raise NotImplementedError(
+            "impl=None (the classic vmapped grid engine) is a later slice "
+            "of the port (ROADMAP queue 1, step 10); pass a kernel backend "
+            "such as impl='auto'")
+    if shrinking:
+        raise NotImplementedError(
+            "shrinking in the port is a later slice (ROADMAP queue 1, "
+            "step 7)")
+    if mesh is not None or devices is not None:
+        raise NotImplementedError(
+            "mesh and devices (lane sharding over several cards) are a "
+            "later slice of the port (ROADMAP queue 1, step 12)")
+    if diagnostics is not None:
+        raise NotImplementedError(
+            "diagnostics (the flight recorder) is a later slice of the "
+            "port (ROADMAP queue 1, step 9)")
+
+
+def _as_data(X, device, dtype):
+    """``X`` on the resolved device in the resolved dtype (that of a
+    floating tensor ``X`` unless ``dtype`` is given)."""
+    dev = resolve_device(device)
+    if dtype is None and torch.is_tensor(X) and X.is_floating_point():
+        dtype = X.dtype
+    dtype = resolve_dtype(dtype)
+    return torch.as_tensor(X, dtype=dtype, device=dev).contiguous(), dev
+
+
+def _bank_kw(X, gammas, lanes_per_gamma: int, impl: str) -> dict:
+    """The shared (n_gamma, l, l) Gram bank and each lane's entry."""
+    bank = ops.gram_bank(X, gammas, impl=impl)
+    gidx = torch.arange(len(gammas), device=X.device).repeat_interleave(
+        lanes_per_gamma)
+    return dict(gram=bank, gram_idx=gidx)
+
+
+def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute) -> SolveResult:
+    k, l = Y.shape
+    nG, nC = len(gammas), len(Cs)
+    dev, dtype = X.device, X.dtype
+    # lane order (gamma, class, C) row-major, matching the result axes
+    Yf = Y.repeat(nG, 1).repeat_interleave(nC, dim=0)          # (B, l)
+    gam_t = torch.as_tensor(gammas, dtype=dtype, device=dev)
+    gf = gam_t.repeat_interleave(k * nC)                       # (B,)
+    Cf = torch.as_tensor(Cs, dtype=dtype, device=dev).repeat(nG * k)
+    YC = Yf * Cf[:, None]
+    L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
+    bank_kw = (_bank_kw(X, gammas, k * nC, impl)
+               if _use_bank(impl, precompute, dev) else {})
+    fr = solve_fused_batched_qp(X, Yf, L, U, gf, cfg, impl=impl, **bank_kw)
+    dims = (nG, k, nC)
+
+    def to_grid(t):
+        return t.reshape(dims + t.shape[1:])
+
+    untracked = torch.full(dims, UNTRACKED, dtype=torch.int32, device=dev)
+    return SolveResult(
+        alpha=to_grid(fr.alpha), b=to_grid(fr.b), G=to_grid(fr.G),
+        iterations=to_grid(fr.iterations), objective=to_grid(fr.objective),
+        kkt_gap=to_grid(fr.kkt_gap), converged=to_grid(fr.converged),
+        n_planning=to_grid(fr.n_planning), n_free=untracked,
+        n_clipped=untracked, n_reverted=untracked,
+        n_free_sv=to_grid(_free_sv_count(fr.alpha, L, U)),
+        **_trace_fields(dims, dtype, dev))
+
+
+def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
+               warm_start: bool = True, impl: str | None = None,
+               block_l: int = 1024, precompute: bool | None = None,
+               shrinking: bool = False, mesh=None, devices=None,
+               diagnostics=None, device=None, dtype=None) -> SolveResult:
+    """Solve the full (gamma, class, C) grid as one fused lane batch.
+
+    ``X``: (l, d) shared inputs; ``Y``: (k, l) signed label vectors (a 1-D
+    ``y`` is one class head); ``Cs``: (n_C,); ``gammas``: (n_gamma,)
+    (scalars are promoted).  Returns a :class:`SolveResult` whose leaves
+    have leading axes ``(n_gamma, n_class, n_C)`` in the *input* order of
+    ``Cs`` and ``gammas`` (the C axis is solved sorted and scattered back,
+    as the reference does).
+
+    ``impl`` (``"cuda"``, ``"torch"`` or ``"auto"``) picks the kernels of
+    the fused engine; ``precompute`` picks the row source (module notes).
+    ``device`` defaults to the CUDA card and raises without one; ``dtype``
+    defaults to ``X``'s when it is a floating tensor, else to
+    ``torch.get_default_dtype()``.  ``warm_start`` has no effect on the
+    fused engine (every lane starts cold), and ``block_l`` is accepted and
+    ignored: the CUDA passes tile the example axis at
+    :data:`repro_torch.kernels.build.BLOCK_L`.  ``impl=None`` (the classic
+    vmapped engine), ``shrinking``, ``mesh``/``devices`` and
+    ``diagnostics`` are later slices and raise ``NotImplementedError``.
+    """
+    del warm_start, block_l
+    _check_later_slices(impl, shrinking, mesh, devices, diagnostics)
+    X, dev = _as_data(X, device, dtype)
+    Y = torch.as_tensor(Y, dtype=X.dtype, device=dev)
+    if Y.ndim == 1:
+        Y = Y[None, :]
+    Cs_np = np.asarray(Cs, dtype=np.float64).reshape(-1)
+    gammas_np = np.asarray(gammas, dtype=np.float64).reshape(-1)
+    order = np.argsort(Cs_np, kind="stable")
+    impl = ops.resolve_impl(impl, dev)
+    res = _solve_grid_fused(X, Y.contiguous(), Cs_np[order], gammas_np,
+                            cfg, impl, precompute)
+    if np.any(order != np.arange(len(Cs_np))):
+        inv = torch.as_tensor(np.argsort(order, kind="stable"), device=dev)
+        res = SolveResult(**{f.name: getattr(res, f.name).index_select(2, inv)
+                             for f in dataclasses.fields(res)})
+    return res
+
+
+def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
+                        *, impl: str = "auto", block_l: int = 1024,
+                        precompute: bool | None = None,
+                        shrinking: bool = False, mesh=None, devices=None,
+                        diagnostics=None, device=None,
+                        dtype=None) -> FusedResult:
+    """Solve the one-class (gamma, nu) grid as one fused lane batch.
+
+    Every lane is the nu dual (``p = 0``, box ``[0, 1/(nu l)]``,
+    ``sum(a) = 1``) started from LIBSVM's feasible point with its gradient
+    ``G0 = -K alpha0``: one matvec per lane, paid once before the loop,
+    against the bank when there is one and blocked over rows of ``X``
+    (:meth:`repro_torch.core.qp.RBFKernel.matvec`) when there is not.
+    ``precompute``, ``impl``, ``device``, ``dtype`` and the knobs that
+    raise ``NotImplementedError`` are as in :func:`solve_grid`; ``block_l``
+    is accepted and ignored.  Returns a
+    :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
+    ``(n_gamma, n_nu)``; the decision offset is ``rho = -b``.
+    """
+    del block_l
+    _check_later_slices(impl, shrinking, mesh, devices, diagnostics)
+    X, dev = _as_data(X, device, dtype)
+    dtype = X.dtype
+    l = X.shape[0]
+    impl = ops.resolve_impl(impl, dev)
+    nus_np = np.asarray(nus, np.float64).reshape(-1)
+    gammas_np = np.asarray(gammas, np.float64).reshape(-1)
+    nG, nN = len(gammas_np), len(nus_np)
+    A0 = torch.stack([qp_mod.oneclass_alpha0(l, nu, dtype, dev)
+                      for nu in nus_np])                          # (nN, l)
+    U_n = torch.stack([qp_mod.oneclass_qp(l, nu, dtype, dev).bounds.upper
+                       for nu in nus_np])
+    zeros = torch.zeros((nG * nN, l), dtype=dtype, device=dev)
+    Uf = U_n.repeat(nG, 1)
+    gf = torch.as_tensor(gammas_np, dtype=dtype,
+                         device=dev).repeat_interleave(nN)
+    alpha0 = A0.repeat(nG, 1)
+    bank_kw = {}
+    if _use_bank(impl, precompute, dev):
+        bank_kw = _bank_kw(X, gammas_np, nN, impl)
+        G0 = -row_source.bank_source(**bank_kw).matvec(alpha0)
+    else:
+        G0 = -torch.cat([torch.stack([qp_mod.make_rbf(X, g).matvec(a)
+                                      for a in A0]) for g in gammas_np])
+    out = solve_fused_batched_qp(X, zeros, zeros, Uf, gf, cfg, impl=impl,
+                                 alpha0=alpha0, G0=G0, **bank_kw)
+    return FusedResult(**{f.name: getattr(out, f.name).reshape(
+        (nG, nN) + getattr(out, f.name).shape[1:])
+        for f in dataclasses.fields(out)})
+
+
+def grid_decision(Xq, X, gammas, alpha: torch.Tensor, b: torch.Tensor, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """Decision values of every grid point on query inputs.
+
+    ``alpha``: (n_gamma, k, n_C, l) signed duals from :func:`solve_grid`;
+    ``b``: (n_gamma, k, n_C).  ``Xq`` (m, d) and ``X`` (l, d) move to
+    ``alpha``'s device and dtype.  Returns (n_gamma, k, n_C, m): the query
+    cross-Gram is computed once per gamma (the Gram kernel on the card)
+    and shared by all (class, C) heads.
+    """
+    dev, dtype = alpha.device, alpha.dtype
+    Xq = torch.as_tensor(Xq, dtype=dtype, device=dev).contiguous()
+    X = torch.as_tensor(X, dtype=dtype, device=dev).contiguous()
+    gammas_np = np.asarray(gammas, np.float64).reshape(-1)
+    out = []
+    for g, gamma in enumerate(gammas_np):
+        Kq = ops.gram(Xq, X, float(gamma), impl=impl, device=dev,
+                      dtype=dtype)                           # (m, l)
+        out.append(torch.einsum("ml,kcl->kcm", Kq, alpha[g])
+                   + b[g][..., None])
+    return torch.stack(out)

@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.core.solver import SolverConfig
 from repro_torch.core.solver_fused import solve_fused_batched
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 
 def class_index(y) -> Tuple[np.ndarray, np.ndarray]:
@@ -40,16 +42,22 @@ def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
     """Solve all one-vs-rest heads as the lanes of one fused solve.
 
     ``C`` is a scalar, (k,) per-class or (k, l) per-sample budgets;
-    ``gamma`` the shared RBF width.  ``precompute`` is accepted for the
-    reference's signature: in this slice the rows are recomputed from
-    ``X`` on every backend (the Gram-bank row source is a later slice).
+    ``gamma`` the shared RBF width.  With ``precompute=True`` on the plain
+    backend (``impl`` resolving to ``"torch"``) the one shared Gram matrix
+    is built once and the lanes read their rows from it, as the reference
+    does on ``"jnp"``; otherwise rows are recomputed from ``X``.
     ``device`` defaults to the CUDA card and raises without one.  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with a leading
     class axis.
     """
-    del precompute
-    return solve_fused_batched(X, Y, C, gamma, cfg, impl=impl, device=device,
-                               dtype=dtype)
+    dev = resolve_device(device)
+    bank_kw = {}
+    if precompute and ops.resolve_impl(impl, dev) == "torch":
+        K = ops.gram(X, gamma=gamma, impl=impl, device=dev, dtype=dtype)
+        bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
+            (len(Y),), dtype=torch.int64, device=dev))
+    return solve_fused_batched(X, Y, C, gamma, cfg, impl=impl, device=dev,
+                               dtype=dtype, **bank_kw)
 
 
 def ovr_decision(Kq: torch.Tensor, alpha: torch.Tensor,

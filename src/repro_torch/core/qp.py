@@ -1,16 +1,21 @@
-"""Dual quadratic programs: the box and the exact math the fused solver
-needs (main-path subset of ``repro.core.qp``).
+"""Dual quadratic programs: the box, the exact math the fused solver
+needs and the RBF oracle (the subset of ``repro.core.qp`` the ported
+slices run).
 
 The general SMO dual is ``max p^T a - 1/2 a^T Q a`` subject to
 ``sum(a) = const`` and ``L_i <= a_i <= U_i``, with gradient
 ``G = p - Q a``; equality signs are folded into the box (the signed
-convention), so the SMO direction is always ``e_i - e_j``.
+convention), so the SMO direction is always ``e_i - e_j``.  Instances:
+classification (``p = y``, box ``[min(0, y_i C), max(0, y_i C)]``) and
+one-class / nu novelty detection (``p = 0``, box ``[0, 1/(nu l)]``,
+``sum(a) = 1``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 # LIBSVM's guard for vanishing curvature (footnote 1 in the paper).
@@ -25,12 +30,47 @@ class Bounds:
     upper: torch.Tensor  # U_i = max(0, y_i C)
 
 
+@dataclasses.dataclass(frozen=True)
+class DualQP:
+    """General SMO dual: ``max p^T a - 1/2 a^T Q a`` over ``bounds`` with
+    one equality constraint ``sum(a) = const`` (signs folded into the box;
+    the constant is fixed by the feasible starting point).  The operator
+    ``Q`` comes from a kernel oracle, not from the container."""
+
+    p: torch.Tensor    # (n,) linear term
+    bounds: Bounds     # (n,) per-coordinate box
+
+
 def make_bounds(y: torch.Tensor, C) -> Bounds:
     """Per-coordinate box ``[min(0, y_i C), max(0, y_i C)]``; ``C`` is a
     scalar or a per-sample vector (class-weighted SVC)."""
     yC = y * C
     zero = torch.zeros_like(yC)
     return Bounds(lower=torch.minimum(zero, yC), upper=torch.maximum(zero, yC))
+
+
+def oneclass_qp(n: int, nu, dtype=torch.float64, device="cpu") -> DualQP:
+    """The one-class (nu novelty-detection) dual: ``p = 0``, box
+    ``[0, 1/(nu l)]``, equality ``sum(a) = 1``.  The zero vector is not
+    feasible: start from :func:`oneclass_alpha0` with ``G0 = -K alpha0``."""
+    u = 1.0 / (float(nu) * n)
+    zero = torch.zeros((n,), dtype=dtype, device=device)
+    return DualQP(p=zero, bounds=Bounds(lower=zero,
+                                        upper=torch.full_like(zero, u)))
+
+
+def oneclass_alpha0(n: int, nu: float, dtype=torch.float64,
+                    device="cpu") -> torch.Tensor:
+    """LIBSVM's feasible one-class start: the first ``floor(nu l)``
+    coordinates at the upper bound ``1/(nu l)``, one fractional remainder
+    coordinate, ``sum(a) = 1`` exactly."""
+    nl = float(nu) * n
+    m = int(np.floor(nl))
+    a0 = np.zeros(n)
+    a0[:m] = 1.0 / nl
+    if m < n:
+        a0[m] = (nl - m) / nl
+    return torch.as_tensor(a0, dtype=dtype, device=device)
 
 
 def kkt_gap(G, alpha, bounds: Bounds, active=None):
@@ -69,3 +109,34 @@ def is_feasible(alpha, bounds: Bounds, atol: float = 1e-9):
     eq = torch.abs(torch.sum(alpha)) <= atol * (
         1 + torch.sum(torch.abs(alpha)))
     return box & eq
+
+
+@dataclasses.dataclass(frozen=True)
+class RBFKernel:
+    """Gaussian kernel oracle ``k(x, z) = exp(-gamma ||x - z||^2)`` over
+    ``X``; its matvec gives the one-class ``G0`` without a Gram bank."""
+
+    X: torch.Tensor          # (l, d)
+    gamma: float
+    sq_norms: torch.Tensor   # (l,)
+
+    @property
+    def n(self) -> int:
+        return self.X.shape[0]
+
+    def matvec(self, v: torch.Tensor, block: int = 256) -> torch.Tensor:
+        """``K v`` for ``v`` (l,) without materializing K: one (block, l)
+        distance, exp and product per block of rows."""
+        out = torch.empty_like(v)
+        for r0 in range(0, self.n, block):
+            Xb = self.X[r0:r0 + block]
+            d2 = (self.sq_norms[r0:r0 + block, None] + self.sq_norms[None, :]
+                  - 2.0 * (Xb @ self.X.T))
+            out[r0:r0 + block] = torch.exp(
+                -self.gamma * torch.clamp_min(d2, 0.0)) @ v
+        return out
+
+
+def make_rbf(X: torch.Tensor, gamma) -> RBFKernel:
+    return RBFKernel(X=X, gamma=float(gamma),
+                     sq_norms=torch.sum(X * X, dim=-1))

@@ -1,8 +1,11 @@
-"""Solver configuration (the classic engine itself is a later slice)."""
+"""Solver configuration and result type (the classic engine itself is a
+later slice)."""
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 # Soft-shrinking cadence when a config has none of its own.
 DEFAULT_SHRINK_EVERY = 64
@@ -37,3 +40,34 @@ class SolverConfig:
         # only composes with the plain SMO base algorithm.
         assert self.step == "plain" or self.algorithm == "smo", \
             "step='conjugate' requires algorithm='smo'"
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveResult:
+    """Solver output, field for field as ``repro.core.solver.SolveResult``.
+
+    ``n_free``/``n_clipped``/``n_reverted`` are per-step counters; the
+    fused engine does not track the step type and fills them with
+    ``repro_torch.core.grid.UNTRACKED`` (-1), never with zeros.
+    ``n_free_sv`` is the number of strictly interior (free) support
+    vectors at the returned ``alpha``.  ``trace``/``n_trace`` and the
+    ``steps_*`` recorders are placeholders on the fused engine.
+    """
+
+    alpha: torch.Tensor
+    b: torch.Tensor
+    G: torch.Tensor
+    iterations: torch.Tensor
+    objective: torch.Tensor
+    kkt_gap: torch.Tensor
+    converged: torch.Tensor
+    n_planning: torch.Tensor
+    n_free: torch.Tensor
+    n_clipped: torch.Tensor
+    n_reverted: torch.Tensor
+    n_free_sv: torch.Tensor
+    trace: torch.Tensor
+    n_trace: torch.Tensor
+    steps_i: torch.Tensor
+    steps_j: torch.Tensor
+    steps_mu: torch.Tensor

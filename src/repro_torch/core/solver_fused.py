@@ -7,8 +7,8 @@ iteration launches the batched pass A (WSS2 selection) and pass B (both
 rows + gradient update + stopping scan) and does O(B) step algebra in
 between: Alg. 3's B^(t-2) candidate, the truncated Newton step and, with
 ``algorithm="pasmo"``, the planning-ahead step (eq. 8).  Kernel rows are
-recomputed from ``X`` in the passes (the rbf row source); no Gram matrix
-is built.
+recomputed from ``X`` in the passes (the rbf row source), or read from a
+shared Gram bank (``gram``/``gram_idx``, the bank row source).
 
 Converged lanes are frozen in the passes: their step size is 0, so pass B
 leaves their gradient bitwise unchanged and every per-lane state update is
@@ -18,9 +18,9 @@ check, none inside the body): once every lane is done, further iterations
 change nothing that is returned, and each chunk is capped at
 ``max_iter - t`` so ``max_iter`` stays exact.
 
-This slice covers the plain step, ``algorithm`` in ``{smo, pasmo}``, one
-state half and no shrinking, telemetry, conjugate step, Gram bank or warm
-start.
+The port covers the plain step, ``algorithm`` in ``{smo, pasmo}``, one
+state half, both row sources and warm starts; shrinking, telemetry and the
+conjugate step are later slices.
 """
 
 from __future__ import annotations
@@ -103,20 +103,33 @@ def _check_config(cfg: SolverConfig) -> None:
 
 def solve_fused_batched_qp(X, P, L, U, gamma,
                            cfg: SolverConfig = SolverConfig(), *,
-                           impl: str = "auto",
+                           impl: str = "auto", alpha0=None, G0=None,
+                           gram=None, gram_idx=None,
                            check_every: int = CHECK_EVERY) -> FusedResult:
     """Solve B general dual QPs over the shared ``X`` (n, d) in one loop.
 
     ``X``, ``P`` (B, n), ``L``/``U`` (B, n) are tensors on one device with
     one dtype; ``gamma`` is a scalar or (B,).  ``impl`` picks the passes'
-    backend (:func:`repro_torch.kernels.ops.resolve_impl`).  The loop
-    reads ``any(~done)`` every ``check_every`` iterations; the result does
-    not depend on it.  Returns a :class:`FusedResult` whose
+    backend (:func:`repro_torch.kernels.ops.resolve_impl`).
+
+    Optional (B, n) ``alpha0``/``G0`` warm starts come as a pair (one-class
+    lanes need them: alpha = 0 is infeasible there); without them the
+    lanes start at alpha = 0, G = P.  ``gram`` (n_stack, n, n) and
+    ``gram_idx`` (B,) also come as a pair: with them the passes read their
+    rows from the shared Gram bank (lanes sharing a gamma share an entry)
+    instead of recomputing them from ``X``.
+
+    The loop reads ``any(~done)`` every ``check_every`` iterations; the
+    result does not depend on it.  Returns a :class:`FusedResult` whose
     ``iterations`` count per-lane iterations until that lane converged.
     """
     _check_config(cfg)
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if (alpha0 is None) != (G0 is None):
+        raise ValueError("warm starts need the (alpha0, G0) pair")
+    if (gram is None) != (gram_idx is None):
+        raise ValueError("the Gram bank needs the (gram, gram_idx) pair")
     dtype, device = P.dtype, P.device
     B, n = P.shape
     if X.shape[0] != n:
@@ -125,7 +138,14 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     impl = ops.resolve_impl(impl, device)
     eps, eta = cfg.eps, cfg.eta
     planning = cfg.algorithm == "pasmo"
-    src = row_source.rbf_source(X, gamma, B)
+    if gram is None:
+        src = row_source.rbf_source(X, gamma, B)
+    else:
+        src = row_source.bank_source(gram, gram_idx, gamma)
+        if src.base_l != n or src.gram_idx.shape[0] != B:
+            raise ValueError(f"a bank of {tuple(gram.shape)} and "
+                             f"{src.gram_idx.shape[0]} bank indices for "
+                             f"{B} lanes of {n} coordinates")
     lanes = torch.arange(B, device=device)
     lane_base = lanes * n
     idx2 = torch.cat([lanes, lanes])
@@ -258,15 +278,24 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
             prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
             n_planning=s.n_planning + (do_plan & active).to(torch.int32))
 
-    # ---- init: alpha = 0 is feasible, G0 = P --------------------------------
-    alpha0 = torch.zeros_like(P)
-    v_up = torch.where(alpha0 < U, P, float("-inf"))
+    # ---- init: alpha = 0, G = P unless warm-started ------------------------
+    if alpha0 is None:
+        alpha0, G0 = torch.zeros_like(P), P
+    else:
+        # alpha is updated in place: the caller's tensor stays untouched
+        alpha0 = torch.as_tensor(alpha0, dtype=dtype, device=device).clone()
+        G0 = torch.as_tensor(G0, dtype=dtype, device=device)
+        if alpha0.shape != P.shape or G0.shape != P.shape:
+            raise ValueError(f"alpha0 {tuple(alpha0.shape)} and G0 "
+                             f"{tuple(G0.shape)} must match P "
+                             f"{tuple(P.shape)}")
+    v_up = torch.where(alpha0 < U, G0, float("-inf"))
     i0 = torch.argmax(v_up, dim=1).to(torch.int32)
     g_i0 = take(v_up, i0)
     gap0 = qp_mod.finite_gap(
-        g_i0 - torch.where(alpha0 > L, P, float("inf")).amin(dim=1))
+        g_i0 - torch.where(alpha0 > L, G0, float("inf")).amin(dim=1))
     zB = torch.zeros((B,), dtype=torch.int32, device=device)
-    s = _BatchState(alpha=alpha0, G=P, i=i0, g_i=g_i0, gap=gap0, iters=zB,
+    s = _BatchState(alpha=alpha0, G=G0, i=i0, g_i=g_i0, gap=gap0, iters=zB,
                     done=gap0 <= eps, pi=zB, pj=zB, qi=zB, qj=zB, n_hist=zB,
                     p_smo=~no_lanes, prev_free=no_lanes,
                     prev_ratio_ok=~no_lanes, n_planning=zB)
@@ -292,7 +321,8 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
 
 
 def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
-                        *, impl: str = "auto", device=None, dtype=None,
+                        *, impl: str = "auto", alpha0=None, G0=None,
+                        gram=None, gram_idx=None, device=None, dtype=None,
                         check_every: int = CHECK_EVERY) -> FusedResult:
     """Solve B RBF *classification* QPs over the shared ``X`` in one loop —
     the ``p = y`` instance of :func:`solve_fused_batched_qp`.
@@ -303,7 +333,9 @@ def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
     CPU).  ``dtype`` defaults to ``Y``'s when it is a floating tensor, else
     to ``torch.get_default_dtype()``.  ``C`` is a scalar, (B,) per-lane or
     (B, l) per-sample budgets (class-weighted SVC); ``gamma`` a scalar or
-    (B,).
+    (B,).  The warm start ``alpha0``/``G0`` and the Gram bank
+    ``gram``/``gram_idx`` are as in :func:`solve_fused_batched_qp`; the
+    bank moves to ``device`` and ``dtype`` too.
     """
     dev = resolve_device(device)
     if dtype is None and torch.is_tensor(Y) and Y.is_floating_point():
@@ -316,6 +348,9 @@ def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
     if C.ndim < 2:
         C = C.broadcast_to((B,))[:, None]
     YC = Y * C
+    if gram is not None:
+        gram = torch.as_tensor(gram, dtype=dtype, device=dev).contiguous()
     return solve_fused_batched_qp(
         X, Y, torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0), gamma, cfg,
-        impl=impl, check_every=check_every)
+        impl=impl, alpha0=alpha0, G0=G0, gram=gram, gram_idx=gram_idx,
+        check_every=check_every)

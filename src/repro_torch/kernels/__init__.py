@@ -7,13 +7,17 @@ and clear them together, so a run can show which kernels it went through.
 """
 
 from repro_torch.kernels.gram_block import gram_cross
-from repro_torch.kernels.rbf_row_wss import rbf_row_wss_batched
-from repro_torch.kernels.rbf_update_wss import rbf_update_wss_batched
+from repro_torch.kernels.rbf_row_wss import (rbf_row_wss_batched,
+                                             row_wss_batched_rows)
+from repro_torch.kernels.rbf_update_wss import (rbf_update_wss_batched,
+                                                update_wss_batched_rows)
 
 WRAPPERS = {
     "rbf_row_wss_batched": rbf_row_wss_batched,
     "rbf_update_wss_batched": rbf_update_wss_batched,
     "gram_block": gram_cross,
+    "row_wss_batched_rows": row_wss_batched_rows,
+    "update_wss_batched_rows": update_wss_batched_rows,
 }
 
 

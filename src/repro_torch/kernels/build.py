@@ -44,6 +44,12 @@ SIGNATURES = {
     # XT sqn G alpha L U XQi sqqi XQj sqqj mu gammas G_out bmax barg bmin
     # | B l d device | stream
     "rbf_update_wss_batched": [_P] * 16 + [_I] * 4 + [_P],
+    # gram gram_idx G alpha L U a_i L_i U_i g_i i_idx use_exact bmax barg
+    # | B l device | stream
+    "row_wss_batched_rows": [_P] * 14 + [_I] * 3 + [_P],
+    # gram gram_idx i_idx j_idx G alpha_new L U mu G_out bmax barg bmin
+    # | B l device | stream
+    "update_wss_batched_rows": [_P] * 13 + [_I] * 3 + [_P],
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }

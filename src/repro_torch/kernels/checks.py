@@ -36,3 +36,18 @@ def check_lane_scalars(B: int, device, dtype, **tensors) -> None:
     """Per-lane (B,) vectors, passed to the kernels by pointer."""
     for name, t in tensors.items():
         check_state(name, t, (B,), dtype, device)
+
+
+# gridDim.y of the bank passes holds one lane per block row.
+MAX_BANK_LANES = 65535
+
+
+def check_bank(gram, gram_idx, B: int, l: int, dtype, device) -> None:
+    """The (n_stack, l, l) Gram bank and its (B,) int64 lane index."""
+    if not isinstance(gram, torch.Tensor) or gram.ndim != 3:
+        raise ValueError("the Gram bank must be an (n_stack, l, l) tensor")
+    check_state("gram", gram, (gram.shape[0], l, l), dtype, device)
+    check_state("gram_idx", gram_idx, (B,), torch.int64, device)
+    if B > MAX_BANK_LANES:
+        raise ValueError(f"the bank passes take at most {MAX_BANK_LANES} "
+                         f"lanes, got {B}")

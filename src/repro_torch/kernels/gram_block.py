@@ -17,11 +17,13 @@ from repro_torch.kernels.checks import check_state, dtype_bits
 MAX_ROWS = 65535 * 64
 
 
-def gram_cross(X1, X2, gamma: float):
+def gram_cross(X1, X2, gamma: float, *, out=None):
     """Cross Gram matrix k(X1, X2) -> (l1, l2) for (l1, d), (l2, d) inputs
-    and a scalar ``gamma``."""
+    and a scalar ``gamma``.  ``out``, a contiguous (l1, l2) tensor such as
+    one gamma's slice of a Gram bank, receives the result in place and is
+    returned."""
     if X1.device.type == "cpu":
-        return ref.gram_cross(X1, X2, gamma)
+        return ref.gram_cross(X1, X2, gamma, out=out)
     if X1.device.type != "cuda":
         raise ValueError(f"the Gram kernel runs on cuda or cpu tensors, got "
                          f"{X1.device}")
@@ -34,7 +36,9 @@ def gram_cross(X1, X2, gamma: float):
                          f"got {l1}")
     s1 = torch.sum(X1 * X1, dim=-1)
     s2 = torch.sum(X2 * X2, dim=-1)
-    out = torch.empty((l1, l2), dtype=X1.dtype, device=X1.device)
+    if out is None:
+        out = torch.empty((l1, l2), dtype=X1.dtype, device=X1.device)
+    check_state("out", out, (l1, l2), X1.dtype, X1.device)
     fn = build.entry("gram_block", dtype_bits(X1.dtype))
     ptrs = [t.data_ptr() for t in (X1, X2, s1, s2, out)]
     err = fn(*ptrs, float(gamma), l1, l2, d, X1.device.index,

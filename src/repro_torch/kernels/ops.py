@@ -12,7 +12,13 @@ Nothing falls back: a kernel that fails to build or launch raises.
 
 The CUDA passes return per-block reductions; the cross-block step,
 :func:`_first_max`, stays here, as the reference keeps it outside its
-kernels.  Working-set indices stay int32 at every kernel boundary.
+kernels.  Working-set indices stay int32 at every kernel boundary; Gram
+bank indices are int64.
+
+Unlike the reference's rows variants, which take rows gathered from the
+bank, :func:`row_wss_batched_rows` and :func:`update_wss_batched_rows`
+take the bank and the per-lane indices: the CUDA passes read the rows in
+place.
 """
 
 from __future__ import annotations
@@ -80,9 +86,41 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
     return G_new, i_next, g_i_next, bmin.amin(dim=1)
 
 
+def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
+                         i_idx, use_exact, *, impl: str = "auto"):
+    """Batched pass A over the Gram bank: lane b's kernel row is
+    ``gram[gram_idx[b], i_idx[b]]`` -> (j (B,) int32, gain)."""
+    if resolve_impl(impl, G.device) == "torch":
+        return ref_ops.row_wss_batched_from_k(
+            ref_ops.bank_rows(gram, gram_idx, i_idx), G, alpha, L, U, a_i,
+            L_i, U_i, g_i, i_idx, use_exact)
+    bmax, barg = rbf_row_wss.row_wss_batched_rows(
+        gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact)
+    return _first_max(bmax, barg)
+
+
+def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
+                            mu, *, impl: str = "auto"):
+    """Batched pass B over the Gram bank -> (G_new (B, l), i_next (B,)
+    int32, g_i_next, g_dn).  A lane with ``mu == 0`` leaves G bitwise
+    unchanged."""
+    if resolve_impl(impl, G.device) == "torch":
+        return ref_ops.update_wss_batched_from_rows(
+            G, ref_ops.bank_rows(gram, gram_idx, i_idx),
+            ref_ops.bank_rows(gram, gram_idx, j_idx), mu, alpha_new, L, U)
+    G_new, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows(
+        gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu)
+    i_next, g_i_next = _first_max(bmax, barg)
+    return G_new, i_next, g_i_next, bmin.amin(dim=1)
+
+
 def source_row_wss(src: RowSource, G, alpha, L, U, i_idx, a_i, L_i, U_i,
                    g_i, use_exact, *, impl: str = "auto"):
     """Batched pass A against a :class:`RowSource` -> (j (B,), gain (B,))."""
+    if src.is_bank:
+        return row_wss_batched_rows(src.gram, src.gram_idx, G, alpha, L, U,
+                                    a_i, L_i, U_i, g_i, i_idx, use_exact,
+                                    impl=impl)
     XQ, sqq = src.query(i_idx)
     return rbf_row_wss_batched(src.X, src.sqn, G, alpha, L, U, XQ, sqq, a_i,
                                L_i, U_i, g_i, i_idx, use_exact, src.gammas,
@@ -95,6 +133,9 @@ def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
 
     Returns (G_new (B, n), i_next (B,), g_i_next (B,), g_dn (B,)).
     """
+    if src.is_bank:
+        return update_wss_batched_rows(src.gram, src.gram_idx, G, alpha_new,
+                                       L, U, i_idx, j_idx, mu, impl=impl)
     B = G.shape[0]
     XQ, sqq = src.query(torch.cat([i_idx, j_idx]))
     return rbf_update_wss_batched(src.X, src.sqn, G, alpha_new, L, U,
@@ -122,3 +163,16 @@ def gram(X1, X2=None, gamma=1.0, *, impl: str = "auto", device=None,
     if resolve_impl(impl, dev) == "torch":
         return ref_ops.gram_cross(X1, X2, gamma)
     return gram_block.gram_cross(X1, X2, gamma)
+
+
+def gram_bank(X, gammas, *, impl: str = "auto"):
+    """The (n_gamma, l, l) Gram bank over ``X`` (l, d): one Gram per gamma,
+    written in place into one preallocated tensor (one kernel launch per
+    gamma on the card), so no second l x l buffer is made per entry."""
+    l = X.shape[0]
+    bank = torch.empty((len(gammas), l, l), dtype=X.dtype, device=X.device)
+    fn = (gram_block.gram_cross if resolve_impl(impl, X.device) == "cuda"
+          else ref_ops.gram_cross)
+    for g, gamma in enumerate(gammas):
+        fn(X, X, float(gamma), out=bank[g])
+    return bank

@@ -1,11 +1,13 @@
-"""Pass A wrapper: the lane-batched RBF row + WSS2 selection kernel
-(``csrc/rbf_row_wss.cu``).
+"""Pass A wrappers: the lane-batched WSS2 selection kernels, with rows
+recomputed from ``X`` (``csrc/rbf_row_wss.cu``) or read from the Gram bank
+(``csrc/row_wss_rows.cu``).
 
-On CUDA tensors it launches the kernel on the current stream and returns
-its per-block (max, first argmax) pairs; on CPU tensors it runs the plain
-version, :func:`repro_torch.kernels.ref.rbf_row_wss_batched_blocks`.  There
-is no fallback from one to the other.  ``rbf_row_wss_batched.launches``
-counts kernel launches.
+On CUDA tensors each launches its kernel on the current stream and returns
+the per-block (max, first argmax) pairs; on CPU tensors it runs the plain
+version (:func:`repro_torch.kernels.ref.rbf_row_wss_batched_blocks`,
+:func:`repro_torch.kernels.ref.row_wss_batched_rows_blocks`).  There is no
+fallback from one to the other.  Each wrapper's ``launches`` attribute
+counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.checks import (check_lane_scalars, check_state,
-                                        dtype_bits)
+from repro_torch.kernels.checks import (check_bank, check_lane_scalars,
+                                        check_state, dtype_bits)
 
 
 def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
@@ -64,3 +66,45 @@ def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
 
 
 rbf_row_wss_batched.launches = 0
+
+
+def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
+                         i_idx, use_exact):
+    """Batched pass A over the Gram bank ``gram`` (n_stack, l, l).
+
+    Lane b's kernel row is ``gram[gram_idx[b], i_idx[b]]``, read by the
+    kernel in place.  ``gram_idx`` is (B,) int64, checked against the bank
+    by :func:`repro_torch.kernels.row_source.bank_source`; the other
+    arguments are as in :func:`rbf_row_wss_batched`.  Returns
+    (bmax (B, nb), barg (B, nb) int32), ``nb = ceil(l / BLOCK_L)``.
+    """
+    if G.device.type == "cpu":
+        return ref.row_wss_batched_rows_blocks(
+            gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, block_l=build.BLOCK_L)
+    if G.device.type != "cuda":
+        raise ValueError(f"bank pass A runs on cuda or cpu tensors, got "
+                         f"{G.device}")
+    B, l = G.shape
+    dtype = G.dtype
+    check_bank(gram, gram_idx, B, l, dtype, G.device)
+    for name, t in (("G", G), ("alpha", alpha), ("L", L), ("U", U)):
+        check_state(name, t, (B, l), dtype, G.device)
+    check_lane_scalars(B, G.device, dtype, a_i=a_i, L_i=L_i, U_i=U_i,
+                       g_i=g_i)
+    check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx)
+    check_lane_scalars(B, G.device, torch.bool, use_exact=use_exact)
+    nb = -(-l // build.BLOCK_L)
+    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
+    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
+    fn = build.entry("row_wss_batched_rows", dtype_bits(dtype))
+    ptrs = [t.data_ptr() for t in (gram, gram_idx, G, alpha, L, U, a_i, L_i,
+                                   U_i, g_i, i_idx, use_exact, bmax, barg)]
+    err = fn(*ptrs, B, l, G.device.index,
+             torch.cuda.current_stream(G.device).cuda_stream)
+    row_wss_batched_rows.launches += 1
+    build.check(err, "row_wss_batched_rows")
+    return bmax, barg
+
+
+row_wss_batched_rows.launches = 0

@@ -1,12 +1,14 @@
-"""Pass B wrapper: the lane-batched two-row RBF recompute + gradient update
-+ stopping-scan kernel (``csrc/rbf_update_wss.cu``).
+"""Pass B wrappers: the lane-batched gradient update + stopping-scan
+kernels, with both rows recomputed from ``X`` (``csrc/rbf_update_wss.cu``)
+or read from the Gram bank (``csrc/update_wss_rows.cu``).
 
-On CUDA tensors it launches the kernel on the current stream and returns
+On CUDA tensors each launches its kernel on the current stream and returns
 the new gradient with the per-block next-i (max, first argmax) and gap
-minimum; on CPU tensors it runs the plain version,
-:func:`repro_torch.kernels.ref.rbf_update_wss_batched_blocks`.  There is no
-fallback from one to the other.  ``rbf_update_wss_batched.launches``
-counts kernel launches.
+minimum; on CPU tensors it runs the plain version
+(:func:`repro_torch.kernels.ref.rbf_update_wss_batched_blocks`,
+:func:`repro_torch.kernels.ref.update_wss_batched_rows_blocks`).  There is
+no fallback from one to the other.  Each wrapper's ``launches`` attribute
+counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.checks import (check_lane_scalars, check_state,
-                                        dtype_bits)
+from repro_torch.kernels.checks import (check_bank, check_lane_scalars,
+                                        check_state, dtype_bits)
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
@@ -65,3 +67,46 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
 
 
 rbf_update_wss_batched.launches = 0
+
+
+def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
+                            mu):
+    """Batched pass B over the Gram bank ``gram`` (n_stack, l, l).
+
+    Lane b's rows are ``gram[gram_idx[b], i_idx[b]]`` and
+    ``gram[gram_idx[b], j_idx[b]]``, read by the kernel in place;
+    ``i_idx``/``j_idx`` are (B,) int32, ``gram_idx`` (B,) int64 and ``mu``
+    (B,) in the data dtype.  G is written out of place.  Returns
+    (G_new (B, l), bmax (B, nb), barg (B, nb) int32, bmin (B, nb)).
+    """
+    if G.device.type == "cpu":
+        return ref.update_wss_batched_rows_blocks(
+            gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
+            block_l=build.BLOCK_L)
+    if G.device.type != "cuda":
+        raise ValueError(f"bank pass B runs on cuda or cpu tensors, got "
+                         f"{G.device}")
+    B, l = G.shape
+    dtype = G.dtype
+    check_bank(gram, gram_idx, B, l, dtype, G.device)
+    for name, t in (("G", G), ("alpha_new", alpha_new), ("L", L), ("U", U)):
+        check_state(name, t, (B, l), dtype, G.device)
+    check_lane_scalars(B, G.device, dtype, mu=mu)
+    check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx, j_idx=j_idx)
+    nb = -(-l // build.BLOCK_L)
+    G_out = torch.empty_like(G)
+    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
+    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
+    bmin = torch.empty((B, nb), dtype=dtype, device=G.device)
+    fn = build.entry("update_wss_batched_rows", dtype_bits(dtype))
+    ptrs = [t.data_ptr() for t in (gram, gram_idx, i_idx, j_idx, G,
+                                   alpha_new, L, U, mu, G_out, bmax, barg,
+                                   bmin)]
+    err = fn(*ptrs, B, l, G.device.index,
+             torch.cuda.current_stream(G.device).cuda_stream)
+    update_wss_batched_rows.launches += 1
+    build.check(err, "update_wss_batched_rows")
+    return G_out, bmax, barg, bmin
+
+
+update_wss_batched_rows.launches = 0

@@ -102,12 +102,18 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
     return update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U)
 
 
-def gram_cross(X1, X2, gamma):
-    """Cross Gram matrix k(X1, X2) -> (l1, l2)."""
+def bank_rows(gram, gram_idx, idx):
+    """Rows ``gram[gram_idx, idx]`` of the Gram bank -> (B, l)."""
+    return gram[gram_idx, idx.long()]
+
+
+def gram_cross(X1, X2, gamma, *, out=None):
+    """Cross Gram matrix k(X1, X2) -> (l1, l2), written into ``out`` when
+    given."""
     s1 = torch.sum(X1 * X1, dim=-1)
     s2 = torch.sum(X2 * X2, dim=-1)
     d2 = s1[:, None] + s2[None, :] - 2.0 * (X1 @ X2.T)
-    return torch.exp(-gamma * torch.clamp_min(d2, 0.0))
+    return torch.exp(-gamma * torch.clamp_min(d2, 0.0), out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -150,5 +156,23 @@ def rbf_update_wss_batched_blocks(X, sqn, G, alpha_new, L, U, XQi, sqqi,
     """Pass B as the kernel returns it: (G_new, bmax, barg, bmin)."""
     k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas)
     G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U)
+    bmax, barg = block_first_max(vals_up, block_l)
+    return G_new, bmax, barg, block_min(vals_dn, block_l)
+
+
+def row_wss_batched_rows_blocks(gram, gram_idx, G, alpha, L, U, a_i, L_i,
+                                U_i, g_i, i_idx, use_exact, *, block_l: int):
+    """Bank pass A as the kernel returns it: per-block (bmax, barg)."""
+    k = bank_rows(gram, gram_idx, i_idx)
+    return block_first_max(_wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
+                                     i_idx, use_exact), block_l)
+
+
+def update_wss_batched_rows_blocks(gram, gram_idx, G, alpha_new, L, U,
+                                   i_idx, j_idx, mu, *, block_l: int):
+    """Bank pass B as the kernel returns it: (G_new, bmax, barg, bmin)."""
+    G_new, vals_up, vals_dn = _update_vals(
+        G, bank_rows(gram, gram_idx, i_idx), bank_rows(gram, gram_idx, j_idx),
+        mu, alpha_new, L, U)
     bmax, barg = block_first_max(vals_up, block_l)
     return G_new, bmax, barg, block_min(vals_dn, block_l)

@@ -36,8 +36,10 @@ class SVC(SVMEstimatorBase):
     ``"torch"`` or ``"auto"``) for the fit and the predict Gram.
     ``device`` defaults to the CUDA card: ``fit`` raises without one unless
     ``device="cpu"`` is given.  ``dtype`` defaults to
-    ``torch.get_default_dtype()``.  ``precompute`` is accepted; in this
-    slice rows are always recomputed from ``X``.  ``engine="batched"`` /
+    ``torch.get_default_dtype()``.  ``precompute`` (default ``True``)
+    builds the shared Gram matrix and reads rows from it on the plain
+    backend only; the CUDA kernels recompute rows from ``X``, as the
+    reference's accelerator path does.  ``engine="batched"`` /
     ``"sharded"``, ``mesh``, ``devices``, ``diagnostics`` and
     ``step="conjugate"`` belong to later slices and raise
     ``NotImplementedError``.

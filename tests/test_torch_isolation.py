@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import grid
 from repro_torch.core.solver import SolverConfig
 from repro_torch.core.solver_fused import solve_fused_batched
 from repro_torch.kernels import build, ops
@@ -115,7 +116,8 @@ def test_default_dtype_follows_torch():
 def test_build_targets_hopper_with_ieee_math(tmp_path):
     cmds = build.compile_commands("nvcc", tmp_path)
     assert {pathlib.Path(c[c.index("-c") + 1]).name for c in cmds} == {
-        "rbf_row_wss.cu", "rbf_update_wss.cu", "gram_block.cu"}
+        "rbf_row_wss.cu", "rbf_update_wss.cu", "gram_block.cu",
+        "row_wss_rows.cu", "update_wss_rows.cu"}
     for c in cmds:
         assert "arch=compute_90a,code=sm_90a" in c
         assert not any("fast_math" in a or "fast-math" in a for a in c)
@@ -140,3 +142,61 @@ def test_cpu_path_launches_no_kernel():
     clf.predict(X[:5])
     assert kernels.launches() == before
     assert np.isfinite(clf.decision_function(X[:5]).numpy()).all()
+
+
+def _grid_problem():
+    X, y = xor_gaussians(32, seed=0)
+    return X, np.stack([y, -y])
+
+
+def test_grid_entry_points_without_a_card_raise(no_cuda):
+    X, Y = _grid_problem()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grid.solve_grid(X, Y, [1.0], [0.5], impl="auto")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grid.solve_grid_oneclass(X, [0.2], [0.5])
+    r = grid.solve_grid(X, Y, [1.0], [0.5], impl="auto", device="cpu")
+    assert r.alpha.device.type == "cpu"
+
+
+def test_grid_impl_cuda_on_cpu_tensors_raises():
+    X, Y = _grid_problem()
+    for precompute in (True, False):
+        with pytest.raises(ValueError, match="impl='cuda'"):
+            grid.solve_grid(X, Y, [1.0], [0.5], impl="cuda",
+                            precompute=precompute, device="cpu")
+        with pytest.raises(ValueError, match="impl='cuda'"):
+            grid.solve_grid_oneclass(X, [0.2], [0.5], impl="cuda",
+                                     precompute=precompute, device="cpu")
+
+
+@pytest.mark.parametrize("kw,step", [(dict(impl=None), "step 10"),
+                                     (dict(shrinking=True), "step 7"),
+                                     (dict(mesh=object()), "step 12"),
+                                     (dict(devices=("cuda:0",)), "step 12"),
+                                     (dict(diagnostics=object()), "step 9")])
+def test_grid_later_slices_raise_not_implemented(kw, step):
+    X, Y = _grid_problem()
+    kw = {"impl": "auto", **kw}
+    with pytest.raises(NotImplementedError, match=step):
+        grid.solve_grid(X, Y, [1.0], [0.5], device="cpu", **kw)
+    if kw["impl"] is not None:
+        with pytest.raises(NotImplementedError, match=step):
+            grid.solve_grid_oneclass(X, [0.2], [0.5], device="cpu", **kw)
+
+
+def test_grid_cpu_path_launches_no_kernel():
+    from repro_torch import kernels
+    before = kernels.launches()
+    X, Y = _grid_problem()
+    for precompute in (True, False):
+        r = grid.solve_grid(X, Y, [1.0, 4.0], [0.5, 1.0], impl="auto",
+                            precompute=precompute, device="cpu",
+                            dtype=torch.float64)
+        grid.grid_decision(X[:5], X, [0.5, 1.0], r.alpha, r.b)
+        grid.solve_grid_oneclass(X, [0.2], [0.5], precompute=precompute,
+                                 device="cpu", dtype=torch.float64)
+    assert kernels.launches() == before
+    assert set(before) == {"rbf_row_wss_batched", "rbf_update_wss_batched",
+                           "gram_block", "row_wss_batched_rows",
+                           "update_wss_batched_rows"}
