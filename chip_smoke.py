@@ -8,18 +8,22 @@ failure raises and the script exits non-zero without a result line:
 
 1. env    — the card (``nvidia-smi`` name and power limit), torch and CUDA.
 2. build  — ``nvcc`` builds the kernels from ``src/repro_torch/kernels/csrc``.
-3. kernels vs plain — pass A, pass B, the Gram kernel and the two Gram-bank
-   passes against their plain PyTorch versions on the same inputs on the
-   card, at the main paths' shapes and at odd ones, in float64 and
-   float32, with the edge cases of the CPU tests (all-masked lane, ties
-   across blocks, a mu = 0 lane, per-lane gammas, lanes spread over the
-   bank's entries, both gain rules).  Tolerance: values to rtol 1e-12
-   (f64) / 1e-5 (f32); indices exactly, except that in f32 an argmax may
-   differ where the plain version's gains at both picks agree to 1e-6
-   relative (the kernel sums its products in another order).
-4. end to end, small — binary and 3-class SVC, smo and pasmo, and a
-   3-class 2 x 2 (C, gamma) grid through both row sources, f64,
-   ``impl="cuda"`` against ``impl="torch"``.
+3. kernels vs plain — pass A, pass B (one state half and the H = 2
+   variants of the doubled e-SVR operator), the Gram kernel, the two
+   Gram-bank passes and the single-lane passes (kernels 6 and 7) against
+   their plain PyTorch versions on the same inputs on the card, at the main
+   paths' shapes and at odd ones, in float64 and float32, with the edge
+   cases of the CPU tests (all-masked lane, ties across blocks and across
+   state halves, a mu = 0 lane, per-lane gammas, lanes spread over the
+   bank's entries, both gain rules, a false and a true relaunch flag).
+   Tolerance: values to rtol 1e-12 (f64) / 1e-5 (f32); indices exactly,
+   except that in f32 an argmax may differ where the plain version's gains
+   at both picks agree to 1e-6 relative (the kernel sums its products in
+   another order).
+4. end to end, small — binary and 3-class SVC, smo and pasmo, a 3-class
+   2 x 2 (C, gamma) grid through both row sources, single-lane
+   ``solve_fused`` (smo, pasmo), SVR, OneClassSVM and a 2 x 2 x 2 e-SVR
+   grid, f64, ``impl="cuda"`` against ``impl="torch"``.
 5. SVC, full width (slice 1's main path) — a 10-class one-vs-rest SVC at
    l = 16384, d = 128 in f64 and f32: convergence, gradient drift, KKT
    gap, held-out agreement, launch counts, and each kernel's device time
@@ -29,11 +33,27 @@ failure raises and the script exits non-zero without a result line:
 6. grid, full width (slice 2's main path) — the (C, gamma) grid of the
    same data, 3 gammas x 10 classes x 3 Cs = 90 lanes, through the Gram
    bank (f64 and f32) and through the rbf passes (f64): convergence, bank
-   against rbf objectives, gradient drift and KKT gap, launch counts,
-   held-out accuracy per (gamma, C), peak memory, wall time an iteration,
-   a ``torch.profiler`` window, kernels 1, 2, 4 and 5 timed at B = 90 and
-   the bank build timed; then the one-class grid (3 nus x the 3 gammas)
-   through both row sources.
+   against rbf objectives, gradient
+   drift and KKT gap, launch counts, held-out accuracy per (gamma, C),
+   peak memory, wall time an iteration, a ``torch.profiler`` window,
+   kernels 1, 2, 4 and 5 timed at B = 90 and the bank build timed; then
+   the one-class grid (3 nus x the 3 gammas) through both row sources.
+7. single lane, full width (slice 3) — ``solve_fused`` on lane 0 of phase
+   5's problem against the batched fit's lane 0 (objective, drift, KKT
+   gap, launches, relaunches that ran), the fused row of
+   ``benchmarks/solver_micro.py`` at its largest size as a timing row, and
+   a ``torch.profiler`` window.
+8. e-SVR and one-class, full width (slice 3) — ``SVR(C=10, epsilon=0.1,
+   gamma="scale")`` on a sinc target of the same X, the 18-lane e-SVR grid,
+   ``OneClassSVM(nu=0.1)`` and the SVR again in f32: convergence, drift
+   against p - Q alpha, KKT gap, sum(alpha), held-out R^2, launch counts,
+   a profiler window; then kernels 6, 7 and the H = 2 variants timed
+   beside their bounds.
+
+The solvers replay their loop body as CUDA graphs on the card
+(``repro_torch.core.solver_fused._drive``); the profiler windows span one
+check chunk, which the loop runs eagerly, so no graph is captured inside a
+window.
 
 The line before the last is the kernels' JSON record; the last is the
 contract line ``{"ok": true, "device": {...}}``.  No JAX and nothing of the
@@ -83,9 +103,31 @@ SOURCES = {
     "update_wss_batched_rows": (
         "src/repro_torch/kernels/csrc/update_wss_rows.cu",
         "src/repro/kernels/rbf_update_wss.py:261"),
+    "rbf_row_wss": ("src/repro_torch/kernels/csrc/rbf_row_wss.cu",
+                    "src/repro/kernels/rbf_row_wss.py:292"),
+    "rbf_update_wss": ("src/repro_torch/kernels/csrc/rbf_update_wss.cu",
+                       "src/repro/kernels/rbf_update_wss.py:316"),
+    "rbf_row_wss_batched_h2": ("src/repro_torch/kernels/csrc/rbf_row_wss.cu",
+                               "src/repro/kernels/rbf_row_wss.py:193"),
+    "rbf_update_wss_batched_h2": (
+        "src/repro_torch/kernels/csrc/rbf_update_wss.cu",
+        "src/repro/kernels/rbf_update_wss.py:196"),
 }
 BANK_PASSES = ("row_wss_batched_rows", "update_wss_batched_rows")
 RBF_PASSES = ("rbf_row_wss_batched", "rbf_update_wss_batched")
+H2_PASSES = ("rbf_row_wss_batched_h2", "rbf_update_wss_batched_h2")
+SINGLE_PASSES = ("rbf_row_wss", "rbf_update_wss")
+# Slice 3: the e-SVR grid (gamma_scale times these, tube widths, Cs), the
+# single-lane timing row of benchmarks/solver_micro.py, one-class nu.
+SVR_GAMMA_FACTORS = (0.5, 1.0, 2.0)
+SVR_EPSILONS = (0.05, 0.1, 0.2)
+SVR_CS = (1.0, 10.0)
+SVR_B = len(SVR_GAMMA_FACTORS) * len(SVR_EPSILONS) * len(SVR_CS)
+MICRO = dict(n=16384, C=100.0, gamma=0.5, max_iter=30_000)
+# Profiler windows span one host-check chunk of the solvers (CHECK_EVERY):
+# the loop runs its first chunk eagerly, so no CUDA graph is captured
+# inside a window; the kernels an iteration are the same as a replay's.
+PROFILE_ITERS = 32
 
 
 def say(*parts):
@@ -424,6 +466,220 @@ def check_gram(X1, X2, gamma, dtype, label, errs):
     errs.append(_close(f"gram {label}", K_k, K_p, TOL[dtype], 1.0))
 
 
+def single_state(l, d, seed, dtype, device):
+    """Kernel 6 and 7 inputs (one lane): points 5 and l-3 are duplicates
+    with equal state, an exact gain tie across blocks that is the best of
+    pass A and, with a raised G, of pass B's next-i scan."""
+    rng = np.random.default_rng(seed)
+    ta, tb = 5, l - 3
+    X = rng.normal(size=(l, d))
+    X[tb] = X[ta]
+    y = rng.choice([-1.0, 1.0], size=l)
+    L, U = np.minimum(0.0, 2.0 * y), np.maximum(0.0, 2.0 * y)
+    frac = rng.uniform(size=l)
+    frac = np.where(rng.uniform(size=l) < 0.4, np.round(frac), frac)
+    frac[[ta, tb]] = 0.5
+    alpha = L + (U - L) * frac
+    G = rng.normal(size=l)
+    G[ta] = G.min() - 50.0
+    for arr in (G, alpha, L, U):
+        arr[tb] = arr[ta]
+    i, j = int(rng.integers(ta + 1, tb)), int(rng.integers(0, l))
+    G_b = G.copy()
+    G_b[[ta, tb]] = G.max() + 5.0
+    sqn = (X * X).sum(axis=1)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    one = lambda a: t(np.reshape(a, (1,)))
+    return dict(X=t(X), sqn=t(sqn), G=t(G), alpha=t(alpha), L=t(L), U=t(U),
+                xq=t(X[i]), sqq=one(sqn[i]), a_i=one(alpha[i]),
+                L_i=one(L[i]), U_i=one(U[i]), g_i=one(G[i] + 1.0),
+                i_idx=torch.tensor([i], dtype=torch.int32, device=device),
+                use_exact=torch.tensor([False], device=device),
+                gamma=one(16.0 / (8.0 * d)), G_b=t(G_b), xq_j=t(X[j]),
+                sqq_j=one(sqn[j]), mu=one(rng.normal()))
+
+
+SINGLE_A = ("X", "sqn", "G", "alpha", "L", "U", "xq", "sqq", "a_i", "L_i",
+            "U_i", "g_i", "i_idx", "use_exact", "gamma")
+
+
+def check_single(s, dtype, label, errs_a, errs_b):
+    """Kernel 6 (with its relaunch flag both ways) and kernel 7 (with
+    mu = 0 bitwise) against their plain versions."""
+    from repro_torch.kernels import build, ops, rbf_row_wss, rbf_update_wss
+    from repro_torch.kernels import ref
+    args = [s[k] for k in SINGLE_A]
+    bl = build.BLOCK_L
+    k_k, bmax, barg = rbf_row_wss.rbf_row_wss(*args)
+    k_p, pmax, parg = ref.rbf_row_wss_blocks(*args, block_l=bl)
+    vals = ref._wss_vals(k_p[None], *[s[k][None] for k in (
+        "G", "alpha", "L", "U")], *[s[k] for k in (
+            "a_i", "L_i", "U_i", "g_i", "i_idx", "use_exact")])
+    err = _close(f"kernel 6 k {label}", k_k, k_p, TOL[dtype], 1.0)
+    err = max(err, _close(f"kernel 6 bmax {label}", bmax, pmax, TOL[dtype]))
+    n_ties = _same_picks(f"kernel 6 barg {label}", barg[None], parg[None],
+                         vals, dtype)
+    j_c = ops._first_max(bmax[None], barg[None])[0]
+    assert int(j_c[0]) == 5, (label, int(j_c[0]))
+    # the relaunch: a false flag leaves the stored row bitwise as it was
+    sentinel = torch.full_like(k_k, 7.0)
+    stored = sentinel.clone()
+    other = dict(s, xq=s["xq_j"], sqq=s["sqq_j"])
+    other_args = [other[k] for k in SINGLE_A]
+    stored = rbf_row_wss.rbf_row_wss(
+        *other_args, k_out=stored, run=torch.zeros_like(s["use_exact"]))[0]
+    if not torch.equal(stored, sentinel):
+        raise AssertionError(f"kernel 6 {label}: a false relaunch flag "
+                             f"changed the stored row")
+    stored = rbf_row_wss.rbf_row_wss(
+        *other_args, k_out=stored, run=torch.ones_like(s["use_exact"]))[0]
+    err = max(err, _close(f"kernel 6 relaunched k {label}", stored,
+                          ref.rbf_row_wss_blocks(*other_args,
+                                                 block_l=bl)[0],
+                          TOL[dtype], 1.0))
+    errs_a.append(err)
+
+    b_args = [s["X"], s["sqn"], s["G_b"], k_p, s["alpha"], s["L"], s["U"],
+              s["xq_j"], s["sqq_j"]]
+    scale = float(s["G_b"].abs().max())
+    err = 0.0
+    for mu in (s["mu"], torch.zeros_like(s["mu"])):
+        G_k, bmax, barg, bmin = rbf_update_wss.rbf_update_wss(
+            *b_args, mu, s["gamma"])
+        G_p, pmax, parg, pmin = ref.rbf_update_wss_blocks(
+            *b_args, mu, s["gamma"], block_l=bl)
+        if float(mu) == 0.0 and not torch.equal(G_k, s["G_b"]):
+            raise AssertionError(f"kernel 7 {label}: mu = 0 changed G")
+        err = max(err, _close(f"kernel 7 G {label}", G_k, G_p, TOL[dtype],
+                              scale))
+        err = max(err, _close(f"kernel 7 bmax {label}", bmax, pmax,
+                              TOL[dtype], scale))
+        err = max(err, _close(f"kernel 7 bmin {label}", bmin, pmin,
+                              TOL[dtype], scale))
+        up = torch.where(s["alpha"] < s["U"], G_p, -math.inf)[None]
+        n_ties += _same_picks(f"kernel 7 barg {label}", barg[None],
+                              parg[None], up, dtype)
+        i_c = ops._first_max(bmax[None], barg[None])[0]
+        assert int(i_c[0]) == 5, (label, int(i_c[0]))
+    errs_b.append(err)
+    return n_ties
+
+
+def dup_state(l, d, B, seed, dtype, device):
+    """H = 2 pass A and pass B inputs: (B, 2l) state over the base X, with
+    the CPU tests' edge cases.  Points 5 and l-3 coincide and half 1 at 5
+    carries half 0's state at l-3, so the two tie exactly across halves
+    and blocks (the lower doubled index l-3 must win); i lies in half 1
+    and its partner i - l is masked; the last lane of B > 1 is all-masked
+    in pass A and has an empty I_up in pass B; lane 0 takes mu = 0."""
+    rng = np.random.default_rng(seed)
+    ta, tb = 5, l - 3
+    X = rng.normal(size=(l, d))
+    X[tb] = X[ta]
+    C = rng.choice([0.5, 1.0, 10.0], size=(B, 1))
+    zero = np.zeros((B, l))
+    L = np.concatenate([zero, zero - C], axis=1)
+    U = np.concatenate([zero + C, zero], axis=1)
+    frac = rng.uniform(size=(B, 2 * l))
+    frac = np.where(rng.uniform(size=(B, 2 * l)) < 0.4, np.round(frac), frac)
+    alpha = L + (U - L) * frac
+    G = rng.normal(size=(B, 2 * l))
+    G[:, tb] = G.min(axis=1) - 50.0
+    alpha[:, tb] = 0.5 * C[:, 0]
+    for arr in (G, alpha, L, U):
+        arr[:, l + ta] = arr[:, tb]
+    lanes = np.arange(B)
+    i_idx = rng.integers(ta + 1, tb, size=B) + l
+    alpha[lanes, i_idx - l] = L[lanes, i_idx - l]
+    j_idx = rng.integers(0, 2 * l, size=B)
+    alpha_b = alpha.copy()
+    G_b = G.copy()
+    G_b[:, [tb, l + ta]] = G.max(axis=1, keepdims=True) + 5.0
+    if B > 1:
+        alpha[-1] = L[-1]
+        alpha_b[-1] = U[-1]
+    mu = rng.normal(size=B)
+    mu[0] = 0.0
+    sqn = (X * X).sum(axis=1)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    ib, jb = i_idx - l, j_idx % l
+    a = dict(X=t(X), sqn=t(sqn), G=t(G), alpha=t(alpha), L=t(L), U=t(U),
+             XQ=t(X[ib]), sqq=t(sqn[ib]), a_i=t(alpha[lanes, i_idx]),
+             L_i=t(L[lanes, i_idx]), U_i=t(U[lanes, i_idx]),
+             g_i=t(G[lanes, i_idx] + 1.0),
+             i_idx=torch.tensor(i_idx, dtype=torch.int32, device=device),
+             use_exact=torch.tensor(lanes % 2 == 1, device=device),
+             gammas=t(rng.uniform(0.05, 0.5, B) * 16.0 / d))
+    b = dict(X=a["X"], sqn=a["sqn"], G=t(G_b), alpha_new=t(alpha_b),
+             L=a["L"], U=a["U"], XQi=a["XQ"], sqqi=a["sqq"], XQj=t(X[jb]),
+             sqqj=t(sqn[jb]), mu=t(mu), gammas=a["gammas"])
+    return a, b
+
+
+def check_h2(a, b, dtype, label, errs_a, errs_b):
+    """The H = 2 variants of kernels 1 and 2 against their plain versions,
+    with the cross-half tie and the mu = 0 lane."""
+    from repro_torch.kernels import build, ops, rbf_row_wss, rbf_update_wss
+    from repro_torch.kernels import ref
+    bl = build.BLOCK_L
+    l = a["X"].shape[0]
+    args = [a[k] for k in PASS_A_KEYS]
+    bmax, barg = rbf_row_wss.rbf_row_wss_batched_h2(*args)
+    pmax, parg = ref.rbf_row_wss_batched_blocks(*args, block_l=bl, dup=True)
+    vals = ref._wss_vals(ref.rbf_rows_batched(
+        a["X"], a["sqn"], a["XQ"], a["sqq"], a["gammas"], dup=True),
+        *[a[k] for k in ("G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i",
+                         "i_idx", "use_exact")])
+    err = _close(f"H=2 pass A bmax {label}", bmax, pmax, TOL[dtype])
+    n_ties = _same_picks(f"H=2 pass A barg {label}", barg, parg, vals, dtype)
+    j_c, g_c = ops.rbf_row_wss_batched(*args, impl="cuda", dup=True)
+    j_t, g_t = ops.rbf_row_wss_batched(*args, impl="torch", dup=True)
+    err = max(err, _close(f"H=2 pass A gain {label}", g_c, g_t, TOL[dtype]))
+    n_ties += _same_picks(f"H=2 pass A j {label}", j_c[:, None],
+                          j_t[:, None], vals, dtype)
+    B = a["G"].shape[0]
+    newton = [k for k in range(0, B - (B > 1), 2)]
+    assert (j_c[newton] == l - 3).all(), (label, j_c)
+    if B > 1:
+        assert int(j_c[-1]) == 0 and g_c[-1].item() == -math.inf, label
+    errs_a.append(err)
+
+    args = [b[k] for k in PASS_B_KEYS]
+    G_k, bmax, barg, bmin = rbf_update_wss.rbf_update_wss_batched_h2(*args)
+    G_p, pmax, parg, pmin = ref.rbf_update_wss_batched_blocks(
+        *args, block_l=bl, dup=True)
+    if not torch.equal(G_k[0], b["G"][0]):
+        raise AssertionError(f"H=2 pass B {label}: the mu = 0 lane changed")
+    scale = float(b["G"].abs().max())
+    err = _close(f"H=2 pass B G {label}", G_k, G_p, TOL[dtype], scale)
+    err = max(err, _close(f"H=2 pass B bmax {label}", bmax, pmax, TOL[dtype],
+                          scale))
+    err = max(err, _close(f"H=2 pass B bmin {label}", bmin, pmin, TOL[dtype],
+                          scale))
+    vals = torch.where(b["alpha_new"] < b["U"], G_p, -math.inf)
+    n_ties += _same_picks(f"H=2 pass B barg {label}", barg, parg, vals,
+                          dtype)
+    _, i_c, gi_c, gdn_c = ops.rbf_update_wss_batched(*args, impl="cuda",
+                                                     dup=True)
+    _, i_t, gi_t, gdn_t = ops.rbf_update_wss_batched(*args, impl="torch",
+                                                     dup=True)
+    err = max(err, _close(f"H=2 pass B g_i {label}", gi_c, gi_t, TOL[dtype],
+                          scale))
+    err = max(err, _close(f"H=2 pass B g_dn {label}", gdn_c, gdn_t,
+                          TOL[dtype], scale))
+    n_ties += _same_picks(f"H=2 pass B i {label}", i_c[:, None],
+                          i_t[:, None], vals, dtype)
+    assert (i_c[:B - (B > 1)] == l - 3).all(), (label, i_c)
+    errs_b.append(err)
+    return n_ties
+
+
+PASS_A_KEYS = ("X", "sqn", "G", "alpha", "L", "U", "XQ", "sqq", "a_i", "L_i",
+               "U_i", "g_i", "i_idx", "use_exact", "gammas")
+PASS_B_KEYS = ("X", "sqn", "G", "alpha_new", "L", "U", "XQi", "sqqi", "XQj",
+               "sqqj", "mu", "gammas")
+
+
 def phase_kernels(device) -> dict:
     errs = {k: [] for k in SOURCES}
     shapes = [(N_TRAIN, D, K, "main"), (1000, D, 1, "odd"),
@@ -461,6 +717,26 @@ def phase_kernels(device) -> dict:
             del a, b
             say(f"[kernels] bank pass A ok ({ta} f32 near-ties), bank pass "
                 f"B ok ({tb} f32 near-ties): {label}")
+        for l, d, kind in ((N_TRAIN, D, "main"), (1000, 37, "odd"),
+                           (300, 5, "odd")):
+            label = f"{kind} l={l} d={d} {str(dtype)[6:]}"
+            n = check_single(single_state(l, d, l + d, dtype, device), dtype,
+                             label, errs["rbf_row_wss"],
+                             errs["rbf_update_wss"])
+            say(f"[kernels] kernel 6 ok (relaunch flag false: row "
+                f"untouched; true: replaced), kernel 7 ok (mu = 0 bitwise) "
+                f"({n} f32 near-ties): {label}")
+        for l, d, B, kind in ((N_TRAIN, D, SVR_B, "main"),
+                              (N_TRAIN, D, 7, "odd"), (1000, 37, 1, "odd"),
+                              (300, 5, 19, "odd")):
+            label = f"{kind} l={l} d={d} B={B} {str(dtype)[6:]}"
+            a, b = dup_state(l, d, B, l + d + B, dtype, device)
+            n = check_h2(a, b, dtype, label,
+                         errs["rbf_row_wss_batched_h2"],
+                         errs["rbf_update_wss_batched_h2"])
+            del a, b
+            say(f"[kernels] H=2 pass A and pass B ok (cross-half tie to the "
+                f"lower index, mu = 0 bitwise) ({n} f32 near-ties): {label}")
     torch.cuda.synchronize()
     worst = {k: max(v) for k, v in errs.items()}
     say(f"[kernels] all kernels agree with their plain versions; max abs "
@@ -531,6 +807,85 @@ def phase_small(device, impl):
             f"iterations {rk.iterations.flatten().tolist()} (plain "
             f"{rp.iterations.flatten().tolist()}), objective rel diff "
             f"{float(rel.max()):.3e}")
+    phase_small_slice3(device, impl, eps)
+
+
+def sinc_target(X, seed):
+    """The repo's sinc target (examples/svr_quickstart.py) on a seeded unit
+    projection of X, standardised and scaled to +-3, with 0.1 noise."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=X.shape[1])
+    z = X @ (w / np.linalg.norm(w))
+    z = (z - z.mean()) / z.std()
+    z = 3.0 * z / np.abs(z).max()
+    return np.sinc(z) + 0.1 * rng.normal(size=len(z))
+
+
+def phase_small_slice3(device, impl, eps):
+    """Slice 3 end to end, small: single-lane solve_fused, SVR, OneClassSVM
+    and a 2 x 2 x 2 e-SVR grid, ``impl`` against ``impl="torch"``."""
+    from repro_torch.core import grid
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.core.solver_fused import solve_fused
+    from repro_torch.svm import SVR, OneClassSVM, data
+    X, y = data.xor_gaussians(400, seed=3)
+    for alg in ("smo", "pasmo"):
+        fits = {which: solve_fused(X, y, 10.0, 0.5,
+                                   SolverConfig(algorithm=alg, eps=eps),
+                                   impl=which, device=device,
+                                   dtype=torch.float64)
+                for which in (impl, "torch")}
+        rk, rp = fits[impl], fits["torch"]
+        assert bool(rk.converged) and bool(rp.converged)
+        assert float(rk.kkt_gap) <= eps
+        np.testing.assert_allclose(float(rk.objective), float(rp.objective),
+                                   rtol=1e-6)
+        say(f"[small] solve_fused {alg}: iterations {int(rk.iterations)} "
+            f"(plain {int(rp.iterations)}), objective rel diff "
+            f"{abs(float(rk.objective / rp.objective) - 1):.3e}")
+    Xs = np.random.default_rng(4).normal(size=(500, 6))
+    ys = sinc_target(Xs, 5)
+    Xtr, ytr, Xte = Xs[:400], ys[:400], Xs[400:]
+    fits = {which: SVR(C=1.0, epsilon=0.1, gamma="scale", eps=eps,
+                       impl=which, device=device,
+                       dtype=torch.float64).fit(Xtr, ytr)
+            for which in (impl, "torch")}
+    rk, rp = fits[impl].fit_result_, fits["torch"].fit_result_
+    assert bool(rk.converged) and float(rk.kkt_gap) <= eps
+    np.testing.assert_allclose(float(rk.objective), float(rp.objective),
+                               rtol=1e-6)
+    assert abs(float(rk.alpha.sum())) <= 1e-8
+    pk = fits[impl].predict(Xte)
+    pp = fits["torch"].predict(Xte)
+    say(f"[small] SVR: iterations {int(rk.iterations)} (plain "
+        f"{int(rp.iterations)}), objective rel diff "
+        f"{abs(float(rk.objective / rp.objective) - 1):.3e}, held-out "
+        f"prediction max diff {float((pk - pp).abs().max()):.3e}")
+    fits = {which: OneClassSVM(nu=0.1, gamma="scale", eps=eps, impl=which,
+                               device=device,
+                               dtype=torch.float64).fit(Xtr)
+            for which in (impl, "torch")}
+    rk, rp = fits[impl].fit_result_, fits["torch"].fit_result_
+    assert bool(rk.converged) and float(rk.kkt_gap) <= eps
+    np.testing.assert_allclose(float(rk.objective), float(rp.objective),
+                               rtol=1e-6)
+    say(f"[small] OneClassSVM: iterations {int(rk.iterations)} (plain "
+        f"{int(rp.iterations)}), objective rel diff "
+        f"{abs(float(rk.objective / rp.objective) - 1):.3e}")
+    fits = {which: grid.solve_grid_svr(Xtr, ytr, (0.5, 2.0), (0.05, 0.2),
+                                       (0.1, 0.4), SolverConfig(eps=1e-5),
+                                       impl=which, device=device,
+                                       dtype=torch.float64)
+            for which in (impl, "torch")}
+    rk, rp = fits[impl], fits["torch"]
+    assert bool(rk.converged.all()) and float(rk.kkt_gap.max()) <= 1e-5
+    np.testing.assert_allclose(rk.objective.cpu().numpy(),
+                               rp.objective.cpu().numpy(), rtol=1e-6)
+    rel = (rk.objective - rp.objective).abs() / rp.objective.abs()
+    say(f"[small] e-SVR grid 2x2x2 ({impl}: rbf H=2; plain: bank): "
+        f"iterations {rk.iterations.flatten().tolist()} (plain "
+        f"{rp.iterations.flatten().tolist()}), objective rel diff "
+        f"{float(rel.max()):.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -631,13 +986,15 @@ def phase_full(device, timer):
     from repro_torch.svm import SVC
     profile_iterations(
         lambda: SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=1e-3,
-                    max_iter=64, device=device,
+                    max_iter=PROFILE_ITERS, device=device,
                     dtype=torch.float64).fit(Xtr, ytr),
         "SVC f64 full width", ms_iter)
-    return rec, counts
+    lane0 = dict(objective=float(r64.objective[0]), gamma=c64.gamma_,
+                 iterations=int(r64.iterations[0]))
+    return rec, counts, lane0
 
 
-def profile_iterations(run, label, ms_iter, n_iter=64):
+def profile_iterations(run, label, ms_iter, n_iter=None):
     """Device kernels an iteration launches and the device's busy share of
     the iteration's wall time, from ``torch.profiler`` over ``run()``, a
     fit capped at ``n_iter`` iterations at full width (the lanes do not
@@ -645,6 +1002,7 @@ def profile_iterations(run, label, ms_iter, n_iter=64):
     ``gamma="scale"``, results down) and Gram-bank builds are reported
     apart from the iterations' kernels."""
     from torch.profiler import ProfilerActivity, profile
+    n_iter = PROFILE_ITERS if n_iter is None else n_iter
     run()                                    # warm-up, outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -751,36 +1109,45 @@ def kernel_times(device, timer):
 # ---------------------------------------------------------------------------
 
 
-def fit_grid(solve, device):
-    """Run ``solve()`` with the launch counts set to 0 just before and read
-    just after; returns (result, counts, wall s, loop iterations, peak
-    bytes)."""
+def counted(run):
+    """``run()`` with the launch counts set to 0 just before and read just
+    after: (result, counts, wall s)."""
     from repro_torch import kernels
-    from repro_torch.core.solver_fused import CHECK_EVERY
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    r = solve()
+    r = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launches()
+    return r, kernels.launches(), wall
+
+
+def check_only(counts, on, label):
+    """Exactly the kernels ``on`` ({name: launches}) ran, as often as
+    given."""
+    for name, n in counts.items():
+        want = on.get(name, 0)
+        assert n == want, (label, name, n, want, counts)
+
+
+def fit_grid(solve, device):
+    """``counted(solve)`` for a grid: (result, counts, wall s, loop
+    iterations, peak bytes)."""
+    from repro_torch.core.solver_fused import CHECK_EVERY
+    torch.cuda.reset_peak_memory_stats(device)
+    r, counts, wall = counted(solve)
     t = loop_iterations(r.iterations, CHECK_EVERY, 1_000_000)
     return r, counts, wall, t, torch.cuda.max_memory_allocated(device)
 
 
 def check_counts(counts, t, bank: bool, label):
     """Each iteration launches one pass A and one pass B of its row source
-    and none of the other; a bank build launches the Gram kernel once per
+    and no other kernel; a bank build launches the Gram kernel once per
     gamma."""
-    on, off = (BANK_PASSES, RBF_PASSES) if bank else (RBF_PASSES,
-                                                      BANK_PASSES)
-    n_gram = len(GRID_GAMMA_FACTORS) if bank else 0
-    for name in on:
-        assert counts[name] == t, (label, name, counts, t)
-    for name in off:
-        assert counts[name] == 0, (label, name, counts)
-    assert counts["gram_block"] == n_gram, (label, counts)
+    want = {name: t for name in (BANK_PASSES if bank else RBF_PASSES)}
+    if bank:
+        want["gram_block"] = len(GRID_GAMMA_FACTORS)
+    check_only(counts, want, label)
 
 
 def phase_grid(device, timer):
@@ -876,7 +1243,7 @@ def phase_grid(device, timer):
     profile_iterations(
         lambda: grid.solve_grid(Xtr, Y, GRID_CS, gammas,
                                 SolverConfig(algorithm="pasmo", eps=eps,
-                                             max_iter=64),
+                                             max_iter=PROFILE_ITERS),
                                 impl="auto", precompute=True, device=device,
                                 dtype=torch.float64),
         "grid bank f64 full width", ms_bank)
@@ -1011,6 +1378,301 @@ def phase_oneclass(Xtr, gammas, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the single-lane fused solver at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_single(device, timer, lane0):
+    """``solve_fused`` on lane 0 of slice 1's data (class 0 against the
+    rest) against lane 0 of the batched fit, and the single-lane timing row
+    of benchmarks/solver_micro.py at its largest size."""
+    from repro_torch.core import qp
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.core.solver_fused import CHECK_EVERY, solve_fused
+    from repro_torch.kernels import ref
+    from repro_torch.svm import data
+    X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    Xtr = X[:N_TRAIN]
+    y0 = np.where(y[:N_TRAIN] == np.unique(y)[0], 1.0, -1.0)
+    cfg = SolverConfig(algorithm="pasmo", eps=1e-3)
+    stats = {}
+    r, counts, wall = counted(lambda: solve_fused(
+        Xtr, y0, 1.0, lane0["gamma"], cfg, device=device,
+        dtype=torch.float64, stats=stats))
+    t = loop_iterations(r.iterations, CHECK_EVERY, cfg.max_iter)
+    say(f"[single] solve_fused lane 0 f64: l={N_TRAIN} d={D} gamma="
+        f"{lane0['gamma']:.6g}; iterations {int(r.iterations)}; loop "
+        f"iterations {t}; {wall:.3f} s = {wall / t * 1e3:.4f} ms/iteration; "
+        f"launches {counts}; relaunches {stats['relaunches']}, of which "
+        f"ran {stats['relaunches_ran']}; converged {bool(r.converged)}")
+    assert bool(r.converged), "single-lane fit did not converge"
+    check_only(counts, {"rbf_row_wss": 2 * t, "rbf_update_wss": t},
+               "single lane")
+    assert stats["relaunches"] == t
+    rel = abs(float(r.objective) / lane0["objective"] - 1.0)
+    say(f"[single] objective {float(r.objective)!r} vs batched lane 0 "
+        f"{lane0['objective']!r}: rel diff {rel:.3e} (batched lane 0 took "
+        f"{lane0['iterations']} iterations)")
+    assert rel <= 1e-6, rel
+    yt = torch.tensor(y0, dtype=torch.float64, device=device)
+    Xt = torch.tensor(Xtr, dtype=torch.float64, device=device)
+    G_exact = yt - ref.gram_cross(Xt, Xt, lane0["gamma"]) @ r.alpha
+    drift = float((G_exact - r.G).abs().max())
+    bounds = qp.make_bounds(yt, 1.0)
+    gap = float(qp.kkt_gap(G_exact, r.alpha, bounds))
+    say(f"[single] |G_carried - (y - K alpha)|_max = {drift:.3e}; KKT gap "
+        f"recomputed {gap:.4e}, carried {float(r.kkt_gap):.4e}; feasible "
+        f"{bool(qp.is_feasible(r.alpha, bounds))}")
+    assert drift <= 1e-8 and gap <= 1e-3
+    ms_iter = wall / t * 1e3
+    del G_exact, Xt
+
+    # benchmarks/solver_micro.py's fused row at its largest size
+    Xm, ym = data.xor_gaussians(MICRO["n"], seed=0)
+    cfg_m = SolverConfig(algorithm="pasmo", eps=1e-3,
+                         max_iter=MICRO["max_iter"])
+    stats_m = {}
+    rm, counts_m, wall_m = counted(lambda: solve_fused(
+        Xm, ym, MICRO["C"], MICRO["gamma"], cfg_m, device=device,
+        dtype=torch.float64, stats=stats_m))
+    tm = loop_iterations(rm.iterations, CHECK_EVERY, cfg_m.max_iter)
+    say(f"[single] solver_micro fused row (xor l={MICRO['n']} C="
+        f"{MICRO['C']} gamma={MICRO['gamma']} max_iter="
+        f"{MICRO['max_iter']}) f64: iterations {int(rm.iterations)}, "
+        f"converged {bool(rm.converged)}, {wall_m:.3f} s = "
+        f"{wall_m / tm * 1e3:.4f} ms/iteration; relaunches ran "
+        f"{stats_m['relaunches_ran']} of {stats_m['relaunches']}; KKT gap "
+        f"{float(rm.kkt_gap):.4e}")
+    check_only(counts_m, {"rbf_row_wss": 2 * tm, "rbf_update_wss": tm},
+               "solver_micro row")
+    profile_iterations(
+        lambda: solve_fused(Xtr, y0, 1.0, lane0["gamma"],
+                            SolverConfig(algorithm="pasmo", eps=1e-3,
+                                         max_iter=PROFILE_ITERS),
+                            device=device, dtype=torch.float64),
+        "solve_fused f64 full width", ms_iter)
+    return {"rbf_row_wss": counts["rbf_row_wss"] + counts_m["rbf_row_wss"],
+            "rbf_update_wss": counts["rbf_update_wss"]
+            + counts_m["rbf_update_wss"]}
+
+
+def slice3_kernel_times(device, timer):
+    """Kernels 6 and 7 at l = 16384 (one lane) and the H = 2 variants of
+    kernels 1 and 2 at the e-SVR grid's B = 18: device time, plain
+    version's time and bound."""
+    from repro_torch.kernels import build, rbf_row_wss, rbf_update_wss, ref
+    recs = {}
+    l, d, bl = N_TRAIN, D, build.BLOCK_L
+    nb = -(-l // bl)
+    for dtype in (torch.float64, torch.float32):
+        item = torch.tensor([], dtype=dtype).element_size()
+        s1 = single_state(l, d, 1, dtype, device)
+        args6 = [s1[k] for k in SINGLE_A]
+        k_row = torch.empty_like(s1["G"])
+        XT = s1["X"].T.contiguous()
+        args7 = [s1["X"], s1["sqn"], s1["G_b"], k_row, s1["alpha"], s1["L"],
+                 s1["U"], s1["xq_j"], s1["sqq_j"], s1["mu"], s1["gamma"]]
+        a, b = dup_state(l, d, SVR_B, 1, dtype, device)
+        XT2 = a["X"].T.contiguous()
+        args_a = [a[k] for k in PASS_A_KEYS]
+        args_b = [b[k] for k in PASS_B_KEYS]
+        B, n = SVR_B, 2 * l
+        cases = {
+            "rbf_row_wss": (
+                lambda: rbf_row_wss.rbf_row_wss(*args6, XT=XT, k_out=k_row),
+                lambda: ref.rbf_row_wss_blocks(*args6, block_l=bl),
+                # X, sqn, 4 state vectors, query, 7 scalars in; the row,
+                # (nb,) max and arg out
+                (l * d + 5 * l + d + 6) * item + 5 + l * item
+                + nb * (item + 4),
+                2 * l * d + 25 * l),
+            "rbf_update_wss": (
+                lambda: rbf_update_wss.rbf_update_wss(*args7, XT=XT),
+                lambda: ref.rbf_update_wss_blocks(*args7, block_l=bl),
+                # X, sqn, G, k_i, alpha, L, U, query, 3 scalars in; G and
+                # (nb,) max, arg and min out
+                (l * d + 6 * l + d + 3) * item + l * item
+                + nb * (2 * item + 4),
+                2 * l * d + 12 * l),
+            "rbf_row_wss_batched_h2": (
+                lambda: rbf_row_wss.rbf_row_wss_batched_h2(*args_a, XT=XT2),
+                lambda: ref.rbf_row_wss_batched_blocks(*args_a, block_l=bl,
+                                                       dup=True),
+                (l * d + l + 4 * B * n + B * d + 6 * B) * item + 5 * B
+                + B * nb * (item + 4),
+                2 * B * l * d + 20 * B * n),
+            "rbf_update_wss_batched_h2": (
+                lambda: rbf_update_wss.rbf_update_wss_batched_h2(*args_b,
+                                                                 XT=XT2),
+                lambda: ref.rbf_update_wss_batched_blocks(*args_b,
+                                                          block_l=bl,
+                                                          dup=True),
+                (l * d + l + 4 * B * n + 2 * B * d + 4 * B) * item
+                + B * n * item + B * nb * (2 * item + 4),
+                4 * B * l * d + 12 * B * n),
+        }
+        for name, (kern, plain, nbytes, nops) in cases.items():
+            ms_k = timer.ms(kern, 100)
+            ms_p = timer.ms(plain, 20)
+            ms_k2 = timer.ms(kern, 100)
+            ms_p2 = timer.ms(plain, 20)
+            bms, by = bound_ms(nbytes, nops, dtype)
+            say(f"[time] {name} {str(dtype)[6:]}: kernel {ms_k:.5f} / "
+                f"{ms_k2:.5f} ms, plain {ms_p:.5f} / {ms_p2:.5f} ms, bound "
+                f"{bms:.5f} ms by {by} ({nbytes / 1e6:.3f} MB, "
+                f"{nops / 1e9:.4f} GFLOP)")
+            if dtype == torch.float64:
+                recs[name] = dict(ms=min(ms_k, ms_k2),
+                                  plain_ms=min(ms_p, ms_p2), bound_ms=bms,
+                                  bound_by=by)
+        del s1, a, b, args6, args7, args_a, args_b, XT, XT2, k_row
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: e-SVR and one-class at full width
+# ---------------------------------------------------------------------------
+
+
+def svr_checks(X, P, L, U, alpha, G, gamma):
+    """Gradient drift against p - Q alpha of the doubled operator, the KKT
+    gap recomputed from it, and sum(alpha); (drift, gap, |sum|) maxima over
+    the (m, 2l) lanes that share ``gamma``."""
+    from repro_torch.core import qp
+    from repro_torch.kernels import ref
+    Kg = ref.gram_cross(X, X, gamma)
+    Qa = qp.svr_fold(alpha) @ Kg
+    del Kg
+    G_exact = P - torch.cat([Qa, Qa], dim=-1)
+    drift = float((G_exact - G).abs().max())
+    up = torch.where(alpha < U, G_exact, -math.inf).amax(-1)
+    dn = torch.where(alpha > L, G_exact, math.inf).amin(-1)
+    gap = float(qp.finite_gap(up - dn).max())
+    asum = float(alpha.sum(-1).abs().max())
+    return drift, gap, asum
+
+
+def fit_svr(Xtr, ytr, Xte, yte, dtype, device, eps):
+    """SVR(C=10, epsilon=0.1, gamma="scale") at full width, launches
+    counted: (estimator, launches, ms an iteration)."""
+    from repro_torch.core.solver_fused import CHECK_EVERY
+    from repro_torch.svm import SVR
+    tag = str(dtype)[6:]
+    reg = SVR(C=10.0, epsilon=0.1, gamma="scale", eps=eps, device=device,
+              dtype=dtype)
+    _, counts, wall = counted(lambda: reg.fit(Xtr, ytr))
+    r = reg.fit_result_
+    t = loop_iterations(r.iterations, CHECK_EVERY, reg.max_iter)
+    check_only(counts, {n: t for n in H2_PASSES}, f"SVR {tag}")
+    say(f"[svr] SVR {tag}: l={N_TRAIN} (2l={2 * N_TRAIN} variables) d={D} "
+        f"gamma={reg.gamma_:.6g}; iterations {int(r.iterations)}; "
+        f"{wall:.3f} s = {wall / t * 1e3:.4f} ms/iteration; launches "
+        f"{counts}; SVs {reg.n_support_}; held-out R^2 "
+        f"{reg.score(Xte, yte):.4f}; converged {bool(r.converged)}, KKT gap "
+        f"{float(r.kkt_gap):.4e}")
+    assert bool(r.converged), f"SVR {tag} did not converge"
+    return reg, counts, wall / t * 1e3
+
+
+def phase_svr(device):
+    """SVR(C=10, epsilon=0.1, gamma="scale") at full width, the 18-lane
+    e-SVR grid and OneClassSVM(nu=0.1), on slice 1's X (f64), then the SVR
+    in f32 against the f64 fit."""
+    from repro_torch.core import grid
+    from repro_torch.core import qp
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.core.solver_fused import CHECK_EVERY
+    from repro_torch.svm import SVR, OneClassSVM, data
+    X, _ = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    yv = sinc_target(X, 7)
+    Xtr, ytr, Xte, yte = X[:N_TRAIN], yv[:N_TRAIN], X[N_TRAIN:], yv[N_TRAIN:]
+    Xt = torch.tensor(Xtr, dtype=torch.float64, device=device)
+    eps = 1e-3
+    reg, counts_all, ms_iter = fit_svr(Xtr, ytr, Xte, yte, torch.float64,
+                                       device, eps)
+    r = reg.fit_result_
+    q = qp.svr_qp(torch.tensor(ytr, dtype=torch.float64, device=device),
+                  10.0, 0.1)
+    drift, gap, asum = svr_checks(Xt, q.p, q.bounds.lower, q.bounds.upper,
+                                  r.alpha, r.G, reg.gamma_)
+    say(f"[svr] SVR f64: |G_carried - (p - Q alpha)|_max = {drift:.3e}; KKT "
+        f"gap recomputed {gap:.4e}; |sum alpha| {asum:.3e}")
+    assert drift <= 1e-8 and gap <= eps and asum <= 1e-8, (drift, gap, asum)
+    profile_iterations(
+        lambda: SVR(C=10.0, epsilon=0.1, gamma="scale",
+                    max_iter=PROFILE_ITERS, device=device,
+                    dtype=torch.float64).fit(Xtr, ytr),
+        "SVR f64 full width", ms_iter)
+
+    gammas = [reg.gamma_ * f for f in SVR_GAMMA_FACTORS]
+    cfg = SolverConfig(algorithm="pasmo", eps=eps)
+    rg, counts, wall, t, peak = fit_grid(
+        lambda: grid.solve_grid_svr(Xtr, ytr, SVR_CS, SVR_EPSILONS, gammas,
+                                    cfg, device=device, dtype=torch.float64),
+        device)
+    check_only(counts, {n: t for n in H2_PASSES}, "e-SVR grid")
+    for n in H2_PASSES:
+        counts_all[n] += counts[n]
+    its = rg.iterations
+    say(f"[svr] e-SVR grid f64: lanes {tuple(rg.alpha.shape[:3])} = {SVR_B}"
+        f" of 2l={2 * N_TRAIN}; gammas {[f'{g:.6g}' for g in gammas]}, "
+        f"epsilons {list(SVR_EPSILONS)}, Cs {list(SVR_CS)}; iterations per "
+        f"lane {its.flatten().tolist()}; loop iterations {t}; {wall:.3f} s "
+        f"= {wall / t * 1e3:.4f} ms/iteration; peak device memory "
+        f"{peak / 1e9:.3f} GB; launches {counts}; converged "
+        f"{int(rg.converged.sum())}/{rg.converged.numel()}; max KKT gap "
+        f"{float(rg.kkt_gap.max()):.4e}")
+    assert bool(rg.converged.all()), "an e-SVR grid lane did not converge"
+    yt = torch.tensor(ytr, dtype=torch.float64, device=device)
+    worst = [0.0, 0.0, 0.0]
+    for g, gam in enumerate(gammas):
+        P = torch.stack([qp.svr_qp(yt, 1.0, e).p for e in SVR_EPSILONS])
+        Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower
+                          for c in SVR_CS])
+        Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper
+                          for c in SVR_CS])
+        res = svr_checks(Xt, P[:, None, :], Lg[None], Ug[None], rg.alpha[g],
+                         rg.G[g], gam)
+        worst = [max(w, v) for w, v in zip(worst, res)]
+    df = grid.grid_decision(Xte, Xtr, gammas, qp.svr_fold(rg.alpha), rg.b)
+    r2s = 1.0 - ((torch.tensor(yte, device=device) - df) ** 2).sum(-1) / float(
+        ((yte - yte.mean()) ** 2).sum())
+    say(f"[svr] e-SVR grid: |G_carried - (p - Q alpha)|_max = {worst[0]:.3e};"
+        f" KKT gap recomputed {worst[1]:.4e}; |sum alpha| {worst[2]:.3e}; "
+        f"held-out R^2 by (gamma, epsilon, C) "
+        f"{[round(v, 4) for v in r2s.flatten().tolist()]}")
+    assert worst[0] <= 1e-8 and worst[1] <= eps and worst[2] <= 1e-8, worst
+    del rg, df
+
+    oc = OneClassSVM(nu=0.1, gamma="scale", eps=eps, device=device,
+                     dtype=torch.float64)
+    _, counts, wall = counted(lambda: oc.fit(Xtr))
+    r = oc.fit_result_
+    t = loop_iterations(r.iterations, CHECK_EVERY, oc.max_iter)
+    check_only(counts, {n: t for n in RBF_PASSES}, "OneClassSVM")
+    out_frac = float((oc.predict(Xtr) < 0).mean())
+    say(f"[svr] OneClassSVM(nu=0.1) f64: l={N_TRAIN}; iterations "
+        f"{int(r.iterations)}; {wall:.3f} s = {wall / t * 1e3:.4f} "
+        f"ms/iteration; launches {counts}; training outlier fraction "
+        f"{out_frac:.4f}; SV fraction {oc.n_support_ / N_TRAIN:.4f}; "
+        f"converged {bool(r.converged)}, KKT gap {float(r.kkt_gap):.4e}; "
+        f"sum alpha - 1 = {float(r.alpha.sum()) - 1:.3e}")
+    assert bool(r.converged) and float(r.kkt_gap) <= eps
+
+    r32, counts, _ = fit_svr(Xtr, ytr, Xte, yte, torch.float32, device, eps)
+    for n in H2_PASSES:
+        counts_all[n] += counts[n]
+    diff = float((r32.predict(Xte).double() - reg.predict(Xte)).abs().max())
+    rel = abs(float(r32.fit_result_.objective)
+              / float(reg.fit_result_.objective) - 1.0)
+    say(f"[svr] SVR f32 against f64: held-out predictions max diff "
+        f"{diff:.3e}, objective rel diff {rel:.3e}")
+    return {n: counts_all[n] for n in H2_PASSES}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1031,11 +1693,17 @@ def main() -> int:
     timer = DeviceTimer()
     errs = phase_kernels(device)
     phase_small(device, "cuda")
-    recs, counts = phase_full(device, timer)
+    recs, counts, lane0 = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
     grid_recs, bank_counts = phase_grid(device, timer)
     recs.update(grid_recs)
     counts.update(bank_counts)
+    say(f"[time] slice 2 phases done at {time.perf_counter() - t_start:.1f} s")
+    counts.update(phase_single(device, timer, lane0))
+    say(f"[time] single-lane phase done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    counts.update(phase_svr(device))
+    recs.update(slice3_kernel_times(device, timer))
     out = []
     for name, (src, replaces) in SOURCES.items():
         r = recs[name]

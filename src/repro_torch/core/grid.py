@@ -15,7 +15,9 @@ gamma into a shared (n_gamma, l, l) bank (the Gram kernel, one launch per
 gamma, on the card) and the bank passes read their rows from it; ``False``
 recomputes rows from ``X`` in the rbf passes and builds no Gram at all;
 ``None`` banks on the plain backend only, as the reference does on
-``"jnp"``.
+``"jnp"``.  The ε-SVR grid's doubled lanes bank on the plain backend only:
+the H = 2 bank passes on the card are a later slice (ROADMAP queue 2), so
+``precompute=True`` with them on the card raises.
 
 The fused engine does not track the per-step counters ``n_free`` /
 ``n_clipped`` / ``n_reverted``: they carry the ``UNTRACKED`` (-1)
@@ -234,6 +236,62 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
                                  alpha0=alpha0, G0=G0, **bank_kw)
     return FusedResult(**{f.name: getattr(out, f.name).reshape(
         (nG, nN) + getattr(out, f.name).shape[1:])
+        for f in dataclasses.fields(out)})
+
+
+def solve_grid_svr(X, y, Cs, epsilons, gammas,
+                   cfg: SolverConfig = SolverConfig(), *, impl: str = "auto",
+                   block_l: int = 1024, precompute: bool | None = None,
+                   shrinking: bool = False, mesh=None, devices=None,
+                   diagnostics=None, device=None,
+                   dtype=None) -> FusedResult:
+    """Solve the ε-SVR (gamma, epsilon, C) grid as one fused lane batch.
+
+    ``X``: (l, d); ``y``: (l,) real targets; ``Cs``: (n_C,); ``epsilons``:
+    (n_eps,) tube widths; ``gammas``: (n_gamma,) (scalars are promoted).
+    Every lane runs the doubled 2l-variable operator over the base ``X``
+    (on the card the H = 2 passes, whose products stay l-wide); lane order
+    is (gamma, epsilon, C) row-major.  ``precompute`` picks the row source
+    as in :func:`solve_grid`, except that ``precompute=True`` on the card
+    raises ``NotImplementedError`` (module notes).  ``impl``, ``device``,
+    ``dtype`` and the knobs that raise ``NotImplementedError`` are as in
+    :func:`solve_grid`; ``block_l`` is accepted and ignored.  Returns a
+    :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
+    ``(n_gamma, n_eps, n_C)``; ``alpha`` is the doubled (..., 2l) dual,
+    folded to coefficients by :func:`repro_torch.core.qp.svr_fold`.
+    """
+    del block_l
+    _check_later_slices(impl, shrinking, mesh, devices, diagnostics)
+    X, dev = _as_data(X, device, dtype)
+    dtype = X.dtype
+    impl = ops.resolve_impl(impl, dev)
+    if precompute and impl == "cuda":
+        raise NotImplementedError(
+            "precompute=True with the doubled ε-SVR lanes on the card needs "
+            "the H = 2 Gram-bank passes, the next slice of the port (ROADMAP "
+            "queue 2); use precompute=None or False")
+    y = torch.as_tensor(y, dtype=dtype, device=dev).reshape(-1)
+    l = y.shape[0]
+    gammas_np = np.asarray(gammas, np.float64).reshape(-1)
+    Cs_t, eps_t, gam_t = (
+        torch.as_tensor(np.asarray(v, np.float64).reshape(-1), dtype=dtype,
+                        device=dev) for v in (Cs, epsilons, gammas_np))
+    nG, nE, nC = len(gam_t), len(eps_t), len(Cs_t)
+    zl = torch.zeros((nC, l), dtype=dtype, device=dev)
+    # P varies along epsilon, the box along C
+    P_e = torch.cat([y[None, :] - eps_t[:, None],
+                     y[None, :] + eps_t[:, None]], dim=1)      # (nE, 2l)
+    Pf = P_e.repeat_interleave(nC, dim=0).repeat(nG, 1)        # (B, 2l)
+    L_c = torch.cat([zl, -Cs_t[:, None] + zl], dim=1)          # (nC, 2l)
+    U_c = torch.cat([Cs_t[:, None] + zl, zl], dim=1)
+    Lf, Uf = L_c.repeat(nG * nE, 1), U_c.repeat(nG * nE, 1)
+    gf = gam_t.repeat_interleave(nE * nC)
+    bank_kw = (_bank_kw(X, gammas_np, nE * nC, impl)
+               if _use_bank(impl, precompute, dev) else {})
+    out = solve_fused_batched_qp(X, Pf, Lf, Uf, gf, cfg, impl=impl,
+                                 doubled=True, **bank_kw)
+    return FusedResult(**{f.name: getattr(out, f.name).reshape(
+        (nG, nE, nC) + getattr(out, f.name).shape[1:])
         for f in dataclasses.fields(out)})
 
 

@@ -6,9 +6,9 @@ The general SMO dual is ``max p^T a - 1/2 a^T Q a`` subject to
 ``sum(a) = const`` and ``L_i <= a_i <= U_i``, with gradient
 ``G = p - Q a``; equality signs are folded into the box (the signed
 convention), so the SMO direction is always ``e_i - e_j``.  Instances:
-classification (``p = y``, box ``[min(0, y_i C), max(0, y_i C)]``) and
-one-class / nu novelty detection (``p = 0``, box ``[0, 1/(nu l)]``,
-``sum(a) = 1``).
+classification (``p = y``, box ``[min(0, y_i C), max(0, y_i C)]``),
+ε-SVR in doubled form (2l variables over the base kernel) and one-class /
+nu novelty detection (``p = 0``, box ``[0, 1/(nu l)]``, ``sum(a) = 1``).
 """
 
 from __future__ import annotations
@@ -47,6 +47,31 @@ def make_bounds(y: torch.Tensor, C) -> Bounds:
     yC = y * C
     zero = torch.zeros_like(yC)
     return Bounds(lower=torch.minimum(zero, yC), upper=torch.maximum(zero, yC))
+
+
+def svr_qp(y: torch.Tensor, C, epsilon) -> DualQP:
+    """The ε-SVR dual in signed doubled form (2l variables).
+
+    With ``a = (alpha+, -alpha-)`` the ε-insensitive dual is the general
+    form over the doubled operator ``Q[k, k'] = K[k mod l, k' mod l]`` with
+    ``p = (y - eps, y + eps)``, box ``([0, C], [-C, 0])`` and
+    ``sum(a) = 0``.  The regression coefficients are
+    ``beta = a[:l] + a[l:]`` (:func:`svr_fold`).  ``C`` is a scalar or an
+    (l,) per-sample budget.
+    """
+    C = torch.as_tensor(C, dtype=y.dtype, device=y.device).broadcast_to(
+        y.shape)
+    zero = torch.zeros_like(y)
+    return DualQP(p=torch.cat([y - epsilon, y + epsilon]),
+                  bounds=Bounds(lower=torch.cat([zero, -C]),
+                                upper=torch.cat([C, zero])))
+
+
+def svr_fold(alpha: torch.Tensor) -> torch.Tensor:
+    """Fold a doubled SVR dual ``(..., 2l)`` to coefficients
+    ``beta = a+ - a-`` ``(..., l)``."""
+    n = alpha.shape[-1] // 2
+    return alpha[..., :n] + alpha[..., n:]
 
 
 def oneclass_qp(n: int, nu, dtype=torch.float64, device="cpu") -> DualQP:

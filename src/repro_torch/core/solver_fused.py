@@ -1,14 +1,23 @@
-"""Fused two-pass PA-SMO solver over a batch of QP lanes (main path of
-``repro.core.solver_fused``).
+"""Fused two-pass PA-SMO solvers (``repro.core.solver_fused``).
 
-One host loop advances B *general* dual QPs over a shared ``X``: per-lane
-linear term ``P`` (B, n), box ``L``/``U`` (B, n) and RBF width.  Each
-iteration launches the batched pass A (WSS2 selection) and pass B (both
-rows + gradient update + stopping scan) and does O(B) step algebra in
-between: Alg. 3's B^(t-2) candidate, the truncated Newton step and, with
-``algorithm="pasmo"``, the planning-ahead step (eq. 8).  Kernel rows are
-recomputed from ``X`` in the passes (the rbf row source), or read from a
-shared Gram bank (``gram``/``gram_idx``, the bank row source).
+:func:`solve_fused_batched_qp` advances B *general* dual QPs over a shared
+``X`` in one host loop: per-lane linear term ``P`` (B, n), box ``L``/``U``
+(B, n) and RBF width.  Each iteration launches the batched pass A (WSS2
+selection) and pass B (both rows + gradient update + stopping scan) and
+does O(B) step algebra in between: Alg. 3's B^(t-2) candidate, the
+truncated Newton step and, with ``algorithm="pasmo"``, the planning-ahead
+step (eq. 8).  Kernel rows are recomputed from ``X`` in the passes (the
+rbf row source), or read from a shared Gram bank (``gram``/``gram_idx``,
+the bank row source).  ``doubled=True`` runs the ε-SVR operator's 2l
+coordinates over the base ``X``.
+
+:func:`solve_fused` is the single-lane classification solver: pass A
+stores the row k_i, the O(1) algebra reads ``K_ij`` and planning's
+``Q12`` terms from it, and pass B reads it back instead of recomputing it.
+When Alg. 3's B^(t-2) candidate wins, the row must be ``qi``'s: pass A is
+launched again every planning iteration with the device flag ``take``,
+and a false flag turns that launch into a no-op, so the choice costs no
+host sync.
 
 Converged lanes are frozen in the passes: their step size is 0, so pass B
 leaves their gradient bitwise unchanged and every per-lane state update is
@@ -18,9 +27,15 @@ check, none inside the body): once every lane is done, further iterations
 change nothing that is returned, and each chunk is capped at
 ``max_iter - t`` so ``max_iter`` stays exact.
 
-The port covers the plain step, ``algorithm`` in ``{smo, pasmo}``, one
-state half, both row sources and warm starts; shrinking, telemetry and the
-conjugate step are later slices.
+On the card the loop body is a few hundred small launches, each issued by
+Python, and the card waits for them: after a first eager chunk the loop
+captures ``check_every`` iterations into one CUDA graph and replays it
+(:func:`_drive`).  A replay launches the same kernels in the same order
+on the same buffers, so it changes no bit of the result.
+
+The port covers the plain step, ``algorithm`` in ``{smo, pasmo}``, both
+row sources, the doubled operator and warm starts; shrinking, telemetry
+and the conjugate step are later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import qp as qp_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.qp import TAU
@@ -59,6 +75,56 @@ class FusedResult:
         """The result of lane ``k`` alone (leading axis dropped)."""
         return FusedResult(**{f.name: getattr(self, f.name)[k]
                               for f in dataclasses.fields(self)})
+
+
+def _capture(body, s, steps: int):
+    """Capture ``steps`` iterations of ``body`` from a copy of the state
+    ``s`` into a CUDA graph whose replay advances that copy in place.
+
+    Returns (graph, the copy, the kernel launches of one replay).  The
+    wrappers counted their launches while the graph was captured, which
+    launched nothing: those counts are taken back here and given again at
+    every replay (:func:`_drive`).
+    """
+    static = type(s)(*(x.clone() for x in s))
+    before = kernels.launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = static
+        for _ in range(steps):
+            out = body(out)
+        for dst, src in zip(static, out):
+            if dst is not src:
+                dst.copy_(src)
+    per_replay = {k: n - before[k] for k, n in kernels.launches().items()}
+    kernels.add_launches(per_replay, -1)
+    return graph, static, per_replay
+
+
+def _drive(body, s, max_iter: int, check_every: int, graphs: bool):
+    """Run ``body`` on the state ``s`` (a NamedTuple with a ``done`` field)
+    in chunks of ``check_every`` iterations, reading ``any(~done)`` between
+    chunks, until every lane is done or ``max_iter`` iterations ran.
+
+    With ``graphs`` (the CUDA kernels on the card) the first chunk runs
+    eagerly, which also loads and warms every kernel; a full chunk after it
+    is one replay of a graph captured once; a shorter last chunk (capped by
+    ``max_iter``) runs eagerly.  Returns (state, iterations run).
+    """
+    t = 0
+    graph = per_replay = None
+    while t < max_iter and bool(torch.any(~s.done)):
+        steps = min(check_every, max_iter - t)
+        if graphs and t > 0 and steps == check_every:
+            if graph is None:
+                graph, s, per_replay = _capture(body, s, steps)
+            graph.replay()
+            kernels.add_launches(per_replay)
+        else:
+            for _ in range(steps):
+                s = body(s)
+        t += steps
+    return s, t
 
 
 class _BatchState(NamedTuple):
@@ -101,54 +167,267 @@ def _check_config(cfg: SolverConfig) -> None:
             "step 7)")
 
 
+def _check_cadence(check_every: int) -> None:
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+
+
+def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
+                impl: str = "auto", device=None, dtype=None,
+                check_every: int = CHECK_EVERY,
+                stats: dict | None = None) -> FusedResult:
+    """Solve one RBF classification QP with the single-lane fused passes.
+
+    An entry point: ``X`` (l, d) and the signed labels ``y`` (l,) (arrays
+    or tensors) move to ``device``, which defaults to the CUDA card and
+    raises without one (``device="cpu"`` runs the plain versions on the
+    CPU).  ``dtype`` defaults to ``y``'s when it is a floating tensor, else
+    to ``torch.get_default_dtype()``.  ``C`` is a scalar or (l,)
+    per-sample budget, ``gamma`` a scalar.
+
+    The host loop reads ``done`` every ``check_every`` iterations; after
+    convergence an iteration takes ``mu = 0`` and selects its state on
+    ``~done``, so nothing returned depends on the cadence, and
+    ``iterations`` counts only the active ones.  Returns a
+    :class:`FusedResult` of 0-d tensors (``alpha``/``G`` (l,)).  A dict
+    passed as ``stats`` receives ``relaunches``, the conditional pass A
+    launches (one per planning iteration), and ``relaunches_ran``, how
+    many of them had a true flag (read once, after the loop).
+    """
+    _check_config(cfg)
+    _check_cadence(check_every)
+    dev = resolve_device(device)
+    if dtype is None and torch.is_tensor(y) and y.is_floating_point():
+        dtype = y.dtype
+    dtype = resolve_dtype(dtype)
+    X = torch.as_tensor(X, dtype=dtype, device=dev).contiguous()
+    y = torch.as_tensor(y, dtype=dtype, device=dev).contiguous()
+    n = y.shape[0]
+    if X.shape[0] != n:
+        raise ValueError(f"X has {X.shape[0]} rows, y {n} labels")
+    impl = ops.resolve_impl(impl, dev)
+    yC = y * torch.as_tensor(C, dtype=dtype, device=dev)
+    L, U = torch.clamp_max(yC, 0.0), torch.clamp_min(yC, 0.0)
+    sqn = torch.sum(X * X, dim=-1)
+    XT = X.T.contiguous()
+    gam = torch.as_tensor(gamma, dtype=dtype, device=dev).reshape(1)
+    eps, eta = cfg.eps, cfg.eta
+    planning = cfg.algorithm == "pasmo"
+    no = torch.zeros((1,), dtype=torch.bool, device=dev)
+    # the stored row k_i: pass A writes it in place on the card
+    k_buf = torch.empty_like(y) if impl == "cuda" else None
+    n_ran = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def entries(a, b):
+        """O(d) RBF entries k(x_a, x_b) at (m,) index vectors."""
+        a, b = a.long(), b.long()
+        d2 = (sqn.take(a) + sqn.take(b)
+              - 2.0 * torch.sum(X.index_select(0, b) * X.index_select(0, a),
+                                dim=-1))
+        return torch.exp(-gam * torch.clamp_min(d2, 0.0))
+
+    def body(s: _BatchState) -> _BatchState:
+        alpha, G = s.alpha, s.G
+        active = ~s.done
+        use_exact = (~s.p_smo) & (~s.prev_ratio_ok) if planning else no
+
+        # ---- gathers at the historic indices -----------------------------
+        hist = (torch.cat([s.i, s.qi, s.qj, s.pi, s.pj]) if planning
+                else s.i).long()
+        A, Gh, Lh, Uh = (alpha.take(hist), G.take(hist), L.take(hist),
+                         U.take(hist))
+        Xq = X.index_select(0, hist[:2])      # rows of i (and qi)
+
+        # ---- pass A: row k_i (stored) + j-selection -----------------------
+        k_i, j0, gain0 = ops.rbf_row_wss(
+            X, sqn, G, alpha, L, U, Xq[0], A[0:1], Lh[0:1], Uh[0:1], s.g_i,
+            s.i, use_exact, gam, impl=impl, XT=XT, k_out=k_buf)
+        j0, gain0 = j0.reshape(1), gain0.reshape(1)
+
+        # ---- Alg. 3 extra candidate B^(t-2) (O(d)) -------------------------
+        if planning:
+            e2 = entries(torch.cat([s.qi, s.pi]), torch.cat([s.qj, s.pj]))
+            K_qq, K_pp = e2[0:1], e2[1:2]
+            a_qi, G_qi, L_qi, U_qi = A[1:2], Gh[1:2], Lh[1:2], Uh[1:2]
+            a_qj, G_qj, L_qj, U_qj = A[2:3], Gh[2:3], Lh[2:3], Uh[2:3]
+            l_q = G_qi - G_qj
+            q_q = torch.clamp_min(2.0 - 2.0 * K_qq, TAU)
+            sb_q = step_mod.step_bounds(a_qi, a_qj, L_qi, U_qi, L_qj, U_qj)
+            mu_q = step_mod.clip_step(l_q / q_q, sb_q)
+            cg_exact = step_mod.gain_of_step(mu_q, l_q, q_q)
+            cg_tilde = 0.5 * l_q * l_q / q_q
+            cg = torch.where(use_exact, cg_exact, cg_tilde)
+            adm = ((a_qi < U_qi) & (a_qj > L_qj)
+                   & (l_q > 0) & (s.qi != s.qj) & (s.n_hist > 1))
+            take = (~s.p_smo) & adm & (cg > gain0)
+            i_sel = torch.where(take, s.qi, s.i)
+            j_sel = torch.where(take, s.qj, j0)
+            g_i_sel = torch.where(take, G_qi, s.g_i)
+            # the candidate won: the row must be qi's.  The launch is
+            # unconditional; a false flag leaves the stored row as it was.
+            k_i = ops.rbf_row_wss(
+                X, sqn, G, alpha, L, U, Xq[1], a_qi, L_qi, U_qi, G_qi, s.qi,
+                use_exact, gam, impl=impl, XT=XT, k_out=k_i, run=take)[0]
+            n_ran.add_(take.to(torch.int32))
+        else:
+            i_sel, j_sel, g_i_sel = s.i, j0, s.g_i
+
+        # ---- O(1) step computation from the stored row ---------------------
+        sel = torch.cat([i_sel, j_sel]).long()
+        As, Gs, Ls, Us = (alpha.take(sel), G.take(sel), L.take(sel),
+                          U.take(sel))
+        lw = g_i_sel - Gs[1:2]
+        if planning:
+            kr = k_i.take(torch.cat([j_sel, s.pi, s.pj]).long())
+        else:
+            kr = k_i.take(j_sel.long())
+        K_ij = kr[0:1]
+        q11 = torch.clamp_min(2.0 - 2.0 * K_ij, TAU)
+        sb = step_mod.step_bounds(As[0:1], As[1:2], Ls[0:1], Us[0:1],
+                                  Ls[1:2], Us[1:2])
+        mu_star = lw / q11
+        mu_smo, free_smo = step_mod.smo_step(lw, q11, sb)
+
+        do_plan = no
+        mu_plan = mu_smo
+        ratio_ok = s.prev_ratio_ok
+        if planning:
+            a_pi, G_pi, L_pi, U_pi = A[3:4], Gh[3:4], Lh[3:4], Uh[3:4]
+            a_pj, G_pj, L_pj, U_pj = A[4:5], Gh[4:5], Lh[4:5], Uh[4:5]
+            w2 = G_pi - G_pj
+            q22 = torch.clamp_min(2.0 - 2.0 * K_pp, TAU)
+            e_j = entries(torch.cat([j_sel, j_sel]),
+                          torch.cat([s.pi, s.pj]))
+            q12 = kr[1:2] - kr[2:3] - e_j[0:1] + e_j[1:2]
+            terms = step_mod.PlanningTerms(w1=lw, w2=w2, Q11=q11, Q22=q22,
+                                           Q12=q12)
+            mu1, okdet = step_mod.planning_step(terms)
+            mu2 = step_mod.planned_second_step(mu1, terms)
+            interior1 = (sb.lo < mu1) & (mu1 < sb.hi)
+            d_pi = ((s.pi == i_sel).to(dtype) - (s.pi == j_sel).to(dtype))
+            d_pj = ((s.pj == i_sel).to(dtype) - (s.pj == j_sel).to(dtype))
+            sb2 = step_mod.step_bounds(a_pi + mu1 * d_pi, a_pj + mu1 * d_pj,
+                                       L_pi, U_pi, L_pj, U_pj)
+            interior2 = (sb2.lo < mu2) & (mu2 < sb2.hi)
+            feasible = okdet & interior1 & interior2 & (s.n_hist > 0)
+            do_plan = s.prev_free & feasible
+            mu_plan = torch.where(do_plan, mu1, mu_smo)
+            ratio = mu1 / torch.where(torch.abs(mu_star) > 0, mu_star, 1.0)
+            ratio_ok = torch.where(
+                do_plan, (ratio >= 1.0 - eta) & (ratio <= 1.0 + eta),
+                s.prev_ratio_ok)
+
+        # after convergence the step is 0: pass B leaves G bitwise as it
+        # was and alpha gains exactly 0
+        mu = torch.where(active, torch.where(do_plan, mu_plan, mu_smo), 0.0)
+        alpha.index_add_(0, sel, torch.cat([mu, -mu]))
+
+        # ---- pass B: k_j + update with the stored k_i + next i + gap -------
+        G_new, i_next, g_i_next, g_dn = ops.rbf_update_wss(
+            X, sqn, G, k_i, alpha, L, U, X.index_select(0, sel[1:])[0], mu,
+            gam, impl=impl, XT=XT)
+        i_next = i_next.reshape(1)
+        g_i_next = g_i_next.reshape(1)
+        gap_new = qp_mod.finite_gap(g_i_next - g_dn)
+        return _BatchState(
+            alpha=alpha, G=G_new,
+            i=torch.where(active, i_next, s.i),
+            g_i=torch.where(active, g_i_next, s.g_i),
+            gap=torch.where(active, gap_new, s.gap),
+            iters=s.iters + active.to(torch.int32),
+            done=s.done | (gap_new <= eps),
+            pi=torch.where(active, i_sel, s.pi),
+            pj=torch.where(active, j_sel, s.pj),
+            qi=torch.where(active, s.pi, s.qi),
+            qj=torch.where(active, s.pj, s.qj),
+            n_hist=torch.where(active, torch.clamp_max(s.n_hist + 1, 2),
+                               s.n_hist),
+            p_smo=torch.where(active, ~do_plan, s.p_smo),
+            prev_free=torch.where(active, (~do_plan) & free_smo,
+                                  s.prev_free),
+            prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
+            n_planning=s.n_planning + (do_plan & active).to(torch.int32))
+
+    # ---- init: alpha = 0, G = y ------------------------------------------
+    alpha0 = torch.zeros_like(y)
+    v_up = torch.where(alpha0 < U, y, float("-inf"))
+    i0 = torch.argmax(v_up).reshape(1).to(torch.int32)
+    g_i0 = v_up.take(i0.long())
+    gap0 = qp_mod.finite_gap(
+        g_i0 - torch.where(alpha0 > L, y, float("inf")).amin())
+    z = torch.zeros((1,), dtype=torch.int32, device=dev)
+    s = _BatchState(alpha=alpha0, G=y, i=i0, g_i=g_i0, gap=gap0, iters=z,
+                    done=gap0 <= eps, pi=z, pj=z, qi=z, qj=z, n_hist=z,
+                    p_smo=~no, prev_free=no, prev_ratio_ok=~no,
+                    n_planning=z)
+
+    s, t = _drive(body, s, cfg.max_iter, check_every,
+                  impl == "cuda" and y.is_cuda)
+    if stats is not None:
+        stats["relaunches"] = t if planning else 0
+        stats["relaunches_ran"] = int(n_ran)
+
+    g_up = torch.where(s.alpha < U, s.G, float("-inf")).amax()
+    g_dn = torch.where(s.alpha > L, s.G, float("inf")).amin()
+    return FusedResult(
+        alpha=s.alpha, b=qp_mod.safe_bias(g_up, g_dn), G=s.G,
+        iterations=s.iters[0],
+        objective=0.5 * (torch.dot(y, s.alpha) + torch.dot(s.G, s.alpha)),
+        kkt_gap=s.gap[0], converged=s.done[0], n_planning=s.n_planning[0],
+        n_unshrink=torch.zeros_like(s.iters[0]))
+
+
 def solve_fused_batched_qp(X, P, L, U, gamma,
                            cfg: SolverConfig = SolverConfig(), *,
                            impl: str = "auto", alpha0=None, G0=None,
-                           gram=None, gram_idx=None,
+                           gram=None, gram_idx=None, doubled: bool = False,
                            check_every: int = CHECK_EVERY) -> FusedResult:
-    """Solve B general dual QPs over the shared ``X`` (n, d) in one loop.
+    """Solve B general dual QPs over the shared ``X`` in one loop.
 
-    ``X``, ``P`` (B, n), ``L``/``U`` (B, n) are tensors on one device with
-    one dtype; ``gamma`` is a scalar or (B,).  ``impl`` picks the passes'
-    backend (:func:`repro_torch.kernels.ops.resolve_impl`).
+    ``X`` (l, d), ``P`` (B, n), ``L``/``U`` (B, n) are tensors on one
+    device with one dtype, n = l (or 2l with ``doubled=True``, the ε-SVR
+    operator over the base ``X``: coordinate ``k`` takes the base row of
+    ``k mod l``); ``gamma`` is a scalar or (B,).  ``impl`` picks the
+    passes' backend (:func:`repro_torch.kernels.ops.resolve_impl`).
 
     Optional (B, n) ``alpha0``/``G0`` warm starts come as a pair (one-class
     lanes need them: alpha = 0 is infeasible there); without them the
     lanes start at alpha = 0, G = P.  ``gram`` (n_stack, n, n) and
     ``gram_idx`` (B,) also come as a pair: with them the passes read their
-    rows from the shared Gram bank (lanes sharing a gamma share an entry)
-    instead of recomputing them from ``X``.
+    rows from the shared (n_stack, l, l) base Gram bank (lanes sharing a
+    gamma share an entry) instead of recomputing them from ``X``; doubled
+    lanes bank on the plain backend only (the H = 2 bank passes are a
+    later slice, ROADMAP queue 2).
 
     The loop reads ``any(~done)`` every ``check_every`` iterations; the
     result does not depend on it.  Returns a :class:`FusedResult` whose
     ``iterations`` count per-lane iterations until that lane converged.
     """
     _check_config(cfg)
-    if check_every < 1:
-        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    _check_cadence(check_every)
     if (alpha0 is None) != (G0 is None):
         raise ValueError("warm starts need the (alpha0, G0) pair")
     if (gram is None) != (gram_idx is None):
         raise ValueError("the Gram bank needs the (gram, gram_idx) pair")
     dtype, device = P.dtype, P.device
     B, n = P.shape
-    if X.shape[0] != n:
+    H = 2 if doubled else 1
+    if X.shape[0] * H != n:
         raise ValueError(f"X has {X.shape[0]} rows, the lanes {n} "
-                         f"coordinates")
+                         f"coordinates (doubled={doubled})")
     impl = ops.resolve_impl(impl, device)
     eps, eta = cfg.eps, cfg.eta
     planning = cfg.algorithm == "pasmo"
     if gram is None:
-        src = row_source.rbf_source(X, gamma, B)
+        src = row_source.rbf_source(X, gamma, B, dup=doubled)
     else:
-        src = row_source.bank_source(gram, gram_idx, gamma)
-        if src.base_l != n or src.gram_idx.shape[0] != B:
+        src = row_source.bank_source(gram, gram_idx, gamma, dup=doubled)
+        if src.base_l * H != n or src.gram_idx.shape[0] != B:
             raise ValueError(f"a bank of {tuple(gram.shape)} and "
                              f"{src.gram_idx.shape[0]} bank indices for "
                              f"{B} lanes of {n} coordinates")
     lanes = torch.arange(B, device=device)
     lane_base = lanes * n
-    idx2 = torch.cat([lanes, lanes])
     no_lanes = torch.zeros((B,), dtype=torch.bool, device=device)
 
     def take(M, idx):
@@ -252,8 +531,9 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
         # in place on the carried alpha.
         mu = torch.where(active & torch.isfinite(lw),
                          torch.where(do_plan, mu_plan, mu_smo), 0.0)
-        alpha.index_put_((idx2, torch.cat([i_sel, j_sel]).long()),
-                         torch.cat([mu, -mu]), accumulate=True)
+        alpha.view(-1).index_add_(
+            0, torch.cat([lane_base + i_sel.long(), lane_base + j_sel.long()]),
+            torch.cat([mu, -mu]))
 
         # ---- pass B: k_i/k_j + update + next i + gap -----------------------
         G_new, i_next, g_i_next, g_dn = ops.source_update_wss(
@@ -300,12 +580,8 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
                     p_smo=~no_lanes, prev_free=no_lanes,
                     prev_ratio_ok=~no_lanes, n_planning=zB)
 
-    t = 0
-    while t < cfg.max_iter and bool(torch.any(~s.done)):
-        steps = min(check_every, cfg.max_iter - t)
-        for _ in range(steps):
-            s = body(s)
-        t += steps
+    s, _ = _drive(body, s, cfg.max_iter, check_every,
+                  impl == "cuda" and P.is_cuda)
 
     up = s.alpha < U
     dn = s.alpha > L

@@ -4,20 +4,24 @@ PyTorch versions.
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``); :func:`reset_launches` and :func:`launches` read
 and clear them together, so a run can show which kernels it went through.
+A CUDA graph launches kernels without calling their wrappers: whoever
+replays one adds its launches with :func:`add_launches`.
 """
 
-from repro_torch.kernels.gram_block import gram_cross
-from repro_torch.kernels.rbf_row_wss import (rbf_row_wss_batched,
-                                             row_wss_batched_rows)
-from repro_torch.kernels.rbf_update_wss import (rbf_update_wss_batched,
-                                                update_wss_batched_rows)
+from repro_torch.kernels import gram_block, rbf_row_wss, rbf_update_wss
 
+# the single-lane wrappers share their modules' names, so the registry
+# reaches every wrapper through its module
 WRAPPERS = {
-    "rbf_row_wss_batched": rbf_row_wss_batched,
-    "rbf_update_wss_batched": rbf_update_wss_batched,
-    "gram_block": gram_cross,
-    "row_wss_batched_rows": row_wss_batched_rows,
-    "update_wss_batched_rows": update_wss_batched_rows,
+    "rbf_row_wss_batched": rbf_row_wss.rbf_row_wss_batched,
+    "rbf_update_wss_batched": rbf_update_wss.rbf_update_wss_batched,
+    "gram_block": gram_block.gram_cross,
+    "row_wss_batched_rows": rbf_row_wss.row_wss_batched_rows,
+    "update_wss_batched_rows": rbf_update_wss.update_wss_batched_rows,
+    "rbf_row_wss": rbf_row_wss.rbf_row_wss,
+    "rbf_update_wss": rbf_update_wss.rbf_update_wss,
+    "rbf_row_wss_batched_h2": rbf_row_wss.rbf_row_wss_batched_h2,
+    "rbf_update_wss_batched_h2": rbf_update_wss.rbf_update_wss_batched_h2,
 }
 
 
@@ -28,3 +32,9 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` ({name: launches}) to the counters."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += times * n

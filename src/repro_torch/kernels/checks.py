@@ -18,6 +18,17 @@ def dtype_bits(dtype: torch.dtype) -> int:
     raise TypeError(f"the CUDA kernels take float32 or float64, got {dtype}")
 
 
+def on_card(t, what: str) -> bool:
+    """Whether a wrapper launches its kernel: False for CPU tensors (the
+    plain version runs), True for CUDA ones; raises on anything else."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got "
+                         f"{t.device}")
+    return True
+
+
 def check_state(name: str, t, shape, dtype, device) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")

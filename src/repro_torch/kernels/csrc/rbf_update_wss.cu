@@ -1,40 +1,50 @@
-// Pass B of the fused PA-SMO iteration, lane-batched: recompute both RBF
-// rows k_i and k_j of the chosen working sets, update the gradient
-// G_new = G - mu (k_i - k_j), and reduce the next-i first-max over
-// alpha < U and the gap's other end, min G over alpha > L, per block.
+// Pass B of the fused PA-SMO iteration: the rows k_i and k_j of the chosen
+// working sets, the gradient update G_new = G - mu (k_i - k_j), and the
+// next-i first-max over alpha < U and the gap's other end, min G over
+// alpha > L, per block.  One kernel, three variants:
+//
+//  * lane-batched, one state half (H = 1): both rows recomputed from X;
+//  * lane-batched, two state halves (H = 2): the doubled e-SVR operator,
+//    the base columns of both rows computed once and applied to half 0,
+//    then half 1;
+//  * single lane (STORED): k_i is read from the row pass A stored, and
+//    only k_j is computed in the tile.
 //
 // Replaces: src/repro/kernels/rbf_update_wss.py,
-// rbf_update_wss_batched_pallas (_kernel_batched + _update_from_rows), in
-// the variant the SVC main path runs: one state half (H = 1), no
-// active-set mask, no conjugate direction.
+// rbf_update_wss_batched_pallas (_kernel_batched + _update_from_rows; H = 1
+// and H = 2, no active-set mask, no conjugate direction) and
+// rbf_update_wss_pallas (_kernel).
 //
 // What bounds it on an H100: bytes.  It reads X once (l * d values) for
-// both query sets, reads four (B, l) state rows and writes one; the
+// both query sets, reads four (B, H l) state rows and writes one; the
 // 4 B l d operations of the two distance products sit far below the card's
-// operations per byte at B <= 16.
+// operations per byte at B <= 16.  The single-lane variant moves
+// l d + 7 l values and is launch-bound at the repo's sizes.
 //
 // Design: the tiling of pass A (rbf_row_wss.cu) with two staged query sets
-// and two accumulators per lane, so X is read once for both rows.  Neither
-// row reaches device memory.  G is written out of place; a lane with
-// mu == 0 writes its G back bitwise unchanged (G - 0 * r == G), which is
-// how the solver freezes converged lanes.  The cross-block reductions stay
-// in PyTorch (repro_torch/kernels/ops.py).
+// and two accumulators per lane (one in the single-lane variant), so X is
+// read once for both rows.  No recomputed row reaches device memory.  G is
+// written out of place; a lane with mu == 0 writes its G back bitwise
+// unchanged (G - 0 * r == G), which is how the solvers freeze converged
+// lanes.  Global indices are h l + j, first-max a total order on (value,
+// index).  The cross-block reductions stay in PyTorch
+// (repro_torch/kernels/ops.py).
 #include "common.cuh"
 
 namespace repro {
 
-template <typename T, int LG>
+template <typename T, int LG, int H, bool STORED>
 __global__ void __launch_bounds__(kBlockL)
 update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
                   const T* __restrict__ G, const T* __restrict__ alpha,
                   const T* __restrict__ L, const T* __restrict__ U,
                   const T* __restrict__ XQi, const T* __restrict__ sqqi,
-                  const T* __restrict__ XQj, const T* __restrict__ sqqj,
-                  const T* __restrict__ mu, const T* __restrict__ gammas,
-                  T* __restrict__ G_out, T* __restrict__ bmax,
-                  int* __restrict__ barg, T* __restrict__ bmin, int B,
-                  int l, int d) {
-  __shared__ T sqi[LG][kChunkD];
+                  const T* __restrict__ KI, const T* __restrict__ XQj,
+                  const T* __restrict__ sqqj, const T* __restrict__ mu,
+                  const T* __restrict__ gammas, T* __restrict__ G_out,
+                  T* __restrict__ bmax, int* __restrict__ barg,
+                  T* __restrict__ bmin, int B, int l, int d) {
+  __shared__ T sqi[STORED ? 1 : LG][kChunkD];
   __shared__ T sqj[LG][kChunkD];
   __shared__ T red_v[LG][kWarps];
   __shared__ int red_i[LG][kWarps];
@@ -59,7 +69,7 @@ update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
       const int b = e / kChunkD, kk = e % kChunkD;
       const bool ok = b < nl && kk < kn;
       const size_t src = (size_t)(b0 + b) * d + k0 + kk;
-      sqi[b][kk] = ok ? XQi[src] : T(0);
+      if (!STORED) sqi[b][kk] = ok ? XQi[src] : T(0);
       sqj[b][kk] = ok ? XQj[src] : T(0);
     }
     __syncthreads();
@@ -70,7 +80,7 @@ update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
         const T x = xcol[(size_t)kk * l];
 #pragma unroll
         for (int b = 0; b < LG; ++b) {
-          acc_i[b] = fma(sqi[b][kk], x, acc_i[b]);
+          if (!STORED) acc_i[b] = fma(sqi[STORED ? 0 : b][kk], x, acc_i[b]);
           acc_j[b] = fma(sqj[b][kk], x, acc_j[b]);
         }
       }
@@ -86,15 +96,20 @@ update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
     T m = pos_inf<T>();
     if (b < nl && in) {
       const int lane = b0 + b;
-      const size_t o = (size_t)lane * l + j;
       const T gam = gammas[lane];
-      const T ki = rbf_entry(sqqi[lane], sn, acc_i[b], gam);
+      const T ki = STORED ? KI[(size_t)lane * l + j]
+                          : rbf_entry(sqqi[lane], sn, acc_i[b], gam);
       const T kj = rbf_entry(sqqj[lane], sn, acc_j[b], gam);
-      const T g = G[o] - mu[lane] * (ki - kj);
-      G_out[o] = g;
-      const T al = alpha[o];
-      if (al < U[o]) v = g;
-      if (al > L[o]) m = g;
+      const T mul = mu[lane];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const size_t o = ((size_t)lane * H + h) * l + j;
+        const T g = G[o] - mul * (ki - kj);
+        G_out[o] = g;
+        const T al = alpha[o];
+        if (al < U[o]) take_first_max(v, vi, g, h * l + j);
+        if (al > L[o]) m = fmin(m, g);
+      }
     }
     warp_first_max(v, vi);
     warp_min(m);
@@ -121,32 +136,30 @@ update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
   }
 }
 
-template <typename T, int LG>
+template <typename T, int LG, int H, bool STORED>
 void launch_update_wss(const T* XT, const T* sqn, const T* G,
                        const T* alpha, const T* L, const T* U, const T* XQi,
-                       const T* sqqi, const T* XQj, const T* sqqj,
-                       const T* mu, const T* gammas, T* G_out, T* bmax,
-                       int* barg, T* bmin, int B, int l, int d,
+                       const T* sqqi, const T* KI, const T* XQj,
+                       const T* sqqj, const T* mu, const T* gammas, T* G_out,
+                       T* bmax, int* barg, T* bmin, int B, int l, int d,
                        cudaStream_t stream) {
   const dim3 grid(n_blocks(l), (B + LG - 1) / LG);
-  update_wss_kernel<T, LG><<<grid, kBlockL, 0, stream>>>(
-      XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj, mu, gammas, G_out,
+  update_wss_kernel<T, LG, H, STORED><<<grid, kBlockL, 0, stream>>>(
+      XT, sqn, G, alpha, L, U, XQi, sqqi, KI, XQj, sqqj, mu, gammas, G_out,
       bmax, barg, bmin, B, l, d);
 }
 
-template <typename T>
-int update_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
-               const T* L, const T* U, const T* XQi, const T* sqqi,
-               const T* XQj, const T* sqqj, const T* mu, const T* gammas,
-               T* G_out, T* bmax, int* barg, T* bmin, int B, int l, int d,
-               int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename T, int H>
+void update_wss_batched(const T* XT, const T* sqn, const T* G,
+                        const T* alpha, const T* L, const T* U, const T* XQi,
+                        const T* sqqi, const T* XQj, const T* sqqj,
+                        const T* mu, const T* gammas, T* G_out, T* bmax,
+                        int* barg, T* bmin, int B, int l, int d,
+                        cudaStream_t s) {
 #define REPRO_LAUNCH(LG)                                                    \
-  launch_update_wss<T, LG>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj, \
-                           mu, gammas, G_out, bmax, barg, bmin, B, l, d,  \
-                           s)
+  launch_update_wss<T, LG, H, false>(XT, sqn, G, alpha, L, U, XQi, sqqi,  \
+                                     nullptr, XQj, sqqj, mu, gammas,      \
+                                     G_out, bmax, barg, bmin, B, l, d, s)
   switch (lane_group(B)) {
     case 1: REPRO_LAUNCH(1); break;
     case 2: REPRO_LAUNCH(2); break;
@@ -155,6 +168,39 @@ int update_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
     default: REPRO_LAUNCH(16); break;
   }
 #undef REPRO_LAUNCH
+}
+
+template <typename T>
+int update_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
+               const T* L, const T* U, const T* XQi, const T* sqqi,
+               const T* XQj, const T* sqqj, const T* mu, const T* gammas,
+               T* G_out, T* bmax, int* barg, T* bmin, int B, int H, int l,
+               int d, int device, void* stream) {
+  if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == 1)
+    update_wss_batched<T, 1>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj,
+                             mu, gammas, G_out, bmax, barg, bmin, B, l, d, s);
+  else
+    update_wss_batched<T, 2>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj,
+                             mu, gammas, G_out, bmax, barg, bmin, B, l, d, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int update_wss_single(const T* XT, const T* sqn, const T* G, const T* k_i,
+                      const T* alpha, const T* L, const T* U, const T* xqj,
+                      const T* sqqj, const T* mu, const T* gamma, T* G_out,
+                      T* bmax, int* barg, T* bmin, int l, int d, int device,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  launch_update_wss<T, 1, 1, true>(XT, sqn, G, alpha, L, U, nullptr,
+                                   nullptr, k_i, xqj, sqqj, mu, gamma, G_out,
+                                   bmax, barg, bmin, 1, l, d,
+                                   static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -169,11 +215,11 @@ int rbf_update_wss_batched_f32(const float* XT, const float* sqn,
                                const float* XQj, const float* sqqj,
                                const float* mu, const float* gammas,
                                float* G_out, float* bmax, int* barg,
-                               float* bmin, int B, int l, int d, int device,
-                               void* stream) {
+                               float* bmin, int B, int H, int l, int d,
+                               int device, void* stream) {
   return repro::update_wss<float>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj,
                                   sqqj, mu, gammas, G_out, bmax, barg, bmin,
-                                  B, l, d, device, stream);
+                                  B, H, l, d, device, stream);
 }
 
 int rbf_update_wss_batched_f64(const double* XT, const double* sqn,
@@ -183,11 +229,34 @@ int rbf_update_wss_batched_f64(const double* XT, const double* sqn,
                                const double* XQj, const double* sqqj,
                                const double* mu, const double* gammas,
                                double* G_out, double* bmax, int* barg,
-                               double* bmin, int B, int l, int d, int device,
-                               void* stream) {
+                               double* bmin, int B, int H, int l, int d,
+                               int device, void* stream) {
   return repro::update_wss<double>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj,
                                    sqqj, mu, gammas, G_out, bmax, barg, bmin,
-                                   B, l, d, device, stream);
+                                   B, H, l, d, device, stream);
+}
+
+int rbf_update_wss_f32(const float* XT, const float* sqn, const float* G,
+                       const float* k_i, const float* alpha, const float* L,
+                       const float* U, const float* xqj, const float* sqqj,
+                       const float* mu, const float* gamma, float* G_out,
+                       float* bmax, int* barg, float* bmin, int l, int d,
+                       int device, void* stream) {
+  return repro::update_wss_single<float>(XT, sqn, G, k_i, alpha, L, U, xqj,
+                                         sqqj, mu, gamma, G_out, bmax, barg,
+                                         bmin, l, d, device, stream);
+}
+
+int rbf_update_wss_f64(const double* XT, const double* sqn, const double* G,
+                       const double* k_i, const double* alpha,
+                       const double* L, const double* U, const double* xqj,
+                       const double* sqqj, const double* mu,
+                       const double* gamma, double* G_out, double* bmax,
+                       int* barg, double* bmin, int l, int d, int device,
+                       void* stream) {
+  return repro::update_wss_single<double>(XT, sqn, G, k_i, alpha, L, U, xqj,
+                                          sqqj, mu, gamma, G_out, bmax, barg,
+                                          bmin, l, d, device, stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,12 @@ The CUDA passes return per-block reductions; the cross-block step,
 kernels.  Working-set indices stay int32 at every kernel boundary; Gram
 bank indices are int64.
 
+``dup=True`` runs the batched passes on the doubled ε-SVR operator's
+(B, 2l) lane state over the base ``X``: on the card the H = 2 variants of
+pass A and pass B.  The bank passes have no H = 2 variant on the card yet
+(ROADMAP queue 2): doubled bank lanes run on the plain backend only, and
+``impl="cuda"`` raises for them.
+
 Unlike the reference's rows variants, which take rows gathered from the
 bank, :func:`row_wss_batched_rows` and :func:`update_wss_batched_rows`
 take the bank and the per-lane indices: the CUDA passes read the rows in
@@ -26,7 +32,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device, resolve_dtype
-from repro_torch.kernels import gram_block, rbf_row_wss, rbf_update_wss
+from repro_torch.kernels import gram_block
+from repro_torch.kernels import rbf_row_wss as pass_a
+from repro_torch.kernels import rbf_update_wss as pass_b
 from repro_torch.kernels import ref as ref_ops
 from repro_torch.kernels.row_source import RowSource
 
@@ -57,58 +65,113 @@ def _first_max(bmax, barg):
     return cand.amin(dim=1), best[:, 0]
 
 
+def rbf_row_wss(X, sqn, G, alpha, L, U, xq, a_i, L_i, U_i, g_i, i_idx,
+                use_exact, gamma, *, impl: str = "auto", XT=None, k_out=None,
+                run=None):
+    """Single-lane pass A -> (k_i (l,), j (0-d int32), gain_j).
+
+    On the card the row is stored into ``k_out`` when given.  ``run``, a
+    0-d bool tensor, makes the pass conditional without a host sync: the
+    row is replaced only where ``run`` is true (on the card a false flag
+    turns the launch into a no-op), and ``(j, gain)`` are then undefined.
+    """
+    if resolve_impl(impl, G.device) == "torch":
+        out = ref_ops.rbf_row_wss(X, sqn, G, alpha, L, U, xq, a_i, L_i, U_i,
+                                  g_i, i_idx, use_exact, gamma)
+        if run is None:
+            return out
+        return (torch.where(run, out[0], k_out),) + out[1:]
+    k, bmax, barg = pass_a.rbf_row_wss(
+        X, sqn, G, alpha, L, U, xq, torch.dot(xq, xq), a_i, L_i, U_i, g_i,
+        i_idx, use_exact, gamma, XT=XT, k_out=k_out, run=run)
+    j, gain = _first_max(bmax[None], barg[None])
+    return k, j[0], gain[0]
+
+
+def rbf_update_wss(X, sqn, G, k_i, alpha_new, L, U, xq_j, mu, gamma, *,
+                   impl: str = "auto", XT=None):
+    """Single-lane pass B with the stored row ``k_i`` ->
+    (G_new (l,), i_next (0-d int32), g_i_next, g_dn).
+
+    ``mu == 0`` leaves G bitwise unchanged."""
+    if resolve_impl(impl, G.device) == "torch":
+        return ref_ops.rbf_update_wss(X, sqn, G, k_i, xq_j, mu, alpha_new, L,
+                                      U, gamma)
+    G_new, bmax, barg, bmin = pass_b.rbf_update_wss(
+        X, sqn, G, k_i, alpha_new, L, U, xq_j, torch.dot(xq_j, xq_j), mu,
+        gamma, XT=XT)
+    i_next, g_i_next = _first_max(bmax[None], barg[None])
+    return G_new, i_next[0], g_i_next[0], bmin.amin()
+
+
 def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
                         g_i, i_idx, use_exact, gammas, *, impl: str = "auto",
-                        XT=None):
+                        XT=None, dup: bool = False):
     """Batched pass A: per-lane WSS2 selection -> (j (B,) int32, gain)."""
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq,
                                            a_i, L_i, U_i, g_i, i_idx,
-                                           use_exact, gammas)
-    bmax, barg = rbf_row_wss.rbf_row_wss_batched(
-        X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
-        use_exact, gammas, XT=XT)
+                                           use_exact, gammas, dup=dup)
+    fn = (pass_a.rbf_row_wss_batched_h2 if dup
+          else pass_a.rbf_row_wss_batched)
+    bmax, barg = fn(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
+                    i_idx, use_exact, gammas, XT=XT)
     return _first_max(bmax, barg)
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
-                           mu, gammas, *, impl: str = "auto", XT=None):
-    """Batched pass B -> (G_new (B, l), i_next (B,) int32, g_i_next, g_dn).
+                           mu, gammas, *, impl: str = "auto", XT=None,
+                           dup: bool = False):
+    """Batched pass B -> (G_new (B, n), i_next (B,) int32, g_i_next, g_dn).
 
     A lane with ``mu == 0`` leaves G bitwise unchanged."""
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_update_wss_batched(X, sqn, G, alpha_new, L, U,
                                               XQi, sqqi, XQj, sqqj, mu,
-                                              gammas)
-    G_new, bmax, barg, bmin = rbf_update_wss.rbf_update_wss_batched(
-        X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas, XT=XT)
+                                              gammas, dup=dup)
+    fn = (pass_b.rbf_update_wss_batched_h2 if dup
+          else pass_b.rbf_update_wss_batched)
+    G_new, bmax, barg, bmin = fn(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
+                                 sqqj, mu, gammas, XT=XT)
     i_next, g_i_next = _first_max(bmax, barg)
     return G_new, i_next, g_i_next, bmin.amin(dim=1)
 
 
+def _bank_impl(impl: str, device, dup: bool) -> str:
+    impl = resolve_impl(impl, device)
+    if dup and impl == "cuda":
+        raise NotImplementedError(
+            "the doubled (H = 2) Gram-bank passes on the card are the next "
+            "slice of the port (ROADMAP queue 2); run doubled lanes on the "
+            "card without the bank (precompute=False)")
+    return impl
+
+
 def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                         i_idx, use_exact, *, impl: str = "auto"):
+                         i_idx, use_exact, *, impl: str = "auto",
+                         dup: bool = False):
     """Batched pass A over the Gram bank: lane b's kernel row is
     ``gram[gram_idx[b], i_idx[b]]`` -> (j (B,) int32, gain)."""
-    if resolve_impl(impl, G.device) == "torch":
+    if _bank_impl(impl, G.device, dup) == "torch":
         return ref_ops.row_wss_batched_from_k(
-            ref_ops.bank_rows(gram, gram_idx, i_idx), G, alpha, L, U, a_i,
-            L_i, U_i, g_i, i_idx, use_exact)
-    bmax, barg = rbf_row_wss.row_wss_batched_rows(
+            ref_ops.bank_rows(gram, gram_idx, i_idx, dup), G, alpha, L, U,
+            a_i, L_i, U_i, g_i, i_idx, use_exact)
+    bmax, barg = pass_a.row_wss_batched_rows(
         gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact)
     return _first_max(bmax, barg)
 
 
 def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
-                            mu, *, impl: str = "auto"):
-    """Batched pass B over the Gram bank -> (G_new (B, l), i_next (B,)
+                            mu, *, impl: str = "auto", dup: bool = False):
+    """Batched pass B over the Gram bank -> (G_new (B, n), i_next (B,)
     int32, g_i_next, g_dn).  A lane with ``mu == 0`` leaves G bitwise
     unchanged."""
-    if resolve_impl(impl, G.device) == "torch":
+    if _bank_impl(impl, G.device, dup) == "torch":
         return ref_ops.update_wss_batched_from_rows(
-            G, ref_ops.bank_rows(gram, gram_idx, i_idx),
-            ref_ops.bank_rows(gram, gram_idx, j_idx), mu, alpha_new, L, U)
-    G_new, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows(
+            G, ref_ops.bank_rows(gram, gram_idx, i_idx, dup),
+            ref_ops.bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L,
+            U)
+    G_new, bmax, barg, bmin = pass_b.update_wss_batched_rows(
         gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu)
     i_next, g_i_next = _first_max(bmax, barg)
     return G_new, i_next, g_i_next, bmin.amin(dim=1)
@@ -120,11 +183,11 @@ def source_row_wss(src: RowSource, G, alpha, L, U, i_idx, a_i, L_i, U_i,
     if src.is_bank:
         return row_wss_batched_rows(src.gram, src.gram_idx, G, alpha, L, U,
                                     a_i, L_i, U_i, g_i, i_idx, use_exact,
-                                    impl=impl)
+                                    impl=impl, dup=src.dup)
     XQ, sqq = src.query(i_idx)
     return rbf_row_wss_batched(src.X, src.sqn, G, alpha, L, U, XQ, sqq, a_i,
                                L_i, U_i, g_i, i_idx, use_exact, src.gammas,
-                               impl=impl, XT=src.XT)
+                               impl=impl, XT=src.XT, dup=src.dup)
 
 
 def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
@@ -135,12 +198,14 @@ def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
     """
     if src.is_bank:
         return update_wss_batched_rows(src.gram, src.gram_idx, G, alpha_new,
-                                       L, U, i_idx, j_idx, mu, impl=impl)
+                                       L, U, i_idx, j_idx, mu, impl=impl,
+                                       dup=src.dup)
     B = G.shape[0]
     XQ, sqq = src.query(torch.cat([i_idx, j_idx]))
     return rbf_update_wss_batched(src.X, src.sqn, G, alpha_new, L, U,
                                   XQ[:B], sqq[:B], XQ[B:], sqq[B:], mu,
-                                  src.gammas, impl=impl, XT=src.XT)
+                                  src.gammas, impl=impl, XT=src.XT,
+                                  dup=src.dup)
 
 
 def gram(X1, X2=None, gamma=1.0, *, impl: str = "auto", device=None,

@@ -1,10 +1,12 @@
-"""Pass A wrappers: the lane-batched WSS2 selection kernels, with rows
-recomputed from ``X`` (``csrc/rbf_row_wss.cu``) or read from the Gram bank
+"""Pass A wrappers: the WSS2 selection kernels, with rows recomputed from
+``X`` (``csrc/rbf_row_wss.cu``: lane-batched with one or two state
+halves, and single-lane with the row stored) or read from the Gram bank
 (``csrc/row_wss_rows.cu``).
 
 On CUDA tensors each launches its kernel on the current stream and returns
 the per-block (max, first argmax) pairs; on CPU tensors it runs the plain
 version (:func:`repro_torch.kernels.ref.rbf_row_wss_batched_blocks`,
+:func:`repro_torch.kernels.ref.rbf_row_wss_blocks`,
 :func:`repro_torch.kernels.ref.row_wss_batched_rows_blocks`).  There is no
 fallback from one to the other.  Each wrapper's ``launches`` attribute
 counts its kernel launches.
@@ -16,27 +18,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.checks import (check_bank, check_lane_scalars,
-                                        check_state, dtype_bits)
+                                        check_state, dtype_bits, on_card)
 
 
-def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
-                        i_idx, use_exact, gammas, *, XT=None):
-    """Batched pass A over the shared ``X`` (l, d).
-
-    ``G``/``alpha``/``L``/``U`` are (B, l); ``XQ`` is the (B, d) query rows;
-    ``sqq``/``a_i``/``L_i``/``U_i``/``g_i``/``gammas`` are (B,) in the data
-    dtype, ``i_idx`` (B,) int32 and ``use_exact`` (B,) bool.  ``XT`` is
-    ``X`` transposed to (d, l) and contiguous, which the kernel reads; it is
-    made here when not given.  Returns (bmax (B, nb), barg (B, nb) int32),
-    ``nb = ceil(l / BLOCK_L)``.
-    """
-    if G.device.type == "cpu":
-        return ref.rbf_row_wss_batched_blocks(
-            X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
-            use_exact, gammas, block_l=build.BLOCK_L)
-    if G.device.type != "cuda":
-        raise ValueError(f"pass A runs on cuda or cpu tensors, got "
-                         f"{G.device}")
+def _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
+             use_exact, gammas, XT, H: int):
+    """Launch the lane-batched pass A over ``H`` state halves."""
     l, d = X.shape
     B = G.shape[0]
     if XT is None:
@@ -45,7 +32,7 @@ def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
     check_state("XT", XT, (d, l), dtype, G.device)
     check_state("sqn", sqn, (l,), dtype, G.device)
     for name, t in (("G", G), ("alpha", alpha), ("L", L), ("U", U)):
-        check_state(name, t, (B, l), dtype, G.device)
+        check_state(name, t, (B, H * l), dtype, G.device)
     check_state("XQ", XQ, (B, d), dtype, G.device)
     check_lane_scalars(B, G.device, dtype, sqq=sqq, a_i=a_i, L_i=L_i,
                        U_i=U_i, g_i=g_i, gammas=gammas)
@@ -58,14 +45,116 @@ def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
     ptrs = [t.data_ptr() for t in (XT, sqn, G, alpha, L, U, XQ, sqq, a_i,
                                    L_i, U_i, g_i, i_idx, use_exact, gammas,
                                    bmax, barg)]
-    err = fn(*ptrs, B, l, d, G.device.index,
+    err = fn(*ptrs, B, H, l, d, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
-    rbf_row_wss_batched.launches += 1
     build.check(err, "rbf_row_wss_batched")
     return bmax, barg
 
 
+def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
+                        i_idx, use_exact, gammas, *, XT=None):
+    """Batched pass A over the shared ``X`` (l, d), one state half.
+
+    ``G``/``alpha``/``L``/``U`` are (B, l); ``XQ`` is the (B, d) query rows;
+    ``sqq``/``a_i``/``L_i``/``U_i``/``g_i``/``gammas`` are (B,) in the data
+    dtype, ``i_idx`` (B,) int32 and ``use_exact`` (B,) bool.  ``XT`` is
+    ``X`` transposed to (d, l) and contiguous, which the kernel reads; it is
+    made here when not given.  Returns (bmax (B, nb), barg (B, nb) int32),
+    ``nb = ceil(l / BLOCK_L)``.
+    """
+    if not on_card(G, "pass A"):
+        return ref.rbf_row_wss_batched_blocks(
+            X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, gammas, block_l=build.BLOCK_L)
+    out = _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
+                   i_idx, use_exact, gammas, XT, 1)
+    rbf_row_wss_batched.launches += 1
+    return out
+
+
 rbf_row_wss_batched.launches = 0
+
+
+def rbf_row_wss_batched_h2(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
+                           g_i, i_idx, use_exact, gammas, *, XT=None):
+    """Batched pass A for the doubled ε-SVR operator (H = 2 state halves).
+
+    As :func:`rbf_row_wss_batched`, with ``G``/``alpha``/``L``/``U`` (B, 2l)
+    over the base ``X`` (l, d) and ``i_idx`` a doubled index in [0, 2l):
+    coordinate ``h l + j`` takes the base row's column ``j``.  Returns
+    (bmax (B, nb), barg (B, nb) int32) with doubled indices, ``nb`` the
+    blocks of the base axis.
+    """
+    if not on_card(G, "pass A"):
+        return ref.rbf_row_wss_batched_blocks(
+            X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, gammas, block_l=build.BLOCK_L, dup=True)
+    out = _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
+                   i_idx, use_exact, gammas, XT, 2)
+    rbf_row_wss_batched_h2.launches += 1
+    return out
+
+
+rbf_row_wss_batched_h2.launches = 0
+
+
+def rbf_row_wss(X, sqn, G, alpha, L, U, xq, sqq, a_i, L_i, U_i, g_i, i_idx,
+                use_exact, gamma, *, XT=None, k_out=None, run=None):
+    """Single-lane pass A over ``X`` (l, d), the kernel row stored.
+
+    ``G``/``alpha``/``L``/``U`` are (l,), ``xq`` the (d,) query row;
+    ``sqq``/``a_i``/``L_i``/``U_i``/``g_i``/``gamma`` hold one value each
+    (0-d or (1,)) in the data dtype, ``i_idx`` int32, ``use_exact`` bool.
+    The row k_i is written into ``k_out`` (l,), made here when not given.
+    With ``run`` (one bool on the device) a false flag makes the launch
+    a no-op: ``k_out`` keeps its row bitwise and ``bmax``/``barg`` are
+    undefined; the plain version selects with ``torch.where``.  Returns
+    (k (l,), bmax (nb,), barg (nb,) int32).
+    """
+    if not on_card(G, "pass A"):
+        k, bmax, barg = ref.rbf_row_wss_blocks(
+            X, sqn, G, alpha, L, U, xq, sqq, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, gamma, block_l=build.BLOCK_L)
+        if run is not None:
+            k = torch.where(run.reshape(()), k, k_out)
+        return k, bmax, barg
+    l, d = X.shape
+    if XT is None:
+        XT = X.T.contiguous()
+    dtype = G.dtype
+    check_state("XT", XT, (d, l), dtype, G.device)
+    for name, t in (("sqn", sqn), ("G", G), ("alpha", alpha), ("L", L),
+                    ("U", U)):
+        check_state(name, t, (l,), dtype, G.device)
+    check_state("xq", xq, (d,), dtype, G.device)
+    scal = dict(sqq=sqq, a_i=a_i, L_i=L_i, U_i=U_i, g_i=g_i, gamma=gamma)
+    check_lane_scalars(1, G.device, dtype,
+                       **{k: v.reshape(1) for k, v in scal.items()})
+    check_lane_scalars(1, G.device, torch.int32, i_idx=i_idx.reshape(1))
+    check_lane_scalars(1, G.device, torch.bool,
+                       use_exact=use_exact.reshape(1))
+    if run is not None:
+        if k_out is None:
+            raise ValueError("a relaunch flag needs the stored row k_out")
+        check_lane_scalars(1, G.device, torch.bool, run=run.reshape(1))
+    if k_out is None:
+        k_out = torch.empty_like(G)
+    check_state("k_out", k_out, (l,), dtype, G.device)
+    nb = -(-l // build.BLOCK_L)
+    bmax = torch.empty((nb,), dtype=dtype, device=G.device)
+    barg = torch.empty((nb,), dtype=torch.int32, device=G.device)
+    fn = build.entry("rbf_row_wss", dtype_bits(dtype))
+    ptrs = [t.data_ptr() for t in (XT, sqn, G, alpha, L, U, xq, sqq, a_i,
+                                   L_i, U_i, g_i, i_idx, use_exact, gamma)]
+    err = fn(*ptrs, None if run is None else run.data_ptr(),
+             k_out.data_ptr(), bmax.data_ptr(), barg.data_ptr(), l, d,
+             G.device.index, torch.cuda.current_stream(G.device).cuda_stream)
+    rbf_row_wss.launches += 1
+    build.check(err, "rbf_row_wss")
+    return k_out, bmax, barg
+
+
+rbf_row_wss.launches = 0
 
 
 def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
@@ -78,13 +167,10 @@ def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
     arguments are as in :func:`rbf_row_wss_batched`.  Returns
     (bmax (B, nb), barg (B, nb) int32), ``nb = ceil(l / BLOCK_L)``.
     """
-    if G.device.type == "cpu":
+    if not on_card(G, "bank pass A"):
         return ref.row_wss_batched_rows_blocks(
             gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
             use_exact, block_l=build.BLOCK_L)
-    if G.device.type != "cuda":
-        raise ValueError(f"bank pass A runs on cuda or cpu tensors, got "
-                         f"{G.device}")
     B, l = G.shape
     dtype = G.dtype
     check_bank(gram, gram_idx, B, l, dtype, G.device)

@@ -1,11 +1,13 @@
-"""Pass B wrappers: the lane-batched gradient update + stopping-scan
-kernels, with both rows recomputed from ``X`` (``csrc/rbf_update_wss.cu``)
-or read from the Gram bank (``csrc/update_wss_rows.cu``).
+"""Pass B wrappers: the gradient update + stopping-scan kernels, with both
+rows recomputed from ``X`` (``csrc/rbf_update_wss.cu``: lane-batched with
+one or two state halves, and single-lane reading the stored k_i) or read
+from the Gram bank (``csrc/update_wss_rows.cu``).
 
 On CUDA tensors each launches its kernel on the current stream and returns
 the new gradient with the per-block next-i (max, first argmax) and gap
 minimum; on CPU tensors it runs the plain version
 (:func:`repro_torch.kernels.ref.rbf_update_wss_batched_blocks`,
+:func:`repro_torch.kernels.ref.rbf_update_wss_blocks`,
 :func:`repro_torch.kernels.ref.update_wss_batched_rows_blocks`).  There is
 no fallback from one to the other.  Each wrapper's ``launches`` attribute
 counts its kernel launches.
@@ -17,26 +19,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.checks import (check_bank, check_lane_scalars,
-                                        check_state, dtype_bits)
+                                        check_state, dtype_bits, on_card)
 
 
-def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
-                           mu, gammas, *, XT=None):
-    """Batched pass B over the shared ``X`` (l, d).
-
-    ``G``/``alpha_new``/``L``/``U`` are (B, l); ``XQi``/``XQj`` the (B, d)
-    rows of the working sets; ``sqqi``/``sqqj``/``mu``/``gammas`` (B,) in
-    the data dtype.  ``XT`` is ``X`` transposed to (d, l), made here when
-    not given.  G is written out of place.  Returns (G_new (B, l),
-    bmax (B, nb), barg (B, nb) int32, bmin (B, nb)).
-    """
-    if G.device.type == "cpu":
-        return ref.rbf_update_wss_batched_blocks(
-            X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
-            block_l=build.BLOCK_L)
-    if G.device.type != "cuda":
-        raise ValueError(f"pass B runs on cuda or cpu tensors, got "
-                         f"{G.device}")
+def _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
+             XT, H: int):
+    """Launch the lane-batched pass B over ``H`` state halves."""
     l, d = X.shape
     B = G.shape[0]
     if XT is None:
@@ -45,7 +33,7 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
     check_state("XT", XT, (d, l), dtype, G.device)
     check_state("sqn", sqn, (l,), dtype, G.device)
     for name, t in (("G", G), ("alpha_new", alpha_new), ("L", L), ("U", U)):
-        check_state(name, t, (B, l), dtype, G.device)
+        check_state(name, t, (B, H * l), dtype, G.device)
     check_state("XQi", XQi, (B, d), dtype, G.device)
     check_state("XQj", XQj, (B, d), dtype, G.device)
     check_lane_scalars(B, G.device, dtype, sqqi=sqqi, sqqj=sqqj, mu=mu,
@@ -59,14 +47,99 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
     ptrs = [t.data_ptr() for t in (XT, sqn, G, alpha_new, L, U, XQi, sqqi,
                                    XQj, sqqj, mu, gammas, G_out, bmax, barg,
                                    bmin)]
-    err = fn(*ptrs, B, l, d, G.device.index,
+    err = fn(*ptrs, B, H, l, d, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
-    rbf_update_wss_batched.launches += 1
     build.check(err, "rbf_update_wss_batched")
     return G_out, bmax, barg, bmin
 
 
+def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
+                           mu, gammas, *, XT=None):
+    """Batched pass B over the shared ``X`` (l, d), one state half.
+
+    ``G``/``alpha_new``/``L``/``U`` are (B, l); ``XQi``/``XQj`` the (B, d)
+    rows of the working sets; ``sqqi``/``sqqj``/``mu``/``gammas`` (B,) in
+    the data dtype.  ``XT`` is ``X`` transposed to (d, l), made here when
+    not given.  G is written out of place.  Returns (G_new (B, l),
+    bmax (B, nb), barg (B, nb) int32, bmin (B, nb)).
+    """
+    if not on_card(G, "pass B"):
+        return ref.rbf_update_wss_batched_blocks(
+            X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
+            block_l=build.BLOCK_L)
+    out = _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu,
+                   gammas, XT, 1)
+    rbf_update_wss_batched.launches += 1
+    return out
+
+
 rbf_update_wss_batched.launches = 0
+
+
+def rbf_update_wss_batched_h2(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
+                              sqqj, mu, gammas, *, XT=None):
+    """Batched pass B for the doubled ε-SVR operator (H = 2 state halves).
+
+    As :func:`rbf_update_wss_batched`, with (B, 2l) state over the base
+    ``X`` (l, d) and ``XQi``/``XQj`` the base rows of the working sets;
+    both halves take the same update.  Returns (G_new (B, 2l),
+    bmax (B, nb), barg (B, nb) int32 with doubled indices, bmin (B, nb)).
+    """
+    if not on_card(G, "pass B"):
+        return ref.rbf_update_wss_batched_blocks(
+            X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
+            block_l=build.BLOCK_L, dup=True)
+    out = _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu,
+                   gammas, XT, 2)
+    rbf_update_wss_batched_h2.launches += 1
+    return out
+
+
+rbf_update_wss_batched_h2.launches = 0
+
+
+def rbf_update_wss(X, sqn, G, k_i, alpha_new, L, U, xq_j, sqq_j, mu, gamma,
+                   *, XT=None):
+    """Single-lane pass B over ``X`` (l, d) with the stored row ``k_i``.
+
+    ``G``/``k_i``/``alpha_new``/``L``/``U`` are (l,), ``xq_j`` the (d,)
+    row of j; ``sqq_j``/``mu``/``gamma`` hold one value each (0-d or (1,))
+    in the data dtype.  G is written out of place; ``mu == 0`` leaves it
+    bitwise unchanged.  Returns (G_new (l,), bmax (nb,), barg (nb,) int32,
+    bmin (nb,)).
+    """
+    if not on_card(G, "pass B"):
+        return ref.rbf_update_wss_blocks(
+            X, sqn, G, k_i, alpha_new, L, U, xq_j, sqq_j, mu, gamma,
+            block_l=build.BLOCK_L)
+    l, d = X.shape
+    if XT is None:
+        XT = X.T.contiguous()
+    dtype = G.dtype
+    check_state("XT", XT, (d, l), dtype, G.device)
+    for name, t in (("sqn", sqn), ("G", G), ("k_i", k_i),
+                    ("alpha_new", alpha_new), ("L", L), ("U", U)):
+        check_state(name, t, (l,), dtype, G.device)
+    check_state("xq_j", xq_j, (d,), dtype, G.device)
+    check_lane_scalars(1, G.device, dtype, sqq_j=sqq_j.reshape(1),
+                       mu=mu.reshape(1), gamma=gamma.reshape(1))
+    nb = -(-l // build.BLOCK_L)
+    G_out = torch.empty_like(G)
+    bmax = torch.empty((nb,), dtype=dtype, device=G.device)
+    barg = torch.empty((nb,), dtype=torch.int32, device=G.device)
+    bmin = torch.empty((nb,), dtype=dtype, device=G.device)
+    fn = build.entry("rbf_update_wss", dtype_bits(dtype))
+    ptrs = [t.data_ptr() for t in (XT, sqn, G, k_i, alpha_new, L, U, xq_j,
+                                   sqq_j, mu, gamma, G_out, bmax, barg,
+                                   bmin)]
+    err = fn(*ptrs, l, d, G.device.index,
+             torch.cuda.current_stream(G.device).cuda_stream)
+    rbf_update_wss.launches += 1
+    build.check(err, "rbf_update_wss")
+    return G_out, bmax, barg, bmin
+
+
+rbf_update_wss.launches = 0
 
 
 def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
@@ -79,13 +152,10 @@ def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
     (B,) in the data dtype.  G is written out of place.  Returns
     (G_new (B, l), bmax (B, nb), barg (B, nb) int32, bmin (B, nb)).
     """
-    if G.device.type == "cpu":
+    if not on_card(G, "bank pass B"):
         return ref.update_wss_batched_rows_blocks(
             gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
             block_l=build.BLOCK_L)
-    if G.device.type != "cuda":
-        raise ValueError(f"bank pass B runs on cuda or cpu tensors, got "
-                         f"{G.device}")
     B, l = G.shape
     dtype = G.dtype
     check_bank(gram, gram_idx, B, l, dtype, G.device)

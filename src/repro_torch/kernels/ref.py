@@ -2,13 +2,20 @@
 oracle every CUDA kernel is held against.
 
 Each function repeats the arithmetic of ``repro.kernels.ref`` in the same
-order (main-path subset: one state half, no active-set mask, no conjugate
-direction).  Indices leave as int32, as in the reference's index channel.
+order (no active-set mask, no conjugate direction).  Indices leave as
+int32, as in the reference's index channel.
+
+The single-lane passes (:func:`rbf_row_wss`, :func:`rbf_update_wss`) take
+(l,) state and 0-d scalars.  The batched passes take (B, n) lane state;
+with ``dup=True`` the state is the doubled ε-SVR operator's (n = 2l) over
+the base (l, d) ``X``: the row of coordinate ``k`` is the base row of
+``k mod l``, tiled (:func:`tile_rows`).
 
 The ``*_blocks`` functions are the plain versions of what the CUDA passes
 themselves return: the per-block (max, first argmax) and min over
 ``block_l`` columns, before the cross-block reduction in
-:mod:`repro_torch.kernels.ops`.
+:mod:`repro_torch.kernels.ops`.  With doubled state a block covers the
+same ``block_l`` base columns in both halves, half 0 before half 1.
 """
 
 from __future__ import annotations
@@ -20,10 +27,97 @@ NEG_INF = float("-inf")
 POS_INF = float("inf")
 
 
-def rbf_rows_batched(X, sqn, XQ, sqq, gammas):
-    """k(x_q^b, X) for a batch of query rows -> (B, l)."""
+# ---------------------------------------------------------------------------
+# Single-lane passes (one QP, the kernel row stored between the passes)
+# ---------------------------------------------------------------------------
+
+
+def _lane(*scalars):
+    """Single-lane scalars (0-d or (1,)) as the (1,) per-lane vectors of
+    the batched algebra."""
+    return [torch.as_tensor(s).reshape(1) for s in scalars]
+
+
+def _row(X, sqn, xq, sqq, gamma):
+    """k(x_q, X) from the query's squared norm -> (l,)."""
+    d2 = sqq + sqn - 2.0 * (X @ xq)
+    return torch.exp(-gamma * torch.clamp_min(d2, 0.0))
+
+
+def rbf_row(X, sqn, xq, gamma):
+    """k(x_q, X) for one query row -> (l,)."""
+    return _row(X, sqn, xq, torch.dot(xq, xq), gamma)
+
+
+def rbf_row_wss(X, sqn, G, alpha, L, U, xq, a_i, L_i, U_i, g_i, i_idx,
+                use_exact, gamma):
+    """Single-lane pass A: the kernel row k_i + WSS2 j-selection.
+
+    Returns (k_i (l,), j (0-d int32), gain_j).
+    """
+    k = rbf_row(X, sqn, xq, gamma)
+    j, gain = _first_argmax(_wss_vals(
+        k[None], G[None], alpha[None], L[None], U[None], *_lane(
+            a_i, L_i, U_i, g_i, i_idx, use_exact)))
+    return k, j[0], gain[0]
+
+
+def rbf_update_wss(X, sqn, G, k_i, xq_j, mu, alpha_new, L, U, gamma):
+    """Single-lane pass B: row k_j, the gradient update with the stored
+    k_i, the next i and the gap's other end.
+
+    A ``mu == 0`` step is a bitwise no-op on G.  Returns
+    (G_new (l,), i_next (0-d int32), g_i_next, g_dn).
+    """
+    k_j = rbf_row(X, sqn, xq_j, gamma)
+    G_new, vals_up, vals_dn = _update_vals(G[None], k_i[None], k_j[None],
+                                           mu.reshape(1), alpha_new[None],
+                                           L[None], U[None])
+    i_next, g_i_next = _first_argmax(vals_up)
+    return G_new[0], i_next[0], g_i_next[0], vals_dn.amin()
+
+
+def rbf_row_wss_blocks(X, sqn, G, alpha, L, U, xq, sqq, a_i, L_i, U_i, g_i,
+                       i_idx, use_exact, gamma, *, block_l: int):
+    """Single-lane pass A as kernel 6 returns it: (k (l,), bmax (nb,),
+    barg (nb,) int32), the query's squared norm ``sqq`` given."""
+    k = _row(X, sqn, xq, sqq, gamma)
+    bmax, barg = block_first_max(_wss_vals(
+        k[None], G[None], alpha[None], L[None], U[None], *_lane(
+            a_i, L_i, U_i, g_i, i_idx, use_exact)), block_l)
+    return k, bmax[0], barg[0]
+
+
+def rbf_update_wss_blocks(X, sqn, G, k_i, alpha_new, L, U, xq_j, sqq_j, mu,
+                          gamma, *, block_l: int):
+    """Single-lane pass B as kernel 7 returns it: (G_new (l,), bmax (nb,),
+    barg (nb,) int32, bmin (nb,)), the query's squared norm given."""
+    k_j = _row(X, sqn, xq_j, sqq_j, gamma)
+    G_new, vals_up, vals_dn = _update_vals(G[None], k_i[None], k_j[None],
+                                           mu.reshape(1), alpha_new[None],
+                                           L[None], U[None])
+    bmax, barg = block_first_max(vals_up, block_l)
+    return G_new[0], bmax[0], barg[0], block_min(vals_dn, block_l)[0]
+
+
+# ---------------------------------------------------------------------------
+# Batched passes (one lane per QP over a shared X)
+# ---------------------------------------------------------------------------
+
+
+def tile_rows(k):
+    """Doubled-operator rows: (B, l) base rows -> (B, 2l).
+
+    Row k of ``Q = [[K, K], [K, K]]`` is the base row tiled."""
+    return torch.cat([k, k], dim=1)
+
+
+def rbf_rows_batched(X, sqn, XQ, sqq, gammas, dup: bool = False):
+    """k(x_q^b, X) for a batch of query rows -> (B, l), or the doubled
+    operator's (B, 2l) rows with ``dup=True`` (the product stays l-wide)."""
     d2 = sqq[:, None] + sqn[None, :] - 2.0 * (XQ @ X.T)
-    return torch.exp(-gammas[:, None] * torch.clamp_min(d2, 0.0))
+    k = torch.exp(-gammas[:, None] * torch.clamp_min(d2, 0.0))
+    return tile_rows(k) if dup else k
 
 
 def _wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact):
@@ -50,7 +144,7 @@ def _first_argmax(vals):
 
 def row_wss_batched_from_k(k, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
                            use_exact):
-    """Pass A selection algebra given the (B, l) kernel rows ``k``.
+    """Pass A selection algebra given the (B, n) kernel rows ``k``.
 
     RBF diag == 1 is hardcoded (paper setting).  Returns
     (j (B,) int32, gain_j (B,)).
@@ -60,9 +154,9 @@ def row_wss_batched_from_k(k, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
 
 
 def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
-                        g_i, i_idx, use_exact, gammas):
+                        g_i, i_idx, use_exact, gammas, dup: bool = False):
     """Batched pass A: WSS2 j-selection per lane -> (j (B,) int32, gain)."""
-    k = rbf_rows_batched(X, sqn, XQ, sqq, gammas)
+    k = rbf_rows_batched(X, sqn, XQ, sqq, gammas, dup=dup)
     return row_wss_batched_from_k(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
                                   i_idx, use_exact)
 
@@ -76,35 +170,39 @@ def _update_vals(G, k_i, k_j, mu, alpha_new, L, U):
 
 
 def update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U):
-    """Pass B update + stopping-scan algebra given both (B, l) rows.
+    """Pass B update + stopping-scan algebra given both (B, n) rows.
 
     A lane with ``mu == 0`` is a bitwise no-op on G (the lane freeze).
-    Returns (G_new (B, l), i_next (B,) int32, g_i_next (B,), g_dn (B,)).
+    Returns (G_new (B, n), i_next (B,) int32, g_i_next (B,), g_dn (B,)).
     """
     G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U)
     i_next, g_i_next = _first_argmax(vals_up)
     return G_new, i_next, g_i_next, vals_dn.amin(dim=1)
 
 
-def _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas):
-    """Both (B, l) rows k_i, k_j from one stacked (2B, d) x (d, l) product."""
+def _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup=False):
+    """Both rows k_i, k_j from one stacked (2B, d) x (d, l) product."""
     B = XQi.shape[0]
     Kr = rbf_rows_batched(X, sqn, torch.cat([XQi, XQj]),
                           torch.cat([sqqi, sqqj]),
-                          torch.cat([gammas, gammas]))
+                          torch.cat([gammas, gammas]), dup=dup)
     return Kr[:B], Kr[B:]
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
-                           mu, gammas):
+                           mu, gammas, dup: bool = False):
     """Batched pass B: k_i/k_j recompute + update + next i + gap ends."""
-    k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas)
+    k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup)
     return update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U)
 
 
-def bank_rows(gram, gram_idx, idx):
-    """Rows ``gram[gram_idx, idx]`` of the Gram bank -> (B, l)."""
-    return gram[gram_idx, idx.long()]
+def bank_rows(gram, gram_idx, idx, dup: bool = False):
+    """Rows ``gram[gram_idx, idx]`` of the Gram bank -> (B, l), or the
+    doubled operator's tiled (B, 2l) rows (``idx`` folded onto the base
+    axis) with ``dup=True``."""
+    if not dup:
+        return gram[gram_idx, idx.long()]
+    return tile_rows(gram[gram_idx, idx.long() % gram.shape[-1]])
 
 
 def gram_cross(X1, X2, gamma, *, out=None):
@@ -129,35 +227,56 @@ def _blocks(vals, block_l: int, fill: float):
     return torch.cat([vals, pad], dim=1).reshape(B, nb, block_l)
 
 
-def block_first_max(vals, block_l: int):
-    """Per-block (max, first argmax as a global int32 index) -> (B, nb)."""
+def _half_first_max(vals, block_l: int):
     blk = _blocks(vals, block_l, NEG_INF)
     arg = torch.argmax(blk, dim=2)
     best = blk.gather(2, arg[..., None])[..., 0]
     base = torch.arange(blk.shape[1], device=vals.device) * block_l
-    return best, (arg + base[None, :]).to(torch.int32)
+    return best, arg + base[None, :]
 
 
-def block_min(vals, block_l: int):
-    return _blocks(vals, block_l, POS_INF).amin(dim=2)
+def block_first_max(vals, block_l: int, H: int = 1):
+    """Per-block (max, first argmax as a global int32 index) -> (B, nb).
+
+    ``vals`` is (B, H l): with H = 2 block b covers base columns
+    ``[b block_l, (b + 1) block_l)`` of both halves, and half 1 wins only
+    with a strictly larger value (its indices are the larger ones)."""
+    l = vals.shape[1] // H
+    best, arg = _half_first_max(vals[:, :l], block_l)
+    for h in range(1, H):
+        m, a = _half_first_max(vals[:, h * l:(h + 1) * l], block_l)
+        arg = torch.where(m > best, a + h * l, arg)
+        best = torch.maximum(m, best)
+    return best, arg.to(torch.int32)
+
+
+def block_min(vals, block_l: int, H: int = 1):
+    """Per-block min -> (B, nb), over both halves with H = 2."""
+    l = vals.shape[1] // H
+    return torch.stack([_blocks(vals[:, h * l:(h + 1) * l], block_l,
+                                POS_INF).amin(dim=2)
+                        for h in range(H)]).amin(dim=0)
 
 
 def rbf_row_wss_batched_blocks(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i,
                                U_i, g_i, i_idx, use_exact, gammas, *,
-                               block_l: int):
+                               block_l: int, dup: bool = False):
     """Pass A as the kernel returns it: per-block (bmax, barg) (B, nb)."""
-    k = rbf_rows_batched(X, sqn, XQ, sqq, gammas)
+    k = rbf_rows_batched(X, sqn, XQ, sqq, gammas, dup=dup)
     return block_first_max(_wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                                     i_idx, use_exact), block_l)
+                                     i_idx, use_exact), block_l,
+                           2 if dup else 1)
 
 
 def rbf_update_wss_batched_blocks(X, sqn, G, alpha_new, L, U, XQi, sqqi,
-                                  XQj, sqqj, mu, gammas, *, block_l: int):
+                                  XQj, sqqj, mu, gammas, *, block_l: int,
+                                  dup: bool = False):
     """Pass B as the kernel returns it: (G_new, bmax, barg, bmin)."""
-    k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas)
+    H = 2 if dup else 1
+    k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup)
     G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U)
-    bmax, barg = block_first_max(vals_up, block_l)
-    return G_new, bmax, barg, block_min(vals_dn, block_l)
+    bmax, barg = block_first_max(vals_up, block_l, H)
+    return G_new, bmax, barg, block_min(vals_dn, block_l, H)
 
 
 def row_wss_batched_rows_blocks(gram, gram_idx, G, alpha, L, U, a_i, L_i,

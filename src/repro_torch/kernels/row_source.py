@@ -11,7 +11,11 @@ Two suppliers:
   and the CUDA bank passes read their rows from the bank in place.  Lanes
   that share a gamma share bank entries; no per-lane copy exists.
 
-The doubled ε-SVR operator is a later slice.
+``dup=True`` marks the doubled ε-SVR operator: the lane state has 2l
+coordinates, and row k of ``Q = [[K, K], [K, K]]`` is the base row of
+``k mod l``, so every row and entry folds its index onto the base axis
+(:meth:`RowSource.base_idx`) and the O(l d) work never doubles; the
+passes read the base row once per state half.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 class RowSource:
     """Rows of the RBF operator: exactly one of (``X``, ``XT``, ``sqn``)
     and (``gram``, ``gram_idx``) supplies them.  ``gammas`` is the (B,)
-    per-lane RBF width."""
+    per-lane RBF width; ``dup`` marks the doubled ε-SVR operator (module
+    notes)."""
 
     X: Optional[torch.Tensor] = None          # (l, d) inputs
     XT: Optional[torch.Tensor] = None         # (d, l) the same, transposed
@@ -34,6 +39,7 @@ class RowSource:
     gammas: Optional[torch.Tensor] = None     # (B,) per-lane RBF widths
     gram: Optional[torch.Tensor] = None       # (n_stack, l, l) Gram bank
     gram_idx: Optional[torch.Tensor] = None   # (B,) int64 lane -> entry
+    dup: bool = False
 
     @property
     def is_bank(self) -> bool:
@@ -45,9 +51,9 @@ class RowSource:
         return self.gram.shape[-1] if self.is_bank else self.X.shape[0]
 
     def base_idx(self, idx):
-        """Fold a coordinate index onto the example axis (the identity
-        without the doubled operator)."""
-        return idx
+        """Fold a (possibly doubled) coordinate index onto the example
+        axis: ``k mod l`` with the doubled operator, else the identity."""
+        return idx % self.base_l if self.dup else idx
 
     def query(self, idx):
         """Per-lane pass inputs at the stacked (reps*B,) indices ``idx``.
@@ -73,36 +79,44 @@ class RowSource:
                          * torch.clamp_min(d2, 0.0))
 
     def matvec(self, v, block: int = 256):
-        """Per-lane operator matvec ``Q_b v_b`` for a (B, l) stack.
+        """Per-lane operator matvec ``Q_b v_b`` for a (B, n) stack.
 
-        The bank contracts every entry with every lane and keeps each
-        lane's own; the rbf supplier blocks over rows of ``X`` with
-        per-lane gammas, so no (l, l) matrix is built.
+        The doubled operator folds its halves first, ``Q v = tile(K (v+ +
+        v-))``, so the contraction runs at base width.  The bank contracts
+        every entry with every lane and keeps each lane's own; the rbf
+        supplier blocks over rows of ``X`` with per-lane gammas, so no
+        (l, l) matrix is built.
         """
+        l = self.base_l
+        if self.dup:
+            v = v[:, :l] + v[:, l:]
         if self.is_bank:
             mv = torch.einsum("sij,bj->sbi", self.gram, v)
-            return mv[self.gram_idx, torch.arange(v.shape[0],
-                                                  device=v.device)]
-        out = torch.empty_like(v)
-        for r0 in range(0, self.base_l, block):
-            Xb = self.X[r0:r0 + block]
-            d2 = (self.sqn[r0:r0 + block, None] + self.sqn[None, :]
-                  - 2.0 * (Xb @ self.X.T))
-            k = torch.exp(-self.gammas[:, None, None]
-                          * torch.clamp_min(d2, 0.0)[None])
-            out[:, r0:r0 + block] = torch.einsum("bkl,bl->bk", k, v)
-        return out
+            out = mv[self.gram_idx, torch.arange(v.shape[0],
+                                                 device=v.device)]
+        else:
+            out = torch.empty_like(v)
+            for r0 in range(0, l, block):
+                Xb = self.X[r0:r0 + block]
+                d2 = (self.sqn[r0:r0 + block, None] + self.sqn[None, :]
+                      - 2.0 * (Xb @ self.X.T))
+                k = torch.exp(-self.gammas[:, None, None]
+                              * torch.clamp_min(d2, 0.0)[None])
+                out[:, r0:r0 + block] = torch.einsum("bkl,bl->bk", k, v)
+        return torch.cat([out, out], dim=1) if self.dup else out
 
 
-def rbf_source(X: torch.Tensor, gammas, B: int) -> RowSource:
+def rbf_source(X: torch.Tensor, gammas, B: int, *,
+               dup: bool = False) -> RowSource:
     """Row source recomputing rows from the shared ``X`` (l, d)."""
     gammas = torch.as_tensor(gammas, dtype=X.dtype, device=X.device)
     return RowSource(X=X, XT=X.T.contiguous(),
                      sqn=torch.sum(X * X, dim=-1),
-                     gammas=gammas.broadcast_to((B,)).contiguous())
+                     gammas=gammas.broadcast_to((B,)).contiguous(), dup=dup)
 
 
-def bank_source(gram: torch.Tensor, gram_idx, gammas=None) -> RowSource:
+def bank_source(gram: torch.Tensor, gram_idx, gammas=None, *,
+                dup: bool = False) -> RowSource:
     """Row source reading rows from the shared (n_stack, l, l) Gram bank.
 
     ``gram_idx`` (B,) maps each lane to its bank entry; it is checked
@@ -127,4 +141,4 @@ def bank_source(gram: torch.Tensor, gram_idx, gammas=None) -> RowSource:
         gammas = torch.as_tensor(gammas, dtype=gram.dtype,
                                  device=gram.device)
         gammas = gammas.broadcast_to(gram_idx.shape).contiguous()
-    return RowSource(gammas=gammas, gram=gram, gram_idx=gram_idx)
+    return RowSource(gammas=gammas, gram=gram, gram_idx=gram_idx, dup=dup)

@@ -1,6 +1,10 @@
 """sklearn-style facades of the port."""
 
-from repro_torch.svm.convert import grid_from_numpy, svc_from_numpy
+from repro_torch.svm.convert import (grid_from_numpy, oneclass_from_numpy,
+                                     svc_from_numpy, svr_from_numpy)
+from repro_torch.svm.oneclass import OneClassSVM
 from repro_torch.svm.svc import SVC
+from repro_torch.svm.svr import SVR
 
-__all__ = ["SVC", "grid_from_numpy", "svc_from_numpy"]
+__all__ = ["SVC", "SVR", "OneClassSVM", "grid_from_numpy",
+           "oneclass_from_numpy", "svc_from_numpy", "svr_from_numpy"]

@@ -15,9 +15,9 @@ import torch
 
 from repro_torch.core import grid
 from repro_torch.core.solver import SolverConfig
-from repro_torch.core.solver_fused import solve_fused_batched
+from repro_torch.core.solver_fused import solve_fused, solve_fused_batched
 from repro_torch.kernels import build, ops
-from repro_torch.svm import SVC
+from repro_torch.svm import SVC, SVR, OneClassSVM
 from repro_torch.svm.data import xor_gaussians
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 def test_importing_the_port_loads_no_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
-    code = ("import sys, repro_torch.svm, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.svm, repro_torch.kernels.ops, "
+            "repro_torch.core.grid, repro_torch.core.solver_fused; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -74,6 +75,45 @@ def test_entry_points_without_a_card_raise(no_cuda):
         ops.gram(X, X, 0.5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.gram(X, X, 0.5, device="cuda")
+
+
+def test_slice_3_entry_points_without_a_card_raise(no_cuda):
+    X, y = xor_gaussians(32, seed=0)
+    for call in (lambda: solve_fused(X, y, 1.0, 0.5),
+                 lambda: SVR().fit(X, y),
+                 lambda: OneClassSVM().fit(X),
+                 lambda: grid.solve_grid_svr(X, y, [1.0], [0.1], [0.5])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert solve_fused(X, y, 1.0, 0.5, device="cpu").alpha.device.type == \
+        "cpu"
+    assert SVR(device="cpu").fit(X, y).beta_.device.type == "cpu"
+    assert OneClassSVM(device="cpu").fit(X).alpha_.device.type == "cpu"
+
+
+def test_slice_3_impl_cuda_on_cpu_tensors_raises():
+    X, y = xor_gaussians(32, seed=0)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        solve_fused(X, y, 1.0, 0.5, impl="cuda", device="cpu")
+    for est in (SVR(impl="cuda", device="cpu"),
+                OneClassSVM(impl="cuda", device="cpu")):
+        with pytest.raises(ValueError, match="impl='cuda'"):
+            est.fit(X, y)
+    for precompute in (None, False):
+        with pytest.raises(ValueError, match="impl='cuda'"):
+            grid.solve_grid_svr(X, y, [1.0], [0.1], [0.5], impl="cuda",
+                                precompute=precompute, device="cpu")
+
+
+@pytest.mark.parametrize("cls", [SVR, OneClassSVM])
+@pytest.mark.parametrize("kw", [dict(engine="batched"),
+                                dict(engine="sharded"),
+                                dict(devices=("cuda:0",)),
+                                dict(diagnostics=object()),
+                                dict(step="conjugate", algorithm="smo")])
+def test_svr_oneclass_later_slices_raise_not_implemented(cls, kw):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        cls(device="cpu", **kw)
 
 
 def test_impl_cuda_on_cpu_tensors_raises():
@@ -183,6 +223,9 @@ def test_grid_later_slices_raise_not_implemented(kw, step):
     if kw["impl"] is not None:
         with pytest.raises(NotImplementedError, match=step):
             grid.solve_grid_oneclass(X, [0.2], [0.5], device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match=step):
+            grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5], device="cpu",
+                                **kw)
 
 
 def test_grid_cpu_path_launches_no_kernel():
@@ -196,7 +239,27 @@ def test_grid_cpu_path_launches_no_kernel():
         grid.grid_decision(X[:5], X, [0.5, 1.0], r.alpha, r.b)
         grid.solve_grid_oneclass(X, [0.2], [0.5], precompute=precompute,
                                  device="cpu", dtype=torch.float64)
+        grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5],
+                            precompute=precompute, device="cpu",
+                            dtype=torch.float64)
     assert kernels.launches() == before
     assert set(before) == {"rbf_row_wss_batched", "rbf_update_wss_batched",
                            "gram_block", "row_wss_batched_rows",
-                           "update_wss_batched_rows"}
+                           "update_wss_batched_rows", "rbf_row_wss",
+                           "rbf_update_wss", "rbf_row_wss_batched_h2",
+                           "rbf_update_wss_batched_h2"}
+
+
+def test_slice_3_cpu_path_launches_no_kernel():
+    from repro_torch import kernels
+    before = kernels.launches()
+    X, y = xor_gaussians(48, seed=2)
+    for alg in ("smo", "pasmo"):
+        solve_fused(X, y, 10.0, 0.5, SolverConfig(algorithm=alg),
+                    device="cpu", dtype=torch.float64)
+    for precompute in (True, False):
+        SVR(C=2.0, gamma=0.5, precompute=precompute, device="cpu",
+            dtype=torch.float64).fit(X, y).predict(X[:5])
+        OneClassSVM(nu=0.2, gamma=0.5, precompute=precompute, device="cpu",
+                    dtype=torch.float64).fit(X).predict(X[:5])
+    assert kernels.launches() == before
