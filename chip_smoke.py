@@ -10,12 +10,16 @@ failure raises and the script exits non-zero without a result line:
 2. build  — ``nvcc`` builds the kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels vs plain — pass A, pass B (one state half and the H = 2
    variants of the doubled e-SVR operator), the Gram kernel, the two
-   Gram-bank passes and the single-lane passes (kernels 6 and 7) against
-   their plain PyTorch versions on the same inputs on the card, at the main
-   paths' shapes and at odd ones, in float64 and float32, with the edge
-   cases of the CPU tests (all-masked lane, ties across blocks and across
-   state halves, a mu = 0 lane, per-lane gammas, lanes spread over the
-   bank's entries, both gain rules, a false and a true relaunch flag).
+   Gram-bank passes (one state half and H = 2), the single-lane passes
+   (kernels 6 and 7) and the active-set (``act``) variants of passes A
+   and B and of the bank passes against their plain PyTorch versions on
+   the same inputs on the card, at the main paths' shapes and at odd ones,
+   in float64 and float32, with the edge cases of the CPU tests
+   (all-masked lane, a lane whose mask is all false, a mask hiding the
+   true argmax, ties across blocks and across state halves, G with the
+   mask bitwise equal to G without, a mu = 0 lane, per-lane gammas, lanes
+   spread over the bank's entries, both gain rules, a false and a true
+   relaunch flag).
    Tolerance: values to rtol 1e-12 (f64) / 1e-5 (f32); indices exactly,
    except that in f32 an argmax may differ where the plain version's gains
    at both picks agree to 1e-6 relative (the kernel sums its products in
@@ -23,7 +27,11 @@ failure raises and the script exits non-zero without a result line:
 4. end to end, small — binary and 3-class SVC, smo and pasmo, a 3-class
    2 x 2 (C, gamma) grid through both row sources, single-lane
    ``solve_fused`` (smo, pasmo), SVR, OneClassSVM and a 2 x 2 x 2 e-SVR
-   grid, f64, ``impl="cuda"`` against ``impl="torch"``.
+   grid; with ``shrinking=True`` the (C, gamma), e-SVR and one-class grids
+   and the compacted grid (``chunk=32``) on both sources, the e-SVR grid
+   through the bank, and the mask refresh under CUDA graphs
+   (``check_every=5``) against ``check_every=1``; f64, ``impl="cuda"``
+   against ``impl="torch"``.
 5. SVC, full width (slice 1's main path) — a 10-class one-vs-rest SVC at
    l = 16384, d = 128 in f64 and f32: convergence, gradient drift, KKT
    gap, held-out agreement, launch counts, and each kernel's device time
@@ -44,10 +52,22 @@ failure raises and the script exits non-zero without a result line:
    ``benchmarks/solver_micro.py`` at its largest size as a timing row, and
    a ``torch.profiler`` window.
 8. e-SVR and one-class, full width (slice 3) — ``SVR(C=10, epsilon=0.1,
-   gamma="scale")`` on a sinc target of the same X, the 18-lane e-SVR grid,
-   ``OneClassSVM(nu=0.1)`` and the SVR again in f32: convergence, drift
-   against p - Q alpha, KKT gap, sum(alpha), held-out R^2, launch counts,
-   a profiler window; then kernels 6, 7 and the H = 2 variants timed
+   gamma="scale")`` on a sinc target of the same X, the 18-lane e-SVR grid
+   through the rbf passes and through the Gram bank (the H = 2 bank
+   passes), ``OneClassSVM(nu=0.1)`` and the SVR again in f32: convergence,
+   drift against p - Q alpha, KKT gap, sum(alpha), held-out R^2, bank
+   against rbf objectives, launch counts, profiler windows; then kernels
+   6, 7 and the H = 2 variants timed beside their bounds.
+9. shrinking, full width (slice 4) — the 90-lane grid of phase 6 with
+   ``shrinking=True`` through the bank and through the rbf passes, the
+   compacted grid (hard shrinking, ``chunk=96``) through the bank, and the
+   18-lane e-SVR grid of phase 8 through the bank with ``shrinking=True``:
+   every lane converged with the full-set gap at most eps, G within 1e-8
+   of p - Q alpha, sum(alpha), objectives within rtol 1e-6 of phases 6
+   and 8's shrink-off results (reused, not rerun), iterations, unshrinks,
+   the final active share, ms an iteration (a round for the compacted
+   grid, with its split), profiler windows over 64 iterations (one mask
+   refresh), peak memory; then the six variants of this slice timed
    beside their bounds.
 
 The solvers replay their loop body as CUDA graphs on the card
@@ -62,6 +82,8 @@ reference package is imported.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import pathlib
@@ -81,6 +103,9 @@ import torch  # noqa: E402
 # float64 on the tensor cores (the fastest the card does either type).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float64: 67e12, torch.float32: 67e12}
+# H100 SXM L2 (NVIDIA data sheet): a set of inputs smaller than this stays
+# in it when one kernel is launched back to back on it.
+L2_BYTES = 50 * 2**20
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 TIE_RTOL_F32 = 1e-6
 # Main path: repo's kernel-bench shape, 10 one-vs-rest lanes.
@@ -112,10 +137,30 @@ SOURCES = {
     "rbf_update_wss_batched_h2": (
         "src/repro_torch/kernels/csrc/rbf_update_wss.cu",
         "src/repro/kernels/rbf_update_wss.py:196"),
+    "row_wss_batched_rows_h2": (
+        "src/repro_torch/kernels/csrc/row_wss_rows.cu",
+        "src/repro/kernels/rbf_row_wss.py:247"),
+    "update_wss_batched_rows_h2": (
+        "src/repro_torch/kernels/csrc/update_wss_rows.cu",
+        "src/repro/kernels/rbf_update_wss.py:261"),
+    "rbf_row_wss_batched_act": ("src/repro_torch/kernels/csrc/rbf_row_wss.cu",
+                                "src/repro/kernels/rbf_row_wss.py:193"),
+    "rbf_update_wss_batched_act": (
+        "src/repro_torch/kernels/csrc/rbf_update_wss.cu",
+        "src/repro/kernels/rbf_update_wss.py:196"),
+    "row_wss_batched_rows_act": (
+        "src/repro_torch/kernels/csrc/row_wss_rows.cu",
+        "src/repro/kernels/rbf_row_wss.py:247"),
+    "update_wss_batched_rows_act": (
+        "src/repro_torch/kernels/csrc/update_wss_rows.cu",
+        "src/repro/kernels/rbf_update_wss.py:261"),
 }
 BANK_PASSES = ("row_wss_batched_rows", "update_wss_batched_rows")
 RBF_PASSES = ("rbf_row_wss_batched", "rbf_update_wss_batched")
 H2_PASSES = ("rbf_row_wss_batched_h2", "rbf_update_wss_batched_h2")
+H2_BANK_PASSES = ("row_wss_batched_rows_h2", "update_wss_batched_rows_h2")
+BANK_ACT = ("row_wss_batched_rows_act", "update_wss_batched_rows_act")
+RBF_ACT = ("rbf_row_wss_batched_act", "rbf_update_wss_batched_act")
 SINGLE_PASSES = ("rbf_row_wss", "rbf_update_wss")
 # Slice 3: the e-SVR grid (gamma_scale times these, tube widths, Cs), the
 # single-lane timing row of benchmarks/solver_micro.py, one-class nu.
@@ -366,12 +411,14 @@ def check_pass_b(b, dtype, label, errs):
     return n_ties
 
 
-def bank_state(l, B, n_stack, seed, dtype, device):
+def bank_state(l, B, n_stack, seed, dtype, device, dup=False):
     """Bank pass A and pass B inputs: the pass state of ``kernel_state``
-    (d = 8) over an (n_stack, l, l) Gram bank with the lanes spread over
-    its entries.  The duplicated points' bank rows and columns are set
-    equal, so their gains tie exactly across the first and last block."""
-    a, b = kernel_state(l, 8, B, seed, dtype, device)
+    (d = 8; ``dup_state``'s doubled (B, 2l) state with ``dup``) over an
+    (n_stack, l, l) Gram bank with the lanes spread over its entries.  The
+    duplicated points' bank rows and columns are set equal, so their gains
+    tie exactly across the first and last block (and, doubled, across the
+    halves)."""
+    a, b = (dup_state if dup else kernel_state)(l, 8, B, seed, dtype, device)
     ta, tb = 5, l - 3
     rng = np.random.default_rng(seed + 1)
     from repro_torch.kernels import ref
@@ -383,8 +430,8 @@ def bank_state(l, B, n_stack, seed, dtype, device):
     bank[:, tb, :] = bank[:, ta, :]
     gidx = torch.tensor(rng.permutation(np.arange(B) % n_stack),
                         dtype=torch.int64, device=device)
-    j_idx = torch.tensor(rng.integers(0, l, size=B), dtype=torch.int32,
-                         device=device)
+    j_idx = torch.tensor(rng.integers(0, 2 * l if dup else l, size=B),
+                         dtype=torch.int32, device=device)
     ba = dict(gram=bank, gram_idx=gidx, **{
         k: a[k] for k in ("G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i",
                           "i_idx", "use_exact")})
@@ -674,6 +721,177 @@ def check_h2(a, b, dtype, label, errs_a, errs_b):
     return n_ties
 
 
+def act_mask(B, n, tie, seed, device):
+    """A (B, n) bool active set, 85% of each lane active, with the edge
+    cases: lane 0 hides ``tie[0]``, the lower index of the state's exact
+    tie and the true argmax of both passes, so ``tie[1]`` must win there;
+    lane 1 of B > 2 is all false (index 0 and -inf in both passes); the
+    tie stays active in every other lane."""
+    rng = np.random.default_rng(seed)
+    act = rng.uniform(size=(B, n)) < 0.85
+    act[:, list(tie)] = True
+    act[0, tie[0]] = False
+    if B > 2:
+        act[1] = False
+    return torch.tensor(act, device=device)
+
+
+def _expected(B, plain, hidden, newton_only):
+    """The picks the edge cases fix: {lane: index} for the tie lanes (even
+    lanes only in pass A, where odd lanes take the exact gain) and the
+    lanes whose pick must be index 0 at -inf."""
+    last = B - (B > 1)
+    want = {b: plain for b in range(0, last, 2 if newton_only else 1)}
+    empty = [B - 1] if B > 1 else []
+    if hidden is not None:
+        want[0] = hidden
+        if B > 2:
+            want.pop(1, None)
+            empty.append(1)
+    return want, empty
+
+
+def check_new_a(src, a, act, dtype, label, errs, want, empty, dup):
+    """A new pass A variant (the ``act`` variants of kernels 1 and 4, or
+    kernel 4's H = 2 variant when ``act`` is None) against its plain
+    version: per-block outputs, the dispatched pick, the edge cases."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import rbf_row_wss as pa
+    bl = build.BLOCK_L
+    if src == "rbf":
+        args = [a[k] for k in PASS_A_KEYS]
+        kern = lambda: pa.rbf_row_wss_batched_act(*args, act, dup=dup)
+        plain = lambda: ref.rbf_row_wss_batched_blocks(*args, block_l=bl,
+                                                       dup=dup, act=act)
+        rows = ref.rbf_rows_batched(a["X"], a["sqn"], a["XQ"], a["sqq"],
+                                    a["gammas"], dup=dup)
+        disp = lambda impl: ops.rbf_row_wss_batched(*args, impl=impl,
+                                                    dup=dup, act=act)
+    else:
+        args = [a[k] for k in BANK_A]
+        kern = ((lambda: pa.row_wss_batched_rows_act(*args, act, dup=dup))
+                if act is not None
+                else (lambda: pa.row_wss_batched_rows_h2(*args)))
+        plain = lambda: ref.row_wss_batched_rows_blocks(*args, block_l=bl,
+                                                        dup=dup, act=act)
+        rows = ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"], dup)
+        disp = lambda impl: ops.row_wss_batched_rows(*args, impl=impl,
+                                                     dup=dup, act=act)
+    vals = ref._wss_vals(rows, *[a[k] for k in (
+        "G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i", "i_idx",
+        "use_exact")], act)
+    (bmax, barg), (pmax, parg) = kern(), plain()
+    err = _close(f"{label} A bmax", bmax, pmax, TOL[dtype])
+    n_ties = _same_picks(f"{label} A barg", barg, parg, vals, dtype)
+    j_c, g_c = disp("cuda")
+    j_t, g_t = disp("torch")
+    err = max(err, _close(f"{label} A gain", g_c, g_t, TOL[dtype]))
+    n_ties += _same_picks(f"{label} A j", j_c[:, None], j_t[:, None], vals,
+                          dtype)
+    for b, j in want.items():
+        assert int(j_c[b]) == j and int(j_t[b]) == j, (label, b, j, j_c)
+    for b in empty:
+        assert int(j_c[b]) == 0 and g_c[b].item() == -math.inf, (label, b)
+    errs.append(err)
+    return n_ties
+
+
+def check_new_b(src, b, act, dtype, label, errs, want, empty, dup):
+    """A new pass B variant (the ``act`` variants of kernels 2 and 5, or
+    kernel 5's H = 2 variant when ``act`` is None) against its plain
+    version; G with the mask must equal G without it bitwise, and the
+    mu = 0 lane's G must come back bitwise."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import rbf_update_wss as pb
+    bl = build.BLOCK_L
+    if src == "rbf":
+        args = [b[k] for k in PASS_B_KEYS]
+        kern = lambda m: pb.rbf_update_wss_batched_act(*args, m, dup=dup)
+        nomask = (pb.rbf_update_wss_batched_h2 if dup
+                  else pb.rbf_update_wss_batched)
+        plain = lambda: ref.rbf_update_wss_batched_blocks(
+            *args, block_l=bl, dup=dup, act=act)
+        disp = lambda impl: ops.rbf_update_wss_batched(*args, impl=impl,
+                                                       dup=dup, act=act)
+    else:
+        args = [b[k] for k in BANK_B]
+        kern = lambda m: pb.update_wss_batched_rows_act(*args, m, dup=dup)
+        nomask = (pb.update_wss_batched_rows_h2 if dup
+                  else pb.update_wss_batched_rows)
+        plain = lambda: ref.update_wss_batched_rows_blocks(
+            *args, block_l=bl, dup=dup, act=act)
+        disp = lambda impl: ops.update_wss_batched_rows(*args, impl=impl,
+                                                        dup=dup, act=act)
+    G_k, bmax, barg, bmin = (nomask(*args) if act is None else kern(act))
+    G_p, pmax, parg, pmin = plain()
+    if act is not None and not torch.equal(G_k, nomask(*args)[0]):
+        raise AssertionError(f"{label} B: G with the mask differs from G "
+                             f"without it")
+    if not torch.equal(G_k[0], b["G"][0]):
+        raise AssertionError(f"{label} B: the mu = 0 lane's G changed")
+    scale = float(b["G"].abs().max())
+    err = _close(f"{label} B G", G_k, G_p, TOL[dtype], scale)
+    err = max(err, _close(f"{label} B bmax", bmax, pmax, TOL[dtype], scale))
+    err = max(err, _close(f"{label} B bmin", bmin, pmin, TOL[dtype], scale))
+    up = b["alpha_new"] < b["U"]
+    vals = torch.where(up if act is None else up & act, G_p, -math.inf)
+    n_ties = _same_picks(f"{label} B barg", barg, parg, vals, dtype)
+    _, i_c, gi_c, gdn_c = disp("cuda")
+    _, i_t, gi_t, gdn_t = disp("torch")
+    err = max(err, _close(f"{label} B g_i", gi_c, gi_t, TOL[dtype], scale))
+    err = max(err, _close(f"{label} B g_dn", gdn_c, gdn_t, TOL[dtype],
+                          scale))
+    n_ties += _same_picks(f"{label} B i", i_c[:, None], i_t[:, None], vals,
+                          dtype)
+    for k, i in want.items():
+        assert int(i_c[k]) == i and int(i_t[k]) == i, (label, k, i, i_c)
+    for k in empty:
+        assert int(i_c[k]) == 0 and gi_c[k].item() == -math.inf, (label, k)
+    errs.append(err)
+    return n_ties
+
+
+def check_slice4(l, d, B, n_stack, dtype, device, label, errs,
+                 halves=(False, True)):
+    """The six variants of this slice at one shape: the ``act`` variants of
+    kernels 1, 2, 4 and 5 with one state half and (``True`` in
+    ``halves``) with two, and then the H = 2 bank passes (kernels 4 and
+    5)."""
+    n_ties = 0
+    for dup in halves:
+        n = 2 * l if dup else l
+        # the exact tie of both passes: (lower, higher) index
+        lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
+        act = act_mask(B, n, (lo, hi), l + B + dup, device)
+        wa = _expected(B, lo, hi, True)
+        wb = _expected(B, lo, hi, False)
+        h = "H=2" if dup else "H=1"
+        for src in ("rbf", "bank"):
+            if src == "rbf":
+                a, b = (dup_state if dup else kernel_state)(
+                    l, d, B, l + d + B, dtype, device)
+            else:
+                a, b = bank_state(l, B, n_stack, l + B, dtype, device,
+                                  dup=dup)
+            tag = f"{src} {h} act {label}"
+            n_ties += check_new_a(src, a, act, dtype, tag,
+                                  errs[f"{NEW_A[src]}_act"], *wa, dup)
+            n_ties += check_new_b(src, b, act, dtype, tag,
+                                  errs[f"{NEW_B[src]}_act"], *wb, dup)
+            if src == "bank" and dup:
+                tag = f"bank H=2 {label}"
+                n_ties += check_new_a(src, a, None, dtype, tag,
+                                      errs["row_wss_batched_rows_h2"],
+                                      *_expected(B, lo, None, True), dup)
+                n_ties += check_new_b(src, b, None, dtype, tag,
+                                      errs["update_wss_batched_rows_h2"],
+                                      *_expected(B, lo, None, False), dup)
+            del a, b
+    return n_ties
+
+
+NEW_A = {"rbf": "rbf_row_wss_batched", "bank": "row_wss_batched_rows"}
+NEW_B = {"rbf": "rbf_update_wss_batched", "bank": "update_wss_batched_rows"}
 PASS_A_KEYS = ("X", "sqn", "G", "alpha", "L", "U", "XQ", "sqq", "a_i", "L_i",
                "U_i", "g_i", "i_idx", "use_exact", "gammas")
 PASS_B_KEYS = ("X", "sqn", "G", "alpha_new", "L", "U", "XQi", "sqqi", "XQj",
@@ -737,6 +955,22 @@ def phase_kernels(device) -> dict:
             del a, b
             say(f"[kernels] H=2 pass A and pass B ok (cross-half tie to the "
                 f"lower index, mu = 0 bitwise) ({n} f32 near-ties): {label}")
+        # main shapes: the (C, gamma) grid's (one state half) and the
+        # e-SVR grid's (two)
+        for l, d, B, n_stack, halves, kind in (
+                (N_TRAIN, D, GRID_B, 3, (False,), "main"),
+                (N_TRAIN, D, SVR_B, 3, (True,), "main"),
+                (1000, 37, 1, 1, (False, True), "odd"),
+                (300, 5, 19, 3, (False, True), "odd")):
+            label = (f"{kind} l={l} d={d} B={B} bank={n_stack} "
+                     f"{str(dtype)[6:]}")
+            n = check_slice4(l, d, B, n_stack, dtype, device, label, errs,
+                             halves)
+            say(f"[kernels] act variants of kernels 1, 2, 4, 5 (H = 1, 2) "
+                f"and H=2 bank passes ok (all-false lane, hidden argmax, "
+                f"ties across blocks and halves, G with the mask bitwise "
+                f"equal to G without, mu = 0 bitwise) ({n} f32 "
+                f"near-ties): {label}")
     torch.cuda.synchronize()
     worst = {k: max(v) for k, v in errs.items()}
     say(f"[kernels] all kernels agree with their plain versions; max abs "
@@ -808,6 +1042,7 @@ def phase_small(device, impl):
             f"{rp.iterations.flatten().tolist()}), objective rel diff "
             f"{float(rel.max()):.3e}")
     phase_small_slice3(device, impl, eps)
+    phase_small_slice4(device, impl)
 
 
 def sinc_target(X, seed):
@@ -886,6 +1121,83 @@ def phase_small_slice3(device, impl, eps):
         f"iterations {rk.iterations.flatten().tolist()} (plain "
         f"{rp.iterations.flatten().tolist()}), objective rel diff "
         f"{float(rel.max()):.3e}")
+
+
+def _agree(tag, rk, rp, eps):
+    """``impl`` against the plain versions: converged, gap, objectives."""
+    assert bool(rk.converged.all()) and bool(rp.converged.all()), tag
+    assert float(rk.kkt_gap.max()) <= eps, (tag, rk.kkt_gap)
+    np.testing.assert_allclose(rk.objective.cpu().numpy(),
+                               rp.objective.cpu().numpy(), rtol=1e-6)
+    rel = (rk.objective - rp.objective).abs() / rp.objective.abs()
+    say(f"[small] {tag}: iterations {rk.iterations.flatten().tolist()} "
+        f"(plain {rp.iterations.flatten().tolist()}), objective rel diff "
+        f"{float(rel.max()):.3e}")
+
+
+def phase_small_slice4(device, impl):
+    """Slice 4 end to end, small, ``impl`` against ``impl="torch"``:
+    soft shrinking through the (C, gamma) grid and the compacted grid with
+    hard shrinking on both row sources, the e-SVR grid through the bank
+    with and without shrinking, the one-class grid through the bank with
+    shrinking, and the mask refresh under CUDA graphs against the eager
+    loop."""
+    from repro_torch.core import grid
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.core.solver_fused import solve_fused_batched
+    from repro_torch.svm import data
+    eps = 1e-5
+    cfg = SolverConfig(eps=eps)
+    # small: the plain versions run their loops eagerly on the card
+    X, y = data.multiclass_blobs(150, seed=2, k=3, d=8, sep=4.0)
+    Y = mc.ovr_labels(mc.class_index(y)[1], 3, torch.float64, device)
+    Xs = np.random.default_rng(4).normal(size=(120, 6))
+    ys = sinc_target(Xs, 5)
+    f64 = dict(device=device, dtype=torch.float64)
+    for precompute in (True, False):
+        src = "bank" if precompute else "rbf"
+        kw = dict(precompute=precompute, shrinking=True, **f64)
+        runs = {which: grid.solve_grid(X, Y, (4.0, 1.0), (0.05, 0.2), cfg,
+                                       impl=which, **kw)
+                for which in (impl, "torch")}
+        _agree(f"grid 3-class 2x2 shrinking, {src}", runs[impl],
+               runs["torch"], eps)
+        runs = {which: grid.solve_grid_compacted(
+            X, Y, (4.0, 1.0), (0.05, 0.2), cfg, chunk=32, impl=which, **kw)
+            for which in (impl, "torch")}
+        _agree(f"compacted grid chunk=32 shrinking, {src}", runs[impl],
+               runs["torch"], eps)
+    for shrinking in (True, False):
+        runs = {which: grid.solve_grid_svr(Xs, ys, (0.5, 2.0), (0.05, 0.2),
+                                           (0.1, 0.4), cfg, impl=which,
+                                           precompute=True,
+                                           shrinking=shrinking, **f64)
+                for which in (impl, "torch")}
+        _agree(f"e-SVR grid 2x2x2, bank (H = 2 bank passes), shrinking="
+               f"{shrinking}", runs[impl], runs["torch"], eps)
+        assert float(runs[impl].alpha.sum(-1).abs().max()) <= 1e-8
+    runs = {which: grid.solve_grid_oneclass(Xs, (0.1, 0.3), (0.1, 0.4), cfg,
+                                            impl=which, precompute=True,
+                                            shrinking=True, **f64)
+            for which in (impl, "torch")}
+    _agree("one-class grid 2x2 shrinking, bank", runs[impl], runs["torch"],
+           eps)
+    # the mask refresh under CUDA graphs (check_every=5: eight patterns of
+    # refreshes in a chunk) against the eager-every-iteration loop
+    Xx, yx = data.xor_gaussians(200, seed=4)
+    cfg8 = SolverConfig(eps=eps, shrink_every=8)
+    runs = [solve_fused_batched(Xx, np.stack([yx, -yx]), (100.0, 10.0), 0.5,
+                                cfg8, impl=impl, shrinking=True,
+                                check_every=ce, device=device,
+                                dtype=torch.float64) for ce in (5, 1)]
+    for f in ("iterations", "n_unshrink", "alpha"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+    assert bool(runs[0].converged.all())
+    assert float(runs[0].kkt_gap.max()) <= eps
+    say(f"[small] soft shrinking, shrink_every=8: check_every=5 (graphs) "
+        f"and 1 agree bitwise: iterations {runs[0].iterations.tolist()}, "
+        f"n_unshrink {runs[0].n_unshrink.tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -1042,24 +1354,25 @@ def kernel_times(device, timer):
     for dtype in (torch.float64, torch.float32):
         item = torch.tensor([], dtype=dtype).element_size()
         a, b = kernel_state(N_TRAIN, D, K, seed=1, dtype=dtype, device=device)
-        XT = a["X"].T.contiguous()
-        args_a = [a[k] for k in ("X", "sqn", "G", "alpha", "L", "U", "XQ",
-                                 "sqq", "a_i", "L_i", "U_i", "g_i", "i_idx",
-                                 "use_exact", "gammas")]
-        args_b = [b[k] for k in ("X", "sqn", "G", "alpha_new", "L", "U",
-                                 "XQi", "sqqi", "XQj", "sqqj", "mu",
-                                 "gammas")]
         l, d, B = N_TRAIN, D, K
         bl = build.BLOCK_L
         nb = -(-l // bl)
+        nc = n_cold((l * d + l + 4 * B * l) * item)
+        ca, cb = cold_copies(a, nc), cold_copies(b, nc)
+        XT = [c["X"].T.contiguous() for c in ca]
+        args_a = [[c[k] for k in PASS_A_KEYS] for c in ca]
+        args_b = [[c[k] for k in PASS_B_KEYS] for c in cb]
         Xte = torch.tensor(np.random.default_rng(2).normal(size=(N_TEST, D)),
                            dtype=dtype, device=device)
         Xtr = a["X"]
         gam = 1.0 / (2 * D)
+        # the Gram kernel writes 537 MB (f64): one set of inputs
         cases = {
             "rbf_row_wss_batched": (
-                lambda: rbf_row_wss.rbf_row_wss_batched(*args_a, XT=XT),
-                lambda: ref.rbf_row_wss_batched_blocks(*args_a, block_l=bl),
+                lambda c: rbf_row_wss.rbf_row_wss_batched(*args_a[c],
+                                                          XT=XT[c]),
+                lambda c: ref.rbf_row_wss_batched_blocks(*args_a[c],
+                                                         block_l=bl),
                 None,
                 # X, sqn, 4 state rows, query rows, 6 lane vectors + index
                 # + flag in; (B, nb) max and int32 arg out
@@ -1067,27 +1380,31 @@ def kernel_times(device, timer):
                 + B * nb * (item + 4),
                 2 * B * l * d + 20 * B * l),
             "rbf_update_wss_batched": (
-                lambda: rbf_update_wss.rbf_update_wss_batched(*args_b, XT=XT),
-                lambda: ref.rbf_update_wss_batched_blocks(*args_b, block_l=bl),
+                lambda c: rbf_update_wss.rbf_update_wss_batched(*args_b[c],
+                                                                XT=XT[c]),
+                lambda c: ref.rbf_update_wss_batched_blocks(*args_b[c],
+                                                            block_l=bl),
                 None,
                 (l * d + l + 4 * B * l + 2 * B * d + 4 * B) * item
                 + B * l * item + B * nb * (2 * item + 4),
                 4 * B * l * d + 20 * B * l),
             "gram_block": (
-                lambda: gram_block.gram_cross(Xte, Xtr, gam),
-                lambda: ref.gram_cross(Xte, Xtr, gam),
-                lambda: torch.exp(-gam * torch.cdist(Xte, Xtr).square()),
+                lambda c: gram_block.gram_cross(Xte, Xtr, gam),
+                lambda c: ref.gram_cross(Xte, Xtr, gam),
+                lambda c: torch.exp(-gam * torch.cdist(Xte, Xtr).square()),
                 (N_TEST * D + N_TRAIN * D + N_TEST * N_TRAIN) * item,
                 2 * N_TEST * N_TRAIN * D + 6 * N_TEST * N_TRAIN),
         }
         for name, (kern, plain, comp, nbytes, nops) in cases.items():
             # reps keep every queued launch inside the card's queue
             reps, preps = (10, 10) if name == "gram_block" else (100, 20)
+            kern, plain = cycling(kern, nc), cycling(plain, nc)
             ms_k = timer.ms(kern, reps)
             ms_p = timer.ms(plain, preps)
             ms_k2 = timer.ms(kern, reps)
             ms_p2 = timer.ms(plain, preps)
-            comp_ms = timer.ms(comp, preps) if comp is not None else None
+            comp_ms = (timer.ms(cycling(comp, nc), preps) if comp is not None
+                       else None)
             bms, by = bound_ms(nbytes, nops, dtype)
             say(f"[time] {name} {str(dtype)[6:]}: kernel {ms_k:.5f} / "
                 f"{ms_k2:.5f} ms, plain {ms_p:.5f} / {ms_p2:.5f} ms, bound "
@@ -1153,7 +1470,6 @@ def check_counts(counts, t, bank: bool, label):
 def phase_grid(device, timer):
     from repro_torch.core import grid
     from repro_torch.core import multiclass as mc
-    from repro_torch.core import qp
     from repro_torch.core.solver import SolverConfig
     from repro_torch.svm import data
     X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
@@ -1212,24 +1528,8 @@ def phase_grid(device, timer):
 
     # drift of the carried gradient against G = p - K alpha with the plain
     # Gram, and the KKT gap recomputed from it
-    Xt = torch.as_tensor(Xtr, dtype=torch.float64, device=device)
-    D2 = grid.sqdist(Xt)
-    YC = Y[:, None, :] * torch.tensor(GRID_CS, dtype=torch.float64,
-                                      device=device)[None, :, None]
-    L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
-    drift, gap = {}, {}
-    for g, gam in enumerate(gammas):
-        Kg = torch.exp(-gam * D2)
-        for tag, r in (("bank", rb), ("rbf", rr)):
-            G_exact = Y[:, None, :] - r.alpha[g] @ Kg
-            drift[tag] = max(drift.get(tag, 0.0),
-                             float((G_exact - r.G[g]).abs().max()))
-            up = torch.where(r.alpha[g] < U, G_exact, -math.inf).amax(-1)
-            dn = torch.where(r.alpha[g] > L, G_exact, math.inf).amin(-1)
-            gap[tag] = max(gap.get(tag, 0.0),
-                           float(qp.finite_gap(up - dn).max()))
-        del Kg
-    del D2
+    drift, gap = svc_grid_checks(Xtr, Y, gammas, {"bank": rb, "rbf": rr},
+                                 device)
     say(f"[grid] f64 |G_carried - (p - K alpha)|_max: bank {drift['bank']:.3e}"
         f", rbf {drift['rbf']:.3e}; KKT gap recomputed from it: bank "
         f"{gap['bank']:.4e}, rbf {gap['rbf']:.4e}")
@@ -1237,6 +1537,8 @@ def phase_grid(device, timer):
     assert max(gap.values()) <= eps, gap
     _, wall, t = runs["bank f64"]
     ms_bank = wall / t * 1e3
+    shrink_off = dict(objective=rb.objective, iterations=rb.iterations,
+                      ms_iter=ms_bank, loop=t)
     del runs, rb, rr, r32
 
     recs = grid_kernel_times(device, timer)
@@ -1248,7 +1550,34 @@ def phase_grid(device, timer):
                                 dtype=torch.float64),
         "grid bank f64 full width", ms_bank)
     phase_oneclass(Xtr, gammas, device)
-    return recs, bank_counts
+    return recs, bank_counts, shrink_off
+
+
+def svc_grid_checks(Xtr, Y, gammas, results, device):
+    """Per (C, gamma) grid result: the drift of the carried G against
+    p - K alpha with the plain Gram, and the full-set KKT gap recomputed
+    from it (maxima over the lanes)."""
+    from repro_torch.core import grid
+    from repro_torch.core import qp
+    Xt = torch.as_tensor(Xtr, dtype=torch.float64, device=device)
+    D2 = grid.sqdist(Xt)
+    YC = Y[:, None, :] * torch.tensor(GRID_CS, dtype=torch.float64,
+                                      device=device)[None, :, None]
+    L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
+    drift, gap = {}, {}
+    for g, gam in enumerate(gammas):
+        Kg = torch.exp(-gam * D2)
+        for tag, r in results.items():
+            G_exact = Y[:, None, :] - r.alpha[g].double() @ Kg
+            drift[tag] = max(drift.get(tag, 0.0),
+                             float((G_exact - r.G[g]).abs().max()))
+            up = torch.where(r.alpha[g] < U, G_exact, -math.inf).amax(-1)
+            dn = torch.where(r.alpha[g] > L, G_exact, math.inf).amin(-1)
+            gap[tag] = max(gap.get(tag, 0.0),
+                           float(qp.finite_gap(up - dn).max()))
+        del Kg
+    del D2
+    return drift, gap
 
 
 def grid_kernel_times(device, timer):
@@ -1263,50 +1592,52 @@ def grid_kernel_times(device, timer):
     for dtype in (torch.float64, torch.float32):
         item = torch.tensor([], dtype=dtype).element_size()
         ba, bb = bank_state(l, B, 3, seed=1, dtype=dtype, device=device)
-        args_a = [ba[k] for k in BANK_A]
-        args_b = [bb[k] for k in BANK_B]
+        nc = n_cold(5 * B * l * item)
+        args_a = [[c[k] for k in BANK_A] for c in cold_copies(ba, nc, l)]
+        args_b = [[c[k] for k in BANK_B] for c in cold_copies(bb, nc, l)]
         a, b = kernel_state(l, d, B, seed=1, dtype=dtype, device=device)
-        XT = a["X"].T.contiguous()
-        args_ra = [a[k] for k in ("X", "sqn", "G", "alpha", "L", "U", "XQ",
-                                  "sqq", "a_i", "L_i", "U_i", "g_i", "i_idx",
-                                  "use_exact", "gammas")]
-        args_rb = [b[k] for k in ("X", "sqn", "G", "alpha_new", "L", "U",
-                                  "XQi", "sqqi", "XQj", "sqqj", "mu",
-                                  "gammas")]
+        ca, cb = cold_copies(a, nc), cold_copies(b, nc)
+        XT = [c["X"].T.contiguous() for c in ca]
+        args_ra = [[c[k] for k in PASS_A_KEYS] for c in ca]
+        args_rb = [[c[k] for k in PASS_B_KEYS] for c in cb]
         cases = {
             "row_wss_batched_rows": (
-                lambda: rbf_row_wss.row_wss_batched_rows(*args_a),
-                lambda: ref.row_wss_batched_rows_blocks(*args_a, block_l=bl),
+                lambda c: rbf_row_wss.row_wss_batched_rows(*args_a[c]),
+                lambda c: ref.row_wss_batched_rows_blocks(*args_a[c],
+                                                          block_l=bl),
                 # B bank rows + 4 state rows, 4 lane vectors, the int32 i,
                 # int64 bank index and flag in; (B, nb) max and arg out
                 5 * B * l * item + 4 * B * item + 13 * B
                 + B * nb * (item + 4),
                 20 * B * l),
             "update_wss_batched_rows": (
-                lambda: rbf_update_wss.update_wss_batched_rows(*args_b),
-                lambda: ref.update_wss_batched_rows_blocks(*args_b,
-                                                           block_l=bl),
+                lambda c: rbf_update_wss.update_wss_batched_rows(*args_b[c]),
+                lambda c: ref.update_wss_batched_rows_blocks(*args_b[c],
+                                                             block_l=bl),
                 # 2 B bank rows + 4 state rows in, G out, mu, i, j, bank
                 # index in; (B, nb) max, arg and min out
                 7 * B * l * item + B * item + 16 * B
                 + B * nb * (2 * item + 4),
                 6 * B * l),
             "rbf_row_wss_batched": (
-                lambda: rbf_row_wss.rbf_row_wss_batched(*args_ra, XT=XT),
-                lambda: ref.rbf_row_wss_batched_blocks(*args_ra, block_l=bl),
+                lambda c: rbf_row_wss.rbf_row_wss_batched(*args_ra[c],
+                                                          XT=XT[c]),
+                lambda c: ref.rbf_row_wss_batched_blocks(*args_ra[c],
+                                                         block_l=bl),
                 (l * d + l + 4 * B * l + B * d + 6 * B) * item + 5 * B
                 + B * nb * (item + 4),
                 2 * B * l * d + 20 * B * l),
             "rbf_update_wss_batched": (
-                lambda: rbf_update_wss.rbf_update_wss_batched(*args_rb,
-                                                              XT=XT),
-                lambda: ref.rbf_update_wss_batched_blocks(*args_rb,
-                                                          block_l=bl),
+                lambda c: rbf_update_wss.rbf_update_wss_batched(*args_rb[c],
+                                                                XT=XT[c]),
+                lambda c: ref.rbf_update_wss_batched_blocks(*args_rb[c],
+                                                            block_l=bl),
                 (l * d + l + 4 * B * l + 2 * B * d + 4 * B) * item
                 + B * l * item + B * nb * (2 * item + 4),
                 4 * B * l * d + 20 * B * l),
         }
         for name, (kern, plain, nbytes, nops) in cases.items():
+            kern, plain = cycling(kern, nc), cycling(plain, nc)
             ms_k = timer.ms(kern, 100)
             ms_p = timer.ms(plain, 10)
             ms_k2 = timer.ms(kern, 100)
@@ -1468,51 +1799,64 @@ def slice3_kernel_times(device, timer):
     for dtype in (torch.float64, torch.float32):
         item = torch.tensor([], dtype=dtype).element_size()
         s1 = single_state(l, d, 1, dtype, device)
-        args6 = [s1[k] for k in SINGLE_A]
-        k_row = torch.empty_like(s1["G"])
-        XT = s1["X"].T.contiguous()
-        args7 = [s1["X"], s1["sqn"], s1["G_b"], k_row, s1["alpha"], s1["L"],
-                 s1["U"], s1["xq_j"], s1["sqq_j"], s1["mu"], s1["gamma"]]
-        a, b = dup_state(l, d, SVR_B, 1, dtype, device)
-        XT2 = a["X"].T.contiguous()
-        args_a = [a[k] for k in PASS_A_KEYS]
-        args_b = [b[k] for k in PASS_B_KEYS]
+        n1 = n_cold((l * d + 5 * l) * item)
+        c1 = cold_copies(s1, n1)
+        args6 = [[c[k] for k in SINGLE_A] for c in c1]
+        k_row = [torch.empty_like(c["G"]) for c in c1]
+        XT = [c["X"].T.contiguous() for c in c1]
+        args7 = [[c["X"], c["sqn"], c["G_b"], k, c["alpha"], c["L"], c["U"],
+                  c["xq_j"], c["sqq_j"], c["mu"], c["gamma"]]
+                 for c, k in zip(c1, k_row)]
         B, n = SVR_B, 2 * l
+        a, b = dup_state(l, d, SVR_B, 1, dtype, device)
+        n2 = n_cold((l * d + 4 * B * n) * item)
+        ca, cb = cold_copies(a, n2), cold_copies(b, n2)
+        XT2 = [c["X"].T.contiguous() for c in ca]
+        args_a = [[c[k] for k in PASS_A_KEYS] for c in ca]
+        args_b = [[c[k] for k in PASS_B_KEYS] for c in cb]
         cases = {
             "rbf_row_wss": (
-                lambda: rbf_row_wss.rbf_row_wss(*args6, XT=XT, k_out=k_row),
-                lambda: ref.rbf_row_wss_blocks(*args6, block_l=bl),
+                lambda c: rbf_row_wss.rbf_row_wss(*args6[c], XT=XT[c],
+                                                  k_out=k_row[c]),
+                lambda c: ref.rbf_row_wss_blocks(*args6[c], block_l=bl),
+                n1,
                 # X, sqn, 4 state vectors, query, 7 scalars in; the row,
                 # (nb,) max and arg out
                 (l * d + 5 * l + d + 6) * item + 5 + l * item
                 + nb * (item + 4),
                 2 * l * d + 25 * l),
             "rbf_update_wss": (
-                lambda: rbf_update_wss.rbf_update_wss(*args7, XT=XT),
-                lambda: ref.rbf_update_wss_blocks(*args7, block_l=bl),
+                lambda c: rbf_update_wss.rbf_update_wss(*args7[c], XT=XT[c]),
+                lambda c: ref.rbf_update_wss_blocks(*args7[c], block_l=bl),
+                n1,
                 # X, sqn, G, k_i, alpha, L, U, query, 3 scalars in; G and
                 # (nb,) max, arg and min out
                 (l * d + 6 * l + d + 3) * item + l * item
                 + nb * (2 * item + 4),
                 2 * l * d + 12 * l),
             "rbf_row_wss_batched_h2": (
-                lambda: rbf_row_wss.rbf_row_wss_batched_h2(*args_a, XT=XT2),
-                lambda: ref.rbf_row_wss_batched_blocks(*args_a, block_l=bl,
-                                                       dup=True),
+                lambda c: rbf_row_wss.rbf_row_wss_batched_h2(*args_a[c],
+                                                             XT=XT2[c]),
+                lambda c: ref.rbf_row_wss_batched_blocks(*args_a[c],
+                                                         block_l=bl,
+                                                         dup=True),
+                n2,
                 (l * d + l + 4 * B * n + B * d + 6 * B) * item + 5 * B
                 + B * nb * (item + 4),
                 2 * B * l * d + 20 * B * n),
             "rbf_update_wss_batched_h2": (
-                lambda: rbf_update_wss.rbf_update_wss_batched_h2(*args_b,
-                                                                 XT=XT2),
-                lambda: ref.rbf_update_wss_batched_blocks(*args_b,
-                                                          block_l=bl,
-                                                          dup=True),
+                lambda c: rbf_update_wss.rbf_update_wss_batched_h2(
+                    *args_b[c], XT=XT2[c]),
+                lambda c: ref.rbf_update_wss_batched_blocks(*args_b[c],
+                                                            block_l=bl,
+                                                            dup=True),
+                n2,
                 (l * d + l + 4 * B * n + 2 * B * d + 4 * B) * item
                 + B * n * item + B * nb * (2 * item + 4),
                 4 * B * l * d + 12 * B * n),
         }
-        for name, (kern, plain, nbytes, nops) in cases.items():
+        for name, (kern, plain, nc, nbytes, nops) in cases.items():
+            kern, plain = cycling(kern, nc), cycling(plain, nc)
             ms_k = timer.ms(kern, 100)
             ms_p = timer.ms(plain, 20)
             ms_k2 = timer.ms(kern, 100)
@@ -1526,7 +1870,7 @@ def slice3_kernel_times(device, timer):
                 recs[name] = dict(ms=min(ms_k, ms_k2),
                                   plain_ms=min(ms_p, ms_p2), bound_ms=bms,
                                   bound_by=by)
-        del s1, a, b, args6, args7, args_a, args_b, XT, XT2, k_row
+        del s1, c1, a, b, ca, cb, args6, args7, args_a, args_b, XT, XT2, k_row
     return recs
 
 
@@ -1608,43 +1952,56 @@ def phase_svr(device):
 
     gammas = [reg.gamma_ * f for f in SVR_GAMMA_FACTORS]
     cfg = SolverConfig(algorithm="pasmo", eps=eps)
-    rg, counts, wall, t, peak = fit_grid(
-        lambda: grid.solve_grid_svr(Xtr, ytr, SVR_CS, SVR_EPSILONS, gammas,
-                                    cfg, device=device, dtype=torch.float64),
-        device)
-    check_only(counts, {n: t for n in H2_PASSES}, "e-SVR grid")
-    for n in H2_PASSES:
-        counts_all[n] += counts[n]
-    its = rg.iterations
-    say(f"[svr] e-SVR grid f64: lanes {tuple(rg.alpha.shape[:3])} = {SVR_B}"
-        f" of 2l={2 * N_TRAIN}; gammas {[f'{g:.6g}' for g in gammas]}, "
-        f"epsilons {list(SVR_EPSILONS)}, Cs {list(SVR_CS)}; iterations per "
-        f"lane {its.flatten().tolist()}; loop iterations {t}; {wall:.3f} s "
-        f"= {wall / t * 1e3:.4f} ms/iteration; peak device memory "
-        f"{peak / 1e9:.3f} GB; launches {counts}; converged "
-        f"{int(rg.converged.sum())}/{rg.converged.numel()}; max KKT gap "
-        f"{float(rg.kkt_gap.max()):.4e}")
-    assert bool(rg.converged.all()), "an e-SVR grid lane did not converge"
-    yt = torch.tensor(ytr, dtype=torch.float64, device=device)
-    worst = [0.0, 0.0, 0.0]
-    for g, gam in enumerate(gammas):
-        P = torch.stack([qp.svr_qp(yt, 1.0, e).p for e in SVR_EPSILONS])
-        Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower
-                          for c in SVR_CS])
-        Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper
-                          for c in SVR_CS])
-        res = svr_checks(Xt, P[:, None, :], Lg[None], Ug[None], rg.alpha[g],
-                         rg.G[g], gam)
-        worst = [max(w, v) for w, v in zip(worst, res)]
-    df = grid.grid_decision(Xte, Xtr, gammas, qp.svr_fold(rg.alpha), rg.b)
-    r2s = 1.0 - ((torch.tensor(yte, device=device) - df) ** 2).sum(-1) / float(
-        ((yte - yte.mean()) ** 2).sum())
-    say(f"[svr] e-SVR grid: |G_carried - (p - Q alpha)|_max = {worst[0]:.3e};"
-        f" KKT gap recomputed {worst[1]:.4e}; |sum alpha| {worst[2]:.3e}; "
-        f"held-out R^2 by (gamma, epsilon, C) "
-        f"{[round(v, 4) for v in r2s.flatten().tolist()]}")
-    assert worst[0] <= 1e-8 and worst[1] <= eps and worst[2] <= 1e-8, worst
-    del rg, df
+    grids = {}
+    for src, precompute, on in (("rbf", None, H2_PASSES),
+                                ("bank", True, H2_BANK_PASSES)):
+        rg, counts, wall, t, peak = fit_grid(
+            lambda: grid.solve_grid_svr(Xtr, ytr, SVR_CS, SVR_EPSILONS,
+                                        gammas, cfg, precompute=precompute,
+                                        device=device, dtype=torch.float64),
+            device)
+        want = {n: t for n in on}
+        if precompute:
+            want["gram_block"] = len(SVR_GAMMA_FACTORS)
+        check_only(counts, want, f"e-SVR grid {src}")
+        for n in on:
+            counts_all[n] = counts_all.get(n, 0) + counts[n]
+        say(f"[svr] e-SVR grid {src} f64: lanes "
+            f"{tuple(rg.alpha.shape[:3])} = {SVR_B} of 2l={2 * N_TRAIN}; "
+            f"gammas {[f'{g:.6g}' for g in gammas]}, epsilons "
+            f"{list(SVR_EPSILONS)}, Cs {list(SVR_CS)}; iterations per lane "
+            f"{rg.iterations.flatten().tolist()}; loop iterations {t}; "
+            f"{wall:.3f} s = {wall / t * 1e3:.4f} ms/iteration; peak device "
+            f"memory {peak / 1e9:.3f} GB; launches {counts}; converged "
+            f"{int(rg.converged.sum())}/{rg.converged.numel()}; max KKT gap "
+            f"{float(rg.kkt_gap.max()):.4e}")
+        assert bool(rg.converged.all()), f"an e-SVR grid lane ({src}) did " \
+                                         f"not converge"
+        worst = svr_grid_checks(Xt, ytr, gammas, rg, device)
+        df = grid.grid_decision(Xte, Xtr, gammas, qp.svr_fold(rg.alpha),
+                                rg.b)
+        r2s = 1.0 - ((torch.tensor(yte, device=device) - df) ** 2).sum(
+            -1) / float(((yte - yte.mean()) ** 2).sum())
+        say(f"[svr] e-SVR grid {src}: |G_carried - (p - Q alpha)|_max = "
+            f"{worst[0]:.3e}; KKT gap recomputed {worst[1]:.4e}; |sum alpha| "
+            f"{worst[2]:.3e}; held-out R^2 by (gamma, epsilon, C) "
+            f"{[round(v, 4) for v in r2s.flatten().tolist()]}")
+        assert worst[0] <= 1e-8 and worst[1] <= eps and worst[2] <= 1e-8, \
+            worst
+        grids[src] = dict(objective=rg.objective, ms_iter=wall / t * 1e3,
+                          loop=t, iterations=rg.iterations, gammas=gammas)
+        del rg, df
+    rel = float(((grids["bank"]["objective"] - grids["rbf"]["objective"])
+                 .abs() / grids["rbf"]["objective"].abs()).max())
+    say(f"[svr] e-SVR grid objectives bank vs rbf max rel diff {rel:.3e}")
+    assert rel <= 1e-6, rel
+    prof = SolverConfig(algorithm="pasmo", eps=eps, max_iter=PROFILE_ITERS)
+    for src, precompute in (("rbf", None), ("bank", True)):
+        profile_iterations(
+            lambda: grid.solve_grid_svr(Xtr, ytr, SVR_CS, SVR_EPSILONS,
+                                        gammas, prof, precompute=precompute,
+                                        device=device, dtype=torch.float64),
+            f"e-SVR grid {src} f64 full width", grids[src]["ms_iter"])
 
     oc = OneClassSVM(nu=0.1, gamma="scale", eps=eps, device=device,
                      dtype=torch.float64)
@@ -1669,7 +2026,399 @@ def phase_svr(device):
               / float(reg.fit_result_.objective) - 1.0)
     say(f"[svr] SVR f32 against f64: held-out predictions max diff "
         f"{diff:.3e}, objective rel diff {rel:.3e}")
-    return {n: counts_all[n] for n in H2_PASSES}
+    return ({n: counts_all[n] for n in H2_PASSES + H2_BANK_PASSES},
+            grids["rbf"])
+
+
+def svr_grid_checks(Xt, ytr, gammas, rg, device):
+    """Drift, recomputed gap and |sum alpha| (maxima) of an e-SVR grid
+    result on ``svr_checks``."""
+    from repro_torch.core import qp
+    yt = torch.tensor(ytr, dtype=torch.float64, device=device)
+    P = torch.stack([qp.svr_qp(yt, 1.0, e).p for e in SVR_EPSILONS])
+    Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower for c in SVR_CS])
+    Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper for c in SVR_CS])
+    worst = [0.0, 0.0, 0.0]
+    for g, gam in enumerate(gammas):
+        res = svr_checks(Xt, P[:, None, :], Lg[None], Ug[None], rg.alpha[g],
+                         rg.G[g], gam)
+        worst = [max(w, v) for w, v in zip(worst, res)]
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 9: shrinking at full width
+# ---------------------------------------------------------------------------
+
+
+class FusedProbe:
+    """Keeps the last :class:`FusedResult` that ``solve_fused_batched_qp``
+    returned to the grid drivers (``solve_grid`` hands back a
+    ``SolveResult``, which has no unshrink counts), while installed."""
+
+    def __enter__(self):
+        from repro_torch.core import grid
+        self.orig = grid.solve_fused_batched_qp
+
+        def spy(*args, **kw):
+            self.result = self.orig(*args, **kw)
+            return self.result
+
+        grid.solve_fused_batched_qp = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import grid
+        grid.solve_fused_batched_qp = self.orig
+
+
+class ChunkProbe:
+    """Watches ``solve_fused_chunked_qp`` while installed: each round's
+    lane bucket and kept rows (the padded coordinates are those with ``L
+    = U = 0``), from its chunk solves, and the host's wall time inside
+    each of the driver's ``chunked.*`` profiler ranges, from a stand-in
+    for ``record_function`` that reads the clock at both ends.  It adds no
+    synchronization: work a range queues on the card without waiting for
+    it (the slice's copies, the rebuild's matvec) is waited for, and
+    counted, in the next range that reads a result back."""
+
+    def __enter__(self):
+        from repro_torch.core import solver_fused
+        self.mod = solver_fused
+        self.orig = (solver_fused.solve_fused_batched_qp,
+                     solver_fused.record_function)
+        self.rows, self.lanes, self.split = [], [], {}
+
+        def spy(X, P, L, U, *args, **kw):
+            self.lanes.append(P.shape[0])
+            self.rows.append(((L != 0) | (U != 0)).any(0).sum())
+            return self.orig[0](X, P, L, U, *args, **kw)
+
+        @contextlib.contextmanager
+        def timed(name):
+            t0 = time.perf_counter()
+            yield
+            self.split[name] = (self.split.get(name, 0.0)
+                                + time.perf_counter() - t0)
+
+        solver_fused.solve_fused_batched_qp = spy
+        solver_fused.record_function = timed
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod.solve_fused_batched_qp,
+         self.mod.record_function) = self.orig
+
+    def split_text(self, wall: float) -> str:
+        return ", ".join(f"{k.removeprefix('chunked.')} {v:.3f} s "
+                         f"({v / wall:.4f})"
+                         for k, v in sorted(self.split.items()))
+
+
+def active_share(G, alpha, L, U):
+    """The share of coordinates the shrink rule keeps at the final state."""
+    from repro_torch.core import qp
+    return float(qp.shrink_mask(G, alpha, L, U).double().mean())
+
+
+def phase_shrink(device, timer, grid_off, svr_off):
+    """Slice 4 at full width: the 90-lane (C, gamma) grid of phase 6 with
+    soft shrinking through the bank and through the rbf passes, the
+    compacted grid (hard shrinking, chunk = 96) through the bank, and the
+    18-lane e-SVR grid of phase 8 through the bank with soft shrinking;
+    objectives against phases 6 and 8's shrink-off results (not rerun)."""
+    from repro_torch.core import grid
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.svm import data
+    X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    Xtr, ytr = X[:N_TRAIN], y[:N_TRAIN]
+    gamma_scale = 1.0 / (D * float(Xtr.var()))
+    gammas = [gamma_scale * f for f in GRID_GAMMA_FACTORS]
+    eps = 1e-3
+    cfg = SolverConfig(algorithm="pasmo", eps=eps)
+    Y = mc.ovr_labels(mc.class_index(ytr)[1], K, torch.float64, device)
+    YC = Y[None, :, None, :] * torch.tensor(
+        GRID_CS, dtype=torch.float64, device=device)[None, None, :, None]
+    L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
+    counts_all, recs = {}, {}
+
+    def objectives_agree(tag, got, want):
+        rel = float(((got - want).abs() / want.abs()).max())
+        say(f"[shrink] {tag}: objectives against the shrink-off run max "
+            f"rel diff {rel:.3e}")
+        assert rel <= 1e-6, (tag, rel)
+
+    results = {}
+    for src, precompute, on in (("bank", True, BANK_ACT),
+                                ("rbf", False, RBF_ACT)):
+        with FusedProbe() as probe:
+            r, counts, wall, t, peak = fit_grid(
+                lambda: grid.solve_grid(Xtr, Y, GRID_CS, gammas, cfg,
+                                        impl="auto", precompute=precompute,
+                                        shrinking=True, device=device,
+                                        dtype=torch.float64), device)
+        want = {n: t for n in on}
+        if precompute:
+            want["gram_block"] = len(GRID_GAMMA_FACTORS)
+        check_only(counts, want, f"grid shrinking {src}")
+        for n in on:
+            counts_all[n] = counts_all.get(n, 0) + counts[n]
+        n_un = probe.result.n_unshrink
+        share = active_share(r.G, r.alpha, L, U)
+        ms = wall / t * 1e3
+        say(f"[shrink] grid {src} f64 shrinking=True: lanes "
+            f"{tuple(r.alpha.shape[:3])}; iterations per lane min "
+            f"{int(r.iterations.min())} median "
+            f"{int(r.iterations.flatten().median())} max "
+            f"{int(r.iterations.max())} (shrink off: max "
+            f"{int(grid_off['iterations'].max())}); loop iterations {t} "
+            f"(shrink off {grid_off['loop']}); {wall:.3f} s = {ms:.4f} "
+            f"ms/iteration (shrink off {grid_off['ms_iter']:.4f}); "
+            f"n_unshrink total {int(n_un.sum())}, max {int(n_un.max())}, "
+            f"lanes with one {int((n_un > 0).sum())}; final active share "
+            f"{share:.4f}; peak device memory {peak / 1e9:.3f} GB; "
+            f"launches {counts}; converged "
+            f"{int(r.converged.sum())}/{r.converged.numel()}; max KKT gap "
+            f"{float(r.kkt_gap.max()):.4e}")
+        assert bool(r.converged.all()), f"grid shrinking {src}"
+        objectives_agree(f"grid {src}", r.objective, grid_off["objective"])
+        results[src] = r
+        recs[f"grid {src}"] = (ms, t)
+    drift, gap = svc_grid_checks(Xtr, Y, gammas, results, device)
+    say(f"[shrink] grid f64 shrinking |G_carried - (p - K alpha)|_max "
+        f"{drift}; full-set KKT gap recomputed {gap}")
+    assert max(drift.values()) <= 1e-8 and max(gap.values()) <= eps
+    del results, r
+    prof = SolverConfig(algorithm="pasmo", eps=eps,
+                        max_iter=2 * PROFILE_ITERS)
+    profile_iterations(
+        lambda: grid.solve_grid(Xtr, Y, GRID_CS, gammas, prof, impl="auto",
+                                precompute=True, shrinking=True,
+                                device=device, dtype=torch.float64),
+        "grid bank f64 shrinking=True (one mask refresh inside)",
+        recs["grid bank"][0], 2 * PROFILE_ITERS)
+
+    # the compacted grid: hard row and lane compaction between chunks
+    with ChunkProbe() as rounds:
+        r, counts, wall, _, peak = fit_grid(
+            lambda: grid.solve_grid_compacted(
+                Xtr, Y, GRID_CS, gammas, cfg, chunk=96, impl="auto",
+                precompute=True, shrinking=True, device=device,
+                dtype=torch.float64), device)
+    check_only(counts, {BANK_ACT[0]: counts[BANK_ACT[0]],
+                        BANK_ACT[1]: counts[BANK_ACT[0]],
+                        "gram_block": len(GRID_GAMMA_FACTORS)},
+               "compacted grid")
+    assert counts[BANK_ACT[0]] > 0
+    for n in BANK_ACT:
+        counts_all[n] += counts[n]
+    n_rounds, rows = len(rounds.rows), [int(m) for m in rounds.rows]
+    say(f"[shrink] compacted grid bank f64 (chunk=96, shrinking=True): "
+        f"rounds {n_rounds}; kept rows per round mean {np.mean(rows):.1f}, "
+        f"min {min(rows)}, last {rows[-1]}; lane bucket per round mean "
+        f"{np.mean(rounds.lanes):.2f}; iterations per lane max "
+        f"{int(r.iterations.max())}, sum {int(r.iterations.sum())} "
+        f"(shrink-off grid: sum {int(grid_off['iterations'].sum())}); "
+        f"{wall:.3f} s = {wall / n_rounds * 1e3:.3f} ms/round; host wall "
+        f"in the driver's ranges (share of the run): "
+        f"{rounds.split_text(wall)}; peak device memory "
+        f"{peak / 1e9:.3f} GB; "
+        f"launches {counts}; converged {int(r.converged.sum())}/"
+        f"{r.converged.numel()}; max KKT gap "
+        f"{float(r.kkt_gap.max()):.4e}")
+    assert bool(r.converged.all()), "compacted grid"
+    objectives_agree("compacted grid", r.objective, grid_off["objective"])
+    drift, gap = svc_grid_checks(Xtr, Y, gammas, {"compacted": r}, device)
+    say(f"[shrink] compacted grid |G - (p - K alpha)|_max "
+        f"{drift['compacted']:.3e}; full-set KKT gap recomputed "
+        f"{gap['compacted']:.4e}")
+    assert drift["compacted"] <= 1e-8 and gap["compacted"] <= eps
+    del r
+
+    # the e-SVR grid of phase 8 through the bank, soft shrinking: the
+    # H = 2 + act bank passes end to end
+    from repro_torch.core import qp
+    yv = sinc_target(X, 7)[:N_TRAIN]
+    sgammas = svr_off["gammas"]
+    rg, counts, wall, t, peak = fit_grid(
+        lambda: grid.solve_grid_svr(Xtr, yv, SVR_CS, SVR_EPSILONS, sgammas,
+                                    cfg, precompute=True, shrinking=True,
+                                    device=device, dtype=torch.float64),
+        device)
+    check_only(counts, {BANK_ACT[0]: t, BANK_ACT[1]: t,
+                        "gram_block": len(SVR_GAMMA_FACTORS)},
+               "e-SVR grid shrinking")
+    for n in BANK_ACT:
+        counts_all[n] += counts[n]
+    yt = torch.tensor(yv, dtype=torch.float64, device=device)
+    P = torch.stack([qp.svr_qp(yt, 1.0, e).p for e in SVR_EPSILONS])
+    Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower for c in SVR_CS])
+    Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper for c in SVR_CS])
+    share = active_share(rg.G, rg.alpha, Lg[None, None], Ug[None, None])
+    ms = wall / t * 1e3
+    say(f"[shrink] e-SVR grid bank f64 shrinking=True: lanes "
+        f"{tuple(rg.alpha.shape[:3])} of 2l={2 * N_TRAIN}; iterations per "
+        f"lane {rg.iterations.flatten().tolist()} (shrink off, rbf: "
+        f"{svr_off['iterations'].flatten().tolist()}); loop iterations {t} "
+        f"(shrink off {svr_off['loop']}); {wall:.3f} s = {ms:.4f} "
+        f"ms/iteration (shrink off, rbf {svr_off['ms_iter']:.4f}); "
+        f"n_unshrink {rg.n_unshrink.flatten().tolist()}; final active share "
+        f"{share:.4f}; peak device memory {peak / 1e9:.3f} GB; launches "
+        f"{counts}; converged {int(rg.converged.sum())}/"
+        f"{rg.converged.numel()}; max KKT gap {float(rg.kkt_gap.max()):.4e}")
+    assert bool(rg.converged.all()), "e-SVR grid shrinking"
+    objectives_agree("e-SVR grid", rg.objective, svr_off["objective"])
+    Xt = torch.as_tensor(Xtr, dtype=torch.float64, device=device)
+    worst = svr_grid_checks(Xt, yv, sgammas, rg, device)
+    say(f"[shrink] e-SVR grid shrinking: |G_carried - (p - Q alpha)|_max = "
+        f"{worst[0]:.3e}; full-set KKT gap recomputed {worst[1]:.4e}; "
+        f"|sum alpha| {worst[2]:.3e}")
+    assert worst[0] <= 1e-8 and worst[1] <= eps and worst[2] <= 1e-8, worst
+    del rg
+    profile_iterations(
+        lambda: grid.solve_grid_svr(Xtr, yv, SVR_CS, SVR_EPSILONS, sgammas,
+                                    prof, precompute=True, shrinking=True,
+                                    device=device, dtype=torch.float64),
+        "e-SVR grid bank f64 shrinking=True (one mask refresh inside)", ms,
+        2 * PROFILE_ITERS)
+    return counts_all
+
+
+def cold_copies(state: dict, n: int, index_mod: int | None = None):
+    """``n`` copies of the tensors in ``state``: launches that cycle
+    through enough of them (:func:`n_cold`) read every input from HBM, as
+    the bound assumes, and not from the L2 where launching back to back on
+    one set of tensors would leave them.  A Gram bank (``gram``) is shared
+    (it is too large to copy, and only a lane's rows are read): with
+    ``index_mod`` the row indices ``i_idx``/``j_idx`` move by an odd step
+    per copy, so each copy reads other bank rows."""
+    out = []
+    for c in range(n):
+        cp = {}
+        for k, v in state.items():
+            if k == "gram":
+                cp[k] = v
+            elif index_mod and k in ("i_idx", "j_idx"):
+                cp[k] = ((v.long() + 7919 * c) % index_mod).to(v.dtype)
+            else:
+                cp[k] = v.clone()
+        out.append(cp)
+    return out
+
+
+def n_cold(n_bytes: float) -> int:
+    """Copies of a ``n_bytes`` working set that together hold four L2s."""
+    return max(2, -(-4 * L2_BYTES // int(n_bytes)))
+
+
+def cycling(fn, n: int):
+    """One call that runs ``fn(c)`` for c = 0, 1, ..., n - 1, 0, ... in
+    turn."""
+    it = itertools.cycle(range(n))
+    return lambda: fn(next(it))
+
+
+def slice4_kernel_times(device, timer):
+    """The act variants of kernels 1, 2, 4 and 5 at the (C, gamma) grid's
+    B = 90 (one state half, a 3-entry bank), the H = 2 bank passes and the
+    act bank passes at the e-SVR grid's B = 18 over 2l: device time, plain
+    version's time and bound.  The mask adds B n bytes read.  Each timed
+    call cycles through copies of its inputs (:func:`cold_copies`): at B =
+    18 a set of inputs fits in L2."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import rbf_row_wss as pa
+    from repro_torch.kernels import rbf_update_wss as pb
+    recs = {}
+    l, d, bl = N_TRAIN, D, build.BLOCK_L
+    nb = -(-l // bl)
+    for dtype in (torch.float64, torch.float32):
+        item = torch.tensor([], dtype=dtype).element_size()
+        for B, dup in ((GRID_B, False), (SVR_B, True)):
+            n = 2 * l if dup else l
+            lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
+            ba, bb = bank_state(l, B, 3, 1, dtype, device, dup=dup)
+            # bank A: B rows of l, 4 state rows, 4 lane vectors, i, bank
+            # index, flag in; (B, nb) max and arg out.  Bank B: 2 B rows,
+            # 4 state rows in, G out, mu, i, j, bank index in; (B, nb) max,
+            # arg and min out.  The mask adds B n bytes to each.
+            bytes_a = ((B * l + 4 * B * n + 4 * B) * item + 13 * B
+                       + B * nb * (item + 4))
+            bytes_b = ((2 * B * l + 5 * B * n + B) * item + 16 * B
+                       + B * nb * (2 * item + 4))
+            nc = n_cold(bytes_a)
+            A = [[c[k] for k in BANK_A] for c in cold_copies(ba, nc, n)]
+            Bk = [[c[k] for k in BANK_B] for c in cold_copies(bb, nc, n)]
+            act = act_mask(B, n, (lo, hi), 1, device)
+            acts = [act.clone() for _ in range(nc)]
+            cases = {
+                "row_wss_batched_rows_act": (
+                    lambda c: pa.row_wss_batched_rows_act(*A[c], acts[c],
+                                                          dup=dup),
+                    lambda c: ref.row_wss_batched_rows_blocks(
+                        *A[c], block_l=bl, dup=dup, act=acts[c]),
+                    bytes_a + B * n, 20 * B * n),
+                "update_wss_batched_rows_act": (
+                    lambda c: pb.update_wss_batched_rows_act(*Bk[c], acts[c],
+                                                             dup=dup),
+                    lambda c: ref.update_wss_batched_rows_blocks(
+                        *Bk[c], block_l=bl, dup=dup, act=acts[c]),
+                    bytes_b + B * n, 6 * B * n),
+            }
+            if dup:
+                cases["row_wss_batched_rows_h2"] = (
+                    lambda c: pa.row_wss_batched_rows_h2(*A[c]),
+                    lambda c: ref.row_wss_batched_rows_blocks(
+                        *A[c], block_l=bl, dup=True), bytes_a, 20 * B * n)
+                cases["update_wss_batched_rows_h2"] = (
+                    lambda c: pb.update_wss_batched_rows_h2(*Bk[c]),
+                    lambda c: ref.update_wss_batched_rows_blocks(
+                        *Bk[c], block_l=bl, dup=True), bytes_b, 6 * B * n)
+            else:
+                a, b = kernel_state(l, d, B, 1, dtype, device)
+                ca, cb = cold_copies(a, nc), cold_copies(b, nc)
+                XT = [c["X"].T.contiguous() for c in ca]
+                ra = [[c[k] for k in PASS_A_KEYS] for c in ca]
+                rb = [[c[k] for k in PASS_B_KEYS] for c in cb]
+                cases["rbf_row_wss_batched_act"] = (
+                    lambda c: pa.rbf_row_wss_batched_act(*ra[c], acts[c],
+                                                         XT=XT[c]),
+                    lambda c: ref.rbf_row_wss_batched_blocks(
+                        *ra[c], block_l=bl, act=acts[c]),
+                    (l * d + l + 4 * B * l + B * d + 6 * B) * item + 5 * B
+                    + B * nb * (item + 4) + B * l,
+                    2 * B * l * d + 20 * B * l)
+                cases["rbf_update_wss_batched_act"] = (
+                    lambda c: pb.rbf_update_wss_batched_act(*rb[c], acts[c],
+                                                            XT=XT[c]),
+                    lambda c: ref.rbf_update_wss_batched_blocks(
+                        *rb[c], block_l=bl, act=acts[c]),
+                    (l * d + l + 4 * B * l + 2 * B * d + 4 * B) * item
+                    + B * l * item + B * nb * (2 * item + 4) + B * l,
+                    4 * B * l * d + 20 * B * l)
+            for name, (kern, plain, nbytes, nops) in cases.items():
+                ms_k = timer.ms(cycling(kern, nc), 100)
+                ms_p = timer.ms(cycling(plain, nc), 10)
+                ms_k2 = timer.ms(cycling(kern, nc), 100)
+                ms_p2 = timer.ms(cycling(plain, nc), 10)
+                bms, by = bound_ms(nbytes, nops, dtype)
+                say(f"[time] {name} B={B} H={2 if dup else 1} "
+                    f"{str(dtype)[6:]}: kernel {ms_k:.5f} / {ms_k2:.5f} ms, "
+                    f"plain {ms_p:.5f} / {ms_p2:.5f} ms, bound {bms:.5f} ms "
+                    f"by {by} ({nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} "
+                    f"GFLOP; cycling through {nc} copies of the inputs, "
+                    f"{nc * nbytes / 1e6:.0f} MB)")
+                # the JSON record: the bank act passes at the e-SVR grid's
+                # H = 2 (B = 18), the rbf act passes at the grid's B = 90
+                main = (name in H2_BANK_PASSES or name in RBF_ACT
+                        or (name in BANK_ACT and dup))
+                if dtype == torch.float64 and main:
+                    recs[name] = dict(ms=min(ms_k, ms_k2),
+                                      plain_ms=min(ms_p, ms_p2),
+                                      bound_ms=bms, bound_by=by)
+            del ba, bb, A, Bk, acts, cases
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1692,18 +2441,24 @@ def main() -> int:
     phase_build()
     timer = DeviceTimer()
     errs = phase_kernels(device)
+    say(f"[time] kernel checks done at {time.perf_counter() - t_start:.1f} s")
     phase_small(device, "cuda")
+    say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
     recs, counts, lane0 = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
-    grid_recs, bank_counts = phase_grid(device, timer)
+    grid_recs, bank_counts, grid_off = phase_grid(device, timer)
     recs.update(grid_recs)
     counts.update(bank_counts)
     say(f"[time] slice 2 phases done at {time.perf_counter() - t_start:.1f} s")
     counts.update(phase_single(device, timer, lane0))
     say(f"[time] single-lane phase done at "
         f"{time.perf_counter() - t_start:.1f} s")
-    counts.update(phase_svr(device))
+    svr_counts, svr_off = phase_svr(device)
+    counts.update(svr_counts)
     recs.update(slice3_kernel_times(device, timer))
+    say(f"[time] slice 3 phases done at {time.perf_counter() - t_start:.1f} s")
+    counts.update(phase_shrink(device, timer, grid_off, svr_off))
+    recs.update(slice4_kernel_times(device, timer))
     out = []
     for name, (src, replaces) in SOURCES.items():
         r = recs[name]

@@ -15,9 +15,14 @@ gamma into a shared (n_gamma, l, l) bank (the Gram kernel, one launch per
 gamma, on the card) and the bank passes read their rows from it; ``False``
 recomputes rows from ``X`` in the rbf passes and builds no Gram at all;
 ``None`` banks on the plain backend only, as the reference does on
-``"jnp"``.  The ε-SVR grid's doubled lanes bank on the plain backend only:
-the H = 2 bank passes on the card are a later slice (ROADMAP queue 2), so
-``precompute=True`` with them on the card raises.
+``"jnp"``.  The ε-SVR grid's doubled lanes read the same base bank (the
+H = 2 bank passes on the card).
+
+``shrinking=True`` turns on soft active-set shrinking in the fused loop
+(:func:`~repro_torch.core.solver_fused.solve_fused_batched_qp`); optima do
+not change.  :func:`solve_grid_compacted` runs the grid in chunks and
+compacts lanes, and with ``shrinking=True`` rows, between them
+(:func:`~repro_torch.core.solver_fused.solve_fused_chunked_qp`).
 
 The fused engine does not track the per-step counters ``n_free`` /
 ``n_clipped`` / ``n_reverted``: they carry the ``UNTRACKED`` (-1)
@@ -37,7 +42,8 @@ import torch
 from repro_torch.core import qp as qp_mod
 from repro_torch.core.solver import SolveResult, SolverConfig
 from repro_torch.core.solver_fused import (FusedResult,
-                                           solve_fused_batched_qp)
+                                           solve_fused_batched_qp,
+                                           solve_fused_chunked_qp)
 from repro_torch.device import resolve_device, resolve_dtype
 from repro_torch.kernels import ops, row_source
 
@@ -76,16 +82,12 @@ def _trace_fields(dims, dtype, device) -> dict:
                 steps_j=zeros(cap, torch.int32), steps_mu=zeros(cap, dtype))
 
 
-def _check_later_slices(impl, shrinking, mesh, devices, diagnostics):
+def _check_later_slices(impl, mesh, devices, diagnostics):
     if impl is None:
         raise NotImplementedError(
             "impl=None (the classic vmapped grid engine) is a later slice "
             "of the port (ROADMAP queue 1, step 10); pass a kernel backend "
             "such as impl='auto'")
-    if shrinking:
-        raise NotImplementedError(
-            "shrinking in the port is a later slice (ROADMAP queue 1, "
-            "step 7)")
     if mesh is not None or devices is not None:
         raise NotImplementedError(
             "mesh and devices (lane sharding over several cards) are a "
@@ -106,6 +108,18 @@ def _as_data(X, device, dtype):
     return torch.as_tensor(X, dtype=dtype, device=dev).contiguous(), dev
 
 
+def _grid_inputs(X, Y, Cs, gammas, device, dtype):
+    """The (C, gamma) grid's inputs: ``X`` and the (k, l) labels ``Y`` (a
+    1-D ``y`` is one class head) on the resolved device and dtype, and
+    the (n_C,), (n_gamma,) float64 axes."""
+    X, dev = _as_data(X, device, dtype)
+    Y = torch.as_tensor(Y, dtype=X.dtype, device=dev)
+    if Y.ndim == 1:
+        Y = Y[None, :]
+    return (X, Y.contiguous(), np.asarray(Cs, dtype=np.float64).reshape(-1),
+            np.asarray(gammas, dtype=np.float64).reshape(-1))
+
+
 def _bank_kw(X, gammas, lanes_per_gamma: int, impl: str) -> dict:
     """The shared (n_gamma, l, l) Gram bank and each lane's entry."""
     bank = ops.gram_bank(X, gammas, impl=impl)
@@ -114,21 +128,23 @@ def _bank_kw(X, gammas, lanes_per_gamma: int, impl: str) -> dict:
     return dict(gram=bank, gram_idx=gidx)
 
 
-def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute) -> SolveResult:
-    k, l = Y.shape
+def _grid_lanes(X, Y, Cs, gammas):
+    """The flat (gamma, class, C) lanes, row-major as the result axes:
+    labels (B, l), box L and U (B, l), gammas (B,)."""
+    k = Y.shape[0]
     nG, nC = len(gammas), len(Cs)
     dev, dtype = X.device, X.dtype
-    # lane order (gamma, class, C) row-major, matching the result axes
-    Yf = Y.repeat(nG, 1).repeat_interleave(nC, dim=0)          # (B, l)
-    gam_t = torch.as_tensor(gammas, dtype=dtype, device=dev)
-    gf = gam_t.repeat_interleave(k * nC)                       # (B,)
+    Yf = Y.repeat(nG, 1).repeat_interleave(nC, dim=0)
+    gf = torch.as_tensor(gammas, dtype=dtype,
+                         device=dev).repeat_interleave(k * nC)
     Cf = torch.as_tensor(Cs, dtype=dtype, device=dev).repeat(nG * k)
     YC = Yf * Cf[:, None]
-    L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
-    bank_kw = (_bank_kw(X, gammas, k * nC, impl)
-               if _use_bank(impl, precompute, dev) else {})
-    fr = solve_fused_batched_qp(X, Yf, L, U, gf, cfg, impl=impl, **bank_kw)
-    dims = (nG, k, nC)
+    return Yf, torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0), gf
+
+
+def _grid_result(fr: FusedResult, L, U, dims) -> SolveResult:
+    """A flat :class:`FusedResult` as the grid's :class:`SolveResult`."""
+    dev, dtype = fr.alpha.device, fr.alpha.dtype
 
     def to_grid(t):
         return t.reshape(dims + t.shape[1:])
@@ -142,6 +158,25 @@ def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute) -> SolveResult:
         n_clipped=untracked, n_reverted=untracked,
         n_free_sv=to_grid(_free_sv_count(fr.alpha, L, U)),
         **_trace_fields(dims, dtype, dev))
+
+
+def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute, shrinking,
+                      chunk=None) -> SolveResult:
+    """The flat (gamma, class, C) lanes through one fused loop, or with
+    ``chunk`` through the chunked driver, which drops converged lanes and,
+    with ``shrinking``, gathers the surviving rows between chunks (the
+    reference's ``_compacted_fused_flat``)."""
+    Yf, L, U, gf = _grid_lanes(X, Y, Cs, gammas)
+    k = Y.shape[0]
+    kw = (_bank_kw(X, gammas, k * len(Cs), impl)
+          if _use_bank(impl, precompute, X.device) else {})
+    if chunk is None:
+        solve = solve_fused_batched_qp
+    else:
+        solve = solve_fused_chunked_qp
+        kw.update(chunk=chunk)
+    fr = solve(X, Yf, L, U, gf, cfg, impl=impl, shrinking=shrinking, **kw)
+    return _grid_result(fr, L, U, (len(gammas), k, len(Cs)))
 
 
 def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
@@ -162,25 +197,23 @@ def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
     the fused engine; ``precompute`` picks the row source (module notes).
     ``device`` defaults to the CUDA card and raises without one; ``dtype``
     defaults to ``X``'s when it is a floating tensor, else to
-    ``torch.get_default_dtype()``.  ``warm_start`` has no effect on the
-    fused engine (every lane starts cold), and ``block_l`` is accepted and
+    ``torch.get_default_dtype()``.  ``shrinking=True`` masks bound-pinned
+    variables out of the passes' scans in the loop (soft shrinking; the
+    optima do not change).  ``warm_start`` has no effect on the fused
+    engine (every lane starts cold), and ``block_l`` is accepted and
     ignored: the CUDA passes tile the example axis at
     :data:`repro_torch.kernels.build.BLOCK_L`.  ``impl=None`` (the classic
-    vmapped engine), ``shrinking``, ``mesh``/``devices`` and
-    ``diagnostics`` are later slices and raise ``NotImplementedError``.
+    vmapped engine), ``mesh``/``devices`` and ``diagnostics`` are later
+    slices and raise ``NotImplementedError``.
     """
     del warm_start, block_l
-    _check_later_slices(impl, shrinking, mesh, devices, diagnostics)
-    X, dev = _as_data(X, device, dtype)
-    Y = torch.as_tensor(Y, dtype=X.dtype, device=dev)
-    if Y.ndim == 1:
-        Y = Y[None, :]
-    Cs_np = np.asarray(Cs, dtype=np.float64).reshape(-1)
-    gammas_np = np.asarray(gammas, dtype=np.float64).reshape(-1)
+    _check_later_slices(impl, mesh, devices, diagnostics)
+    X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
+    dev = X.device
     order = np.argsort(Cs_np, kind="stable")
     impl = ops.resolve_impl(impl, dev)
-    res = _solve_grid_fused(X, Y.contiguous(), Cs_np[order], gammas_np,
-                            cfg, impl, precompute)
+    res = _solve_grid_fused(X, Y, Cs_np[order], gammas_np, cfg, impl,
+                            precompute, shrinking)
     if np.any(order != np.arange(len(Cs_np))):
         inv = torch.as_tensor(np.argsort(order, kind="stable"), device=dev)
         res = SolveResult(**{f.name: getattr(res, f.name).index_select(2, inv)
@@ -201,14 +234,14 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
     ``G0 = -K alpha0``: one matvec per lane, paid once before the loop,
     against the bank when there is one and blocked over rows of ``X``
     (:meth:`repro_torch.core.qp.RBFKernel.matvec`) when there is not.
-    ``precompute``, ``impl``, ``device``, ``dtype`` and the knobs that
-    raise ``NotImplementedError`` are as in :func:`solve_grid`; ``block_l``
-    is accepted and ignored.  Returns a
+    ``precompute``, ``impl``, ``shrinking``, ``device``, ``dtype`` and the
+    knobs that raise ``NotImplementedError`` are as in :func:`solve_grid`;
+    ``block_l`` is accepted and ignored.  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
     ``(n_gamma, n_nu)``; the decision offset is ``rho = -b``.
     """
     del block_l
-    _check_later_slices(impl, shrinking, mesh, devices, diagnostics)
+    _check_later_slices(impl, mesh, devices, diagnostics)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     l = X.shape[0]
@@ -233,7 +266,8 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
         G0 = -torch.cat([torch.stack([qp_mod.make_rbf(X, g).matvec(a)
                                       for a in A0]) for g in gammas_np])
     out = solve_fused_batched_qp(X, zeros, zeros, Uf, gf, cfg, impl=impl,
-                                 alpha0=alpha0, G0=G0, **bank_kw)
+                                 alpha0=alpha0, G0=G0, shrinking=shrinking,
+                                 **bank_kw)
     return FusedResult(**{f.name: getattr(out, f.name).reshape(
         (nG, nN) + getattr(out, f.name).shape[1:])
         for f in dataclasses.fields(out)})
@@ -252,24 +286,20 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     Every lane runs the doubled 2l-variable operator over the base ``X``
     (on the card the H = 2 passes, whose products stay l-wide); lane order
     is (gamma, epsilon, C) row-major.  ``precompute`` picks the row source
-    as in :func:`solve_grid`, except that ``precompute=True`` on the card
-    raises ``NotImplementedError`` (module notes).  ``impl``, ``device``,
-    ``dtype`` and the knobs that raise ``NotImplementedError`` are as in
-    :func:`solve_grid`; ``block_l`` is accepted and ignored.  Returns a
+    as in :func:`solve_grid` (the base bank, read by the H = 2 bank passes
+    on the card); ``shrinking=True`` masks each half of the doubled state
+    on its own.  ``impl``, ``device``, ``dtype`` and the knobs that raise
+    ``NotImplementedError`` are as in :func:`solve_grid`; ``block_l`` is
+    accepted and ignored.  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
     ``(n_gamma, n_eps, n_C)``; ``alpha`` is the doubled (..., 2l) dual,
     folded to coefficients by :func:`repro_torch.core.qp.svr_fold`.
     """
     del block_l
-    _check_later_slices(impl, shrinking, mesh, devices, diagnostics)
+    _check_later_slices(impl, mesh, devices, diagnostics)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     impl = ops.resolve_impl(impl, dev)
-    if precompute and impl == "cuda":
-        raise NotImplementedError(
-            "precompute=True with the doubled ε-SVR lanes on the card needs "
-            "the H = 2 Gram-bank passes, the next slice of the port (ROADMAP "
-            "queue 2); use precompute=None or False")
     y = torch.as_tensor(y, dtype=dtype, device=dev).reshape(-1)
     l = y.shape[0]
     gammas_np = np.asarray(gammas, np.float64).reshape(-1)
@@ -289,10 +319,42 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     bank_kw = (_bank_kw(X, gammas_np, nE * nC, impl)
                if _use_bank(impl, precompute, dev) else {})
     out = solve_fused_batched_qp(X, Pf, Lf, Uf, gf, cfg, impl=impl,
-                                 doubled=True, **bank_kw)
+                                 doubled=True, shrinking=shrinking,
+                                 **bank_kw)
     return FusedResult(**{f.name: getattr(out, f.name).reshape(
         (nG, nE, nC) + getattr(out, f.name).shape[1:])
         for f in dataclasses.fields(out)})
+
+
+def solve_grid_compacted(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(),
+                         *, chunk: int = 96, impl: str | None = None,
+                         block_l: int = 1024, precompute: bool | None = None,
+                         shrinking: bool = False, mesh=None, devices=None,
+                         diagnostics=None, device=None,
+                         dtype=None) -> SolveResult:
+    """The (gamma, class, C) grid of :func:`solve_grid`, run in chunks of
+    ``chunk`` iterations and compacted between them, so converged lanes
+    stop costing time.
+
+    ``impl`` (a kernel backend) runs the fused branch: every (gamma,
+    class, C) point is a cold-started lane in the flat layout, the result
+    axes follow the *input* order of ``Cs`` and ``gammas``, and
+    ``precompute`` picks the row source as in :func:`solve_grid` (the bank
+    is sliced to the kept rows per chunk).  ``shrinking=True`` adds hard
+    row compaction with an exact rebuild of G and a full-set KKT check
+    before any lane retires (unshrink events counted per lane), and soft
+    shrinking inside each chunk.  ``n_free``/``n_clipped``/``n_reverted``
+    carry the ``UNTRACKED`` sentinel, ``n_free_sv`` the free SVs.
+    ``device``, ``dtype`` and ``block_l`` are as in :func:`solve_grid`.
+    ``impl=None`` (the classic engine's chunked path), ``mesh``/``devices``
+    and ``diagnostics`` are later slices and raise ``NotImplementedError``.
+    """
+    del block_l
+    _check_later_slices(impl, mesh, devices, diagnostics)
+    X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
+    impl = ops.resolve_impl(impl, X.device)
+    return _solve_grid_fused(X, Y, Cs_np, gammas_np, cfg, impl, precompute,
+                             shrinking, chunk)
 
 
 def grid_decision(Xq, X, gammas, alpha: torch.Tensor, b: torch.Tensor, *,

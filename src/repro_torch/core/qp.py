@@ -127,6 +127,23 @@ def safe_bias(g_up, g_dn):
                        torch.zeros_like(g_up))
 
 
+def shrink_mask(G, alpha, L, U):
+    """Conservative active mask over the trailing coordinate axis (leading
+    axes broadcast: one (l,) lane or a (B, n) lane batch).
+
+    A variable at its lower bound only acts as an ``i`` (up) candidate and
+    leaves the set when ``G_i < min_{I_down} G``; one at its upper bound
+    only acts as a ``j`` (down) candidate and leaves when
+    ``G_j > max_{I_up} G``.  Neither can then be part of a violating pair.
+    Interior variables always stay active.
+    """
+    up = alpha < U
+    dn = alpha > L
+    g_up = torch.where(up, G, float("-inf")).amax(dim=-1, keepdim=True)
+    g_dn = torch.where(dn, G, float("inf")).amin(dim=-1, keepdim=True)
+    return ~((~dn & (G < g_dn)) | (~up & (G > g_up)))
+
+
 def is_feasible(alpha, bounds: Bounds, atol: float = 1e-9):
     """Box and equality-constraint feasibility (a 0-d bool tensor)."""
     box = torch.all((alpha >= bounds.lower - atol)

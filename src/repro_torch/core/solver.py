@@ -42,6 +42,21 @@ class SolverConfig:
             "step='conjugate' requires algorithm='smo'"
 
 
+def resolve_shrink_cfg(cfg: SolverConfig, shrinking) -> SolverConfig:
+    """Fold a ``shrinking=True|False|None`` knob into ``cfg.shrink_every``.
+
+    ``None`` defers to the config; ``True`` enables it with
+    :data:`DEFAULT_SHRINK_EVERY` when the config has no cadence of its own;
+    ``False`` forces it off.
+    """
+    if shrinking is None:
+        return cfg
+    every = (cfg.shrink_every or DEFAULT_SHRINK_EVERY) if shrinking else 0
+    if every == cfg.shrink_every:
+        return cfg
+    return dataclasses.replace(cfg, shrink_every=every)
+
+
 @dataclasses.dataclass(frozen=True)
 class SolveResult:
     """Solver output, field for field as ``repro.core.solver.SolveResult``.

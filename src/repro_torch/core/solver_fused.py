@@ -27,14 +27,29 @@ check, none inside the body): once every lane is done, further iterations
 change nothing that is returned, and each chunk is capped at
 ``max_iter - t`` so ``max_iter`` stays exact.
 
+``shrinking=True`` turns on LIBSVM-style *soft* active-set shrinking: a
+per-lane (B, n) bool mask restricts pass A's j-candidates and pass B's
+scans, while pass B updates G on every coordinate, so G stays exact and
+unshrinking costs nothing.  The mask is refreshed with
+:func:`repro_torch.core.qp.shrink_mask` at the iterations ``t`` (counted
+from 0 in each call) with ``t % period == period - 1``, ``period =
+cfg.shrink_every`` or :data:`~repro_torch.core.solver.
+DEFAULT_SHRINK_EVERY`; a lane is done only when its mask was full at the
+scan that gave the gap, and a lane whose masked gap passes with a partial
+mask is unshrunk in place (counted in ``n_unshrink``).
+:func:`solve_fused_chunked_qp` turns the mask into *hard* compaction:
+between chunks it drops converged lanes and gathers the surviving rows.
+
 On the card the loop body is a few hundred small launches, each issued by
-Python, and the card waits for them: after a first eager chunk the loop
-captures ``check_every`` iterations into one CUDA graph and replays it
+Python, and the card waits for them: the loop captures a chunk of
+``check_every`` iterations into a CUDA graph and replays it
 (:func:`_drive`).  A replay launches the same kernels in the same order
-on the same buffers, so it changes no bit of the result.
+on the same buffers, so it changes no bit of the result.  The host knows
+``t`` and ends a chunk that holds a refresh iteration on one, so two
+graphs serve any period.
 
 The port covers the plain step, ``algorithm`` in ``{smo, pasmo}``, both
-row sources, the doubled operator and warm starts; shrinking, telemetry
+row sources, the doubled operator, warm starts and shrinking; telemetry
 and the conjugate step are later slices.
 """
 
@@ -43,13 +58,15 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch import kernels
 from repro_torch.core import qp as qp_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.qp import TAU
-from repro_torch.core.solver import SolverConfig
+from repro_torch.core.solver import DEFAULT_SHRINK_EVERY, SolverConfig
 from repro_torch.device import resolve_device, resolve_dtype
 from repro_torch.kernels import ops, row_source
 
@@ -69,7 +86,7 @@ class FusedResult:
     kkt_gap: torch.Tensor
     converged: torch.Tensor
     n_planning: torch.Tensor
-    n_unshrink: torch.Tensor     # always 0: shrinking is a later slice
+    n_unshrink: torch.Tensor     # unshrink (reactivation) events
 
     def lane(self, k: int) -> "FusedResult":
         """The result of lane ``k`` alone (leading axis dropped)."""
@@ -77,52 +94,82 @@ class FusedResult:
                               for f in dataclasses.fields(self)})
 
 
-def _capture(body, s, steps: int):
-    """Capture ``steps`` iterations of ``body`` from a copy of the state
-    ``s`` into a CUDA graph whose replay advances that copy in place.
+def _capture(body, static, refresh, pool=None):
+    """Capture one chunk of ``body``, whose iterations refresh the shrink
+    mask where ``refresh`` (a tuple of bools, one per iteration) says, into
+    a CUDA graph whose replay advances the state buffers ``static`` in
+    place.  ``pool`` is another graph's memory pool to draw on.
 
-    Returns (graph, the copy, the kernel launches of one replay).  The
-    wrappers counted their launches while the graph was captured, which
-    launched nothing: those counts are taken back here and given again at
-    every replay (:func:`_drive`).
+    Returns (graph, the kernel launches of one replay).  The wrappers
+    counted their launches while the graph was captured, which launched
+    nothing: those counts are taken back here and given again at every
+    replay (:func:`_drive`).
     """
-    static = type(s)(*(x.clone() for x in s))
     before = kernels.launches()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, pool=pool):
         out = static
-        for _ in range(steps):
-            out = body(out)
+        for r in refresh:
+            out = body(out, r)
         for dst, src in zip(static, out):
             if dst is not src:
                 dst.copy_(src)
     per_replay = {k: n - before[k] for k, n in kernels.launches().items()}
     kernels.add_launches(per_replay, -1)
-    return graph, static, per_replay
+    return graph, per_replay
 
 
-def _drive(body, s, max_iter: int, check_every: int, graphs: bool):
-    """Run ``body`` on the state ``s`` (a NamedTuple with a ``done`` field)
-    in chunks of ``check_every`` iterations, reading ``any(~done)`` between
-    chunks, until every lane is done or ``max_iter`` iterations ran.
+def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
+           period: int = 0):
+    """Run ``body(state, refresh)`` on the state ``s`` (a NamedTuple with a
+    ``done`` field) in chunks of at most ``check_every`` iterations,
+    reading ``any(~done)`` between chunks, until every lane is done or
+    ``max_iter`` iterations ran.  Iteration ``t`` (from 0) refreshes the
+    shrink mask when ``period`` is positive and ``t % period == period -
+    1``, and a chunk that holds a refresh ends on one.  A chunk then has
+    one of two shapes, whatever ``period`` is: ``check_every`` iterations
+    without a refresh, or, ending on a refresh, ``(period - 1) %
+    check_every + 1`` iterations when ``period > check_every`` and the
+    most whole periods that fit in ``check_every`` otherwise (only a last
+    chunk cut short by ``max_iter`` differs).
 
-    With ``graphs`` (the CUDA kernels on the card) the first chunk runs
-    eagerly, which also loads and warms every kernel; a full chunk after it
-    is one replay of a graph captured once; a shorter last chunk (capped by
-    ``max_iter``) runs eagerly.  Returns (state, iterations run).
+    With ``graphs`` (the CUDA kernels on the card) a chunk whose shape ran
+    once eagerly (which loads and warms every kernel it launches) is one
+    replay of a graph captured for that shape: at most two graphs.  They
+    advance one set of state buffers and share one memory pool, which is
+    safe because each copies its result into those buffers and leaves
+    nothing in the pool that another reads.  Returns (state, iterations
+    run).
     """
     t = 0
-    graph = per_replay = None
+    cache, seen, static, pool = {}, set(), None, None
     while t < max_iter and bool(torch.any(~s.done)):
         steps = min(check_every, max_iter - t)
-        if graphs and t > 0 and steps == check_every:
-            if graph is None:
-                graph, s, per_replay = _capture(body, s, steps)
+        if period > 0:
+            to_next = period - t % period    # up to the next refresh
+            if to_next <= steps:
+                steps = to_next + (steps - to_next) // period * period
+        refresh = tuple(period > 0 and (t + k) % period == period - 1
+                        for k in range(steps))
+        if graphs and refresh in seen:
+            if static is None:
+                static = type(s)(*(x.clone() for x in s))
+            if refresh not in cache:
+                cache[refresh] = _capture(body, static, refresh, pool)
+                pool = cache[refresh][0].pool()
+            graph, per_replay = cache[refresh]
             graph.replay()
             kernels.add_launches(per_replay)
+            s = static
         else:
-            for _ in range(steps):
-                s = body(s)
+            seen.add(refresh)
+            for r in refresh:
+                s = body(s, r)
+            if static is not None:
+                for dst, src in zip(static, s):
+                    if dst is not src:
+                        dst.copy_(src)
+                s = static
         t += steps
     return s, t
 
@@ -144,6 +191,8 @@ class _BatchState(NamedTuple):
     prev_free: torch.Tensor      # (B,) bool
     prev_ratio_ok: torch.Tensor  # (B,) bool
     n_planning: torch.Tensor     # (B,) int32
+    act: torch.Tensor            # (B, n) bool active set; (B, 1) unused
+    n_unshrink: torch.Tensor     # (B,) int32
 
 
 def _check_config(cfg: SolverConfig) -> None:
@@ -161,10 +210,6 @@ def _check_config(cfg: SolverConfig) -> None:
         raise NotImplementedError(
             "step='conjugate' in the port is a later slice (ROADMAP queue "
             "1, step 8)")
-    if cfg.shrink_every:
-        raise NotImplementedError(
-            "shrinking in the port is a later slice (ROADMAP queue 1, "
-            "step 7)")
 
 
 def _check_cadence(check_every: int) -> None:
@@ -226,7 +271,8 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
                                 dim=-1))
         return torch.exp(-gam * torch.clamp_min(d2, 0.0))
 
-    def body(s: _BatchState) -> _BatchState:
+    def body(s: _BatchState, refresh: bool) -> _BatchState:
+        del refresh                  # one lane, no shrinking
         alpha, G = s.alpha, s.G
         active = ~s.done
         use_exact = (~s.p_smo) & (~s.prev_ratio_ok) if planning else no
@@ -346,7 +392,8 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
             prev_free=torch.where(active, (~do_plan) & free_smo,
                                   s.prev_free),
             prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
-            n_planning=s.n_planning + (do_plan & active).to(torch.int32))
+            n_planning=s.n_planning + (do_plan & active).to(torch.int32),
+            act=s.act, n_unshrink=s.n_unshrink)
 
     # ---- init: alpha = 0, G = y ------------------------------------------
     alpha0 = torch.zeros_like(y)
@@ -359,7 +406,7 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
     s = _BatchState(alpha=alpha0, G=y, i=i0, g_i=g_i0, gap=gap0, iters=z,
                     done=gap0 <= eps, pi=z, pj=z, qi=z, qj=z, n_hist=z,
                     p_smo=~no, prev_free=no, prev_ratio_ok=~no,
-                    n_planning=z)
+                    n_planning=z, act=~no[:, None], n_unshrink=z)
 
     s, t = _drive(body, s, cfg.max_iter, check_every,
                   impl == "cuda" and y.is_cuda)
@@ -374,13 +421,14 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
         iterations=s.iters[0],
         objective=0.5 * (torch.dot(y, s.alpha) + torch.dot(s.G, s.alpha)),
         kkt_gap=s.gap[0], converged=s.done[0], n_planning=s.n_planning[0],
-        n_unshrink=torch.zeros_like(s.iters[0]))
+        n_unshrink=s.n_unshrink[0])
 
 
 def solve_fused_batched_qp(X, P, L, U, gamma,
                            cfg: SolverConfig = SolverConfig(), *,
                            impl: str = "auto", alpha0=None, G0=None,
                            gram=None, gram_idx=None, doubled: bool = False,
+                           shrinking: bool = False,
                            check_every: int = CHECK_EVERY) -> FusedResult:
     """Solve B general dual QPs over the shared ``X`` in one loop.
 
@@ -395,9 +443,8 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     lanes start at alpha = 0, G = P.  ``gram`` (n_stack, n, n) and
     ``gram_idx`` (B,) also come as a pair: with them the passes read their
     rows from the shared (n_stack, l, l) base Gram bank (lanes sharing a
-    gamma share an entry) instead of recomputing them from ``X``; doubled
-    lanes bank on the plain backend only (the H = 2 bank passes are a
-    later slice, ROADMAP queue 2).
+    gamma share an entry) instead of recomputing them from ``X``.
+    ``shrinking=True`` turns on soft shrinking (module notes).
 
     The loop reads ``any(~done)`` every ``check_every`` iterations; the
     result does not depend on it.  Returns a :class:`FusedResult` whose
@@ -418,6 +465,7 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     impl = ops.resolve_impl(impl, device)
     eps, eta = cfg.eps, cfg.eta
     planning = cfg.algorithm == "pasmo"
+    period = cfg.shrink_every if cfg.shrink_every > 0 else DEFAULT_SHRINK_EVERY
     if gram is None:
         src = row_source.rbf_source(X, gamma, B, dup=doubled)
     else:
@@ -436,10 +484,11 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
         pointer)."""
         return M.take(lane_base + idx.long())
 
-    def body(s: _BatchState) -> _BatchState:
+    def body(s: _BatchState, refresh: bool) -> _BatchState:
         alpha, G = s.alpha, s.G
         active = ~s.done
         use_exact = (~s.p_smo) & (~s.prev_ratio_ok) if planning else no_lanes
+        act = s.act if shrinking else None
 
         # ---- gathers at the historic indices, stacked (k, B) -------------
         hist = (torch.stack([s.i, s.qi, s.qj, s.pi, s.pj]) if planning
@@ -450,7 +499,8 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
 
         # ---- pass A: j-selection ------------------------------------------
         j0, gain0 = ops.source_row_wss(src, G, alpha, L, U, s.i, a_i, L_i,
-                                       U_i, s.g_i, use_exact, impl=impl)
+                                       U_i, s.g_i, use_exact, impl=impl,
+                                       act=act)
         a_j0, G_j0, L_j0, U_j0 = (take(alpha, j0), take(G, j0),
                                   take(L, j0), take(U, j0))
 
@@ -526,7 +576,9 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
                 s.prev_ratio_ok)
 
         # lane freeze: converged lanes take a zero step, so pass B leaves
-        # their G bitwise unchanged and alpha gains exactly 0.  Both
+        # their G bitwise unchanged and alpha gains exactly 0.  The isfinite
+        # guard also freezes a lane for one repair iteration when an
+        # unshrink left it with a -inf g_i (an empty masked I_up).  Both
         # working-set coordinates update through one accumulating scatter,
         # in place on the carried alpha.
         mu = torch.where(active & torch.isfinite(lw),
@@ -537,15 +589,31 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
 
         # ---- pass B: k_i/k_j + update + next i + gap -----------------------
         G_new, i_next, g_i_next, g_dn = ops.source_update_wss(
-            src, G, alpha, L, U, i_sel, j_sel, mu, impl=impl)
+            src, G, alpha, L, U, i_sel, j_sel, mu, impl=impl, act=act)
         gap_new = qp_mod.finite_gap(g_i_next - g_dn)
+        if shrinking:
+            # a lane is done only when its mask was full at the scan that
+            # gave the gap; a partial-mask "solved" lane is unshrunk in
+            # place and goes on (G is exact on every coordinate)
+            full_now = s.act.all(dim=1)
+            locally_done = gap_new <= eps
+            unshrink = active & locally_done & ~full_now
+            done = s.done | (active & locally_done & full_now)
+            act2 = (qp_mod.shrink_mask(G_new, alpha, L, U) if refresh
+                    else s.act)
+            act_new = torch.where((active & ~done)[:, None],
+                                  act2 | unshrink[:, None], s.act)
+            n_unshrink = s.n_unshrink + unshrink.to(torch.int32)
+        else:
+            done = s.done | (gap_new <= eps)
+            act_new, n_unshrink = s.act, s.n_unshrink
         return _BatchState(
             alpha=alpha, G=G_new,
             i=torch.where(active, i_next, s.i),
             g_i=torch.where(active, g_i_next, s.g_i),
             gap=torch.where(active, gap_new, s.gap),
             iters=s.iters + active.to(torch.int32),
-            done=s.done | (gap_new <= eps),
+            done=done,
             pi=torch.where(active, i_sel, s.pi),
             pj=torch.where(active, j_sel, s.pj),
             qi=torch.where(active, s.pi, s.qi),
@@ -556,7 +624,8 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
             prev_free=torch.where(active, (~do_plan) & free_smo,
                                   s.prev_free),
             prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
-            n_planning=s.n_planning + (do_plan & active).to(torch.int32))
+            n_planning=s.n_planning + (do_plan & active).to(torch.int32),
+            act=act_new, n_unshrink=n_unshrink)
 
     # ---- init: alpha = 0, G = P unless warm-started ------------------------
     if alpha0 is None:
@@ -575,13 +644,16 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     gap0 = qp_mod.finite_gap(
         g_i0 - torch.where(alpha0 > L, G0, float("inf")).amin(dim=1))
     zB = torch.zeros((B,), dtype=torch.int32, device=device)
+    act0 = torch.ones((B, n) if shrinking else (B, 1), dtype=torch.bool,
+                      device=device)
     s = _BatchState(alpha=alpha0, G=G0, i=i0, g_i=g_i0, gap=gap0, iters=zB,
                     done=gap0 <= eps, pi=zB, pj=zB, qi=zB, qj=zB, n_hist=zB,
                     p_smo=~no_lanes, prev_free=no_lanes,
-                    prev_ratio_ok=~no_lanes, n_planning=zB)
+                    prev_ratio_ok=~no_lanes, n_planning=zB, act=act0,
+                    n_unshrink=zB)
 
     s, _ = _drive(body, s, cfg.max_iter, check_every,
-                  impl == "cuda" and P.is_cuda)
+                  impl == "cuda" and P.is_cuda, period if shrinking else 0)
 
     up = s.alpha < U
     dn = s.alpha > L
@@ -593,12 +665,13 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
         objective=0.5 * (torch.sum(P * s.alpha, dim=1)
                          + torch.sum(s.G * s.alpha, dim=1)),
         kkt_gap=s.gap, converged=s.done, n_planning=s.n_planning,
-        n_unshrink=torch.zeros_like(s.iters))
+        n_unshrink=s.n_unshrink)
 
 
 def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
                         *, impl: str = "auto", alpha0=None, G0=None,
                         gram=None, gram_idx=None, device=None, dtype=None,
+                        shrinking: bool = False,
                         check_every: int = CHECK_EVERY) -> FusedResult:
     """Solve B RBF *classification* QPs over the shared ``X`` in one loop —
     the ``p = y`` instance of :func:`solve_fused_batched_qp`.
@@ -609,9 +682,10 @@ def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
     CPU).  ``dtype`` defaults to ``Y``'s when it is a floating tensor, else
     to ``torch.get_default_dtype()``.  ``C`` is a scalar, (B,) per-lane or
     (B, l) per-sample budgets (class-weighted SVC); ``gamma`` a scalar or
-    (B,).  The warm start ``alpha0``/``G0`` and the Gram bank
-    ``gram``/``gram_idx`` are as in :func:`solve_fused_batched_qp`; the
-    bank moves to ``device`` and ``dtype`` too.
+    (B,).  The warm start ``alpha0``/``G0``, the Gram bank
+    ``gram``/``gram_idx`` and ``shrinking`` are as in
+    :func:`solve_fused_batched_qp`; the bank moves to ``device`` and
+    ``dtype`` too.
     """
     dev = resolve_device(device)
     if dtype is None and torch.is_tensor(Y) and Y.is_floating_point():
@@ -629,4 +703,261 @@ def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
     return solve_fused_batched_qp(
         X, Y, torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0), gamma, cfg,
         impl=impl, alpha0=alpha0, G0=G0, gram=gram, gram_idx=gram_idx,
-        check_every=check_every)
+        shrinking=shrinking, check_every=check_every)
+
+
+# ---------------------------------------------------------------------------
+# Chunked host driver: hard row compaction + lane compaction
+# ---------------------------------------------------------------------------
+
+
+def _pow2(n: int) -> int:
+    """Smallest power of two >= n: the lane and row buckets."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def solve_fused_chunked_qp(X, P, L, U, gamma,
+                           cfg: SolverConfig = SolverConfig(), *,
+                           impl: str = "auto", chunk: int = 96,
+                           shrinking: bool = False, doubled: bool = False,
+                           alpha0=None, G0=None, gram=None, gram_idx=None,
+                           mesh=None, devices=None, diagnostics=None,
+                           check_every: int = CHECK_EVERY) -> FusedResult:
+    """:func:`solve_fused_batched_qp` in chunks of ``chunk`` iterations,
+    with HARD compaction of both axes between chunks.
+
+    * **lanes** — a lane whose chunk converged retires after a full-set
+      KKT check, so later chunks launch over the live lanes only;
+    * **rows** — with ``shrinking=True`` the shrink rule
+      (:func:`repro_torch.core.qp.shrink_mask`, the union over live lanes,
+      the doubled halves folded onto the base axis) keeps the base rows
+      some live lane still needs, and the next chunk runs at that width.
+      The row set only shrinks, until an unshrink resets it.
+
+    Lanes and rows are bucketed to powers of two; padded coordinates have
+    ``L = U = 0`` and are never selected.  With doubled lanes a chunk's
+    state is ``[sub, pad, sub2, pad]``: the half offset is the bucketed
+    width.  The bank row source is sliced to the kept rows into an
+    (n_stack, rb, rb) buffer (the bank itself while every row is kept and
+    l is a power of two).
+
+    The state carried across chunks (alpha, G, and the problem P, L, U)
+    stays in float64 on the device and is cast to the run's dtype per
+    chunk.  G is stale on dropped rows, so a lane is never retired from
+    the shrunken problem alone: its G is rebuilt exactly (``P - Q alpha``
+    through :meth:`~repro_torch.kernels.row_source.RowSource.matvec`) and
+    the full-set gap checked; a failed check counts an unshrink, rebuilds
+    every live lane's G and resets the rows to the full set.
+
+    Arguments are those of :func:`solve_fused_batched_qp`, plus ``chunk``,
+    the iterations of one sub-solve.  ``mesh``/``devices`` (lane sharding,
+    ROADMAP queue 1, step 12) and ``diagnostics`` (the flight recorder,
+    step 9) raise ``NotImplementedError``.  The phases of a round run
+    inside ``torch.profiler`` ranges named ``chunked.slice`` (the gathers
+    and the bank slice), ``chunked.solve`` (the chunk solve),
+    ``chunked.rebuild`` (the matvec rebuilds) and ``chunked.checks`` (the
+    host's checks and row shrink), so a profiler window splits a round's
+    time between them.  Returns a lane-flat :class:`FusedResult` whose
+    ``iterations``/``n_planning``/``n_unshrink`` add up over chunks and
+    whose ``G`` is exact on every coordinate.
+    """
+    if mesh is not None or devices is not None:
+        raise NotImplementedError(
+            "mesh and devices (lane sharding over several cards) are a later "
+            "slice of the port (ROADMAP queue 1, step 12)")
+    if diagnostics is not None:
+        raise NotImplementedError(
+            "diagnostics (the flight recorder) is a later slice of the port "
+            "(ROADMAP queue 1, step 9)")
+    _check_config(cfg)
+    _check_cadence(check_every)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if (alpha0 is None) != (G0 is None):
+        raise ValueError("warm starts need the (alpha0, G0) pair")
+    if (gram is None) != (gram_idx is None):
+        raise ValueError("the Gram bank needs the (gram, gram_idx) pair")
+    dtype, dev = P.dtype, P.device
+    f64 = torch.float64
+    B, n = P.shape
+    lb, d = X.shape
+    if lb * (2 if doubled else 1) != n:
+        raise ValueError(f"X has {lb} rows, the lanes {n} coordinates "
+                         f"(doubled={doubled})")
+    bank = gram is not None
+    P64 = P.to(f64)
+    L64 = L.to(f64).broadcast_to((B, n))
+    U64 = U.to(f64).broadcast_to((B, n))
+    gam = torch.as_tensor(gamma, dtype=dtype, device=dev).reshape(-1)
+    gam = gam.broadcast_to((B,)).contiguous()
+    if bank:
+        gidx = torch.as_tensor(gram_idx, dtype=torch.int64, device=dev)
+    eps = float(cfg.eps)
+    ccfg = dataclasses.replace(cfg, max_iter=min(chunk, cfg.max_iter))
+
+    if alpha0 is None:
+        alpha = torch.zeros((B, n), dtype=f64, device=dev)
+        G = P64.clone()
+    else:
+        alpha = torch.as_tensor(alpha0, device=dev).to(f64).clone()
+        G = torch.as_tensor(G0, device=dev).to(f64).clone()
+
+    out_b = torch.zeros(B, dtype=f64, device=dev)
+    out_gap = torch.zeros(B, dtype=f64, device=dev)
+    out_obj = torch.zeros(B, dtype=f64, device=dev)
+    out_conv = torch.zeros(B, dtype=torch.bool, device=dev)
+    out_iter = np.zeros(B, np.int64)
+    out_plan = np.zeros(B, np.int64)
+    out_unshrink = np.zeros(B, np.int64)
+
+    def reconstruct(idx):
+        """Exact full-width G = P - Q alpha for the lanes ``idx``."""
+        with record_function("chunked.rebuild"):
+            idx_t = torch.as_tensor(idx, device=dev)
+            if bank:
+                src = row_source.bank_source(gram, gidx[idx_t], dup=doubled)
+            else:
+                src = row_source.rbf_source(X, gam[idx_t], len(idx),
+                                            dup=doubled)
+            mv = src.matvec(alpha[idx_t].to(dtype))
+            G[idx_t] = P64[idx_t] - mv.to(f64)
+
+    def finalize(idx):
+        """Full-set (b, kkt_gap, objective) of the lanes ``idx`` from the
+        exact float64 state, written into the outputs."""
+        idx_t = torch.as_tensor(idx, device=dev)
+        a, g = alpha[idx_t], G[idx_t]
+        g_up = torch.where(a < U64[idx_t], g, float("-inf")).amax(dim=1)
+        g_dn = torch.where(a > L64[idx_t], g, float("inf")).amin(dim=1)
+        gap = qp_mod.finite_gap(g_up - g_dn)
+        out_b[idx_t] = qp_mod.safe_bias(g_up, g_dn)
+        out_gap[idx_t] = gap
+        out_obj[idx_t] = 0.5 * torch.sum((P64[idx_t] + g) * a, dim=1)
+        return gap
+
+    live = np.arange(B)
+    keep = torch.arange(lb, device=dev)
+    max_rounds = 4 * max(1, -(-cfg.max_iter // chunk)) + 16
+    for _ in range(max_rounds):
+        if len(live) == 0:
+            break
+        m, m_live = keep.numel(), len(live)
+        bsz, rb = _pow2(m_live), _pow2(m)
+        with record_function("chunked.slice"):
+            lanes = torch.as_tensor(np.concatenate(
+                [live, np.repeat(live[:1], bsz - m_live)]), device=dev)
+            cols = torch.cat([keep, keep + lb]) if doubled else keep
+
+            def gather(A):
+                """Kept-coordinate lane state in the run's dtype, padded
+                to the row bucket with inert coordinates."""
+                sub = A.index_select(0, lanes).index_select(1, cols)
+                z = sub.new_zeros((bsz, rb - m))
+                parts = ([sub[:, :m], z, sub[:, m:], z] if doubled
+                         else [sub, z])
+                return torch.cat(parts, dim=1).to(dtype)
+
+            X_sub = torch.cat([X.index_select(0, keep),
+                               X.new_zeros((rb - m, d))])
+            bank_kw = {}
+            if bank:
+                if m == lb == rb:
+                    gsub = gram
+                else:
+                    gsub = gram.new_zeros((gram.shape[0], rb, rb))
+                    for g in range(gram.shape[0]):
+                        gsub[g, :m, :m] = gram[g].index_select(
+                            0, keep).index_select(1, keep)
+                bank_kw = dict(gram=gsub, gram_idx=gidx[lanes])
+            args = [gather(A) for A in (P64, L64, U64, alpha, G)]
+        with record_function("chunked.solve"):
+            res = solve_fused_batched_qp(
+                X_sub, *args[:3], gam[lanes], ccfg, impl=impl,
+                alpha0=args[3], G0=args[4], doubled=doubled,
+                shrinking=shrinking, check_every=check_every, **bank_kw)
+        del bank_kw, args
+
+        with record_function("chunked.checks"):
+            live_t = lanes[:m_live]
+            ra = res.alpha[:m_live].to(f64)
+            rg = res.G[:m_live].to(f64)
+            sel = [(keep, slice(0, m))]
+            if doubled:
+                sel.append((keep + lb, slice(rb, rb + m)))
+            for c, part in sel:
+                alpha[live_t[:, None], c[None, :]] = ra[:, part]
+                G[live_t[:, None], c[None, :]] = rg[:, part]
+            out_iter[live] += res.iterations[:m_live].cpu().numpy()
+            out_plan[live] += res.n_planning[:m_live].cpu().numpy()
+            out_unshrink[live] += res.n_unshrink[:m_live].cpu().numpy()
+            conv = res.converged[:m_live].cpu().numpy()
+        del res
+
+        # ---- retire converged lanes (full KKT check when rows dropped) ----
+        need_unshrink = False
+        retired = np.zeros(m_live, bool)
+        cand = live[conv]
+        if len(cand):
+            if m < lb:
+                reconstruct(cand)
+            with record_function("chunked.checks"):
+                ok = (finalize(cand) <= eps).cpu().numpy()
+            out_conv[torch.as_tensor(cand[ok], device=dev)] = True
+            failed = cand[~ok]
+            if len(failed):
+                out_unshrink[failed] += 1
+                need_unshrink = True
+            retired[np.nonzero(conv)[0][ok]] = True
+
+        # ---- retire exhausted lanes (budget spent, unconverged) -----------
+        exh_pos = np.nonzero((~retired) & (out_iter[live] >= cfg.max_iter))[0]
+        if len(exh_pos):
+            exh = live[exh_pos]
+            if m < lb:
+                reconstruct(exh)
+            with record_function("chunked.checks"):
+                gap_e = finalize(exh)
+                out_conv[torch.as_tensor(exh, device=dev)] = gap_e <= eps
+            retired[exh_pos] = True
+
+        live = live[~retired]
+        if len(live) == 0:
+            break
+
+        if need_unshrink:
+            # the stored G is stale on dropped rows for every live lane
+            if m < lb:
+                reconstruct(live)
+            keep = torch.arange(lb, device=dev)
+        elif shrinking and m > 1:
+            # monotone row shrink from the exact kept-coordinate state: a
+            # base row stays if any live lane still needs it
+            with record_function("chunked.checks"):
+                live_t = torch.as_tensor(live, device=dev)
+                cols = torch.cat([keep, keep + lb]) if doubled else keep
+                part = [A.index_select(0, live_t).index_select(1, cols)
+                        for A in (G, alpha, L64, U64)]
+                union = qp_mod.shrink_mask(*part).any(dim=0)
+                if doubled:
+                    union = union[:m] | union[m:]
+                if bool(union.any()) and not bool(union.all()):
+                    keep = keep[union]
+
+    if len(live):
+        # the round bound was hit: finalize the stragglers from exact state
+        if keep.numel() < lb:
+            reconstruct(live)
+        gap_l = finalize(live)
+        out_conv[torch.as_tensor(live, device=dev)] = gap_l <= eps
+
+    def as_i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    return FusedResult(
+        alpha=alpha.to(dtype), b=out_b.to(dtype), G=G.to(dtype),
+        iterations=as_i32(out_iter), objective=out_obj.to(dtype),
+        kkt_gap=out_gap.to(dtype), converged=out_conv,
+        n_planning=as_i32(out_plan), n_unshrink=as_i32(out_unshrink))

@@ -22,6 +22,12 @@ WRAPPERS = {
     "rbf_update_wss": rbf_update_wss.rbf_update_wss,
     "rbf_row_wss_batched_h2": rbf_row_wss.rbf_row_wss_batched_h2,
     "rbf_update_wss_batched_h2": rbf_update_wss.rbf_update_wss_batched_h2,
+    "row_wss_batched_rows_h2": rbf_row_wss.row_wss_batched_rows_h2,
+    "update_wss_batched_rows_h2": rbf_update_wss.update_wss_batched_rows_h2,
+    "rbf_row_wss_batched_act": rbf_row_wss.rbf_row_wss_batched_act,
+    "rbf_update_wss_batched_act": rbf_update_wss.rbf_update_wss_batched_act,
+    "row_wss_batched_rows_act": rbf_row_wss.row_wss_batched_rows_act,
+    "update_wss_batched_rows_act": rbf_update_wss.update_wss_batched_rows_act,
 }
 
 

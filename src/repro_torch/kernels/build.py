@@ -39,23 +39,23 @@ _I = ctypes.c_int
 # C signature of each kernel entry (the _f32 and _f64 variants share it).
 SIGNATURES = {
     # XT sqn G alpha L U XQ sqq a_i L_i U_i g_i i_idx use_exact gammas
-    # bmax barg | B H l d device | stream
-    "rbf_row_wss_batched": [_P] * 17 + [_I] * 5 + [_P],
-    # XT sqn G alpha L U XQi sqqi XQj sqqj mu gammas G_out bmax barg bmin
-    # | B H l d device | stream
-    "rbf_update_wss_batched": [_P] * 16 + [_I] * 5 + [_P],
+    # act bmax barg | B H l d device | stream  (act may be NULL)
+    "rbf_row_wss_batched": [_P] * 18 + [_I] * 5 + [_P],
+    # XT sqn G alpha L U XQi sqqi XQj sqqj mu gammas act G_out bmax barg
+    # bmin | B H l d device | stream
+    "rbf_update_wss_batched": [_P] * 17 + [_I] * 5 + [_P],
     # XT sqn G alpha L U xq sqq a_i L_i U_i g_i i_idx use_exact gamma run
     # k_out bmax barg | l d device | stream
     "rbf_row_wss": [_P] * 19 + [_I] * 3 + [_P],
     # XT sqn G k_i alpha L U xqj sqqj mu gamma G_out bmax barg bmin
     # | l d device | stream
     "rbf_update_wss": [_P] * 15 + [_I] * 3 + [_P],
-    # gram gram_idx G alpha L U a_i L_i U_i g_i i_idx use_exact bmax barg
-    # | B l device | stream
-    "row_wss_batched_rows": [_P] * 14 + [_I] * 3 + [_P],
-    # gram gram_idx i_idx j_idx G alpha_new L U mu G_out bmax barg bmin
-    # | B l device | stream
-    "update_wss_batched_rows": [_P] * 13 + [_I] * 3 + [_P],
+    # gram gram_idx G alpha L U a_i L_i U_i g_i i_idx use_exact act bmax
+    # barg | B H l device | stream
+    "row_wss_batched_rows": [_P] * 15 + [_I] * 4 + [_P],
+    # gram gram_idx i_idx j_idx G alpha_new L U mu act G_out bmax barg bmin
+    # | B H l device | stream
+    "update_wss_batched_rows": [_P] * 14 + [_I] * 4 + [_P],
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }

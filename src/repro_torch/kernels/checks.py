@@ -49,6 +49,15 @@ def check_lane_scalars(B: int, device, dtype, **tensors) -> None:
         check_state(name, t, (B,), dtype, device)
 
 
+def act_ptr(act, G):
+    """Pointer to the optional (B, n) bool active-set mask of the lane state
+    ``G``, checked like the state; None (a null pointer) without one."""
+    if act is None:
+        return None
+    check_state("act", act, tuple(G.shape), torch.bool, G.device)
+    return act.data_ptr()
+
+
 # gridDim.y of the bank passes holds one lane per block row.
 MAX_BANK_LANES = 65535
 

@@ -1,12 +1,16 @@
 // Pass A of the fused PA-SMO iteration: RBF kernel rows of the working-set
 // points i fused with the WSS2 second-order choice of j, reduced to a
-// per-block (max, argmax).  One kernel, three variants:
+// per-block (max, argmax).  One kernel, four variants:
 //
 //  * lane-batched, one state half (H = 1): the SVC and grid lanes;
 //  * lane-batched, two state halves (H = 2): the doubled e-SVR operator,
 //    whose 2l coordinates share the l base rows (row k is the base row of
 //    k mod l), so each thread computes its base column once and applies
 //    it to half 0, then half 1;
+//  * either of those with an active-set mask (ACT, soft shrinking): a
+//    (B, H l) bool mask, read per coordinate, takes a masked coordinate
+//    out of the j-candidates; nothing else changes, so a lane whose mask
+//    is all false returns index 0 and -inf like an all-masked lane;
 //  * single lane with the row stored (STORE): k_i is written to device
 //    memory for pass B and the O(1) step algebra, and an optional device
 //    flag `run` turns a launch into a no-op that leaves the stored row as
@@ -14,16 +18,18 @@
 //    card without a host sync).
 //
 // Replaces: src/repro/kernels/rbf_row_wss.py, rbf_row_wss_batched_pallas
-// (_kernel_batched + _select_from_k; H = 1 and H = 2, no active-set mask)
-// and rbf_row_wss_pallas (_kernel).
+// (_kernel_batched + _select_from_k; H = 1 and H = 2, with and without the
+// active-set mask; no conjugate direction) and rbf_row_wss_pallas
+// (_kernel).
 //
 // What bounds it on an H100: bytes.  Per launch it must read X once
 // (l * d values) plus four (B, H l) state rows; it does 2 B l d operations
 // for the distances, so at B <= 16 it sits far below the card's operations
 // per byte and the floor is the X read from device memory (or from the
 // 50 MB L2 when X fits, as it does between the two passes of one
-// iteration).  The single-lane variant moves l d + 6 l values and is
-// launch-bound at the repo's sizes.
+// iteration).  The mask adds B H l bytes to what a launch reads.  The
+// single-lane variant moves l d + 6 l values and is launch-bound at the
+// repo's sizes.
 //
 // Design: X is stored transposed, XT (d, l), once per fit, so the 128
 // threads of a block read 128 neighbouring columns of each feature row
@@ -42,7 +48,7 @@
 
 namespace repro {
 
-template <typename T, int LG, int H, bool STORE>
+template <typename T, int LG, int H, bool STORE, bool ACT>
 __global__ void __launch_bounds__(kBlockL)
 row_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
                const T* __restrict__ G, const T* __restrict__ alpha,
@@ -52,8 +58,8 @@ row_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
                const T* __restrict__ U_i, const T* __restrict__ g_i,
                const int* __restrict__ i_idx,
                const bool* __restrict__ use_exact,
-               const T* __restrict__ gammas, const bool* __restrict__ run,
-               T* __restrict__ k_out, T* __restrict__ bmax,
+               const T* __restrict__ gammas, const bool* __restrict__ act,
+               const bool* __restrict__ run, T* __restrict__ k_out, T* __restrict__ bmax,
                int* __restrict__ barg, int B, int l, int d) {
   // a relaunch whose flag is false does nothing (uniform over the block,
   // before any barrier): the stored row stays as it was
@@ -122,8 +128,9 @@ row_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
         } else {
           gain = T(0.5) * lv * lv / q;
         }
-        const T vh = (al > lo_b && lv > T(0) && gj != ii) ? gain
-                                                          : -pos_inf<T>();
+        const bool ok = al > lo_b && lv > T(0) && gj != ii &&
+                        (!ACT || act[o]);
+        const T vh = ok ? gain : -pos_inf<T>();
         if (h == 0) {
           v = vh;
           vi = gj;
@@ -151,30 +158,32 @@ row_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
   }
 }
 
-template <typename T, int LG, int H, bool STORE>
+template <typename T, int LG, int H, bool STORE, bool ACT>
 void launch_row_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
                     const T* L, const T* U, const T* XQ, const T* sqq,
                     const T* a_i, const T* L_i, const T* U_i, const T* g_i,
                     const int* i_idx, const bool* use_exact,
-                    const T* gammas, const bool* run, T* k_out, T* bmax,
-                    int* barg, int B, int l, int d, cudaStream_t stream) {
+                    const T* gammas, const bool* act, const bool* run,
+                    T* k_out, T* bmax, int* barg, int B, int l, int d,
+                    cudaStream_t stream) {
   const dim3 grid(n_blocks(l), (B + LG - 1) / LG);
-  row_wss_kernel<T, LG, H, STORE><<<grid, kBlockL, 0, stream>>>(
+  row_wss_kernel<T, LG, H, STORE, ACT><<<grid, kBlockL, 0, stream>>>(
       XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
-      use_exact, gammas, run, k_out, bmax, barg, B, l, d);
+      use_exact, gammas, act, run, k_out, bmax, barg, B, l, d);
 }
 
-template <typename T, int H>
+template <typename T, int H, bool ACT>
 void row_wss_batched(const T* XT, const T* sqn, const T* G, const T* alpha,
                      const T* L, const T* U, const T* XQ, const T* sqq,
                      const T* a_i, const T* L_i, const T* U_i, const T* g_i,
                      const int* i_idx, const bool* use_exact,
-                     const T* gammas, T* bmax, int* barg, int B, int l, int d,
-                     cudaStream_t s) {
-#define REPRO_LAUNCH(LG)                                                   \
-  launch_row_wss<T, LG, H, false>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i,  \
-                                  L_i, U_i, g_i, i_idx, use_exact, gammas, \
-                                  nullptr, nullptr, bmax, barg, B, l, d, s)
+                     const T* gammas, const bool* act, T* bmax, int* barg,
+                     int B, int l, int d, cudaStream_t s) {
+#define REPRO_LAUNCH(LG)                                                  \
+  launch_row_wss<T, LG, H, false, ACT>(XT, sqn, G, alpha, L, U, XQ, sqq, \
+                                       a_i, L_i, U_i, g_i, i_idx,        \
+                                       use_exact, gammas, act, nullptr,  \
+                                       nullptr, bmax, barg, B, l, d, s)
   switch (lane_group(B)) {
     case 1: REPRO_LAUNCH(1); break;
     case 2: REPRO_LAUNCH(2); break;
@@ -185,24 +194,27 @@ void row_wss_batched(const T* XT, const T* sqn, const T* G, const T* alpha,
 #undef REPRO_LAUNCH
 }
 
+// act == nullptr selects the variants without the mask.
 template <typename T>
 int row_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
             const T* L, const T* U, const T* XQ, const T* sqq, const T* a_i,
             const T* L_i, const T* U_i, const T* g_i, const int* i_idx,
-            const bool* use_exact, const T* gammas, T* bmax, int* barg,
-            int B, int H, int l, int d, int device, void* stream) {
+            const bool* use_exact, const T* gammas, const bool* act,
+            T* bmax, int* barg, int B, int H, int l, int d, int device,
+            void* stream) {
   if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H == 1)
-    row_wss_batched<T, 1>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
-                          g_i, i_idx, use_exact, gammas, bmax, barg, B, l, d,
-                          s);
-  else
-    row_wss_batched<T, 2>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
-                          g_i, i_idx, use_exact, gammas, bmax, barg, B, l, d,
-                          s);
+#define REPRO_BATCHED(HH, A)                                              \
+  row_wss_batched<T, HH, A>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, \
+                            U_i, g_i, i_idx, use_exact, gammas, act,     \
+                            bmax, barg, B, l, d, s)
+  if (H == 1 && act == nullptr) REPRO_BATCHED(1, false);
+  else if (H == 1) REPRO_BATCHED(1, true);
+  else if (act == nullptr) REPRO_BATCHED(2, false);
+  else REPRO_BATCHED(2, true);
+#undef REPRO_BATCHED
   return (int)cudaGetLastError();
 }
 
@@ -215,10 +227,11 @@ int row_wss_single(const T* XT, const T* sqn, const T* G, const T* alpha,
                    int d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  launch_row_wss<T, 1, 1, true>(XT, sqn, G, alpha, L, U, xq, sqq, a_i, L_i,
-                                U_i, g_i, i_idx, use_exact, gamma, run,
-                                k_out, bmax, barg, 1, l, d,
-                                static_cast<cudaStream_t>(stream));
+  launch_row_wss<T, 1, 1, true, false>(XT, sqn, G, alpha, L, U, xq, sqq,
+                                       a_i, L_i, U_i, g_i, i_idx, use_exact,
+                                       gamma, nullptr, run, k_out, bmax,
+                                       barg, 1, l, d,
+                                       static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -239,10 +252,10 @@ int rbf_row_wss_batched_f32(const float* XT, const float* sqn,
                             const float* L_i, const float* U_i,
                             const float* g_i, const int* i_idx,
                             const bool* use_exact, const float* gammas,
-                            float* bmax, int* barg, int B, int H, int l,
-                            int d, int device, void* stream) {
+                            const bool* act, float* bmax, int* barg, int B,
+                            int H, int l, int d, int device, void* stream) {
   return repro::row_wss<float>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i,
-                               U_i, g_i, i_idx, use_exact, gammas, bmax,
+                               U_i, g_i, i_idx, use_exact, gammas, act, bmax,
                                barg, B, H, l, d, device, stream);
 }
 
@@ -253,12 +266,12 @@ int rbf_row_wss_batched_f64(const double* XT, const double* sqn,
                             const double* a_i, const double* L_i,
                             const double* U_i, const double* g_i,
                             const int* i_idx, const bool* use_exact,
-                            const double* gammas, double* bmax, int* barg,
-                            int B, int H, int l, int d, int device,
-                            void* stream) {
+                            const double* gammas, const bool* act,
+                            double* bmax, int* barg, int B, int H, int l,
+                            int d, int device, void* stream) {
   return repro::row_wss<double>(XT, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i,
-                                U_i, g_i, i_idx, use_exact, gammas, bmax,
-                                barg, B, H, l, d, device, stream);
+                                U_i, g_i, i_idx, use_exact, gammas, act,
+                                bmax, barg, B, H, l, d, device, stream);
 }
 
 int rbf_row_wss_f32(const float* XT, const float* sqn, const float* G,

@@ -1,24 +1,29 @@
 // Pass B of the fused PA-SMO iteration: the rows k_i and k_j of the chosen
 // working sets, the gradient update G_new = G - mu (k_i - k_j), and the
 // next-i first-max over alpha < U and the gap's other end, min G over
-// alpha > L, per block.  One kernel, three variants:
+// alpha > L, per block.  One kernel, four variants:
 //
 //  * lane-batched, one state half (H = 1): both rows recomputed from X;
 //  * lane-batched, two state halves (H = 2): the doubled e-SVR operator,
 //    the base columns of both rows computed once and applied to half 0,
 //    then half 1;
+//  * either of those with an active-set mask (ACT, soft shrinking): a
+//    (B, H l) bool mask, read per coordinate, restricts the next-i scan
+//    and the min to the active coordinates.  The update of G is never
+//    masked: G stays exact on every coordinate, so a coordinate that
+//    comes back into the set needs no repair;
 //  * single lane (STORED): k_i is read from the row pass A stored, and
 //    only k_j is computed in the tile.
 //
 // Replaces: src/repro/kernels/rbf_update_wss.py,
 // rbf_update_wss_batched_pallas (_kernel_batched + _update_from_rows; H = 1
-// and H = 2, no active-set mask, no conjugate direction) and
-// rbf_update_wss_pallas (_kernel).
+// and H = 2, with and without the active-set mask; no conjugate direction)
+// and rbf_update_wss_pallas (_kernel).
 //
 // What bounds it on an H100: bytes.  It reads X once (l * d values) for
 // both query sets, reads four (B, H l) state rows and writes one; the
 // 4 B l d operations of the two distance products sit far below the card's
-// operations per byte at B <= 16.  The single-lane variant moves
+// operations per byte at B <= 16.  The mask adds B H l bytes read.  The single-lane variant moves
 // l d + 7 l values and is launch-bound at the repo's sizes.
 //
 // Design: the tiling of pass A (rbf_row_wss.cu) with two staged query sets
@@ -33,7 +38,7 @@
 
 namespace repro {
 
-template <typename T, int LG, int H, bool STORED>
+template <typename T, int LG, int H, bool STORED, bool ACT>
 __global__ void __launch_bounds__(kBlockL)
 update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
                   const T* __restrict__ G, const T* __restrict__ alpha,
@@ -41,7 +46,8 @@ update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
                   const T* __restrict__ XQi, const T* __restrict__ sqqi,
                   const T* __restrict__ KI, const T* __restrict__ XQj,
                   const T* __restrict__ sqqj, const T* __restrict__ mu,
-                  const T* __restrict__ gammas, T* __restrict__ G_out,
+                  const T* __restrict__ gammas,
+                  const bool* __restrict__ act, T* __restrict__ G_out,
                   T* __restrict__ bmax, int* __restrict__ barg,
                   T* __restrict__ bmin, int B, int l, int d) {
   __shared__ T sqi[STORED ? 1 : LG][kChunkD];
@@ -107,8 +113,9 @@ update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
         const T g = G[o] - mul * (ki - kj);
         G_out[o] = g;
         const T al = alpha[o];
-        if (al < U[o]) take_first_max(v, vi, g, h * l + j);
-        if (al > L[o]) m = fmin(m, g);
+        const bool in_set = !ACT || act[o];
+        if (in_set && al < U[o]) take_first_max(v, vi, g, h * l + j);
+        if (in_set && al > L[o]) m = fmin(m, g);
       }
     }
     warp_first_max(v, vi);
@@ -136,30 +143,31 @@ update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
   }
 }
 
-template <typename T, int LG, int H, bool STORED>
+template <typename T, int LG, int H, bool STORED, bool ACT>
 void launch_update_wss(const T* XT, const T* sqn, const T* G,
                        const T* alpha, const T* L, const T* U, const T* XQi,
                        const T* sqqi, const T* KI, const T* XQj,
-                       const T* sqqj, const T* mu, const T* gammas, T* G_out,
-                       T* bmax, int* barg, T* bmin, int B, int l, int d,
-                       cudaStream_t stream) {
+                       const T* sqqj, const T* mu, const T* gammas,
+                       const bool* act, T* G_out, T* bmax, int* barg,
+                       T* bmin, int B, int l, int d, cudaStream_t stream) {
   const dim3 grid(n_blocks(l), (B + LG - 1) / LG);
-  update_wss_kernel<T, LG, H, STORED><<<grid, kBlockL, 0, stream>>>(
-      XT, sqn, G, alpha, L, U, XQi, sqqi, KI, XQj, sqqj, mu, gammas, G_out,
-      bmax, barg, bmin, B, l, d);
+  update_wss_kernel<T, LG, H, STORED, ACT><<<grid, kBlockL, 0, stream>>>(
+      XT, sqn, G, alpha, L, U, XQi, sqqi, KI, XQj, sqqj, mu, gammas, act,
+      G_out, bmax, barg, bmin, B, l, d);
 }
 
-template <typename T, int H>
+template <typename T, int H, bool ACT>
 void update_wss_batched(const T* XT, const T* sqn, const T* G,
                         const T* alpha, const T* L, const T* U, const T* XQi,
                         const T* sqqi, const T* XQj, const T* sqqj,
-                        const T* mu, const T* gammas, T* G_out, T* bmax,
-                        int* barg, T* bmin, int B, int l, int d,
-                        cudaStream_t s) {
+                        const T* mu, const T* gammas, const bool* act,
+                        T* G_out, T* bmax, int* barg, T* bmin, int B, int l,
+                        int d, cudaStream_t s) {
 #define REPRO_LAUNCH(LG)                                                    \
-  launch_update_wss<T, LG, H, false>(XT, sqn, G, alpha, L, U, XQi, sqqi,  \
-                                     nullptr, XQj, sqqj, mu, gammas,      \
-                                     G_out, bmax, barg, bmin, B, l, d, s)
+  launch_update_wss<T, LG, H, false, ACT>(XT, sqn, G, alpha, L, U, XQi,   \
+                                          sqqi, nullptr, XQj, sqqj, mu,   \
+                                          gammas, act, G_out, bmax, barg, \
+                                          bmin, B, l, d, s)
   switch (lane_group(B)) {
     case 1: REPRO_LAUNCH(1); break;
     case 2: REPRO_LAUNCH(2); break;
@@ -170,22 +178,26 @@ void update_wss_batched(const T* XT, const T* sqn, const T* G,
 #undef REPRO_LAUNCH
 }
 
+// act == nullptr selects the variants without the mask.
 template <typename T>
 int update_wss(const T* XT, const T* sqn, const T* G, const T* alpha,
                const T* L, const T* U, const T* XQi, const T* sqqi,
                const T* XQj, const T* sqqj, const T* mu, const T* gammas,
-               T* G_out, T* bmax, int* barg, T* bmin, int B, int H, int l,
-               int d, int device, void* stream) {
+               const bool* act, T* G_out, T* bmax, int* barg, T* bmin,
+               int B, int H, int l, int d, int device, void* stream) {
   if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H == 1)
-    update_wss_batched<T, 1>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj,
-                             mu, gammas, G_out, bmax, barg, bmin, B, l, d, s);
-  else
-    update_wss_batched<T, 2>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj, sqqj,
-                             mu, gammas, G_out, bmax, barg, bmin, B, l, d, s);
+#define REPRO_BATCHED(HH, A)                                                \
+  update_wss_batched<T, HH, A>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj,   \
+                               sqqj, mu, gammas, act, G_out, bmax, barg,  \
+                               bmin, B, l, d, s)
+  if (H == 1 && act == nullptr) REPRO_BATCHED(1, false);
+  else if (H == 1) REPRO_BATCHED(1, true);
+  else if (act == nullptr) REPRO_BATCHED(2, false);
+  else REPRO_BATCHED(2, true);
+#undef REPRO_BATCHED
   return (int)cudaGetLastError();
 }
 
@@ -197,10 +209,10 @@ int update_wss_single(const T* XT, const T* sqn, const T* G, const T* k_i,
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  launch_update_wss<T, 1, 1, true>(XT, sqn, G, alpha, L, U, nullptr,
-                                   nullptr, k_i, xqj, sqqj, mu, gamma, G_out,
-                                   bmax, barg, bmin, 1, l, d,
-                                   static_cast<cudaStream_t>(stream));
+  launch_update_wss<T, 1, 1, true, false>(
+      XT, sqn, G, alpha, L, U, nullptr, nullptr, k_i, xqj, sqqj, mu, gamma,
+      nullptr, G_out, bmax, barg, bmin, 1, l, d,
+      static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -214,12 +226,12 @@ int rbf_update_wss_batched_f32(const float* XT, const float* sqn,
                                const float* XQi, const float* sqqi,
                                const float* XQj, const float* sqqj,
                                const float* mu, const float* gammas,
-                               float* G_out, float* bmax, int* barg,
-                               float* bmin, int B, int H, int l, int d,
-                               int device, void* stream) {
+                               const bool* act, float* G_out, float* bmax,
+                               int* barg, float* bmin, int B, int H, int l,
+                               int d, int device, void* stream) {
   return repro::update_wss<float>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj,
-                                  sqqj, mu, gammas, G_out, bmax, barg, bmin,
-                                  B, H, l, d, device, stream);
+                                  sqqj, mu, gammas, act, G_out, bmax, barg,
+                                  bmin, B, H, l, d, device, stream);
 }
 
 int rbf_update_wss_batched_f64(const double* XT, const double* sqn,
@@ -228,12 +240,12 @@ int rbf_update_wss_batched_f64(const double* XT, const double* sqn,
                                const double* XQi, const double* sqqi,
                                const double* XQj, const double* sqqj,
                                const double* mu, const double* gammas,
-                               double* G_out, double* bmax, int* barg,
-                               double* bmin, int B, int H, int l, int d,
-                               int device, void* stream) {
+                               const bool* act, double* G_out, double* bmax,
+                               int* barg, double* bmin, int B, int H, int l,
+                               int d, int device, void* stream) {
   return repro::update_wss<double>(XT, sqn, G, alpha, L, U, XQi, sqqi, XQj,
-                                   sqqj, mu, gammas, G_out, bmax, barg, bmin,
-                                   B, H, l, d, device, stream);
+                                   sqqj, mu, gammas, act, G_out, bmax, barg,
+                                   bmin, B, H, l, d, device, stream);
 }
 
 int rbf_update_wss_f32(const float* XT, const float* sqn, const float* G,

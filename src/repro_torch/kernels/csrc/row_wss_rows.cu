@@ -1,30 +1,46 @@
 // Pass A of the fused PA-SMO iteration over the Gram bank, lane-batched:
 // the WSS2 second-order choice of j from the bank row of each lane's
-// working-set point i, reduced to a per-block (max, first argmax).
+// working-set point i, reduced to a per-block (max, first argmax).  One
+// kernel, four variants:
+//
+//  * one state half (H = 1): the (C, gamma) and one-class grids;
+//  * two state halves (H = 2): the doubled e-SVR operator.  Its 2l
+//    coordinates share the l base rows (row k is the base row of k mod l),
+//    so lane b reads gram[gram_idx[b], i mod l, :] and each thread applies
+//    its base column j once to half 0 (coordinate j), then to half 1
+//    (coordinate l + j);
+//  * either of those with an active-set mask (ACT, soft shrinking): a
+//    (B, H l) bool mask, read per coordinate, takes a masked coordinate
+//    out of the j-candidates; a lane whose mask is all false returns
+//    index 0 and -inf.
 //
 // Replaces: src/repro/kernels/rbf_row_wss.py, row_wss_batched_rows_pallas
-// (_kernel_batched_rows + _select_from_k), in the variant the grid runs:
-// one state half (H = 1), no active-set mask.
+// (_kernel_batched_rows + _select_from_k): H = 1 and H = 2, with and
+// without the active-set mask; no conjugate direction.
 //
-// What bounds it on an H100: bytes.  Per launch it reads B bank rows and
-// four (B, l) state rows, 5 B l values, and does about 20 operations per
-// value read: far below the card's operations per byte.
+// What bounds it on an H100: bytes.  Per launch it reads B bank rows (l
+// values each, whatever H) and four (B, H l) state rows, plus B H l mask
+// bytes with ACT, and does about 20 operations per value read: far below
+// the card's operations per byte.
 //
 // Design: the Pallas kernel takes the rows pre-gathered into a (B, l)
 // block; here each lane reads its row gram[gram_idx[b], i_idx[b], :] in
 // place, which saves the gather launch and 2 B l values of traffic per
-// iteration.  Lanes go along gridDim.y, one thread owns one column, and
-// neighbouring threads read neighbouring columns of every row (coalesced).
-// The gain, the mask and the block's first-max reduction stay in
-// registers and shared memory; only (B, nb) pairs reach device memory.
-// The bank offset is computed in size_t: (n_stack, l, l) passes 2^31
-// values at l = 16384 with 8 entries.  The cross-block first-max stays
-// in PyTorch (repro_torch/kernels/ops.py).
+// iteration.  Lanes go along gridDim.y, one thread owns one base column,
+// and neighbouring threads read neighbouring columns of every row
+// (coalesced).  The gain, the mask and the block's first-max reduction
+// stay in registers and shared memory; only (B, nb) pairs reach device
+// memory.  Global indices are h l + j; first-max is a total order on
+// (value, index), so half 0 wins a tie against half 1 and the lower index
+// wins within a half.  After hard compaction l is the bucketed row count,
+// and the half offset is that l.  The bank offset is computed in size_t:
+// (n_stack, l, l) passes 2^31 values at l = 16384 with 8 entries.  The
+// cross-block first-max stays in PyTorch (repro_torch/kernels/ops.py).
 #include "common.cuh"
 
 namespace repro {
 
-template <typename T>
+template <typename T, int H, bool ACT>
 __global__ void __launch_bounds__(kBlockL)
 row_wss_rows_kernel(const T* __restrict__ gram,
                     const long long* __restrict__ gram_idx,
@@ -34,7 +50,8 @@ row_wss_rows_kernel(const T* __restrict__ gram,
                     const T* __restrict__ U_i, const T* __restrict__ g_i,
                     const int* __restrict__ i_idx,
                     const bool* __restrict__ use_exact,
-                    T* __restrict__ bmax, int* __restrict__ barg, int l) {
+                    const bool* __restrict__ act, T* __restrict__ bmax,
+                    int* __restrict__ barg, int l) {
   __shared__ T red_v[kWarps];
   __shared__ int red_i[kWarps];
 
@@ -46,22 +63,36 @@ row_wss_rows_kernel(const T* __restrict__ gram,
   int vi = j;  // out-of-range columns lose every tie to real ones
   if (j < l) {
     const int i = i_idx[lane];
-    const size_t row = ((size_t)gram_idx[lane] * l + i) * l;
+    const int ib = (H == 2 && i >= l) ? i - l : i;
+    const size_t row = ((size_t)gram_idx[lane] * l + ib) * l;
     const T k = gram[row + j];
-    const size_t o = (size_t)lane * l + j;
-    const T al = alpha[o], lo_b = L[o], up_b = U[o];
-    const T lv = g_i[lane] - G[o];
     const T q = fmax(T(2) - T(2) * k, T(kTau));  // RBF diag == 1
-    T gain;
-    if (use_exact[lane]) {
-      const T lo = fmax(L_i[lane] - a_i[lane], al - up_b);
-      const T hi = fmin(U_i[lane] - a_i[lane], al - lo_b);
-      const T mu = fmin(fmax(lv / q, lo), hi);
-      gain = lv * mu - T(0.5) * q * mu * mu;
-    } else {
-      gain = T(0.5) * lv * lv / q;
+    const T ai = a_i[lane], gi = g_i[lane];
+    const bool exact = use_exact[lane];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const size_t o = ((size_t)lane * H + h) * l + j;
+      const int gj = h * l + j;
+      const T al = alpha[o], lo_b = L[o], up_b = U[o];
+      const T lv = gi - G[o];
+      T gain;
+      if (exact) {
+        const T lo = fmax(L_i[lane] - ai, al - up_b);
+        const T hi = fmin(U_i[lane] - ai, al - lo_b);
+        const T mu = fmin(fmax(lv / q, lo), hi);
+        gain = lv * mu - T(0.5) * q * mu * mu;
+      } else {
+        gain = T(0.5) * lv * lv / q;
+      }
+      const bool ok = al > lo_b && lv > T(0) && gj != i && (!ACT || act[o]);
+      const T vh = ok ? gain : -pos_inf<T>();
+      if (h == 0) {
+        v = vh;
+        vi = gj;
+      } else {
+        take_first_max(v, vi, vh, gj);
+      }
     }
-    if (al > lo_b && lv > T(0) && j != i) v = gain;
   }
   warp_first_max(v, vi);
   if ((tid & 31) == 0) {
@@ -79,19 +110,27 @@ row_wss_rows_kernel(const T* __restrict__ gram,
   }
 }
 
+// act == nullptr selects the variants without the mask.
 template <typename T>
 int row_wss_rows(const T* gram, const long long* gram_idx, const T* G,
                  const T* alpha, const T* L, const T* U, const T* a_i,
                  const T* L_i, const T* U_i, const T* g_i, const int* i_idx,
-                 const bool* use_exact, T* bmax, int* barg, int B, int l,
-                 int device, void* stream) {
+                 const bool* use_exact, const bool* act, T* bmax, int* barg,
+                 int B, int H, int l, int device, void* stream) {
+  if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_blocks(l), B);
-  row_wss_rows_kernel<T><<<grid, kBlockL, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact,
-      bmax, barg, l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(HH, A)                                               \
+  row_wss_rows_kernel<T, HH, A><<<grid, kBlockL, 0, s>>>(                 \
+      gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,          \
+      use_exact, act, bmax, barg, l)
+  if (H == 1 && act == nullptr) REPRO_LAUNCH(1, false);
+  else if (H == 1) REPRO_LAUNCH(1, true);
+  else if (act == nullptr) REPRO_LAUNCH(2, false);
+  else REPRO_LAUNCH(2, true);
+#undef REPRO_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -105,11 +144,11 @@ int row_wss_batched_rows_f32(const float* gram, const long long* gram_idx,
                              const float* a_i, const float* L_i,
                              const float* U_i, const float* g_i,
                              const int* i_idx, const bool* use_exact,
-                             float* bmax, int* barg, int B, int l,
-                             int device, void* stream) {
+                             const bool* act, float* bmax, int* barg, int B,
+                             int H, int l, int device, void* stream) {
   return repro::row_wss_rows<float>(gram, gram_idx, G, alpha, L, U, a_i,
-                                    L_i, U_i, g_i, i_idx, use_exact, bmax,
-                                    barg, B, l, device, stream);
+                                    L_i, U_i, g_i, i_idx, use_exact, act,
+                                    bmax, barg, B, H, l, device, stream);
 }
 
 int row_wss_batched_rows_f64(const double* gram, const long long* gram_idx,
@@ -118,11 +157,11 @@ int row_wss_batched_rows_f64(const double* gram, const long long* gram_idx,
                              const double* a_i, const double* L_i,
                              const double* U_i, const double* g_i,
                              const int* i_idx, const bool* use_exact,
-                             double* bmax, int* barg, int B, int l,
-                             int device, void* stream) {
+                             const bool* act, double* bmax, int* barg, int B,
+                             int H, int l, int device, void* stream) {
   return repro::row_wss_rows<double>(gram, gram_idx, G, alpha, L, U, a_i,
-                                     L_i, U_i, g_i, i_idx, use_exact, bmax,
-                                     barg, B, l, device, stream);
+                                     L_i, U_i, g_i, i_idx, use_exact, act,
+                                     bmax, barg, B, H, l, device, stream);
 }
 
 }  // extern "C"

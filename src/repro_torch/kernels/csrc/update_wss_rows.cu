@@ -1,30 +1,44 @@
 // Pass B of the fused PA-SMO iteration over the Gram bank, lane-batched:
 // read both bank rows k_i and k_j of the chosen working sets, update the
 // gradient G_new = G - mu (k_i - k_j), and reduce the next-i first-max over
-// alpha < U and the gap's other end, min G over alpha > L, per block.
+// alpha < U and the gap's other end, min G over alpha > L, per block.  One
+// kernel, four variants:
+//
+//  * one state half (H = 1): the (C, gamma) and one-class grids;
+//  * two state halves (H = 2): the doubled e-SVR operator.  Lane b reads
+//    the base rows i mod l and j mod l of its bank entry; each thread
+//    computes k_i - k_j for its base column j once and applies it to half
+//    0 (coordinate j), then half 1 (coordinate l + j), since
+//    Q = [[K, K], [K, K]];
+//  * either of those with an active-set mask (ACT, soft shrinking): a
+//    (B, H l) bool mask, read per coordinate, restricts the next-i scan
+//    and the min to the active coordinates.  The update of G is never
+//    masked, so G stays exact on every coordinate.
 //
 // Replaces: src/repro/kernels/rbf_update_wss.py,
 // update_wss_batched_rows_pallas (_kernel_batched_rows +
-// _update_from_rows), in the variant the grid runs: one state half
-// (H = 1), no active-set mask, no conjugate direction.
+// _update_from_rows): H = 1 and H = 2, with and without the active-set
+// mask; no conjugate direction.
 //
-// What bounds it on an H100: bytes.  Per launch it reads two bank rows
-// and four (B, l) state rows and writes one, 7 B l values, with a handful
-// of operations per value.
+// What bounds it on an H100: bytes.  Per launch it reads two bank rows (l
+// values each, whatever H) and four (B, H l) state rows and writes one,
+// plus B H l mask bytes with ACT, with a handful of operations per value.
 //
 // Design: as bank pass A (row_wss_rows.cu).  The Pallas kernel takes KRi
 // and KRj pre-gathered; here each lane reads rows i and j of its bank
 // entry in place, which saves the gather launch and 4 B l values of
 // traffic per iteration.  Lanes go along gridDim.y, one thread owns one
-// column.  G is written out of place; a lane with mu == 0 writes its G
-// back bitwise unchanged (G - 0 * r == G), which is how the solver
-// freezes converged lanes.  Offsets into the bank are size_t.  The
-// cross-block reductions stay in PyTorch (repro_torch/kernels/ops.py).
+// base column.  G is written out of place; a lane with mu == 0 writes its
+// G back bitwise unchanged (G - 0 * r == G), which is how the solver
+// freezes converged lanes.  Global indices are h l + j, first-max a total
+// order on (value, index); after hard compaction l is the bucketed row
+// count.  Offsets into the bank are size_t.  The cross-block reductions
+// stay in PyTorch (repro_torch/kernels/ops.py).
 #include "common.cuh"
 
 namespace repro {
 
-template <typename T>
+template <typename T, int H, bool ACT>
 __global__ void __launch_bounds__(kBlockL)
 update_wss_rows_kernel(const T* __restrict__ gram,
                        const long long* __restrict__ gram_idx,
@@ -32,7 +46,8 @@ update_wss_rows_kernel(const T* __restrict__ gram,
                        const int* __restrict__ j_idx,
                        const T* __restrict__ G, const T* __restrict__ alpha,
                        const T* __restrict__ L, const T* __restrict__ U,
-                       const T* __restrict__ mu, T* __restrict__ G_out,
+                       const T* __restrict__ mu,
+                       const bool* __restrict__ act, T* __restrict__ G_out,
                        T* __restrict__ bmax, int* __restrict__ barg,
                        T* __restrict__ bmin, int l) {
   __shared__ T red_v[kWarps];
@@ -47,15 +62,25 @@ update_wss_rows_kernel(const T* __restrict__ gram,
   int vi = j;  // out-of-range columns lose every tie to real ones
   T m = pos_inf<T>();
   if (j < l) {
+    int ri = i_idx[lane], rj = j_idx[lane];
+    if (H == 2) {
+      if (ri >= l) ri -= l;
+      if (rj >= l) rj -= l;
+    }
     const size_t entry = (size_t)gram_idx[lane] * l;
-    const T ki = gram[(entry + i_idx[lane]) * l + j];
-    const T kj = gram[(entry + j_idx[lane]) * l + j];
-    const size_t o = (size_t)lane * l + j;
-    const T g = G[o] - mu[lane] * (ki - kj);
-    G_out[o] = g;
-    const T al = alpha[o];
-    if (al < U[o]) v = g;
-    if (al > L[o]) m = g;
+    const T ki = gram[(entry + ri) * l + j];
+    const T kj = gram[(entry + rj) * l + j];
+    const T mul = mu[lane];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const size_t o = ((size_t)lane * H + h) * l + j;
+      const T g = G[o] - mul * (ki - kj);
+      G_out[o] = g;
+      const T al = alpha[o];
+      const bool in_set = !ACT || act[o];
+      if (in_set && al < U[o]) take_first_max(v, vi, g, h * l + j);
+      if (in_set && al > L[o]) m = fmin(m, g);
+    }
   }
   warp_first_max(v, vi);
   warp_min(m);
@@ -78,19 +103,27 @@ update_wss_rows_kernel(const T* __restrict__ gram,
   }
 }
 
+// act == nullptr selects the variants without the mask.
 template <typename T>
 int update_wss_rows(const T* gram, const long long* gram_idx,
                     const int* i_idx, const int* j_idx, const T* G,
                     const T* alpha, const T* L, const T* U, const T* mu,
-                    T* G_out, T* bmax, int* barg, T* bmin, int B, int l,
-                    int device, void* stream) {
+                    const bool* act, T* G_out, T* bmax, int* barg, T* bmin,
+                    int B, int H, int l, int device, void* stream) {
+  if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_blocks(l), B);
-  update_wss_rows_kernel<T><<<grid, kBlockL, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      gram, gram_idx, i_idx, j_idx, G, alpha, L, U, mu, G_out, bmax, barg,
-      bmin, l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(HH, A)                                                \
+  update_wss_rows_kernel<T, HH, A><<<grid, kBlockL, 0, s>>>(               \
+      gram, gram_idx, i_idx, j_idx, G, alpha, L, U, mu, act, G_out, bmax,  \
+      barg, bmin, l)
+  if (H == 1 && act == nullptr) REPRO_LAUNCH(1, false);
+  else if (H == 1) REPRO_LAUNCH(1, true);
+  else if (act == nullptr) REPRO_LAUNCH(2, false);
+  else REPRO_LAUNCH(2, true);
+#undef REPRO_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -102,12 +135,13 @@ int update_wss_batched_rows_f32(const float* gram, const long long* gram_idx,
                                 const int* i_idx, const int* j_idx,
                                 const float* G, const float* alpha,
                                 const float* L, const float* U,
-                                const float* mu, float* G_out, float* bmax,
-                                int* barg, float* bmin, int B, int l,
-                                int device, void* stream) {
+                                const float* mu, const bool* act,
+                                float* G_out, float* bmax, int* barg,
+                                float* bmin, int B, int H, int l, int device,
+                                void* stream) {
   return repro::update_wss_rows<float>(gram, gram_idx, i_idx, j_idx, G,
-                                       alpha, L, U, mu, G_out, bmax, barg,
-                                       bmin, B, l, device, stream);
+                                       alpha, L, U, mu, act, G_out, bmax,
+                                       barg, bmin, B, H, l, device, stream);
 }
 
 int update_wss_batched_rows_f64(const double* gram,
@@ -115,12 +149,12 @@ int update_wss_batched_rows_f64(const double* gram,
                                 const int* j_idx, const double* G,
                                 const double* alpha, const double* L,
                                 const double* U, const double* mu,
-                                double* G_out, double* bmax, int* barg,
-                                double* bmin, int B, int l, int device,
-                                void* stream) {
+                                const bool* act, double* G_out, double* bmax,
+                                int* barg, double* bmin, int B, int H, int l,
+                                int device, void* stream) {
   return repro::update_wss_rows<double>(gram, gram_idx, i_idx, j_idx, G,
-                                        alpha, L, U, mu, G_out, bmax, barg,
-                                        bmin, B, l, device, stream);
+                                        alpha, L, U, mu, act, G_out, bmax,
+                                        barg, bmin, B, H, l, device, stream);
 }
 
 }  // extern "C"

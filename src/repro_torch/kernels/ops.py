@@ -16,10 +16,12 @@ kernels.  Working-set indices stay int32 at every kernel boundary; Gram
 bank indices are int64.
 
 ``dup=True`` runs the batched passes on the doubled ε-SVR operator's
-(B, 2l) lane state over the base ``X``: on the card the H = 2 variants of
-pass A and pass B.  The bank passes have no H = 2 variant on the card yet
-(ROADMAP queue 2): doubled bank lanes run on the plain backend only, and
-``impl="cuda"`` raises for them.
+(B, 2l) lane state over the base ``X`` or the base Gram bank: on the card
+the H = 2 variants of pass A and pass B.  ``act``, an optional (B, n) bool
+active-set mask (soft shrinking), restricts pass A's j-candidates and pass
+B's scans, never pass B's update of G: on the card the ``*_act`` variants,
+which take the mask in place (the reference stacks it into the data dtype;
+the selection is the same).
 
 Unlike the reference's rows variants, which take rows gathered from the
 bank, :func:`row_wss_batched_rows` and :func:`update_wss_batched_rows`
@@ -106,106 +108,122 @@ def rbf_update_wss(X, sqn, G, k_i, alpha_new, L, U, xq_j, mu, gamma, *,
 
 def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
                         g_i, i_idx, use_exact, gammas, *, impl: str = "auto",
-                        XT=None, dup: bool = False):
+                        XT=None, dup: bool = False, act=None):
     """Batched pass A: per-lane WSS2 selection -> (j (B,) int32, gain)."""
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq,
                                            a_i, L_i, U_i, g_i, i_idx,
-                                           use_exact, gammas, dup=dup)
-    fn = (pass_a.rbf_row_wss_batched_h2 if dup
-          else pass_a.rbf_row_wss_batched)
-    bmax, barg = fn(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
-                    i_idx, use_exact, gammas, XT=XT)
+                                           use_exact, gammas, dup=dup,
+                                           act=act)
+    args = (X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, gammas)
+    if act is not None:
+        bmax, barg = pass_a.rbf_row_wss_batched_act(*args, act, XT=XT,
+                                                    dup=dup)
+    elif dup:
+        bmax, barg = pass_a.rbf_row_wss_batched_h2(*args, XT=XT)
+    else:
+        bmax, barg = pass_a.rbf_row_wss_batched(*args, XT=XT)
     return _first_max(bmax, barg)
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
                            mu, gammas, *, impl: str = "auto", XT=None,
-                           dup: bool = False):
+                           dup: bool = False, act=None):
     """Batched pass B -> (G_new (B, n), i_next (B,) int32, g_i_next, g_dn).
 
     A lane with ``mu == 0`` leaves G bitwise unchanged."""
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_update_wss_batched(X, sqn, G, alpha_new, L, U,
                                               XQi, sqqi, XQj, sqqj, mu,
-                                              gammas, dup=dup)
-    fn = (pass_b.rbf_update_wss_batched_h2 if dup
-          else pass_b.rbf_update_wss_batched)
-    G_new, bmax, barg, bmin = fn(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
-                                 sqqj, mu, gammas, XT=XT)
+                                              gammas, dup=dup, act=act)
+    args = (X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas)
+    if act is not None:
+        out = pass_b.rbf_update_wss_batched_act(*args, act, XT=XT, dup=dup)
+    elif dup:
+        out = pass_b.rbf_update_wss_batched_h2(*args, XT=XT)
+    else:
+        out = pass_b.rbf_update_wss_batched(*args, XT=XT)
+    G_new, bmax, barg, bmin = out
     i_next, g_i_next = _first_max(bmax, barg)
     return G_new, i_next, g_i_next, bmin.amin(dim=1)
 
 
-def _bank_impl(impl: str, device, dup: bool) -> str:
-    impl = resolve_impl(impl, device)
-    if dup and impl == "cuda":
-        raise NotImplementedError(
-            "the doubled (H = 2) Gram-bank passes on the card are the next "
-            "slice of the port (ROADMAP queue 2); run doubled lanes on the "
-            "card without the bank (precompute=False)")
-    return impl
-
-
 def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
                          i_idx, use_exact, *, impl: str = "auto",
-                         dup: bool = False):
+                         dup: bool = False, act=None):
     """Batched pass A over the Gram bank: lane b's kernel row is
-    ``gram[gram_idx[b], i_idx[b]]`` -> (j (B,) int32, gain)."""
-    if _bank_impl(impl, G.device, dup) == "torch":
+    ``gram[gram_idx[b], i_idx[b]]`` (of ``i_idx[b] mod l`` with
+    ``dup=True``) -> (j (B,) int32, gain)."""
+    if resolve_impl(impl, G.device) == "torch":
         return ref_ops.row_wss_batched_from_k(
             ref_ops.bank_rows(gram, gram_idx, i_idx, dup), G, alpha, L, U,
-            a_i, L_i, U_i, g_i, i_idx, use_exact)
-    bmax, barg = pass_a.row_wss_batched_rows(
-        gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact)
+            a_i, L_i, U_i, g_i, i_idx, use_exact, act)
+    args = (gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+            use_exact)
+    if act is not None:
+        bmax, barg = pass_a.row_wss_batched_rows_act(*args, act, dup=dup)
+    elif dup:
+        bmax, barg = pass_a.row_wss_batched_rows_h2(*args)
+    else:
+        bmax, barg = pass_a.row_wss_batched_rows(*args)
     return _first_max(bmax, barg)
 
 
 def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
-                            mu, *, impl: str = "auto", dup: bool = False):
+                            mu, *, impl: str = "auto", dup: bool = False,
+                            act=None):
     """Batched pass B over the Gram bank -> (G_new (B, n), i_next (B,)
     int32, g_i_next, g_dn).  A lane with ``mu == 0`` leaves G bitwise
     unchanged."""
-    if _bank_impl(impl, G.device, dup) == "torch":
+    if resolve_impl(impl, G.device) == "torch":
         return ref_ops.update_wss_batched_from_rows(
             G, ref_ops.bank_rows(gram, gram_idx, i_idx, dup),
             ref_ops.bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L,
-            U)
-    G_new, bmax, barg, bmin = pass_b.update_wss_batched_rows(
-        gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu)
+            U, act)
+    args = (gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu)
+    if act is not None:
+        out = pass_b.update_wss_batched_rows_act(*args, act, dup=dup)
+    elif dup:
+        out = pass_b.update_wss_batched_rows_h2(*args)
+    else:
+        out = pass_b.update_wss_batched_rows(*args)
+    G_new, bmax, barg, bmin = out
     i_next, g_i_next = _first_max(bmax, barg)
     return G_new, i_next, g_i_next, bmin.amin(dim=1)
 
 
 def source_row_wss(src: RowSource, G, alpha, L, U, i_idx, a_i, L_i, U_i,
-                   g_i, use_exact, *, impl: str = "auto"):
-    """Batched pass A against a :class:`RowSource` -> (j (B,), gain (B,))."""
+                   g_i, use_exact, *, impl: str = "auto", act=None):
+    """Batched pass A against a :class:`RowSource`, within the active set
+    ``act`` when given -> (j (B,), gain (B,))."""
     if src.is_bank:
         return row_wss_batched_rows(src.gram, src.gram_idx, G, alpha, L, U,
                                     a_i, L_i, U_i, g_i, i_idx, use_exact,
-                                    impl=impl, dup=src.dup)
+                                    impl=impl, dup=src.dup, act=act)
     XQ, sqq = src.query(i_idx)
     return rbf_row_wss_batched(src.X, src.sqn, G, alpha, L, U, XQ, sqq, a_i,
                                L_i, U_i, g_i, i_idx, use_exact, src.gammas,
-                               impl=impl, XT=src.XT, dup=src.dup)
+                               impl=impl, XT=src.XT, dup=src.dup, act=act)
 
 
 def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
-                      *, impl: str = "auto"):
-    """Batched pass B against a :class:`RowSource`.
+                      *, impl: str = "auto", act=None):
+    """Batched pass B against a :class:`RowSource`, its scans within the
+    active set ``act`` when given (the update of G is never masked).
 
     Returns (G_new (B, n), i_next (B,), g_i_next (B,), g_dn (B,)).
     """
     if src.is_bank:
         return update_wss_batched_rows(src.gram, src.gram_idx, G, alpha_new,
                                        L, U, i_idx, j_idx, mu, impl=impl,
-                                       dup=src.dup)
+                                       dup=src.dup, act=act)
     B = G.shape[0]
     XQ, sqq = src.query(torch.cat([i_idx, j_idx]))
     return rbf_update_wss_batched(src.X, src.sqn, G, alpha_new, L, U,
                                   XQ[:B], sqq[:B], XQ[B:], sqq[B:], mu,
                                   src.gammas, impl=impl, XT=src.XT,
-                                  dup=src.dup)
+                                  dup=src.dup, act=act)
 
 
 def gram(X1, X2=None, gamma=1.0, *, impl: str = "auto", device=None,

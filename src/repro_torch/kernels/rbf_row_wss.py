@@ -1,7 +1,9 @@
 """Pass A wrappers: the WSS2 selection kernels, with rows recomputed from
 ``X`` (``csrc/rbf_row_wss.cu``: lane-batched with one or two state
 halves, and single-lane with the row stored) or read from the Gram bank
-(``csrc/row_wss_rows.cu``).
+(``csrc/row_wss_rows.cu``: one or two state halves).  The ``*_act``
+wrappers launch the variants that take a (B, n) bool active-set mask
+(soft shrinking), with one state half or two (``dup=True``).
 
 On CUDA tensors each launches its kernel on the current stream and returns
 the per-block (max, first argmax) pairs; on CPU tensors it runs the plain
@@ -17,13 +19,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.checks import (check_bank, check_lane_scalars,
-                                        check_state, dtype_bits, on_card)
+from repro_torch.kernels.checks import (act_ptr, check_bank,
+                                        check_lane_scalars, check_state,
+                                        dtype_bits, on_card)
 
 
 def _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
-             use_exact, gammas, XT, H: int):
-    """Launch the lane-batched pass A over ``H`` state halves."""
+             use_exact, gammas, XT, H: int, act=None):
+    """Launch the lane-batched pass A over ``H`` state halves, within the
+    active set ``act`` when given."""
     l, d = X.shape
     B = G.shape[0]
     if XT is None:
@@ -38,15 +42,15 @@ def _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
                        U_i=U_i, g_i=g_i, gammas=gammas)
     check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx)
     check_lane_scalars(B, G.device, torch.bool, use_exact=use_exact)
+    aptr = act_ptr(act, G)
     nb = -(-l // build.BLOCK_L)
     bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
     barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
     fn = build.entry("rbf_row_wss_batched", dtype_bits(dtype))
     ptrs = [t.data_ptr() for t in (XT, sqn, G, alpha, L, U, XQ, sqq, a_i,
-                                   L_i, U_i, g_i, i_idx, use_exact, gammas,
-                                   bmax, barg)]
-    err = fn(*ptrs, B, H, l, d, G.device.index,
-             torch.cuda.current_stream(G.device).cuda_stream)
+                                   L_i, U_i, g_i, i_idx, use_exact, gammas)]
+    err = fn(*ptrs, aptr, bmax.data_ptr(), barg.data_ptr(), B, H, l, d,
+             G.device.index, torch.cuda.current_stream(G.device).cuda_stream)
     build.check(err, "rbf_row_wss_batched")
     return bmax, barg
 
@@ -96,6 +100,29 @@ def rbf_row_wss_batched_h2(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
 
 
 rbf_row_wss_batched_h2.launches = 0
+
+
+def rbf_row_wss_batched_act(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
+                            g_i, i_idx, use_exact, gammas, act, *, XT=None,
+                            dup: bool = False):
+    """Batched pass A within a per-lane active set (soft shrinking).
+
+    As :func:`rbf_row_wss_batched` (or, with ``dup=True``,
+    :func:`rbf_row_wss_batched_h2`), with ``act`` a (B, n) bool mask:
+    a coordinate outside it is no j-candidate.  Returns (bmax (B, nb),
+    barg (B, nb) int32).
+    """
+    if not on_card(G, "pass A"):
+        return ref.rbf_row_wss_batched_blocks(
+            X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, gammas, block_l=build.BLOCK_L, dup=dup, act=act)
+    out = _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
+                   i_idx, use_exact, gammas, XT, 2 if dup else 1, act)
+    rbf_row_wss_batched_act.launches += 1
+    return out
+
+
+rbf_row_wss_batched_act.launches = 0
 
 
 def rbf_row_wss(X, sqn, G, alpha, L, U, xq, sqq, a_i, L_i, U_i, g_i, i_idx,
@@ -157,6 +184,33 @@ def rbf_row_wss(X, sqn, G, alpha, L, U, xq, sqq, a_i, L_i, U_i, g_i, i_idx,
 rbf_row_wss.launches = 0
 
 
+def _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+          use_exact, H: int, act=None):
+    """Launch bank pass A over ``H`` state halves, within the active set
+    ``act`` when given."""
+    B, n = G.shape
+    l = n // H
+    dtype = G.dtype
+    check_bank(gram, gram_idx, B, l, dtype, G.device)
+    for name, t in (("G", G), ("alpha", alpha), ("L", L), ("U", U)):
+        check_state(name, t, (B, H * l), dtype, G.device)
+    check_lane_scalars(B, G.device, dtype, a_i=a_i, L_i=L_i, U_i=U_i,
+                       g_i=g_i)
+    check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx)
+    check_lane_scalars(B, G.device, torch.bool, use_exact=use_exact)
+    aptr = act_ptr(act, G)
+    nb = -(-l // build.BLOCK_L)
+    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
+    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
+    fn = build.entry("row_wss_batched_rows", dtype_bits(dtype))
+    ptrs = [t.data_ptr() for t in (gram, gram_idx, G, alpha, L, U, a_i, L_i,
+                                   U_i, g_i, i_idx, use_exact)]
+    err = fn(*ptrs, aptr, bmax.data_ptr(), barg.data_ptr(), B, H, l,
+             G.device.index, torch.cuda.current_stream(G.device).cuda_stream)
+    build.check(err, "row_wss_batched_rows")
+    return bmax, barg
+
+
 def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
                          i_idx, use_exact):
     """Batched pass A over the Gram bank ``gram`` (n_stack, l, l).
@@ -171,26 +225,52 @@ def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
         return ref.row_wss_batched_rows_blocks(
             gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
             use_exact, block_l=build.BLOCK_L)
-    B, l = G.shape
-    dtype = G.dtype
-    check_bank(gram, gram_idx, B, l, dtype, G.device)
-    for name, t in (("G", G), ("alpha", alpha), ("L", L), ("U", U)):
-        check_state(name, t, (B, l), dtype, G.device)
-    check_lane_scalars(B, G.device, dtype, a_i=a_i, L_i=L_i, U_i=U_i,
-                       g_i=g_i)
-    check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx)
-    check_lane_scalars(B, G.device, torch.bool, use_exact=use_exact)
-    nb = -(-l // build.BLOCK_L)
-    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
-    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
-    fn = build.entry("row_wss_batched_rows", dtype_bits(dtype))
-    ptrs = [t.data_ptr() for t in (gram, gram_idx, G, alpha, L, U, a_i, L_i,
-                                   U_i, g_i, i_idx, use_exact, bmax, barg)]
-    err = fn(*ptrs, B, l, G.device.index,
-             torch.cuda.current_stream(G.device).cuda_stream)
+    out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+                use_exact, 1)
     row_wss_batched_rows.launches += 1
-    build.check(err, "row_wss_batched_rows")
-    return bmax, barg
+    return out
 
 
 row_wss_batched_rows.launches = 0
+
+
+def row_wss_batched_rows_h2(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i,
+                            g_i, i_idx, use_exact):
+    """Bank pass A for the doubled ε-SVR operator (H = 2 state halves).
+
+    As :func:`row_wss_batched_rows`, with (B, 2l) state over the
+    (n_stack, l, l) base bank and ``i_idx`` a doubled index in [0, 2l):
+    lane b reads the base row ``gram[gram_idx[b], i_idx[b] mod l]``.
+    Returns (bmax (B, nb), barg (B, nb) int32) with doubled indices.
+    """
+    if not on_card(G, "bank pass A"):
+        return ref.row_wss_batched_rows_blocks(
+            gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, block_l=build.BLOCK_L, dup=True)
+    out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+                use_exact, 2)
+    row_wss_batched_rows_h2.launches += 1
+    return out
+
+
+row_wss_batched_rows_h2.launches = 0
+
+
+def row_wss_batched_rows_act(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i,
+                             g_i, i_idx, use_exact, act, *,
+                             dup: bool = False):
+    """Bank pass A within a per-lane active set (soft shrinking): as
+    :func:`row_wss_batched_rows` (or :func:`row_wss_batched_rows_h2` with
+    ``dup=True``), with ``act`` a (B, n) bool mask.  Returns
+    (bmax (B, nb), barg (B, nb) int32)."""
+    if not on_card(G, "bank pass A"):
+        return ref.row_wss_batched_rows_blocks(
+            gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, block_l=build.BLOCK_L, dup=dup, act=act)
+    out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+                use_exact, 2 if dup else 1, act)
+    row_wss_batched_rows_act.launches += 1
+    return out
+
+
+row_wss_batched_rows_act.launches = 0

@@ -2,8 +2,8 @@
 oracle every CUDA kernel is held against.
 
 Each function repeats the arithmetic of ``repro.kernels.ref`` in the same
-order (no active-set mask, no conjugate direction).  Indices leave as
-int32, as in the reference's index channel.
+order (no conjugate direction).  Indices leave as int32, as in the
+reference's index channel.
 
 The single-lane passes (:func:`rbf_row_wss`, :func:`rbf_update_wss`) take
 (l,) state and 0-d scalars.  The batched passes take (B, n) lane state;
@@ -16,6 +16,11 @@ themselves return: the per-block (max, first argmax) and min over
 ``block_l`` columns, before the cross-block reduction in
 :mod:`repro_torch.kernels.ops`.  With doubled state a block covers the
 same ``block_l`` base columns in both halves, half 0 before half 1.
+
+``act``, an optional (B, n) bool active-set mask (soft shrinking), restricts
+pass A's j-candidates and pass B's next-i scan and gap endpoints; pass B's
+gradient update is never masked, so G stays exact on every coordinate.
+With doubled state the mask is (B, 2l) and masks each half on its own.
 """
 
 from __future__ import annotations
@@ -120,8 +125,10 @@ def rbf_rows_batched(X, sqn, XQ, sqq, gammas, dup: bool = False):
     return tile_rows(k) if dup else k
 
 
-def _wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact):
-    """Masked WSS2 gains per lane and column (-inf where not selectable)."""
+def _wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact,
+              act=None):
+    """Masked WSS2 gains per lane and column (-inf where not selectable,
+    and outside the active set ``act`` when given)."""
     lv = g_i[:, None] - G
     q = torch.clamp_min(2.0 - 2.0 * k, TAU)
     g_tilde = 0.5 * lv * lv / q
@@ -132,6 +139,8 @@ def _wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx, use_exact):
     gains = torch.where(use_exact[:, None], g_exact, g_tilde)
     idx = torch.arange(G.shape[1], dtype=torch.int32, device=G.device)
     mask = (alpha > L) & (lv > 0) & (idx[None, :] != i_idx[:, None])
+    if act is not None:
+        mask = mask & act
     return torch.where(mask, gains, NEG_INF)
 
 
@@ -143,39 +152,47 @@ def _first_argmax(vals):
 
 
 def row_wss_batched_from_k(k, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
-                           use_exact):
+                           use_exact, act=None):
     """Pass A selection algebra given the (B, n) kernel rows ``k``.
 
-    RBF diag == 1 is hardcoded (paper setting).  Returns
-    (j (B,) int32, gain_j (B,)).
+    RBF diag == 1 is hardcoded (paper setting).  ``act`` restricts the
+    j-candidates.  Returns (j (B,) int32, gain_j (B,)).
     """
     return _first_argmax(_wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                                   i_idx, use_exact))
+                                   i_idx, use_exact, act))
 
 
 def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
-                        g_i, i_idx, use_exact, gammas, dup: bool = False):
+                        g_i, i_idx, use_exact, gammas, dup: bool = False,
+                        act=None):
     """Batched pass A: WSS2 j-selection per lane -> (j (B,) int32, gain)."""
     k = rbf_rows_batched(X, sqn, XQ, sqq, gammas, dup=dup)
     return row_wss_batched_from_k(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                                  i_idx, use_exact)
+                                  i_idx, use_exact, act)
 
 
-def _update_vals(G, k_i, k_j, mu, alpha_new, L, U):
+def _update_vals(G, k_i, k_j, mu, alpha_new, L, U, act=None):
     """G_new and the masked values of its two scans: over ``alpha < U``
-    (-inf elsewhere) and over ``alpha > L`` (+inf elsewhere)."""
+    (-inf elsewhere) and over ``alpha > L`` (+inf elsewhere), both within
+    ``act`` when given.  The update itself is never masked."""
     G_new = G - mu[:, None] * (k_i - k_j)
-    return (G_new, torch.where(alpha_new < U, G_new, NEG_INF),
-            torch.where(alpha_new > L, G_new, POS_INF))
+    up, dn = alpha_new < U, alpha_new > L
+    if act is not None:
+        up, dn = up & act, dn & act
+    return (G_new, torch.where(up, G_new, NEG_INF),
+            torch.where(dn, G_new, POS_INF))
 
 
-def update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U):
+def update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U,
+                                 act=None):
     """Pass B update + stopping-scan algebra given both (B, n) rows.
 
     A lane with ``mu == 0`` is a bitwise no-op on G (the lane freeze).
-    Returns (G_new (B, n), i_next (B,) int32, g_i_next (B,), g_dn (B,)).
+    ``act`` restricts the scans, not the update.  Returns (G_new (B, n),
+    i_next (B,) int32, g_i_next (B,), g_dn (B,)).
     """
-    G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U)
+    G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U,
+                                           act)
     i_next, g_i_next = _first_argmax(vals_up)
     return G_new, i_next, g_i_next, vals_dn.amin(dim=1)
 
@@ -190,10 +207,11 @@ def _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup=False):
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
-                           mu, gammas, dup: bool = False):
+                           mu, gammas, dup: bool = False, act=None):
     """Batched pass B: k_i/k_j recompute + update + next i + gap ends."""
     k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup)
-    return update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U)
+    return update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U,
+                                        act)
 
 
 def bank_rows(gram, gram_idx, idx, dup: bool = False):
@@ -260,38 +278,43 @@ def block_min(vals, block_l: int, H: int = 1):
 
 def rbf_row_wss_batched_blocks(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i,
                                U_i, g_i, i_idx, use_exact, gammas, *,
-                               block_l: int, dup: bool = False):
+                               block_l: int, dup: bool = False, act=None):
     """Pass A as the kernel returns it: per-block (bmax, barg) (B, nb)."""
     k = rbf_rows_batched(X, sqn, XQ, sqq, gammas, dup=dup)
     return block_first_max(_wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                                     i_idx, use_exact), block_l,
+                                     i_idx, use_exact, act), block_l,
                            2 if dup else 1)
 
 
 def rbf_update_wss_batched_blocks(X, sqn, G, alpha_new, L, U, XQi, sqqi,
                                   XQj, sqqj, mu, gammas, *, block_l: int,
-                                  dup: bool = False):
+                                  dup: bool = False, act=None):
     """Pass B as the kernel returns it: (G_new, bmax, barg, bmin)."""
     H = 2 if dup else 1
     k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup)
-    G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U)
+    G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U,
+                                           act)
     bmax, barg = block_first_max(vals_up, block_l, H)
     return G_new, bmax, barg, block_min(vals_dn, block_l, H)
 
 
 def row_wss_batched_rows_blocks(gram, gram_idx, G, alpha, L, U, a_i, L_i,
-                                U_i, g_i, i_idx, use_exact, *, block_l: int):
+                                U_i, g_i, i_idx, use_exact, *, block_l: int,
+                                dup: bool = False, act=None):
     """Bank pass A as the kernel returns it: per-block (bmax, barg)."""
-    k = bank_rows(gram, gram_idx, i_idx)
+    k = bank_rows(gram, gram_idx, i_idx, dup)
     return block_first_max(_wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                                     i_idx, use_exact), block_l)
+                                     i_idx, use_exact, act), block_l,
+                           2 if dup else 1)
 
 
 def update_wss_batched_rows_blocks(gram, gram_idx, G, alpha_new, L, U,
-                                   i_idx, j_idx, mu, *, block_l: int):
+                                   i_idx, j_idx, mu, *, block_l: int,
+                                   dup: bool = False, act=None):
     """Bank pass B as the kernel returns it: (G_new, bmax, barg, bmin)."""
+    H = 2 if dup else 1
     G_new, vals_up, vals_dn = _update_vals(
-        G, bank_rows(gram, gram_idx, i_idx), bank_rows(gram, gram_idx, j_idx),
-        mu, alpha_new, L, U)
-    bmax, barg = block_first_max(vals_up, block_l)
-    return G_new, bmax, barg, block_min(vals_dn, block_l)
+        G, bank_rows(gram, gram_idx, i_idx, dup),
+        bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L, U, act)
+    bmax, barg = block_first_max(vals_up, block_l, H)
+    return G_new, bmax, barg, block_min(vals_dn, block_l, H)

@@ -228,3 +228,41 @@ def test_gram_writes_into_a_bank_slice():
     assert got.data_ptr() == out[1].data_ptr()
     np.testing.assert_array_equal(out[1].numpy(),
                                   ref.gram_cross(X, X, 0.3).numpy())
+
+
+@pytest.mark.parametrize("shrinking", [False, True], ids=["plain", "shrink"])
+def test_solve_grid_svr_bank_matches_reference(shrinking):
+    """The doubled ε-SVR lanes over the base bank (``precompute=True``, the
+    H = 2 bank passes' plain versions) against the reference's banked
+    grid: objectives to rtol 1e-6, the full-set gap, G equal to
+    ``p - Q alpha`` and sum(alpha) = 0 in every lane."""
+    from repro.core import grid as jgrid
+    from repro.core.solver import SolverConfig as JConfig
+    from repro_torch.core import grid
+    from repro_torch.core.solver import SolverConfig
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(40, 3))
+    y = np.sin(X[:, 0]) + 0.3 * X[:, 1]
+    args = ([1.0, 8.0], [0.05, 0.2], [0.3, 0.9])
+    got = grid.solve_grid_svr(X, y, *args, SolverConfig(eps=1e-5),
+                              precompute=True, shrinking=shrinking,
+                              device="cpu", dtype=torch.float64)
+    want = jgrid.solve_grid_svr(jnp.asarray(X), jnp.asarray(y), *args,
+                                JConfig(eps=1e-5, max_iter=200_000),
+                                impl="jnp", precompute=True,
+                                shrinking=shrinking)
+    assert bool(got.converged.all())
+    assert float(got.kkt_gap.max()) <= 1e-5
+    np.testing.assert_allclose(got.objective.numpy(),
+                               np.asarray(want.objective), rtol=1e-6)
+    sq = (X * X).sum(-1)
+    d2 = np.maximum(sq[:, None] + sq[None] - 2.0 * X @ X.T, 0.0)
+    a = got.alpha.numpy()
+    for g, gamma in enumerate(args[2]):
+        Qa = (a[g, ..., :40] + a[g, ..., 40:]) @ np.exp(-gamma * d2)
+        for e, epsilon in enumerate(args[1]):
+            p = np.concatenate([y - epsilon, y + epsilon])
+            np.testing.assert_allclose(
+                got.G[g, e].numpy(), p - np.concatenate([Qa[e], Qa[e]], -1),
+                atol=1e-10)
+    assert np.abs(a.sum(-1)).max() <= 1e-8

@@ -211,7 +211,9 @@ def test_grid_impl_cuda_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("kw,step", [(dict(impl=None), "step 10"),
-                                     (dict(shrinking=True), "step 7"),
+                                     (dict(cfg=SolverConfig(
+                                         step="conjugate", algorithm="smo")),
+                                      "step 8"),
                                      (dict(mesh=object()), "step 12"),
                                      (dict(devices=("cuda:0",)), "step 12"),
                                      (dict(diagnostics=object()), "step 9")])
@@ -228,6 +230,17 @@ def test_grid_later_slices_raise_not_implemented(kw, step):
                                 **kw)
 
 
+@pytest.mark.parametrize("kw,step", [(dict(impl=None), "step 10"),
+                                     (dict(mesh=object()), "step 12"),
+                                     (dict(devices=("cuda:0",)), "step 12"),
+                                     (dict(diagnostics=object()), "step 9")])
+def test_grid_compacted_later_slices_raise_not_implemented(kw, step):
+    X, Y = _grid_problem()
+    kw = {"impl": "auto", **kw}
+    with pytest.raises(NotImplementedError, match=step):
+        grid.solve_grid_compacted(X, Y, [1.0], [0.5], device="cpu", **kw)
+
+
 def test_grid_cpu_path_launches_no_kernel():
     from repro_torch import kernels
     before = kernels.launches()
@@ -242,12 +255,25 @@ def test_grid_cpu_path_launches_no_kernel():
         grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5],
                             precompute=precompute, device="cpu",
                             dtype=torch.float64)
+        grid.solve_grid_compacted(X, Y, [1.0, 4.0], [0.5], chunk=16,
+                                  impl="auto", precompute=precompute,
+                                  shrinking=True, device="cpu",
+                                  dtype=torch.float64)
+        grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5],
+                            precompute=precompute, shrinking=True,
+                            device="cpu", dtype=torch.float64)
     assert kernels.launches() == before
     assert set(before) == {"rbf_row_wss_batched", "rbf_update_wss_batched",
                            "gram_block", "row_wss_batched_rows",
                            "update_wss_batched_rows", "rbf_row_wss",
                            "rbf_update_wss", "rbf_row_wss_batched_h2",
-                           "rbf_update_wss_batched_h2"}
+                           "rbf_update_wss_batched_h2",
+                           "row_wss_batched_rows_h2",
+                           "update_wss_batched_rows_h2",
+                           "rbf_row_wss_batched_act",
+                           "rbf_update_wss_batched_act",
+                           "row_wss_batched_rows_act",
+                           "update_wss_batched_rows_act"}
 
 
 def test_slice_3_cpu_path_launches_no_kernel():

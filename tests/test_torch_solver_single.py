@@ -278,46 +278,49 @@ def test_float32_fit_converges():
 
 
 def test_graph_driver_replays_the_eager_loop_bitwise(monkeypatch):
-    """On the card both solvers replay a captured chunk of the loop
-    (``solver_fused._drive``).  With a stand-in graph whose replay re-runs
-    the chunk on the driver's copy of the state, the results, iteration
-    counts and relaunch counts equal the eager loop's bit for bit, also
-    when ``max_iter`` ends on a partial chunk."""
+    """On the card both solvers replay captured chunks of the loop
+    (``solver_fused._drive``), one graph per shape of chunk.  With a
+    stand-in graph whose replay re-runs the chunk on the
+    driver's state buffers, the results, iteration, unshrink and relaunch
+    counts equal the eager loop's bit for bit, also when ``max_iter`` ends
+    on a partial chunk and when soft shrinking refreshes its mask at
+    iterations that fall anywhere in a chunk."""
     X, y = xor_gaussians(64, seed=1)
     Y = np.stack([y, -y])
 
-    def fake_capture(body, s, steps):
-        static = type(s)(*(x.clone() for x in s))
-
+    def fake_capture(body, static, refresh, pool=None):
         def replay():
             out = static
-            for _ in range(steps):
-                out = body(out)
+            for r in refresh:
+                out = body(out, r)
             for dst, src in zip(static, out):
                 if dst is not src:
                     dst.copy_(src)
-        return type("Graph", (), {"replay": staticmethod(replay)}), static, {}
+        return type("Graph", (), {"replay": staticmethod(replay),
+                                  "pool": staticmethod(lambda: pool)}), {}
 
     def runs(cfg):
         st = {}
         return (solver_fused.solve_fused_batched(
                     X, Y, [100.0, 1.0], 0.5, cfg, device="cpu",
-                    dtype=torch.float64),
+                    dtype=torch.float64, shrinking=cfg.shrink_every > 0,
+                    check_every=5 if cfg.shrink_every else 32),
                 solver_fused.solve_fused(X, y, 100.0, 0.5, cfg, device="cpu",
                                          dtype=torch.float64, stats=st), st)
 
     drive = solver_fused._drive
     for cfg in (SolverConfig(algorithm="pasmo"),
-                SolverConfig(algorithm="smo", max_iter=75)):
+                SolverConfig(algorithm="smo", max_iter=75),
+                SolverConfig(algorithm="pasmo", shrink_every=8)):
         eager = runs(cfg)
         with monkeypatch.context() as m:
             m.setattr(solver_fused, "_capture", fake_capture)
             m.setattr(solver_fused, "_drive",
-                      lambda body, s, mx, ce, graphs: drive(body, s, mx, ce,
-                                                            True))
+                      lambda body, s, mx, ce, graphs, period=0: drive(
+                          body, s, mx, ce, True, period))
             replayed = runs(cfg)
         for r_e, r_g in zip(eager[:2], replayed[:2]):
             for f in ("alpha", "b", "G", "iterations", "objective",
-                      "kkt_gap", "converged", "n_planning"):
+                      "kkt_gap", "converged", "n_planning", "n_unshrink"):
                 assert torch.equal(getattr(r_e, f), getattr(r_g, f)), f
         assert eager[2] == replayed[2]
