@@ -11,15 +11,17 @@ failure raises and the script exits non-zero without a result line:
 3. kernels vs plain — pass A, pass B (one state half and the H = 2
    variants of the doubled e-SVR operator), the Gram kernel, the two
    Gram-bank passes (one state half and H = 2), the single-lane passes
-   (kernels 6 and 7) and the active-set (``act``) variants of passes A
-   and B and of the bank passes against their plain PyTorch versions on
-   the same inputs on the card, at the main paths' shapes and at odd ones,
+   (kernels 6 and 7), the active-set (``act``) variants of passes A
+   and B and of the bank passes, and the conjugate variants of both pass
+   B kernels (H = 1 and 2, with and without ``act``) against their plain
+   PyTorch versions on the same inputs on the card, at the main paths' shapes and at odd ones,
    in float64 and float32, with the edge cases of the CPU tests
    (all-masked lane, a lane whose mask is all false, a mask hiding the
    true argmax, ties across blocks and across state halves, G with the
    mask bitwise equal to G without, a mu = 0 lane, per-lane gammas, lanes
    spread over the bank's entries, both gain rules, a false and a true
-   relaunch flag).
+   relaunch flag, a mu = mu2 = 0 lane bitwise, a mu2 = 0 lane bitwise
+   equal to the variant without the direction).
    Tolerance: values to rtol 1e-12 (f64) / 1e-5 (f32); indices exactly,
    except that in f32 an argmax may differ where the plain version's gains
    at both picks agree to 1e-6 relative (the kernel sums its products in
@@ -30,8 +32,11 @@ failure raises and the script exits non-zero without a result line:
    grid; with ``shrinking=True`` the (C, gamma), e-SVR and one-class grids
    and the compacted grid (``chunk=32``) on both sources, the e-SVR grid
    through the bank, and the mask refresh under CUDA graphs
-   (``check_every=5``) against ``check_every=1``; f64, ``impl="cuda"``
-   against ``impl="torch"``.
+   (``check_every=5``) against ``check_every=1``; with the conjugate step
+   SVC, the (C, gamma) and e-SVR grids through both row sources and the
+   one-class grid, each with and without shrinking, the compacted grid,
+   one fit run twice (bitwise) and ``check_every=5`` against ``1``; f64,
+   ``impl="cuda"`` against ``impl="torch"``.
 5. SVC, full width (slice 1's main path) — a 10-class one-vs-rest SVC at
    l = 16384, d = 128 in f64 and f32: convergence, gradient drift, KKT
    gap, held-out agreement, launch counts, and each kernel's device time
@@ -52,16 +57,17 @@ failure raises and the script exits non-zero without a result line:
    ``benchmarks/solver_micro.py`` at its largest size as a timing row, and
    a ``torch.profiler`` window.
 8. e-SVR and one-class, full width (slice 3) — ``SVR(C=10, epsilon=0.1,
-   gamma="scale")`` on a sinc target of the same X, the 18-lane e-SVR grid
-   through the rbf passes and through the Gram bank (the H = 2 bank
-   passes), ``OneClassSVM(nu=0.1)`` and the SVR again in f32: convergence,
+   gamma="scale")`` on a sinc target of the same X, the C = 1 half of the
+   e-SVR grid (9 lanes) through the rbf passes and through the Gram bank
+   (the H = 2 bank passes), ``OneClassSVM(nu=0.1)`` and the SVR again in f32: convergence,
    drift against p - Q alpha, KKT gap, sum(alpha), held-out R^2, bank
    against rbf objectives, launch counts, profiler windows; then kernels
    6, 7 and the H = 2 variants timed beside their bounds.
 9. shrinking, full width (slice 4) — the 90-lane grid of phase 6 with
    ``shrinking=True`` through the bank and through the rbf passes, the
-   compacted grid (hard shrinking, ``chunk=96``) through the bank, and the
-   18-lane e-SVR grid of phase 8 through the bank with ``shrinking=True``:
+   compacted grid (hard shrinking, ``chunk=96``, its C = 0.5 lanes)
+   through the bank, and the e-SVR grid of phase 8 through the bank with
+   ``shrinking=True``:
    every lane converged with the full-set gap at most eps, G within 1e-8
    of p - Q alpha, sum(alpha), objectives within rtol 1e-6 of phases 6
    and 8's shrink-off results (reused, not rerun), iterations, unshrinks,
@@ -69,6 +75,16 @@ failure raises and the script exits non-zero without a result line:
    grid, with its split), profiler windows over 64 iterations (one mask
    refresh), peak memory; then the six variants of this slice timed
    beside their bounds.
+10. conjugate step, full width (slice 5) — ``algorithm="smo",
+   step="conjugate"`` on phase 5's SVC, phase 6's grid through the bank
+   (without and with shrinking) and through the rbf passes with
+   shrinking, phase 8's SVR and one of its e-SVR grid's lanes through the
+   bank with shrinking: exact launches of each run's conjugate pass B
+   variant, accepted conjugate steps, convergence, drift, full-set gap,
+   objectives within rtol 1e-6 of the PA-SMO results of phases 5, 6 and 8
+   (reused), a profiler window; then the eight conjugate variants timed
+   beside their bounds, the variants without the direction and their
+   plain versions.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows span one
@@ -83,6 +99,7 @@ reference package is imported.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -154,6 +171,12 @@ SOURCES = {
     "update_wss_batched_rows_act": (
         "src/repro_torch/kernels/csrc/update_wss_rows.cu",
         "src/repro/kernels/rbf_update_wss.py:261"),
+    "rbf_update_wss_batched_conj": (
+        "src/repro_torch/kernels/csrc/rbf_update_wss.cu",
+        "src/repro/kernels/rbf_update_wss.py:196"),
+    "update_wss_batched_rows_conj": (
+        "src/repro_torch/kernels/csrc/update_wss_rows.cu",
+        "src/repro/kernels/rbf_update_wss.py:261"),
 }
 BANK_PASSES = ("row_wss_batched_rows", "update_wss_batched_rows")
 RBF_PASSES = ("rbf_row_wss_batched", "rbf_update_wss_batched")
@@ -168,6 +191,15 @@ SVR_GAMMA_FACTORS = (0.5, 1.0, 2.0)
 SVR_EPSILONS = (0.05, 0.1, 0.2)
 SVR_CS = (1.0, 10.0)
 SVR_B = len(SVR_GAMMA_FACTORS) * len(SVR_EPSILONS) * len(SVR_CS)
+# The e-SVR grids that phases 8 and 9 solve run the C = 1 half of the
+# grid (9 of its 18 lanes): its C = 10 lanes took up to 150740 iterations
+# against at most 42780 for C = 1, and the script must leave room for the
+# later phases.  The kernels are still checked and timed at the whole
+# grid's B = SVR_B.
+SVR_GRID_CS = SVR_CS[:1]
+# The compacted grid of phase 9 runs the C = 0.5 third of the (C, gamma)
+# grid (30 of its 90 lanes), for the same reason.
+COMPACT_CS = GRID_CS[:1]
 MICRO = dict(n=16384, C=100.0, gamma=0.5, max_iter=30_000)
 # Profiler windows span one host-check chunk of the solvers (CHECK_EVERY):
 # the loop runs its first chunk eagerly, so no CUDA graph is captured
@@ -890,6 +922,122 @@ def check_slice4(l, d, B, n_stack, dtype, device, label, errs,
     return n_ties
 
 
+def conj_inputs(b, l, B, seed, device):
+    """The conjugate direction for pass B state ``b``: a (B, l) base row
+    (small, as a row difference is), equal at the exact tie's two
+    coordinates so the tie survives the update, and mu2.  With B > 2,
+    lane 0 is frozen (mu = mu2 = 0) and lane 1 takes mu2 = 0 (the plain
+    step); the other lanes move."""
+    rng = np.random.default_rng(seed)
+    dtype = b["G"].dtype
+    base = rng.normal(scale=0.1, size=(B, l))
+    base[:, l - 3] = base[:, 5]
+    mu2 = rng.normal(scale=0.5, size=B)
+    if B > 2:
+        mu2[:2] = 0.0
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return t(base), t(mu2)
+
+
+def check_conj(src, b, act, dtype, label, errs, want, empty, dup):
+    """A conjugate variant of kernel 2 or 5 (H = 1 or 2, with or without
+    the mask) against its plain version: G, the block values and r; with
+    B > 2 the mu = mu2 = 0 lane's G bitwise and the mu2 = 0 lane's G
+    bitwise that of the variant without the direction (with B <= 2 every
+    lane moves); the dispatched picks and edge cases."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import rbf_update_wss as pb
+    bl = build.BLOCK_L
+    B, l = b["G"].shape[0], b["G"].shape[1] // (2 if dup else 1)
+    edges = B > 2
+    if not edges:
+        b = dict(b, mu=torch.full_like(b["mu"], 0.7))
+    dirv, mu2 = conj_inputs(b, l, B, l + B + dup, b["G"].device)
+    if src == "rbf":
+        args = [b[k] for k in PASS_B_KEYS]
+        kern = lambda: pb.rbf_update_wss_batched_conj(*args, dirv, mu2,
+                                                      dup=dup, act=act)
+        plain = lambda: ref.rbf_update_wss_batched_blocks(
+            *args, block_l=bl, dup=dup, act=act, dirv=dirv, mu2=mu2)
+        disp = lambda impl, **kw: ops.rbf_update_wss_batched(
+            *args, impl=impl, dup=dup, act=act, **kw)
+    else:
+        args = [b[k] for k in BANK_B]
+        kern = lambda: pb.update_wss_batched_rows_conj(*args, dirv, mu2,
+                                                       dup=dup, act=act)
+        plain = lambda: ref.update_wss_batched_rows_blocks(
+            *args, block_l=bl, dup=dup, act=act, dirv=dirv, mu2=mu2)
+        disp = lambda impl, **kw: ops.update_wss_batched_rows(
+            *args, impl=impl, dup=dup, act=act, **kw)
+    G_k, bmax, barg, bmin, r_k = kern()
+    G_p, pmax, parg, pmin, r_p = plain()
+    G_nodir = disp("cuda")[0]
+    if edges and not torch.equal(G_k[0], b["G"][0]):
+        raise AssertionError(f"{label} conj B: the mu = mu2 = 0 lane's G "
+                             f"changed")
+    if edges and not torch.equal(G_k[1], G_nodir[1]):
+        raise AssertionError(f"{label} conj B: the mu2 = 0 lane's G "
+                             f"differs from the variant without dirv")
+    moving = slice(2 if edges else 0, None)
+    if torch.equal(G_k[moving], G_nodir[moving]):
+        raise AssertionError(f"{label} conj B: mu2 != 0 left G as without "
+                             f"dirv")
+    scale = float(b["G"].abs().max())
+    err = _close(f"{label} conj B G", G_k, G_p, TOL[dtype], scale)
+    err = max(err, _close(f"{label} conj B bmax", bmax, pmax, TOL[dtype],
+                          scale))
+    err = max(err, _close(f"{label} conj B bmin", bmin, pmin, TOL[dtype],
+                          scale))
+    err = max(err, _close(f"{label} conj B r", r_k, r_p, TOL[dtype], 1.0))
+    up = b["alpha_new"] < b["U"]
+    vals = torch.where(up if act is None else up & act, G_p, -math.inf)
+    n_ties = _same_picks(f"{label} conj B barg", barg, parg, vals, dtype)
+    _, i_c, gi_c, gdn_c, rc = disp("cuda", dirv=dirv, mu2=mu2)
+    _, i_t, gi_t, gdn_t, rt = disp("torch", dirv=dirv, mu2=mu2)
+    err = max(err, _close(f"{label} conj B g_i", gi_c, gi_t, TOL[dtype],
+                          scale))
+    err = max(err, _close(f"{label} conj B g_dn", gdn_c, gdn_t, TOL[dtype],
+                          scale))
+    err = max(err, _close(f"{label} conj B r (dispatched)", rc, rt,
+                          TOL[dtype], 1.0))
+    n_ties += _same_picks(f"{label} conj B i", i_c[:, None], i_t[:, None],
+                          vals, dtype)
+    for k, i in want.items():
+        assert int(i_c[k]) == i and int(i_t[k]) == i, (label, k, i, i_c)
+    for k in empty:
+        assert int(i_c[k]) == 0 and gi_c[k].item() == -math.inf, (label, k)
+    errs.append(err)
+    return n_ties
+
+
+def check_slice5(l, d, B, n_stack, dtype, device, label, errs,
+                 halves=(False, True)):
+    """The conjugate variants of kernels 2 and 5 at one shape: one state
+    half and (``True`` in ``halves``) two, each with and without the
+    active-set mask."""
+    n_ties = 0
+    for dup in halves:
+        n = 2 * l if dup else l
+        lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
+        for src in ("rbf", "bank"):
+            if src == "rbf":
+                _, b = (dup_state if dup else kernel_state)(
+                    l, d, B, l + d + B + 1, dtype, device)
+            else:
+                b = bank_state(l, B, n_stack, l + B + 1, dtype, device,
+                               dup=dup)[1]
+            for masked in (False, True):
+                act = (act_mask(B, n, (lo, hi), l + B + dup, device)
+                       if masked else None)
+                tag = (f"{src} H={2 if dup else 1}"
+                       f"{' act' if masked else ''} {label}")
+                n_ties += check_conj(
+                    src, b, act, dtype, tag, errs[f"{NEW_B[src]}_conj"],
+                    *_expected(B, lo, hi if masked else None, False), dup)
+            del b
+    return n_ties
+
+
 NEW_A = {"rbf": "rbf_row_wss_batched", "bank": "row_wss_batched_rows"}
 NEW_B = {"rbf": "rbf_update_wss_batched", "bank": "update_wss_batched_rows"}
 PASS_A_KEYS = ("X", "sqn", "G", "alpha", "L", "U", "XQ", "sqq", "a_i", "L_i",
@@ -971,6 +1119,26 @@ def phase_kernels(device) -> dict:
                 f"ties across blocks and halves, G with the mask bitwise "
                 f"equal to G without, mu = 0 bitwise) ({n} f32 "
                 f"near-ties): {label}")
+        # slice 5: the conjugate variants of kernels 2 and 5 at the main
+        # paths' shapes (the SVC's B = 10 and the grids' B = 90 at H = 1,
+        # the SVR's and the e-SVR lane's B = 1 at H = 2, each a lane group
+        # of its own in kernel 2) and at odd ones
+        for l, d, B, n_stack, halves, kind in (
+                (N_TRAIN, D, K, 3, (False,), "main"),
+                (N_TRAIN, D, GRID_B, 3, (False,), "main"),
+                (N_TRAIN, D, 1, 1, (True,), "main"),
+                (N_TRAIN, D, SVR_B, 3, (True,), "main"),
+                (1000, 37, 3, 1, (False, True), "odd"),
+                (300, 5, 19, 3, (False, True), "odd")):
+            label = (f"{kind} l={l} d={d} B={B} bank={n_stack} "
+                     f"{str(dtype)[6:]}")
+            n = check_slice5(l, d, B, n_stack, dtype, device, label, errs,
+                             halves)
+            say(f"[kernels] conjugate variants of kernels 2 and 5 (H = 1, "
+                f"2, with and without act) ok (r, mu = mu2 = 0 lane "
+                f"bitwise, mu2 = 0 lane bitwise equal to the variant "
+                f"without dirv, mu2 != 0 lanes moved, ties, all-false "
+                f"lane) ({n} f32 near-ties): {label}")
     torch.cuda.synchronize()
     worst = {k: max(v) for k, v in errs.items()}
     say(f"[kernels] all kernels agree with their plain versions; max abs "
@@ -1043,6 +1211,7 @@ def phase_small(device, impl):
             f"{float(rel.max()):.3e}")
     phase_small_slice3(device, impl, eps)
     phase_small_slice4(device, impl)
+    phase_small_slice5(device, impl)
 
 
 def sinc_target(X, seed):
@@ -1200,6 +1369,88 @@ def phase_small_slice4(device, impl):
         f"n_unshrink {runs[0].n_unshrink.tolist()}")
 
 
+def phase_small_slice5(device, impl):
+    """Slice 5 end to end, small, ``impl`` against ``impl="torch"``: the
+    conjugate step in SVC, the (C, gamma) grid through both row sources
+    and the one-class grid, each with and without shrinking, the e-SVR
+    grid through the rbf passes with shrinking and through the bank
+    without (the two H = 2 variants phase 10 does not launch), the
+    compacted grid (``chunk=32``); then one conjugate fit run twice
+    (bitwise: the four-index alpha update is deterministic) and
+    ``check_every=5`` (graphs) against ``1``."""
+    from repro_torch.core import grid
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.core.solver_fused import solve_fused_batched
+    from repro_torch.svm import SVC, data
+    eps = 1e-5
+    cfg = SolverConfig(algorithm="smo", step="conjugate", eps=eps)
+    f64 = dict(device=device, dtype=torch.float64)
+    X, y = data.multiclass_blobs(150, seed=2, k=3, d=8, sep=4.0)
+    fits = {which: SVC(C=1.0, gamma="scale", algorithm="smo",
+                       step="conjugate", eps=eps, impl=which,
+                       **f64).fit(X[:100], y[:100])
+            for which in (impl, "torch")}
+    _agree("SVC 3-class conjugate", fits[impl].fit_result_,
+           fits["torch"].fit_result_, eps)
+    assert int(fits[impl].fit_result_.n_planning.max()) > 0
+    np.testing.assert_array_equal(fits[impl].predict(X[100:]),
+                                  fits["torch"].predict(X[100:]))
+    Y = mc.ovr_labels(mc.class_index(y)[1], 3, torch.float64, device)
+    Xs = np.random.default_rng(4).normal(size=(120, 6))
+    ys = sinc_target(Xs, 5)
+    # (problem, run, the row sources (precompute) without and with
+    # shrinking)
+    problems = (
+        ("grid 3-class 2x2", lambda kw: grid.solve_grid(
+            X, Y, (4.0, 1.0), (0.05, 0.2), cfg, **kw),
+         ((True, False), (True, False))),
+        ("e-SVR grid 2x2x2", lambda kw: grid.solve_grid_svr(
+            Xs, ys, (0.5, 2.0), (0.05, 0.2), (0.1, 0.4), cfg, **kw),
+         ((True,), (False,))),
+        ("one-class grid 2x2", lambda kw: grid.solve_grid_oneclass(
+            Xs, (0.1, 0.3), (0.1, 0.4), cfg, **kw), ((True,), (True,))))
+    for shrinking in (False, True):
+        for tag, run, sources in problems:
+            for precompute in sources[shrinking]:
+                src = "bank" if precompute else "rbf"
+                runs = {which: run(dict(impl=which, precompute=precompute,
+                                        shrinking=shrinking, **f64))
+                        for which in (impl, "torch")}
+                _agree(f"{tag} conjugate, {src}, shrinking={shrinking}",
+                       runs[impl], runs["torch"], eps)
+                assert int(runs[impl].n_planning.max()) > 0, tag
+    runs = {which: grid.solve_grid_compacted(
+        X, Y, (4.0, 1.0), (0.05, 0.2), cfg, chunk=32, impl=which,
+        precompute=True, shrinking=True, **f64) for which in (impl, "torch")}
+    _agree("compacted grid chunk=32 conjugate, bank", runs[impl],
+           runs["torch"], eps)
+    # determinism: the same fit twice on the card, bitwise (graphs on)
+    Xx, yx = data.xor_gaussians(200, seed=4)
+    Yx = np.stack([yx, -yx])
+    twice = [solve_fused_batched(Xx, Yx, (20.0, 5.0), 0.5, cfg, impl=impl,
+                                 shrinking=True, **f64) for _ in range(2)]
+    for f in ("alpha", "G", "iterations", "n_planning", "n_unshrink"):
+        assert torch.equal(getattr(twice[0], f), getattr(twice[1], f)), f
+    # the mask refresh and the carried direction under CUDA graphs
+    cfg8 = SolverConfig(algorithm="smo", step="conjugate", eps=eps,
+                        shrink_every=8)
+    runs = [solve_fused_batched(Xx, Yx, (20.0, 5.0), 0.5, cfg8, impl=impl,
+                                shrinking=True, check_every=ce, **f64)
+            for ce in (5, 1)]
+    for f in ("alpha", "G", "iterations", "n_planning", "n_unshrink"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+    assert bool(runs[0].converged.all())
+    assert float(runs[0].kkt_gap.max()) <= eps
+    say(f"[small] conjugate: one fit twice bitwise equal (iterations "
+        f"{twice[0].iterations.tolist()}, accepted "
+        f"{twice[0].n_planning.tolist()}); shrink_every=8, check_every=5 "
+        f"(graphs) and 1 agree bitwise: iterations "
+        f"{runs[0].iterations.tolist()}, accepted "
+        f"{runs[0].n_planning.tolist()}, n_unshrink "
+        f"{runs[0].n_unshrink.tolist()}")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
@@ -1303,7 +1554,9 @@ def phase_full(device, timer):
         "SVC f64 full width", ms_iter)
     lane0 = dict(objective=float(r64.objective[0]), gamma=c64.gamma_,
                  iterations=int(r64.iterations[0]))
-    return rec, counts, lane0
+    svc_ref = dict(objective=r64.objective, pred=p64,
+                   iterations=r64.iterations, loop=t64, ms_iter=ms_iter)
+    return rec, counts, lane0, svc_ref
 
 
 def profile_iterations(run, label, ms_iter, n_iter=None):
@@ -1448,13 +1701,21 @@ def check_only(counts, on, label):
 
 
 def fit_grid(solve, device):
-    """``counted(solve)`` for a grid: (result, counts, wall s, loop
-    iterations, peak bytes)."""
+    """``counted(solve)`` for a fit or a grid: (result, counts, wall s,
+    loop iterations, peak bytes)."""
     from repro_torch.core.solver_fused import CHECK_EVERY
     torch.cuda.reset_peak_memory_stats(device)
     r, counts, wall = counted(solve)
     t = loop_iterations(r.iterations, CHECK_EVERY, 1_000_000)
     return r, counts, wall, t, torch.cuda.max_memory_allocated(device)
+
+
+def agree_objectives(prefix, against, tag, got, want):
+    """The objectives ``got`` within rtol 1e-6 of ``want``."""
+    rel = float(((got - want).abs() / want.abs()).max())
+    say(f"{prefix} {tag}: objectives against {against} max rel diff "
+        f"{rel:.3e}")
+    assert rel <= 1e-6, (tag, rel)
 
 
 def check_counts(counts, t, bank: bool, label):
@@ -1553,15 +1814,15 @@ def phase_grid(device, timer):
     return recs, bank_counts, shrink_off
 
 
-def svc_grid_checks(Xtr, Y, gammas, results, device):
-    """Per (C, gamma) grid result: the drift of the carried G against
-    p - K alpha with the plain Gram, and the full-set KKT gap recomputed
-    from it (maxima over the lanes)."""
+def svc_grid_checks(Xtr, Y, gammas, results, device, Cs=GRID_CS):
+    """Per (C, gamma) grid result over ``Cs``: the drift of the carried G
+    against p - K alpha with the plain Gram, and the full-set KKT gap
+    recomputed from it (maxima over the lanes)."""
     from repro_torch.core import grid
     from repro_torch.core import qp
     Xt = torch.as_tensor(Xtr, dtype=torch.float64, device=device)
     D2 = grid.sqdist(Xt)
-    YC = Y[:, None, :] * torch.tensor(GRID_CS, dtype=torch.float64,
+    YC = Y[:, None, :] * torch.tensor(Cs, dtype=torch.float64,
                                       device=device)[None, :, None]
     L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
     drift, gap = {}, {}
@@ -1920,9 +2181,9 @@ def fit_svr(Xtr, ytr, Xte, yte, dtype, device, eps):
 
 
 def phase_svr(device):
-    """SVR(C=10, epsilon=0.1, gamma="scale") at full width, the 18-lane
-    e-SVR grid and OneClassSVM(nu=0.1), on slice 1's X (f64), then the SVR
-    in f32 against the f64 fit."""
+    """SVR(C=10, epsilon=0.1, gamma="scale") at full width, the C = 1 half
+    of the e-SVR grid and OneClassSVM(nu=0.1), on slice 1's X (f64), then
+    the SVR in f32 against the f64 fit."""
     from repro_torch.core import grid
     from repro_torch.core import qp
     from repro_torch.core.solver import SolverConfig
@@ -1937,6 +2198,9 @@ def phase_svr(device):
     reg, counts_all, ms_iter = fit_svr(Xtr, ytr, Xte, yte, torch.float64,
                                        device, eps)
     r = reg.fit_result_
+    svr_ref = dict(objective=r.objective, iterations=r.iterations.reshape(1),
+                   loop=loop_iterations(r.iterations, CHECK_EVERY,
+                                        reg.max_iter), ms_iter=ms_iter)
     q = qp.svr_qp(torch.tensor(ytr, dtype=torch.float64, device=device),
                   10.0, 0.1)
     drift, gap, asum = svr_checks(Xt, q.p, q.bounds.lower, q.bounds.upper,
@@ -1956,7 +2220,7 @@ def phase_svr(device):
     for src, precompute, on in (("rbf", None, H2_PASSES),
                                 ("bank", True, H2_BANK_PASSES)):
         rg, counts, wall, t, peak = fit_grid(
-            lambda: grid.solve_grid_svr(Xtr, ytr, SVR_CS, SVR_EPSILONS,
+            lambda: grid.solve_grid_svr(Xtr, ytr, SVR_GRID_CS, SVR_EPSILONS,
                                         gammas, cfg, precompute=precompute,
                                         device=device, dtype=torch.float64),
             device)
@@ -1967,9 +2231,9 @@ def phase_svr(device):
         for n in on:
             counts_all[n] = counts_all.get(n, 0) + counts[n]
         say(f"[svr] e-SVR grid {src} f64: lanes "
-            f"{tuple(rg.alpha.shape[:3])} = {SVR_B} of 2l={2 * N_TRAIN}; "
+            f"{tuple(rg.alpha.shape[:3])} of 2l={2 * N_TRAIN}; "
             f"gammas {[f'{g:.6g}' for g in gammas]}, epsilons "
-            f"{list(SVR_EPSILONS)}, Cs {list(SVR_CS)}; iterations per lane "
+            f"{list(SVR_EPSILONS)}, Cs {list(SVR_GRID_CS)}; iterations per lane "
             f"{rg.iterations.flatten().tolist()}; loop iterations {t}; "
             f"{wall:.3f} s = {wall / t * 1e3:.4f} ms/iteration; peak device "
             f"memory {peak / 1e9:.3f} GB; launches {counts}; converged "
@@ -1998,7 +2262,7 @@ def phase_svr(device):
     prof = SolverConfig(algorithm="pasmo", eps=eps, max_iter=PROFILE_ITERS)
     for src, precompute in (("rbf", None), ("bank", True)):
         profile_iterations(
-            lambda: grid.solve_grid_svr(Xtr, ytr, SVR_CS, SVR_EPSILONS,
+            lambda: grid.solve_grid_svr(Xtr, ytr, SVR_GRID_CS, SVR_EPSILONS,
                                         gammas, prof, precompute=precompute,
                                         device=device, dtype=torch.float64),
             f"e-SVR grid {src} f64 full width", grids[src]["ms_iter"])
@@ -2027,7 +2291,7 @@ def phase_svr(device):
     say(f"[svr] SVR f32 against f64: held-out predictions max diff "
         f"{diff:.3e}, objective rel diff {rel:.3e}")
     return ({n: counts_all[n] for n in H2_PASSES + H2_BANK_PASSES},
-            grids["rbf"])
+            grids["bank"], svr_ref)
 
 
 def svr_grid_checks(Xt, ytr, gammas, rg, device):
@@ -2036,8 +2300,10 @@ def svr_grid_checks(Xt, ytr, gammas, rg, device):
     from repro_torch.core import qp
     yt = torch.tensor(ytr, dtype=torch.float64, device=device)
     P = torch.stack([qp.svr_qp(yt, 1.0, e).p for e in SVR_EPSILONS])
-    Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower for c in SVR_CS])
-    Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper for c in SVR_CS])
+    Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower
+                      for c in SVR_GRID_CS])
+    Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper
+                      for c in SVR_GRID_CS])
     worst = [0.0, 0.0, 0.0]
     for g, gam in enumerate(gammas):
         res = svr_checks(Xt, P[:, None, :], Lg[None], Ug[None], rg.alpha[g],
@@ -2124,9 +2390,10 @@ def active_share(G, alpha, L, U):
 def phase_shrink(device, timer, grid_off, svr_off):
     """Slice 4 at full width: the 90-lane (C, gamma) grid of phase 6 with
     soft shrinking through the bank and through the rbf passes, the
-    compacted grid (hard shrinking, chunk = 96) through the bank, and the
-    18-lane e-SVR grid of phase 8 through the bank with soft shrinking;
-    objectives against phases 6 and 8's shrink-off results (not rerun)."""
+    compacted grid (hard shrinking, chunk = 96, the C = 0.5 lanes) through
+    the bank, and the e-SVR grid of phase 8 through the bank with soft
+    shrinking; objectives against phases 6 and 8's shrink-off results (not
+    rerun)."""
     from repro_torch.core import grid
     from repro_torch.core import multiclass as mc
     from repro_torch.core.solver import SolverConfig
@@ -2143,12 +2410,8 @@ def phase_shrink(device, timer, grid_off, svr_off):
         GRID_CS, dtype=torch.float64, device=device)[None, None, :, None]
     L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
     counts_all, recs = {}, {}
-
-    def objectives_agree(tag, got, want):
-        rel = float(((got - want).abs() / want.abs()).max())
-        say(f"[shrink] {tag}: objectives against the shrink-off run max "
-            f"rel diff {rel:.3e}")
-        assert rel <= 1e-6, (tag, rel)
+    objectives_agree = functools.partial(agree_objectives, "[shrink]",
+                                         "the shrink-off run")
 
     results = {}
     for src, precompute, on in (("bank", True, BANK_ACT),
@@ -2204,7 +2467,7 @@ def phase_shrink(device, timer, grid_off, svr_off):
     with ChunkProbe() as rounds:
         r, counts, wall, _, peak = fit_grid(
             lambda: grid.solve_grid_compacted(
-                Xtr, Y, GRID_CS, gammas, cfg, chunk=96, impl="auto",
+                Xtr, Y, COMPACT_CS, gammas, cfg, chunk=96, impl="auto",
                 precompute=True, shrinking=True, device=device,
                 dtype=torch.float64), device)
     check_only(counts, {BANK_ACT[0]: counts[BANK_ACT[0]],
@@ -2215,12 +2478,15 @@ def phase_shrink(device, timer, grid_off, svr_off):
     for n in BANK_ACT:
         counts_all[n] += counts[n]
     n_rounds, rows = len(rounds.rows), [int(m) for m in rounds.rows]
-    say(f"[shrink] compacted grid bank f64 (chunk=96, shrinking=True): "
+    off = {k: grid_off[k][:, :, :len(COMPACT_CS)]
+           for k in ("objective", "iterations")}
+    say(f"[shrink] compacted grid bank f64 (Cs {list(COMPACT_CS)}, "
+        f"chunk=96, shrinking=True): "
         f"rounds {n_rounds}; kept rows per round mean {np.mean(rows):.1f}, "
         f"min {min(rows)}, last {rows[-1]}; lane bucket per round mean "
         f"{np.mean(rounds.lanes):.2f}; iterations per lane max "
         f"{int(r.iterations.max())}, sum {int(r.iterations.sum())} "
-        f"(shrink-off grid: sum {int(grid_off['iterations'].sum())}); "
+        f"(shrink-off grid: sum {int(off['iterations'].sum())}); "
         f"{wall:.3f} s = {wall / n_rounds * 1e3:.3f} ms/round; host wall "
         f"in the driver's ranges (share of the run): "
         f"{rounds.split_text(wall)}; peak device memory "
@@ -2229,8 +2495,9 @@ def phase_shrink(device, timer, grid_off, svr_off):
         f"{r.converged.numel()}; max KKT gap "
         f"{float(r.kkt_gap.max()):.4e}")
     assert bool(r.converged.all()), "compacted grid"
-    objectives_agree("compacted grid", r.objective, grid_off["objective"])
-    drift, gap = svc_grid_checks(Xtr, Y, gammas, {"compacted": r}, device)
+    objectives_agree("compacted grid", r.objective, off["objective"])
+    drift, gap = svc_grid_checks(Xtr, Y, gammas, {"compacted": r}, device,
+                                 COMPACT_CS)
     say(f"[shrink] compacted grid |G - (p - K alpha)|_max "
         f"{drift['compacted']:.3e}; full-set KKT gap recomputed "
         f"{gap['compacted']:.4e}")
@@ -2243,8 +2510,9 @@ def phase_shrink(device, timer, grid_off, svr_off):
     yv = sinc_target(X, 7)[:N_TRAIN]
     sgammas = svr_off["gammas"]
     rg, counts, wall, t, peak = fit_grid(
-        lambda: grid.solve_grid_svr(Xtr, yv, SVR_CS, SVR_EPSILONS, sgammas,
-                                    cfg, precompute=True, shrinking=True,
+        lambda: grid.solve_grid_svr(Xtr, yv, SVR_GRID_CS, SVR_EPSILONS,
+                                    sgammas, cfg, precompute=True,
+                                    shrinking=True,
                                     device=device, dtype=torch.float64),
         device)
     check_only(counts, {BANK_ACT[0]: t, BANK_ACT[1]: t,
@@ -2254,16 +2522,18 @@ def phase_shrink(device, timer, grid_off, svr_off):
         counts_all[n] += counts[n]
     yt = torch.tensor(yv, dtype=torch.float64, device=device)
     P = torch.stack([qp.svr_qp(yt, 1.0, e).p for e in SVR_EPSILONS])
-    Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower for c in SVR_CS])
-    Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper for c in SVR_CS])
+    Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower
+                      for c in SVR_GRID_CS])
+    Ug = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.upper
+                      for c in SVR_GRID_CS])
     share = active_share(rg.G, rg.alpha, Lg[None, None], Ug[None, None])
     ms = wall / t * 1e3
     say(f"[shrink] e-SVR grid bank f64 shrinking=True: lanes "
         f"{tuple(rg.alpha.shape[:3])} of 2l={2 * N_TRAIN}; iterations per "
-        f"lane {rg.iterations.flatten().tolist()} (shrink off, rbf: "
+        f"lane {rg.iterations.flatten().tolist()} (shrink off: "
         f"{svr_off['iterations'].flatten().tolist()}); loop iterations {t} "
         f"(shrink off {svr_off['loop']}); {wall:.3f} s = {ms:.4f} "
-        f"ms/iteration (shrink off, rbf {svr_off['ms_iter']:.4f}); "
+        f"ms/iteration (shrink off {svr_off['ms_iter']:.4f}); "
         f"n_unshrink {rg.n_unshrink.flatten().tolist()}; final active share "
         f"{share:.4f}; peak device memory {peak / 1e9:.3f} GB; launches "
         f"{counts}; converged {int(rg.converged.sum())}/"
@@ -2278,12 +2548,258 @@ def phase_shrink(device, timer, grid_off, svr_off):
     assert worst[0] <= 1e-8 and worst[1] <= eps and worst[2] <= 1e-8, worst
     del rg
     profile_iterations(
-        lambda: grid.solve_grid_svr(Xtr, yv, SVR_CS, SVR_EPSILONS, sgammas,
-                                    prof, precompute=True, shrinking=True,
+        lambda: grid.solve_grid_svr(Xtr, yv, SVR_GRID_CS, SVR_EPSILONS,
+                                    sgammas, prof, precompute=True,
+                                    shrinking=True,
                                     device=device, dtype=torch.float64),
         "e-SVR grid bank f64 shrinking=True (one mask refresh inside)", ms,
         2 * PROFILE_ITERS)
     return counts_all
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the conjugate step at full width
+# ---------------------------------------------------------------------------
+
+CONJ_PASSES = ("rbf_update_wss_batched_conj", "update_wss_batched_rows_conj")
+
+
+def phase_conj(device, timer, svc_ref, grid_off, svr_ref):
+    """Slice 5 at full width, f64, ``algorithm="smo", step="conjugate"``:
+    phase 5's 10-lane SVC, phase 6's 90-lane grid through the bank, with
+    shrinking through the bank and through the rbf passes, phase 8's SVR
+    and one of its e-SVR grid's lanes through the bank with shrinking.
+    Each run: the exact launches of its conjugate pass B variant (and of
+    no other pass B), accepted conjugate steps on some lane, every lane
+    converged, G within 1e-8 of p - Q alpha, the full-set gap at most eps,
+    and the objectives within rtol 1e-6 of the same problems' PA-SMO
+    results of phases 5, 6 and 8 (reused, not rerun).  Returns the
+    launches per conjugate variant, keyed (source, H, act, B)."""
+    from repro_torch.core import grid
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core import qp
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.kernels import ref
+    from repro_torch.svm import SVC, SVR, data
+    X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    Xtr, ytr, Xte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:]
+    eps = 1e-3
+    cfg = SolverConfig(algorithm="smo", step="conjugate", eps=eps)
+    f64 = dict(device=device, dtype=torch.float64)
+    variants = {}
+
+    def run(tag, key, fit, on, pasmo):
+        """``fit()`` counted: exactly ``on`` ({name: launches}, None for
+        the loop iterations) ran."""
+        r, counts, wall, t, peak = fit_grid(fit, device)
+        want = {n: (t if c is None else c) for n, c in on.items()}
+        check_only(counts, want, f"conjugate {tag}")
+        variants[key] = variants.get(key, 0) + t
+        iters, acc = r.iterations.flatten(), r.n_planning.flatten()
+        say(f"[conj] {tag}: iterations per lane max {int(iters.max())} "
+            f"median {int(iters.median())}; accepted conjugate steps per "
+            f"lane max {int(acc.max())} median {int(acc.median())}, share "
+            f"{float(acc.sum()) / float(iters.sum()):.4f}; loop iterations "
+            f"{t} (PA-SMO: {pasmo['loop']}, max lane "
+            f"{int(pasmo['iterations'].max())}); {wall:.3f} s = "
+            f"{wall / t * 1e3:.4f} ms/iteration (PA-SMO "
+            f"{pasmo['ms_iter']:.4f}); peak device memory "
+            f"{peak / 1e9:.3f} GB; launches {counts}")
+        assert bool(r.converged.all()), f"conjugate {tag}"
+        assert float(r.kkt_gap.max()) <= eps, tag
+        assert int(acc.max()) > 0, f"conjugate {tag}: no accepted step"
+        return r, wall / t * 1e3
+
+    objectives_agree = functools.partial(agree_objectives, "[conj]",
+                                         "PA-SMO's")
+
+    # 1. phase 5's SVC: kernel 2's conjugate variant, H = 1, B = 10
+    clf = SVC(C=1.0, gamma="scale", algorithm="smo", step="conjugate",
+              eps=eps, **f64)
+    r, _ = run("SVC 10 lanes (rbf, H=1)", ("rbf", 1, False, K),
+               lambda: clf.fit(Xtr, ytr).fit_result_,
+               {"rbf_row_wss_batched": None, CONJ_PASSES[0]: None},
+               svc_ref)
+    df, counts, _ = counted(lambda: clf.decision_function(Xte))
+    check_only(counts, {"gram_block": counts["gram_block"]}, "predict")
+    assert counts["gram_block"] >= 1
+    pred = clf.classes_[torch.argmax(df, dim=-1).cpu().numpy()]
+    agree = float(np.mean(pred == svc_ref["pred"]))
+    objectives_agree("SVC", r.objective, svc_ref["objective"])
+    Y = mc.ovr_labels(mc.class_index(ytr)[1], K, torch.float64, device)
+    Xt = clf.X_
+    Kfull = ref.gram_cross(Xt, Xt, clf.gamma_)
+    G_exact = Y - r.alpha @ Kfull
+    del Kfull
+    drift = float((G_exact - r.G).abs().max())
+    gap = max(float(qp.kkt_gap(G_exact[b], r.alpha[b],
+                               qp.make_bounds(Y[b], 1.0))) for b in range(K))
+    say(f"[conj] SVC: held-out predictions equal to PA-SMO's "
+        f"{agree:.4f}; |G_carried - (p - K alpha)|_max = {drift:.3e}; KKT "
+        f"gap recomputed {gap:.4e}")
+    assert agree >= 0.99 and drift <= 1e-8 and gap <= eps, (agree, drift,
+                                                            gap)
+    del G_exact, r, clf
+
+    # 2-4. phase 6's grid: bank (kernel 5, H = 1), bank with shrinking
+    # (kernel 5 + act), rbf with shrinking (kernel 2 + act)
+    gammas = [1.0 / (D * float(Xtr.var())) * f for f in GRID_GAMMA_FACTORS]
+    results = {}
+    for tag, key, pre, shrinking, on in (
+            ("bank", ("bank", 1, False, GRID_B), True, False,
+             {"row_wss_batched_rows": None, CONJ_PASSES[1]: None}),
+            ("bank shrinking", ("bank", 1, True, GRID_B), True, True,
+             {"row_wss_batched_rows_act": None, CONJ_PASSES[1]: None}),
+            ("rbf shrinking", ("rbf", 1, True, GRID_B), False, True,
+             {"rbf_row_wss_batched_act": None, CONJ_PASSES[0]: None})):
+        if pre:
+            on["gram_block"] = len(GRID_GAMMA_FACTORS)
+        r, ms = run(f"grid {tag} 90 lanes", key, lambda: grid.solve_grid(
+            Xtr, Y, GRID_CS, gammas, cfg, impl="auto", precompute=pre,
+            shrinking=shrinking, **f64), on, grid_off)
+        objectives_agree(f"grid {tag}", r.objective, grid_off["objective"])
+        results[tag] = r
+        if tag == "bank":
+            ms_bank = ms
+    drift, gap = svc_grid_checks(Xtr, Y, gammas, results, device)
+    say(f"[conj] grid |G_carried - (p - K alpha)|_max {drift}; full-set KKT "
+        f"gap recomputed {gap}")
+    assert max(drift.values()) <= 1e-8 and max(gap.values()) <= eps
+    del results, r
+    profile_iterations(
+        lambda: grid.solve_grid(Xtr, Y, GRID_CS, gammas,
+                                SolverConfig(algorithm="smo",
+                                             step="conjugate", eps=eps,
+                                             max_iter=PROFILE_ITERS),
+                                impl="auto", precompute=True, **f64),
+        "grid bank f64 conjugate", ms_bank)
+
+    # 5. phase 8's SVR: kernel 2's conjugate variant, H = 2
+    yv = sinc_target(X, 7)[:N_TRAIN]
+    reg = SVR(C=10.0, epsilon=0.1, gamma="scale", algorithm="smo",
+              step="conjugate", eps=eps, **f64)
+    r, _ = run("SVR 1 lane of 2l (rbf, H=2)", ("rbf", 2, False, 1),
+               lambda: reg.fit(Xtr, yv).fit_result_,
+               {"rbf_row_wss_batched_h2": None, CONJ_PASSES[0]: None},
+               svr_ref)
+    objectives_agree("SVR", r.objective.reshape(1),
+                     svr_ref["objective"].reshape(1))
+    q = qp.svr_qp(torch.tensor(yv, **f64), 10.0, 0.1)
+    drift, gap, asum = svr_checks(reg.X_, q.p, q.bounds.lower,
+                                  q.bounds.upper, r.alpha, r.G, reg.gamma_)
+    say(f"[conj] SVR: |G_carried - (p - Q alpha)|_max = {drift:.3e}; KKT "
+        f"gap recomputed {gap:.4e}; |sum alpha| {asum:.3e}")
+    assert drift <= 1e-8 and gap <= eps and asum <= 1e-8, (drift, gap, asum)
+
+    # 6. the same e-SVR problem as one lane of the e-SVR grid through the
+    # bank with shrinking: kernel 5's conjugate variant, H = 2 + act
+    r, _ = run("e-SVR grid lane (bank, H=2, shrinking)", ("bank", 2, True, 1),
+               lambda: grid.solve_grid_svr(
+                   Xtr, yv, [10.0], [0.1], [reg.gamma_], cfg, precompute=True,
+                   shrinking=True, **f64),
+               {"row_wss_batched_rows_act": None, CONJ_PASSES[1]: None,
+                "gram_block": 1}, svr_ref)
+    objectives_agree("e-SVR grid lane", r.objective.reshape(1),
+                     svr_ref["objective"].reshape(1))
+    drift, gap, asum = svr_checks(reg.X_, q.p, q.bounds.lower,
+                                  q.bounds.upper, r.alpha.reshape(1, -1),
+                                  r.G.reshape(1, -1), reg.gamma_)
+    say(f"[conj] e-SVR grid lane: |G_carried - (p - Q alpha)|_max = "
+        f"{drift:.3e}; KKT gap recomputed {gap:.4e}; |sum alpha| "
+        f"{asum:.3e}; n_unshrink {r.n_unshrink.flatten().tolist()}")
+    assert drift <= 1e-8 and gap <= eps and asum <= 1e-8, (drift, gap, asum)
+    return variants
+
+
+def conj_kernel_times(device, timer):
+    """The eight conjugate variants of kernels 2 and 5, f64, at the shapes
+    phase 10 launches them (the two it does not launch, kernel 2's H = 2
+    with the mask and kernel 5's H = 2 without, at the e-SVR grid's
+    B = 18): device time of the variant, of the same kernel without the
+    direction and of the plain version, each cycling through copies of its
+    inputs (:func:`cold_copies`), beside the bound.  The direction adds
+    B l values read (dirv) and B l written (r) to the variant without it.
+    Returns {(source, H, act, B): record}."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import rbf_update_wss as pb
+    dtype = torch.float64
+    item = 8
+    l, d, bl = N_TRAIN, D, build.BLOCK_L
+    nb = -(-l // bl)
+    recs = {}
+    for src, H, masked, B in (("rbf", 1, False, K), ("rbf", 1, True, GRID_B),
+                              ("rbf", 2, False, 1), ("rbf", 2, True, SVR_B),
+                              ("bank", 1, False, GRID_B),
+                              ("bank", 1, True, GRID_B),
+                              ("bank", 2, True, 1),
+                              ("bank", 2, False, SVR_B)):
+        dup = H == 2
+        n = H * l
+        if src == "rbf":
+            _, b = (dup_state if dup else kernel_state)(l, d, B, 1, dtype,
+                                                        device)
+            keys, fn_c, fn_p = PASS_B_KEYS, pb.rbf_update_wss_batched_conj, \
+                ref.rbf_update_wss_batched_blocks
+            base_bytes = ((l * d + l + 4 * B * n + 2 * B * d + 4 * B) * item
+                          + B * n * item + B * nb * (2 * item + 4))
+            nops = 4 * B * l * d + 12 * B * n
+        else:
+            b = bank_state(l, B, 3 if B > 1 else 1, 1, dtype, device,
+                           dup=dup)[1]
+            keys, fn_c, fn_p = BANK_B, pb.update_wss_batched_rows_conj, \
+                ref.update_wss_batched_rows_blocks
+            base_bytes = ((2 * B * l + 5 * B * n + B) * item + 16 * B
+                          + B * nb * (2 * item + 4))
+            nops = 6 * B * n
+        if masked:
+            base_bytes += B * n
+        dirv, mu2 = conj_inputs(b, l, B, 1, device)
+        nbytes = base_bytes + 2 * B * l * item + B * item
+        nc = n_cold(nbytes)
+        copies = cold_copies(dict(b, dirv=dirv, mu2=mu2), nc,
+                             n if src == "bank" else None)
+        acts = [act_mask(B, n, (5, l - 3), c, device) if masked else None
+                for c in range(nc)]
+        args = [[c[k] for k in keys] for c in copies]
+        base = [c["dirv"] for c in copies]
+        mu2s = [c["mu2"] for c in copies]
+        # the rbf passes take X transposed, made once per copy as the row
+        # source makes it once per fit
+        xt = [dict(XT=c["X"].T.contiguous()) if src == "rbf" else {}
+              for c in copies]
+        kern = lambda c: fn_c(*args[c], base[c], mu2s[c], dup=dup,
+                              act=acts[c], **xt[c])
+        plain = lambda c: fn_p(*args[c], block_l=bl, dup=dup, act=acts[c],
+                               dirv=base[c], mu2=mu2s[c])
+        if masked:
+            nodir = (lambda c: (pb.rbf_update_wss_batched_act if src == "rbf"
+                                else pb.update_wss_batched_rows_act)(
+                *args[c], acts[c], dup=dup, **xt[c]))
+        elif src == "rbf":
+            nodir = (lambda c: (pb.rbf_update_wss_batched_h2 if dup
+                                else pb.rbf_update_wss_batched)(*args[c],
+                                                                **xt[c]))
+        else:
+            nodir = (lambda c: (pb.update_wss_batched_rows_h2 if dup
+                                else pb.update_wss_batched_rows)(*args[c]))
+        t = {}
+        for rnd in range(2):
+            for k, fn, reps in (("ms", kern, 100), ("nodir_ms", nodir, 100),
+                                ("plain_ms", plain, 10)):
+                v = timer.ms(cycling(fn, nc), reps)
+                t[k] = v if rnd == 0 else min(t[k], v)
+        bms, by = bound_ms(nbytes, nops + 2 * B * n, dtype)
+        nodir_bms = bound_ms(base_bytes, nops, dtype)[0]
+        say(f"[time] conjugate pass B {src} H={H}{' act' if masked else ''} "
+            f"B={B} f64: kernel {t['ms']:.5f} ms, without the direction "
+            f"{t['nodir_ms']:.5f} ms (bound {nodir_bms:.5f}), plain "
+            f"{t['plain_ms']:.5f} ms, bound {bms:.5f} ms by {by} "
+            f"({nbytes / 1e6:.3f} MB; cycling through {nc} copies)")
+        recs[(src, H, masked, B)] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                                         bound_ms=bms, bound_by=by)
+        del b, copies, args, base, mu2s, acts, xt
+    return recs
 
 
 def cold_copies(state: dict, n: int, index_mod: int | None = None):
@@ -2444,7 +2960,7 @@ def main() -> int:
     say(f"[time] kernel checks done at {time.perf_counter() - t_start:.1f} s")
     phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
-    recs, counts, lane0 = phase_full(device, timer)
+    recs, counts, lane0, svc_ref = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
     grid_recs, bank_counts, grid_off = phase_grid(device, timer)
     recs.update(grid_recs)
@@ -2453,12 +2969,25 @@ def main() -> int:
     counts.update(phase_single(device, timer, lane0))
     say(f"[time] single-lane phase done at "
         f"{time.perf_counter() - t_start:.1f} s")
-    svr_counts, svr_off = phase_svr(device)
+    svr_counts, svr_off, svr_ref = phase_svr(device)
     counts.update(svr_counts)
     recs.update(slice3_kernel_times(device, timer))
     say(f"[time] slice 3 phases done at {time.perf_counter() - t_start:.1f} s")
     counts.update(phase_shrink(device, timer, grid_off, svr_off))
     recs.update(slice4_kernel_times(device, timer))
+    say(f"[time] slice 4 phases done at {time.perf_counter() - t_start:.1f} s")
+    variants = phase_conj(device, timer, svc_ref, grid_off, svr_ref)
+    conj_recs = conj_kernel_times(device, timer)
+    for name in CONJ_PASSES:
+        # the record of each conjugate wrapper: its variant launched most
+        # on the main path
+        src = "rbf" if name == CONJ_PASSES[0] else "bank"
+        mine = {k: n for k, n in variants.items() if k[0] == src}
+        counts[name] = sum(mine.values())
+        recs[name] = conj_recs[max(mine, key=mine.get)]
+        say(f"[conj] {name}: launches by (source, H, act, B) {mine}; the "
+            f"record's times are those of {max(mine, key=mine.get)}")
+    say(f"[time] slice 5 phase done at {time.perf_counter() - t_start:.1f} s")
     out = []
     for name, (src, replaces) in SOURCES.items():
         r = recs[name]

@@ -24,6 +24,11 @@ not change.  :func:`solve_grid_compacted` runs the grid in chunks and
 compacts lanes, and with ``shrinking=True`` rows, between them
 (:func:`~repro_torch.core.solver_fused.solve_fused_chunked_qp`).
 
+``cfg.step == "conjugate"`` (with ``cfg.algorithm == "smo"``) runs every
+driver's lanes with the Conjugate-SMO step (the conjugate variants of the
+pass B kernels on the card); in :func:`solve_grid_compacted` each chunk
+starts a fresh direction, as the reference's chunk seam does.
+
 The fused engine does not track the per-step counters ``n_free`` /
 ``n_clipped`` / ``n_reverted``: they carry the ``UNTRACKED`` (-1)
 sentinel, never zeros.  ``n_free_sv``, the free support vectors at the

@@ -48,9 +48,24 @@ on the same buffers, so it changes no bit of the result.  The host knows
 ``t`` and ends a chunk that holds a refresh iteration on one, so two
 graphs serve any period.
 
-The port covers the plain step, ``algorithm`` in ``{smo, pasmo}``, both
-row sources, the doubled operator, warm starts and shrinking; telemetry
-and the conjugate step are later slices.
+``cfg.step == "conjugate"`` (with ``algorithm="smo"``) runs the
+Conjugate-SMO step in the batched loop: each iteration solves the exact
+2x2 subproblem on the current pair's direction and the previous one's,
+whose Q-product ``u`` pass B returns for free as its row difference
+``r = k_i - k_j``.  ``u`` is carried at base width (B, l): the doubled
+operator's direction is its base row tiled.  The step is accepted only
+with a valid carried direction, a safely positive definite minor, all
+four touched coordinates strictly interior and a 2-D gain at least the
+1-D one; otherwise the lane takes the plain clipped step.  The direction
+resets on a clipped step, a mask refresh and an unshrink, and at the
+start of every call (so at every chunk seam of
+:func:`solve_fused_chunked_qp`).  Accepted steps count in
+``n_planning``.  The single-lane :func:`solve_fused`
+refuses the mode, as the reference does.
+
+The port covers the plain and the conjugate step, ``algorithm`` in
+``{smo, pasmo}``, both row sources, the doubled operator, warm starts and
+shrinking; telemetry is a later slice.
 """
 
 from __future__ import annotations
@@ -193,6 +208,10 @@ class _BatchState(NamedTuple):
     n_planning: torch.Tensor     # (B,) int32
     act: torch.Tensor            # (B, n) bool active set; (B, 1) unused
     n_unshrink: torch.Tensor     # (B,) int32
+    u: torch.Tensor              # (B, l) conjugate direction Q (e_pi -
+                                 # e_pj), its base row (tiled over the
+                                 # halves); (B, 1) unused (plain step)
+    ok: torch.Tensor             # (B,) bool the direction is valid
 
 
 def _check_config(cfg: SolverConfig) -> None:
@@ -206,10 +225,6 @@ def _check_config(cfg: SolverConfig) -> None:
         raise ValueError("the fused passes hardcode WSS2 selection")
     if cfg.record_trace or cfg.record_steps:
         raise ValueError("the fused solver does not record traces/steps")
-    if cfg.step != "plain":
-        raise NotImplementedError(
-            "step='conjugate' in the port is a later slice (ROADMAP queue "
-            "1, step 8)")
 
 
 def _check_cadence(check_every: int) -> None:
@@ -240,6 +255,9 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
     many of them had a true flag (read once, after the loop).
     """
     _check_config(cfg)
+    if cfg.step != "plain":
+        raise ValueError("step='conjugate' is a lane-batched mode "
+                         "(solve_fused_batched_qp)")
     _check_cadence(check_every)
     dev = resolve_device(device)
     if dtype is None and torch.is_tensor(y) and y.is_floating_point():
@@ -393,7 +411,7 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
                                   s.prev_free),
             prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
             n_planning=s.n_planning + (do_plan & active).to(torch.int32),
-            act=s.act, n_unshrink=s.n_unshrink)
+            act=s.act, n_unshrink=s.n_unshrink, u=s.u, ok=s.ok)
 
     # ---- init: alpha = 0, G = y ------------------------------------------
     alpha0 = torch.zeros_like(y)
@@ -406,7 +424,8 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
     s = _BatchState(alpha=alpha0, G=y, i=i0, g_i=g_i0, gap=gap0, iters=z,
                     done=gap0 <= eps, pi=z, pj=z, qi=z, qj=z, n_hist=z,
                     p_smo=~no, prev_free=no, prev_ratio_ok=~no,
-                    n_planning=z, act=~no[:, None], n_unshrink=z)
+                    n_planning=z, act=~no[:, None], n_unshrink=z,
+                    u=torch.zeros_like(y)[:1, None], ok=no)
 
     s, t = _drive(body, s, cfg.max_iter, check_every,
                   impl == "cuda" and y.is_cuda)
@@ -444,7 +463,8 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     ``gram_idx`` (B,) also come as a pair: with them the passes read their
     rows from the shared (n_stack, l, l) base Gram bank (lanes sharing a
     gamma share an entry) instead of recomputing them from ``X``.
-    ``shrinking=True`` turns on soft shrinking (module notes).
+    ``shrinking=True`` turns on soft shrinking, ``cfg.step="conjugate"``
+    the Conjugate-SMO step (module notes).
 
     The loop reads ``any(~done)`` every ``check_every`` iterations; the
     result does not depend on it.  Returns a :class:`FusedResult` whose
@@ -465,6 +485,7 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     impl = ops.resolve_impl(impl, device)
     eps, eta = cfg.eps, cfg.eta
     planning = cfg.algorithm == "pasmo"
+    conjugate = cfg.step == "conjugate"
     period = cfg.shrink_every if cfg.shrink_every > 0 else DEFAULT_SHRINK_EVERY
     if gram is None:
         src = row_source.rbf_source(X, gamma, B, dup=doubled)
@@ -476,6 +497,7 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
                              f"{B} lanes of {n} coordinates")
     lanes = torch.arange(B, device=device)
     lane_base = lanes * n
+    base_l = n // H
     no_lanes = torch.zeros((B,), dtype=torch.bool, device=device)
 
     def take(M, idx):
@@ -491,8 +513,12 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
         act = s.act if shrinking else None
 
         # ---- gathers at the historic indices, stacked (k, B) -------------
-        hist = (torch.stack([s.i, s.qi, s.qj, s.pi, s.pj]) if planning
-                else s.i[None])
+        if planning:
+            hist = torch.stack([s.i, s.qi, s.qj, s.pi, s.pj])
+        elif conjugate:
+            hist = torch.stack([s.i, s.pi, s.pj])
+        else:
+            hist = s.i[None]
         A, Gh, Lh, Uh = (take(alpha, hist), take(G, hist), take(L, hist),
                          take(U, hist))
         a_i, L_i, U_i = A[0], Lh[0], Uh[0]
@@ -575,21 +601,74 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
                 do_plan, (ratio >= 1.0 - eta) & (ratio <= 1.0 + eta),
                 s.prev_ratio_ok)
 
+        if conjugate:
+            # ---- Conjugate-SMO 2x2 step (O(B), no extra kernel rows) ------
+            # directions v1 = e_i - e_j and v2 = e_pi - e_pj; Q v2 is the
+            # carried u, so every restriction term is a per-lane gather (a
+            # doubled coordinate reads its base column)
+            a_pi, G_pi, L_pi, U_pi = A[1], Gh[1], Lh[1], Uh[1]
+            a_pj, G_pj, L_pj, U_pj = A[2], Gh[2], Lh[2], Uh[2]
+            four = torch.stack([i_sel, j_sel, s.pi, s.pj])
+            col = four.long() % base_l if doubled else four.long()
+            uh = s.u.take(lanes * base_l + col)
+            w2 = G_pi - G_pj
+            terms = step_mod.PlanningTerms(w1=lw, w2=w2, Q11=q11,
+                                           Q22=uh[2] - uh[3],
+                                           Q12=uh[0] - uh[1])
+            mu1c, mu2c, okdet = step_mod.conjugate_step(terms)
+            # the four touched coordinates' state before the step, and
+            # each one's net displacement under m1 v1 + m2 v2 (indicator
+            # arithmetic: the pairs may overlap)
+            a4 = torch.stack([a_isel, a_jsel, a_pi, a_pj])
+            L4 = torch.stack([L_isel, L_jsel, L_pi, L_pj])
+            U4 = torch.stack([U_isel, U_jsel, U_pi, U_pj])
+
+            def moved(m1, m2):
+                return (m1 * ((four == i_sel).to(dtype)
+                              - (four == j_sel).to(dtype))
+                        + m2 * ((four == s.pi).to(dtype)
+                                - (four == s.pj).to(dtype)))
+
+            a_try = a4 + moved(mu1c, mu2c)
+            inter = ((L4 < a_try) & (a_try < U4)).all(dim=0)
+            # the exact 2-D gain dominates the 1-D Newton gain for a PD
+            # minor: the comparison guards near-degenerate numerics only
+            g2 = 0.5 * (lw * mu1c + w2 * mu2c)
+            g1 = step_mod.gain_newton(lw, q11)
+            do_plan = (s.ok & (s.n_hist >= 1) & okdet & inter
+                       & (g2 + TAU >= g1))
+            mu_plan = torch.where(do_plan, mu1c, mu_smo)
+
         # lane freeze: converged lanes take a zero step, so pass B leaves
         # their G bitwise unchanged and alpha gains exactly 0.  The isfinite
         # guard also freezes a lane for one repair iteration when an
-        # unshrink left it with a -inf g_i (an empty masked I_up).  Both
-        # working-set coordinates update through one accumulating scatter,
-        # in place on the carried alpha.
-        mu = torch.where(active & torch.isfinite(lw),
-                         torch.where(do_plan, mu_plan, mu_smo), 0.0)
-        alpha.view(-1).index_add_(
-            0, torch.cat([lane_base + i_sel.long(), lane_base + j_sel.long()]),
-            torch.cat([mu, -mu]))
+        # unshrink left it with a -inf g_i (an empty masked I_up).
+        live = active & torch.isfinite(lw)
+        mu = torch.where(live, torch.where(do_plan, mu_plan, mu_smo), 0.0)
+        conj_kw = {}
+        if conjugate:
+            # the second direction's step, 0 on rejected and frozen lanes.
+            # Each touched coordinate gets its net displacement, summed in
+            # a fixed order, through a plain scatter: coordinates that
+            # repeat receive equal values, so the update is deterministic
+            # on the card (an accumulating scatter runs atomics there)
+            mu2v = torch.where(live & do_plan, mu2c, 0.0)
+            alpha.view(-1).index_put_(
+                ((lane_base + four.long()).reshape(-1),),
+                (a4 + moved(mu, mu2v)).reshape(-1))
+            conj_kw = dict(dirv=s.u, mu2=mu2v)
+        else:
+            # both working-set coordinates through one accumulating
+            # scatter, in place on the carried alpha
+            alpha.view(-1).index_add_(
+                0, torch.cat([lane_base + i_sel.long(),
+                              lane_base + j_sel.long()]),
+                torch.cat([mu, -mu]))
 
         # ---- pass B: k_i/k_j + update + next i + gap -----------------------
-        G_new, i_next, g_i_next, g_dn = ops.source_update_wss(
-            src, G, alpha, L, U, i_sel, j_sel, mu, impl=impl, act=act)
+        out = ops.source_update_wss(src, G, alpha, L, U, i_sel, j_sel, mu,
+                                    impl=impl, act=act, **conj_kw)
+        G_new, i_next, g_i_next, g_dn = out[:4]
         gap_new = qp_mod.finite_gap(g_i_next - g_dn)
         if shrinking:
             # a lane is done only when its mask was full at the scan that
@@ -607,6 +686,16 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
         else:
             done = s.done | (gap_new <= eps)
             act_new, n_unshrink = s.act, s.n_unshrink
+        u_new, ok_new = s.u, s.ok
+        if conjugate:
+            # the next direction is pass B's row difference; it is valid
+            # after an accepted or a free step, and resets on a clipped
+            # step, a mask refresh and an unshrink
+            u_new = torch.where(active[:, None], out[4], s.u)
+            c_ok = do_plan | free_smo
+            if shrinking:
+                c_ok = torch.zeros_like(c_ok) if refresh else c_ok & ~unshrink
+            ok_new = torch.where(active, c_ok, s.ok)
         return _BatchState(
             alpha=alpha, G=G_new,
             i=torch.where(active, i_next, s.i),
@@ -625,7 +714,7 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
                                   s.prev_free),
             prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
             n_planning=s.n_planning + (do_plan & active).to(torch.int32),
-            act=act_new, n_unshrink=n_unshrink)
+            act=act_new, n_unshrink=n_unshrink, u=u_new, ok=ok_new)
 
     # ---- init: alpha = 0, G = P unless warm-started ------------------------
     if alpha0 is None:
@@ -646,11 +735,14 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     zB = torch.zeros((B,), dtype=torch.int32, device=device)
     act0 = torch.ones((B, n) if shrinking else (B, 1), dtype=torch.bool,
                       device=device)
+    # the conjugate carry starts empty in every call (a chunk seam too)
+    u0 = torch.zeros((B, base_l) if conjugate else (B, 1), dtype=dtype,
+                     device=device)
     s = _BatchState(alpha=alpha0, G=G0, i=i0, g_i=g_i0, gap=gap0, iters=zB,
                     done=gap0 <= eps, pi=zB, pj=zB, qi=zB, qj=zB, n_hist=zB,
                     p_smo=~no_lanes, prev_free=no_lanes,
                     prev_ratio_ok=~no_lanes, n_planning=zB, act=act0,
-                    n_unshrink=zB)
+                    n_unshrink=zB, u=u0, ok=no_lanes)
 
     s, _ = _drive(body, s, cfg.max_iter, check_every,
                   impl == "cuda" and P.is_cuda, period if shrinking else 0)

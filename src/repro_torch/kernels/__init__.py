@@ -28,6 +28,10 @@ WRAPPERS = {
     "rbf_update_wss_batched_act": rbf_update_wss.rbf_update_wss_batched_act,
     "row_wss_batched_rows_act": rbf_row_wss.row_wss_batched_rows_act,
     "update_wss_batched_rows_act": rbf_update_wss.update_wss_batched_rows_act,
+    "rbf_update_wss_batched_conj":
+        rbf_update_wss.rbf_update_wss_batched_conj,
+    "update_wss_batched_rows_conj":
+        rbf_update_wss.update_wss_batched_rows_conj,
 }
 
 

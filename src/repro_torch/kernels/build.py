@@ -41,9 +41,10 @@ SIGNATURES = {
     # XT sqn G alpha L U XQ sqq a_i L_i U_i g_i i_idx use_exact gammas
     # act bmax barg | B H l d device | stream  (act may be NULL)
     "rbf_row_wss_batched": [_P] * 18 + [_I] * 5 + [_P],
-    # XT sqn G alpha L U XQi sqqi XQj sqqj mu gammas act G_out bmax barg
-    # bmin | B H l d device | stream
-    "rbf_update_wss_batched": [_P] * 17 + [_I] * 5 + [_P],
+    # XT sqn G alpha L U XQi sqqi XQj sqqj mu gammas act dirv mu2 G_out
+    # bmax barg bmin r_out | B H l d device | stream  (act, and dirv with
+    # mu2 and r_out, may be NULL)
+    "rbf_update_wss_batched": [_P] * 20 + [_I] * 5 + [_P],
     # XT sqn G alpha L U xq sqq a_i L_i U_i g_i i_idx use_exact gamma run
     # k_out bmax barg | l d device | stream
     "rbf_row_wss": [_P] * 19 + [_I] * 3 + [_P],
@@ -53,9 +54,9 @@ SIGNATURES = {
     # gram gram_idx G alpha L U a_i L_i U_i g_i i_idx use_exact act bmax
     # barg | B H l device | stream
     "row_wss_batched_rows": [_P] * 15 + [_I] * 4 + [_P],
-    # gram gram_idx i_idx j_idx G alpha_new L U mu act G_out bmax barg bmin
-    # | B H l device | stream
-    "update_wss_batched_rows": [_P] * 14 + [_I] * 4 + [_P],
+    # gram gram_idx i_idx j_idx G alpha_new L U mu act dirv mu2 G_out bmax
+    # barg bmin r_out | B H l device | stream
+    "update_wss_batched_rows": [_P] * 17 + [_I] * 4 + [_P],
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }

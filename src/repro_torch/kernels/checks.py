@@ -58,6 +58,20 @@ def act_ptr(act, G):
     return act.data_ptr()
 
 
+def dirv_ptr(dirv, mu2, G, H: int):
+    """Pointers to the conjugate direction of the lane state ``G`` of ``H``
+    halves, checked like the state: ``dirv`` a (B, l) row at base width
+    and ``mu2`` (B,); (None, None) without them."""
+    if dirv is None:
+        if mu2 is not None:
+            raise ValueError("mu2 needs the direction dirv")
+        return None, None
+    B, n = G.shape
+    check_state("dirv", dirv, (B, n // H), G.dtype, G.device)
+    check_lane_scalars(B, G.device, G.dtype, mu2=mu2)
+    return dirv.data_ptr(), mu2.data_ptr()
+
+
 # gridDim.y of the bank passes holds one lane per block row.
 MAX_BANK_LANES = 65535
 

@@ -2,7 +2,7 @@
 // read both bank rows k_i and k_j of the chosen working sets, update the
 // gradient G_new = G - mu (k_i - k_j), and reduce the next-i first-max over
 // alpha < U and the gap's other end, min G over alpha > L, per block.  One
-// kernel, four variants:
+// kernel, these variants:
 //
 //  * one state half (H = 1): the (C, gamma) and one-class grids;
 //  * two state halves (H = 2): the doubled e-SVR operator.  Lane b reads
@@ -13,32 +13,40 @@
 //  * either of those with an active-set mask (ACT, soft shrinking): a
 //    (B, H l) bool mask, read per coordinate, restricts the next-i scan
 //    and the min to the active coordinates.  The update of G is never
-//    masked, so G stays exact on every coordinate.
+//    masked, so G stays exact on every coordinate;
+//  * any of those four with the Conjugate-SMO direction (CONJ): a (B, l)
+//    base-width row dirv, the previous direction's Q-product, and a
+//    per-lane mu2 add G_new -= mu2 dirv after the mu update, and the base
+//    row difference r = k_i - k_j, the next direction, is written as a
+//    (B, l) output.  With H = 2 the direction row is the base row tiled,
+//    so one base value of dirv serves both halves.
 //
 // Replaces: src/repro/kernels/rbf_update_wss.py,
 // update_wss_batched_rows_pallas (_kernel_batched_rows +
 // _update_from_rows): H = 1 and H = 2, with and without the active-set
-// mask; no conjugate direction.
+// mask, with and without the conjugate direction (dirv/mu2/r).
 //
 // What bounds it on an H100: bytes.  Per launch it reads two bank rows (l
 // values each, whatever H) and four (B, H l) state rows and writes one,
-// plus B H l mask bytes with ACT, with a handful of operations per value.
+// plus B H l mask bytes with ACT, and B l values read (dirv) and B l
+// written (r) with CONJ, with a handful of operations per value.
 //
 // Design: as bank pass A (row_wss_rows.cu).  The Pallas kernel takes KRi
 // and KRj pre-gathered; here each lane reads rows i and j of its bank
 // entry in place, which saves the gather launch and 4 B l values of
 // traffic per iteration.  Lanes go along gridDim.y, one thread owns one
-// base column.  G is written out of place; a lane with mu == 0 writes its
-// G back bitwise unchanged (G - 0 * r == G), which is how the solver
-// freezes converged lanes.  Global indices are h l + j, first-max a total
-// order on (value, index); after hard compaction l is the bucketed row
-// count.  Offsets into the bank are size_t.  The cross-block reductions
-// stay in PyTorch (repro_torch/kernels/ops.py).
+// base column.  G is written out of place; a lane with mu == 0 (and
+// mu2 == 0) writes its G back bitwise unchanged (G - 0 * r - 0 * dirv ==
+// G for finite dirv), which is how the solver freezes converged lanes.
+// Global indices are h l + j, first-max a total order on (value, index);
+// after hard compaction l is the bucketed row count.  Offsets into the
+// bank are size_t.  The cross-block reductions stay in PyTorch
+// (repro_torch/kernels/ops.py).
 #include "common.cuh"
 
 namespace repro {
 
-template <typename T, int H, bool ACT>
+template <typename T, int H, bool ACT, bool CONJ>
 __global__ void __launch_bounds__(kBlockL)
 update_wss_rows_kernel(const T* __restrict__ gram,
                        const long long* __restrict__ gram_idx,
@@ -47,9 +55,11 @@ update_wss_rows_kernel(const T* __restrict__ gram,
                        const T* __restrict__ G, const T* __restrict__ alpha,
                        const T* __restrict__ L, const T* __restrict__ U,
                        const T* __restrict__ mu,
-                       const bool* __restrict__ act, T* __restrict__ G_out,
+                       const bool* __restrict__ act,
+                       const T* __restrict__ dirv,
+                       const T* __restrict__ mu2, T* __restrict__ G_out,
                        T* __restrict__ bmax, int* __restrict__ barg,
-                       T* __restrict__ bmin, int l) {
+                       T* __restrict__ bmin, T* __restrict__ r_out, int l) {
   __shared__ T red_v[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ T red_m[kWarps];
@@ -70,11 +80,19 @@ update_wss_rows_kernel(const T* __restrict__ gram,
     const size_t entry = (size_t)gram_idx[lane] * l;
     const T ki = gram[(entry + ri) * l + j];
     const T kj = gram[(entry + rj) * l + j];
+    const T r = ki - kj;
     const T mul = mu[lane];
+    T dv = T(0), m2 = T(0);
+    if (CONJ) {
+      dv = dirv[(size_t)lane * l + j];
+      m2 = mu2[lane];
+      r_out[(size_t)lane * l + j] = r;
+    }
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       const size_t o = ((size_t)lane * H + h) * l + j;
-      const T g = G[o] - mul * (ki - kj);
+      T g = G[o] - mul * r;
+      if (CONJ) g = g - m2 * dv;
       G_out[o] = g;
       const T al = alpha[o];
       const bool in_set = !ACT || act[o];
@@ -103,26 +121,35 @@ update_wss_rows_kernel(const T* __restrict__ gram,
   }
 }
 
-// act == nullptr selects the variants without the mask.
+// act == nullptr selects the variants without the mask, dirv == nullptr
+// those without the conjugate direction (mu2 and r_out are then unused).
 template <typename T>
 int update_wss_rows(const T* gram, const long long* gram_idx,
                     const int* i_idx, const int* j_idx, const T* G,
                     const T* alpha, const T* L, const T* U, const T* mu,
-                    const bool* act, T* G_out, T* bmax, int* barg, T* bmin,
-                    int B, int H, int l, int device, void* stream) {
+                    const bool* act, const T* dirv, const T* mu2, T* G_out,
+                    T* bmax, int* barg, T* bmin, T* r_out, int B, int H,
+                    int l, int device, void* stream) {
   if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
+  if (dirv != nullptr && (mu2 == nullptr || r_out == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_blocks(l), B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(HH, A)                                                \
-  update_wss_rows_kernel<T, HH, A><<<grid, kBlockL, 0, s>>>(               \
-      gram, gram_idx, i_idx, j_idx, G, alpha, L, U, mu, act, G_out, bmax,  \
-      barg, bmin, l)
-  if (H == 1 && act == nullptr) REPRO_LAUNCH(1, false);
-  else if (H == 1) REPRO_LAUNCH(1, true);
-  else if (act == nullptr) REPRO_LAUNCH(2, false);
-  else REPRO_LAUNCH(2, true);
+#define REPRO_LAUNCH(HH, A, C)                                             \
+  update_wss_rows_kernel<T, HH, A, C><<<grid, kBlockL, 0, s>>>(            \
+      gram, gram_idx, i_idx, j_idx, G, alpha, L, U, mu, act, dirv, mu2,    \
+      G_out, bmax, barg, bmin, r_out, l)
+#define REPRO_MASKED(HH, C)                                                \
+  if (act == nullptr) REPRO_LAUNCH(HH, false, C);                          \
+  else REPRO_LAUNCH(HH, true, C)
+  const bool conj = dirv != nullptr;
+  if (H == 1 && !conj) { REPRO_MASKED(1, false); }
+  else if (H == 1) { REPRO_MASKED(1, true); }
+  else if (!conj) { REPRO_MASKED(2, false); }
+  else { REPRO_MASKED(2, true); }
+#undef REPRO_MASKED
 #undef REPRO_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -136,12 +163,14 @@ int update_wss_batched_rows_f32(const float* gram, const long long* gram_idx,
                                 const float* G, const float* alpha,
                                 const float* L, const float* U,
                                 const float* mu, const bool* act,
+                                const float* dirv, const float* mu2,
                                 float* G_out, float* bmax, int* barg,
-                                float* bmin, int B, int H, int l, int device,
-                                void* stream) {
+                                float* bmin, float* r_out, int B, int H,
+                                int l, int device, void* stream) {
   return repro::update_wss_rows<float>(gram, gram_idx, i_idx, j_idx, G,
-                                       alpha, L, U, mu, act, G_out, bmax,
-                                       barg, bmin, B, H, l, device, stream);
+                                       alpha, L, U, mu, act, dirv, mu2,
+                                       G_out, bmax, barg, bmin, r_out, B, H,
+                                       l, device, stream);
 }
 
 int update_wss_batched_rows_f64(const double* gram,
@@ -149,12 +178,15 @@ int update_wss_batched_rows_f64(const double* gram,
                                 const int* j_idx, const double* G,
                                 const double* alpha, const double* L,
                                 const double* U, const double* mu,
-                                const bool* act, double* G_out, double* bmax,
-                                int* barg, double* bmin, int B, int H, int l,
+                                const bool* act, const double* dirv,
+                                const double* mu2, double* G_out,
+                                double* bmax, int* barg, double* bmin,
+                                double* r_out, int B, int H, int l,
                                 int device, void* stream) {
   return repro::update_wss_rows<double>(gram, gram_idx, i_idx, j_idx, G,
-                                        alpha, L, U, mu, act, G_out, bmax,
-                                        barg, bmin, B, H, l, device, stream);
+                                        alpha, L, U, mu, act, dirv, mu2,
+                                        G_out, bmax, barg, bmin, r_out, B, H,
+                                        l, device, stream);
 }
 
 }  // extern "C"

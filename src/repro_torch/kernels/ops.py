@@ -21,7 +21,13 @@ the H = 2 variants of pass A and pass B.  ``act``, an optional (B, n) bool
 active-set mask (soft shrinking), restricts pass A's j-candidates and pass
 B's scans, never pass B's update of G: on the card the ``*_act`` variants,
 which take the mask in place (the reference stacks it into the data dtype;
-the selection is the same).
+the selection is the same).  ``dirv``/``mu2`` engage pass B's
+Conjugate-SMO direction: ``dirv`` (B, l) is the previous direction's
+Q-product, ``mu2`` (B,) its step; the update gains ``- mu2 dirv`` and the
+pass returns a fifth output, the next direction ``r = k_i - k_j``.  Both
+are at base width: the doubled operator's direction is a tiled base row,
+which the reference carries tiled (B, 2l); one base value serves both
+halves, and on the card the ``*_conj`` variants launch.
 
 Unlike the reference's rows variants, which take rows gathered from the
 bank, :func:`row_wss_batched_rows` and :func:`update_wss_batched_rows`
@@ -127,26 +133,39 @@ def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
     return _first_max(bmax, barg)
 
 
+def _pass_b_out(out):
+    """The dispatched pass B result from a kernel's per-block outputs:
+    (G_new, i_next, g_i_next, g_dn), and ``r`` when the kernel returned
+    one."""
+    G_new, bmax, barg, bmin = out[:4]
+    i_next, g_i_next = _first_max(bmax, barg)
+    return (G_new, i_next, g_i_next, bmin.amin(dim=1)) + tuple(out[4:])
+
+
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
                            mu, gammas, *, impl: str = "auto", XT=None,
-                           dup: bool = False, act=None):
-    """Batched pass B -> (G_new (B, n), i_next (B,) int32, g_i_next, g_dn).
+                           dup: bool = False, act=None, dirv=None, mu2=None):
+    """Batched pass B -> (G_new (B, n), i_next (B,) int32, g_i_next, g_dn),
+    and ``r`` (B, l) fifth with the direction ``dirv`` (B, l)/``mu2``.
 
-    A lane with ``mu == 0`` leaves G bitwise unchanged."""
+    A lane with ``mu == 0`` (and ``mu2 == 0``) leaves G bitwise
+    unchanged."""
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_update_wss_batched(X, sqn, G, alpha_new, L, U,
                                               XQi, sqqi, XQj, sqqj, mu,
-                                              gammas, dup=dup, act=act)
+                                              gammas, dup=dup, act=act,
+                                              dirv=dirv, mu2=mu2)
     args = (X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas)
-    if act is not None:
+    if dirv is not None:
+        out = pass_b.rbf_update_wss_batched_conj(*args, dirv, mu2, XT=XT,
+                                                 dup=dup, act=act)
+    elif act is not None:
         out = pass_b.rbf_update_wss_batched_act(*args, act, XT=XT, dup=dup)
     elif dup:
         out = pass_b.rbf_update_wss_batched_h2(*args, XT=XT)
     else:
         out = pass_b.rbf_update_wss_batched(*args, XT=XT)
-    G_new, bmax, barg, bmin = out
-    i_next, g_i_next = _first_max(bmax, barg)
-    return G_new, i_next, g_i_next, bmin.amin(dim=1)
+    return _pass_b_out(out)
 
 
 def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
@@ -172,25 +191,27 @@ def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
 
 def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
                             mu, *, impl: str = "auto", dup: bool = False,
-                            act=None):
+                            act=None, dirv=None, mu2=None):
     """Batched pass B over the Gram bank -> (G_new (B, n), i_next (B,)
-    int32, g_i_next, g_dn).  A lane with ``mu == 0`` leaves G bitwise
-    unchanged."""
+    int32, g_i_next, g_dn), and ``r`` (B, l) fifth with the direction
+    ``dirv`` (B, l)/``mu2``.  A lane with ``mu == 0`` (and ``mu2 == 0``)
+    leaves G bitwise unchanged."""
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.update_wss_batched_from_rows(
             G, ref_ops.bank_rows(gram, gram_idx, i_idx, dup),
             ref_ops.bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L,
-            U, act)
+            U, act, dirv, mu2)
     args = (gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu)
-    if act is not None:
+    if dirv is not None:
+        out = pass_b.update_wss_batched_rows_conj(*args, dirv, mu2, dup=dup,
+                                                  act=act)
+    elif act is not None:
         out = pass_b.update_wss_batched_rows_act(*args, act, dup=dup)
     elif dup:
         out = pass_b.update_wss_batched_rows_h2(*args)
     else:
         out = pass_b.update_wss_batched_rows(*args)
-    G_new, bmax, barg, bmin = out
-    i_next, g_i_next = _first_max(bmax, barg)
-    return G_new, i_next, g_i_next, bmin.amin(dim=1)
+    return _pass_b_out(out)
 
 
 def source_row_wss(src: RowSource, G, alpha, L, U, i_idx, a_i, L_i, U_i,
@@ -208,22 +229,26 @@ def source_row_wss(src: RowSource, G, alpha, L, U, i_idx, a_i, L_i, U_i,
 
 
 def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
-                      *, impl: str = "auto", act=None):
+                      *, impl: str = "auto", act=None, dirv=None, mu2=None):
     """Batched pass B against a :class:`RowSource`, its scans within the
-    active set ``act`` when given (the update of G is never masked).
+    active set ``act`` when given (the update of G is never masked), with
+    the Conjugate-SMO direction ``dirv`` (B, l) and step ``mu2`` (B,) when
+    given.
 
-    Returns (G_new (B, n), i_next (B,), g_i_next (B,), g_dn (B,)).
+    Returns (G_new (B, n), i_next (B,), g_i_next (B,), g_dn (B,)), and
+    ``r = k_i - k_j`` (B, l) fifth with ``dirv``.
     """
     if src.is_bank:
         return update_wss_batched_rows(src.gram, src.gram_idx, G, alpha_new,
                                        L, U, i_idx, j_idx, mu, impl=impl,
-                                       dup=src.dup, act=act)
+                                       dup=src.dup, act=act, dirv=dirv,
+                                       mu2=mu2)
     B = G.shape[0]
     XQ, sqq = src.query(torch.cat([i_idx, j_idx]))
     return rbf_update_wss_batched(src.X, src.sqn, G, alpha_new, L, U,
                                   XQ[:B], sqq[:B], XQ[B:], sqq[B:], mu,
                                   src.gammas, impl=impl, XT=src.XT,
-                                  dup=src.dup, act=act)
+                                  dup=src.dup, act=act, dirv=dirv, mu2=mu2)
 
 
 def gram(X1, X2=None, gamma=1.0, *, impl: str = "auto", device=None,

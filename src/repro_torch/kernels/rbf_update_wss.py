@@ -4,7 +4,11 @@ one or two state halves, and single-lane reading the stored k_i) or read
 from the Gram bank (``csrc/update_wss_rows.cu``: one or two state
 halves).  The ``*_act`` wrappers launch the variants whose scans stay
 within a (B, n) bool active-set mask (soft shrinking); their update of G
-covers every coordinate.
+covers every coordinate.  The ``*_conj`` wrappers launch the Conjugate-SMO
+variants (one or two halves, with or without the mask): they take the
+previous direction's base-width row ``dirv`` and per-lane ``mu2``, add
+``- mu2 dirv`` to the update and return the base row difference
+``r = k_i - k_j`` as a fifth output.
 
 On CUDA tensors each launches its kernel on the current stream and returns
 the new gradient with the per-block next-i (max, first argmax) and gap
@@ -23,13 +27,14 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.checks import (act_ptr, check_bank,
                                         check_lane_scalars, check_state,
-                                        dtype_bits, on_card)
+                                        dirv_ptr, dtype_bits, on_card)
 
 
 def _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
-             XT, H: int, act=None):
+             XT, H: int, act=None, dirv=None, mu2=None):
     """Launch the lane-batched pass B over ``H`` state halves, its scans
-    within the active set ``act`` when given."""
+    within the active set ``act`` when given, with the conjugate direction
+    ``dirv``/``mu2`` when given (then ``r`` is returned fifth)."""
     l, d = X.shape
     B = G.shape[0]
     if XT is None:
@@ -44,20 +49,33 @@ def _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
     check_lane_scalars(B, G.device, dtype, sqqi=sqqi, sqqj=sqqj, mu=mu,
                        gammas=gammas)
     aptr = act_ptr(act, G)
-    nb = -(-l // build.BLOCK_L)
-    G_out = torch.empty_like(G)
-    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
-    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
-    bmin = torch.empty((B, nb), dtype=dtype, device=G.device)
+    dptr, m2ptr = dirv_ptr(dirv, mu2, G, H)
+    G_out, bmax, barg, bmin, r_out = _outputs(G, l, dirv is not None)
     fn = build.entry("rbf_update_wss_batched", dtype_bits(dtype))
     ptrs = [t.data_ptr() for t in (XT, sqn, G, alpha_new, L, U, XQi, sqqi,
                                    XQj, sqqj, mu, gammas)]
-    err = fn(*ptrs, aptr, *[t.data_ptr() for t in (G_out, bmax, barg,
-                                                      bmin)],
+    err = fn(*ptrs, aptr, dptr, m2ptr,
+             *[t.data_ptr() for t in (G_out, bmax, barg, bmin)],
+             None if r_out is None else r_out.data_ptr(),
              B, H, l, d, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
     build.check(err, "rbf_update_wss_batched")
-    return G_out, bmax, barg, bmin
+    out = (G_out, bmax, barg, bmin)
+    return out if r_out is None else out + (r_out,)
+
+
+def _outputs(G, l: int, conj: bool):
+    """The batched passes' outputs for the (B, n) state ``G``: G_out, the
+    (B, nb) block max, arg and min, and the (B, l) ``r`` (None without the
+    conjugate direction)."""
+    B = G.shape[0]
+    nb = -(-l // build.BLOCK_L)
+    bmax = torch.empty((B, nb), dtype=G.dtype, device=G.device)
+    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
+    bmin = torch.empty((B, nb), dtype=G.dtype, device=G.device)
+    r_out = (torch.empty((B, l), dtype=G.dtype, device=G.device) if conj
+             else None)
+    return torch.empty_like(G), bmax, barg, bmin, r_out
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
@@ -130,6 +148,31 @@ def rbf_update_wss_batched_act(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
 rbf_update_wss_batched_act.launches = 0
 
 
+def rbf_update_wss_batched_conj(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
+                                sqqj, mu, gammas, dirv, mu2, *, XT=None,
+                                dup: bool = False, act=None):
+    """Batched pass B with the Conjugate-SMO direction.
+
+    As :func:`rbf_update_wss_batched` (``dup=True``: the doubled operator's
+    two halves; ``act``: scans within the (B, n) bool mask), with ``dirv``
+    the previous direction's (B, l) base-width row and ``mu2`` (B,) its
+    step: G gains ``- mu2 dirv`` after the ``mu`` update, on every half.
+    A lane with ``mu == mu2 == 0`` leaves G bitwise unchanged.  Returns
+    (G_new, bmax, barg int32, bmin, r (B, l) = k_i - k_j).
+    """
+    if not on_card(G, "pass B"):
+        return ref.rbf_update_wss_batched_blocks(
+            X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu, gammas,
+            block_l=build.BLOCK_L, dup=dup, act=act, dirv=dirv, mu2=mu2)
+    out = _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu,
+                   gammas, XT, 2 if dup else 1, act, dirv, mu2)
+    rbf_update_wss_batched_conj.launches += 1
+    return out
+
+
+rbf_update_wss_batched_conj.launches = 0
+
+
 def rbf_update_wss(X, sqn, G, k_i, alpha_new, L, U, xq_j, sqq_j, mu, gamma,
                    *, XT=None):
     """Single-lane pass B over ``X`` (l, d) with the stored row ``k_i``.
@@ -175,9 +218,10 @@ rbf_update_wss.launches = 0
 
 
 def _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, H: int,
-          act=None):
+          act=None, dirv=None, mu2=None):
     """Launch bank pass B over ``H`` state halves, its scans within the
-    active set ``act`` when given."""
+    active set ``act`` when given, with the conjugate direction
+    ``dirv``/``mu2`` when given (then ``r`` is returned fifth)."""
     B, n = G.shape
     l = n // H
     dtype = G.dtype
@@ -187,20 +231,19 @@ def _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, H: int,
     check_lane_scalars(B, G.device, dtype, mu=mu)
     check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx, j_idx=j_idx)
     aptr = act_ptr(act, G)
-    nb = -(-l // build.BLOCK_L)
-    G_out = torch.empty_like(G)
-    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
-    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
-    bmin = torch.empty((B, nb), dtype=dtype, device=G.device)
+    dptr, m2ptr = dirv_ptr(dirv, mu2, G, H)
+    G_out, bmax, barg, bmin, r_out = _outputs(G, l, dirv is not None)
     fn = build.entry("update_wss_batched_rows", dtype_bits(dtype))
     ptrs = [t.data_ptr() for t in (gram, gram_idx, i_idx, j_idx, G,
                                    alpha_new, L, U, mu)]
-    err = fn(*ptrs, aptr, *[t.data_ptr() for t in (G_out, bmax, barg,
-                                                      bmin)],
+    err = fn(*ptrs, aptr, dptr, m2ptr,
+             *[t.data_ptr() for t in (G_out, bmax, barg, bmin)],
+             None if r_out is None else r_out.data_ptr(),
              B, H, l, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
     build.check(err, "update_wss_batched_rows")
-    return G_out, bmax, barg, bmin
+    out = (G_out, bmax, barg, bmin)
+    return out if r_out is None else out + (r_out,)
 
 
 def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
@@ -265,3 +308,24 @@ def update_wss_batched_rows_act(gram, gram_idx, G, alpha_new, L, U, i_idx,
 
 
 update_wss_batched_rows_act.launches = 0
+
+
+def update_wss_batched_rows_conj(gram, gram_idx, G, alpha_new, L, U, i_idx,
+                                 j_idx, mu, dirv, mu2, *, dup: bool = False,
+                                 act=None):
+    """Bank pass B with the Conjugate-SMO direction: as
+    :func:`update_wss_batched_rows` (``dup=True``: the H = 2 halves;
+    ``act``: scans within the mask), with the (B, l) base-width direction
+    ``dirv`` and per-lane ``mu2`` as in :func:`rbf_update_wss_batched_conj`.
+    Returns (G_new, bmax, barg int32, bmin, r (B, l))."""
+    if not on_card(G, "bank pass B"):
+        return ref.update_wss_batched_rows_blocks(
+            gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
+            block_l=build.BLOCK_L, dup=dup, act=act, dirv=dirv, mu2=mu2)
+    out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
+                2 if dup else 1, act, dirv, mu2)
+    update_wss_batched_rows_conj.launches += 1
+    return out
+
+
+update_wss_batched_rows_conj.launches = 0

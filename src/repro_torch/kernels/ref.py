@@ -2,8 +2,7 @@
 oracle every CUDA kernel is held against.
 
 Each function repeats the arithmetic of ``repro.kernels.ref`` in the same
-order (no conjugate direction).  Indices leave as int32, as in the
-reference's index channel.
+order.  Indices leave as int32, as in the reference's index channel.
 
 The single-lane passes (:func:`rbf_row_wss`, :func:`rbf_update_wss`) take
 (l,) state and 0-d scalars.  The batched passes take (B, n) lane state;
@@ -21,6 +20,15 @@ same ``block_l`` base columns in both halves, half 0 before half 1.
 pass A's j-candidates and pass B's next-i scan and gap endpoints; pass B's
 gradient update is never masked, so G stays exact on every coordinate.
 With doubled state the mask is (B, 2l) and masks each half on its own.
+
+``dirv``/``mu2`` engage pass B's Conjugate-SMO direction: ``dirv`` is the
+previous direction's Q-product, ``mu2`` (B,) its per-lane step, and the
+update gains ``- mu2 dirv`` after the ``mu`` update (the reference's
+order); the pass then also returns ``r = k_i - k_j``, the next direction.
+Both are (B, l) at base width, like the CUDA passes take and return them:
+the doubled operator's direction is a tiled base row, so one base value
+serves both halves (the reference carries it tiled; the values are the
+same).  Without ``dirv`` the contracts are those of the plain step.
 """
 
 from __future__ import annotations
@@ -171,11 +179,17 @@ def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
                                   i_idx, use_exact, act)
 
 
-def _update_vals(G, k_i, k_j, mu, alpha_new, L, U, act=None):
+def _update_vals(G, k_i, k_j, mu, alpha_new, L, U, act=None, dirv=None,
+                 mu2=None):
     """G_new and the masked values of its two scans: over ``alpha < U``
     (-inf elsewhere) and over ``alpha > L`` (+inf elsewhere), both within
-    ``act`` when given.  The update itself is never masked."""
+    ``act`` when given.  The update itself is never masked; the (B, l)
+    ``dirv`` adds ``- mu2 dirv`` to every half after the ``mu`` step."""
     G_new = G - mu[:, None] * (k_i - k_j)
+    if dirv is not None:
+        B, l = dirv.shape
+        G_new = (G_new.view(B, -1, l)
+                 - mu2[:, None, None] * dirv[:, None, :]).view(G.shape)
     up, dn = alpha_new < U, alpha_new > L
     if act is not None:
         up, dn = up & act, dn & act
@@ -184,17 +198,25 @@ def _update_vals(G, k_i, k_j, mu, alpha_new, L, U, act=None):
 
 
 def update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U,
-                                 act=None):
+                                 act=None, dirv=None, mu2=None):
     """Pass B update + stopping-scan algebra given both (B, n) rows.
 
-    A lane with ``mu == 0`` is a bitwise no-op on G (the lane freeze).
-    ``act`` restricts the scans, not the update.  Returns (G_new (B, n),
-    i_next (B,) int32, g_i_next (B,), g_dn (B,)).
+    A lane with ``mu == 0`` (and ``mu2 == 0``) is a bitwise no-op on G
+    (the lane freeze).  ``act`` restricts the scans, not the update.
+    Returns (G_new (B, n), i_next (B,) int32, g_i_next (B,), g_dn (B,)),
+    and with the (B, l) direction ``dirv`` a fifth, the base row
+    difference ``r = k_i - k_j`` (B, l).
     """
     G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U,
-                                           act)
+                                           act, dirv, mu2)
     i_next, g_i_next = _first_argmax(vals_up)
-    return G_new, i_next, g_i_next, vals_dn.amin(dim=1)
+    out = (G_new, i_next, g_i_next, vals_dn.amin(dim=1))
+    return out if dirv is None else out + (_base_r(k_i, k_j, dirv),)
+
+
+def _base_r(k_i, k_j, dirv):
+    """The next direction: the base row difference, at ``dirv``'s width."""
+    return (k_i - k_j)[:, :dirv.shape[1]]
 
 
 def _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup=False):
@@ -207,11 +229,13 @@ def _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup=False):
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
-                           mu, gammas, dup: bool = False, act=None):
-    """Batched pass B: k_i/k_j recompute + update + next i + gap ends."""
+                           mu, gammas, dup: bool = False, act=None,
+                           dirv=None, mu2=None):
+    """Batched pass B: k_i/k_j recompute + update + next i + gap ends (and
+    ``r`` with the (B, l) direction ``dirv``)."""
     k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup)
     return update_wss_batched_from_rows(G, k_i, k_j, mu, alpha_new, L, U,
-                                        act)
+                                        act, dirv, mu2)
 
 
 def bank_rows(gram, gram_idx, idx, dup: bool = False):
@@ -286,16 +310,27 @@ def rbf_row_wss_batched_blocks(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i,
                            2 if dup else 1)
 
 
+def _blocks_b(G, k_i, k_j, mu, alpha_new, L, U, block_l, dup, act, dirv,
+              mu2):
+    """Pass B per block from the (B, n) rows: (G_new, bmax, barg, bmin),
+    and ``r`` with ``dirv``."""
+    H = 2 if dup else 1
+    G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U,
+                                           act, dirv, mu2)
+    bmax, barg = block_first_max(vals_up, block_l, H)
+    out = (G_new, bmax, barg, block_min(vals_dn, block_l, H))
+    return out if dirv is None else out + (_base_r(k_i, k_j, dirv),)
+
+
 def rbf_update_wss_batched_blocks(X, sqn, G, alpha_new, L, U, XQi, sqqi,
                                   XQj, sqqj, mu, gammas, *, block_l: int,
-                                  dup: bool = False, act=None):
-    """Pass B as the kernel returns it: (G_new, bmax, barg, bmin)."""
-    H = 2 if dup else 1
+                                  dup: bool = False, act=None, dirv=None,
+                                  mu2=None):
+    """Pass B as the kernel returns it: (G_new, bmax, barg, bmin), and the
+    base-width (B, l) ``r`` with the base-width direction ``dirv``."""
     k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup)
-    G_new, vals_up, vals_dn = _update_vals(G, k_i, k_j, mu, alpha_new, L, U,
-                                           act)
-    bmax, barg = block_first_max(vals_up, block_l, H)
-    return G_new, bmax, barg, block_min(vals_dn, block_l, H)
+    return _blocks_b(G, k_i, k_j, mu, alpha_new, L, U, block_l, dup, act,
+                     dirv, mu2)
 
 
 def row_wss_batched_rows_blocks(gram, gram_idx, G, alpha, L, U, a_i, L_i,
@@ -310,11 +345,10 @@ def row_wss_batched_rows_blocks(gram, gram_idx, G, alpha, L, U, a_i, L_i,
 
 def update_wss_batched_rows_blocks(gram, gram_idx, G, alpha_new, L, U,
                                    i_idx, j_idx, mu, *, block_l: int,
-                                   dup: bool = False, act=None):
-    """Bank pass B as the kernel returns it: (G_new, bmax, barg, bmin)."""
-    H = 2 if dup else 1
-    G_new, vals_up, vals_dn = _update_vals(
-        G, bank_rows(gram, gram_idx, i_idx, dup),
-        bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L, U, act)
-    bmax, barg = block_first_max(vals_up, block_l, H)
-    return G_new, bmax, barg, block_min(vals_dn, block_l, H)
+                                   dup: bool = False, act=None, dirv=None,
+                                   mu2=None):
+    """Bank pass B as the kernel returns it: (G_new, bmax, barg, bmin), and
+    the base-width ``r`` with the base-width direction ``dirv``."""
+    return _blocks_b(G, bank_rows(gram, gram_idx, i_idx, dup),
+                     bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L,
+                     U, block_l, dup, act, dirv, mu2)

@@ -40,10 +40,6 @@ class SVMEstimatorBase:
             raise NotImplementedError(
                 "diagnostics (the flight recorder) is a later slice of the "
                 "port (ROADMAP queue 1, step 9)")
-        if step != "plain":
-            raise NotImplementedError(
-                "step='conjugate' is a later slice of the port (ROADMAP "
-                "queue 1, step 8)")
         if impl not in ops.IMPLS:
             raise ValueError(f"impl must be one of {ops.IMPLS}, got {impl!r}")
         self.algorithm = algorithm

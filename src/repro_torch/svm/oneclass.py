@@ -33,7 +33,8 @@ class OneClassSVM(SVMEstimatorBase):
 
     ``nu`` in (0, 1] upper-bounds the training-outlier fraction and
     lower-bounds the support-vector fraction.  The other knobs are as in
-    :class:`repro_torch.svm.svc.SVC`.
+    :class:`repro_torch.svm.svc.SVC` (``step="conjugate"`` with
+    ``algorithm="smo"`` included).
     """
 
     def __init__(self, nu: float = 0.5, gamma: Union[float, str] = "scale",

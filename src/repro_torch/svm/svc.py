@@ -32,7 +32,8 @@ class SVC(SVMEstimatorBase):
     ``class_weight`` (``None``, ``"balanced"`` or a ``{label: weight}``
     dict; sample ``i`` of class ``c`` gets budget ``C * w_c``; needs a
     scalar ``C``), and the solver knobs ``algorithm`` (smo | pasmo),
-    ``eps``, ``max_iter``.  ``impl`` picks the kernels (``"cuda"``,
+    ``step`` (``"plain"``, or ``"conjugate"``, the Conjugate-SMO step, with
+    ``algorithm="smo"``), ``eps``, ``max_iter``.  ``impl`` picks the kernels (``"cuda"``,
     ``"torch"`` or ``"auto"``) for the fit and the predict Gram.
     ``device`` defaults to the CUDA card: ``fit`` raises without one unless
     ``device="cpu"`` is given.  ``dtype`` defaults to
@@ -40,9 +41,8 @@ class SVC(SVMEstimatorBase):
     builds the shared Gram matrix and reads rows from it on the plain
     backend only; the CUDA kernels recompute rows from ``X``, as the
     reference's accelerator path does.  ``engine="batched"`` /
-    ``"sharded"``, ``mesh``, ``devices``, ``diagnostics`` and
-    ``step="conjugate"`` belong to later slices and raise
-    ``NotImplementedError``.
+    ``"sharded"``, ``mesh``, ``devices`` and ``diagnostics`` belong to
+    later slices and raise ``NotImplementedError``.
     """
 
     def __init__(self, C: Union[float, np.ndarray] = 1.0,

@@ -33,9 +33,10 @@ class SVR(SVMEstimatorBase):
     ``C`` is the box budget, ``epsilon`` the insensitive tube's half-width,
     ``gamma`` a float or ``"scale"``; ``eps`` is the KKT stopping accuracy
     (the solver's tolerance, not the tube).  The other knobs are as in
-    :class:`repro_torch.svm.svc.SVC`: ``precompute`` (default ``True``)
-    banks the Gram matrix on the plain backend only, and the knobs of later
-    slices raise ``NotImplementedError``.
+    :class:`repro_torch.svm.svc.SVC`: ``step="conjugate"`` (with
+    ``algorithm="smo"``) runs the Conjugate-SMO step, ``precompute``
+    (default ``True``) banks the Gram matrix on the plain backend only, and
+    the knobs of later slices raise ``NotImplementedError``.
     """
 
     _fit_attr = "beta_"

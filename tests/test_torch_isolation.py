@@ -109,8 +109,7 @@ def test_slice_3_impl_cuda_on_cpu_tensors_raises():
 @pytest.mark.parametrize("kw", [dict(engine="batched"),
                                 dict(engine="sharded"),
                                 dict(devices=("cuda:0",)),
-                                dict(diagnostics=object()),
-                                dict(step="conjugate", algorithm="smo")])
+                                dict(diagnostics=object())])
 def test_svr_oneclass_later_slices_raise_not_implemented(cls, kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         cls(device="cpu", **kw)
@@ -134,8 +133,7 @@ def test_impl_cuda_on_cpu_tensors_raises():
 @pytest.mark.parametrize("kw", [dict(engine="batched"),
                                 dict(engine="sharded"),
                                 dict(devices=("cuda:0",)),
-                                dict(diagnostics=object()),
-                                dict(step="conjugate", algorithm="smo")])
+                                dict(diagnostics=object())])
 def test_later_slices_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         SVC(device="cpu", **kw)
@@ -211,9 +209,6 @@ def test_grid_impl_cuda_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("kw,step", [(dict(impl=None), "step 10"),
-                                     (dict(cfg=SolverConfig(
-                                         step="conjugate", algorithm="smo")),
-                                      "step 8"),
                                      (dict(mesh=object()), "step 12"),
                                      (dict(devices=("cuda:0",)), "step 12"),
                                      (dict(diagnostics=object()), "step 9")])
@@ -262,6 +257,14 @@ def test_grid_cpu_path_launches_no_kernel():
         grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5],
                             precompute=precompute, shrinking=True,
                             device="cpu", dtype=torch.float64)
+        grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5],
+                            SolverConfig(algorithm="smo", step="conjugate"),
+                            precompute=precompute, shrinking=True,
+                            device="cpu", dtype=torch.float64)
+        grid.solve_grid(X, Y, [1.0, 4.0], [0.5],
+                        SolverConfig(algorithm="smo", step="conjugate"),
+                        impl="auto", precompute=precompute, device="cpu",
+                        dtype=torch.float64)
     assert kernels.launches() == before
     assert set(before) == {"rbf_row_wss_batched", "rbf_update_wss_batched",
                            "gram_block", "row_wss_batched_rows",
@@ -273,7 +276,9 @@ def test_grid_cpu_path_launches_no_kernel():
                            "rbf_row_wss_batched_act",
                            "rbf_update_wss_batched_act",
                            "row_wss_batched_rows_act",
-                           "update_wss_batched_rows_act"}
+                           "update_wss_batched_rows_act",
+                           "rbf_update_wss_batched_conj",
+                           "update_wss_batched_rows_conj"}
 
 
 def test_slice_3_cpu_path_launches_no_kernel():

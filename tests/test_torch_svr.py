@@ -230,11 +230,10 @@ def test_doubled_bank_passes_match_reference(impl):
                                    rtol=1e-12, atol=1e-13)
 
 
-def test_doubled_bank_passes_raise_on_the_card_backend(monkeypatch):
+def test_doubled_bank_passes_on_the_card_backend_match_plain(monkeypatch):
     """``impl="cuda"`` on CPU tensors raises; routed to the card's H = 2
     bank wrappers (which run their plain per-block versions on CPU
-    tensors) the doubled bank lanes give the plain backend's picks.  The
-    name is the one this test had while the port refused these lanes."""
+    tensors) the doubled bank lanes give the plain backend's picks."""
     a, b = _dup_state(40, 3, 2, seed=1)
     gram = torch.as_tensor(ref.gram_cross(torch.as_tensor(a["X"]),
                                           torch.as_tensor(a["X"]), 0.3))
@@ -426,12 +425,11 @@ def test_solve_grid_svr_bank_matches_rbf_and_interpret():
                                    np.asarray(r.objective), rtol=1e-6)
 
 
-def test_solve_grid_svr_precompute_on_the_card_raises(monkeypatch):
-    """``solve_grid_svr(precompute=True)`` no longer raises on the card's
-    backend: routed through the CUDA dispatch (the H = 2 bank wrappers
-    and the Gram wrapper, which run their plain versions on CPU tensors)
-    it gives the plain backend's result.  The name is the one this test
-    had while the port refused these lanes."""
+def test_solve_grid_svr_precompute_on_the_card_matches_plain(monkeypatch):
+    """``solve_grid_svr(precompute=True)`` on the card's backend: routed
+    through the CUDA dispatch (the H = 2 bank wrappers and the Gram
+    wrapper, which run their plain versions on CPU tensors) it gives the
+    plain backend's result."""
     X, y, _, _, _ = _svr_problem(l=16)
     kw = dict(precompute=True, device="cpu", dtype=torch.float64)
     want = grid.solve_grid_svr(X, y, [1.0], [0.1], [0.5], impl="torch", **kw)
