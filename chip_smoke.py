@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels]
 
-from the root of a checkout.  Phases, each printing its own lines; any
+from the root of a checkout (``--kernels``: phases 1-3 and every kernel's
+timing only, no result lines).  Phases, each printing its own lines; any
 failure raises and the script exits non-zero without a result line:
 
 1. env    — the card (``nvidia-smi`` name and power limit), torch and CUDA.
@@ -22,10 +23,14 @@ failure raises and the script exits non-zero without a result line:
    spread over the bank's entries, both gain rules, a false and a true
    relaunch flag, a mu = mu2 = 0 lane bitwise, a mu2 = 0 lane bitwise
    equal to the variant without the direction).
+   Every variant of kernels 1 and 2 is also held at the edges of their
+   tiling (``TILE_EDGES``: one column past a block, lane counts around a
+   group, X streamed per group, one feature).
    Tolerance: values to rtol 1e-12 (f64) / 1e-5 (f32); indices exactly,
    except that in f32 an argmax may differ where the plain version's gains
    at both picks agree to 1e-6 relative (the kernel sums its products in
-   another order).
+   another order).  Then a ``[resources]`` line: each tiled variant's
+   registers, local memory (spills) and shared memory.
 4. end to end, small — binary and 3-class SVC, smo and pasmo, a 3-class
    2 x 2 (C, gamma) grid through both row sources, single-lane
    ``solve_fused`` (smo, pasmo), SVR, OneClassSVM and a 2 x 2 x 2 e-SVR
@@ -98,6 +103,7 @@ reference package is imported.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import itertools
@@ -294,15 +300,26 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def kernel_state(l, d, B, seed, dtype, device):
+def _points(rng, l, d):
+    """l points in d dimensions, normal; with d = 1 the integers 0..l-1
+    shuffled and centred instead, since normal draws on a line lie so close
+    together that a near-duplicate of i, not the planted tie, would carry
+    the best gain."""
+    if d == 1:
+        return (rng.permutation(l) - l // 2).astype(np.float64)[:, None]
+    return rng.normal(size=(l, d))
+
+
+def kernel_state(l, d, B, seed, dtype, device, gamma_span=16.0):
     """Pass A and pass B inputs with the CPU tests' edge cases: points 5
     and l-3 are duplicates with equal state (an exact gain tie across
     blocks, best in every lane), the last lane of B > 1 is all-masked in
     pass A and has an empty I_up in pass B, lane 0 takes mu = 0, lanes
-    alternate the gain rule and every lane has its own gamma."""
+    alternate the gain rule and every lane has its own gamma,
+    gamma_span / d times U(0.05, 0.5)."""
     rng = np.random.default_rng(seed)
     ta, tb = 5, l - 3
-    X = rng.normal(size=(l, d))
+    X = _points(rng, l, d)
     X[tb] = X[ta]
     C = rng.choice([0.5, 1.0, 10.0], size=(B, 1))
     y = rng.choice([-1.0, 1.0], size=(B, l))
@@ -336,7 +353,7 @@ def kernel_state(l, d, B, seed, dtype, device):
         g_i=t(G[lanes, i_idx] + 1.0),
         i_idx=torch.tensor(i_idx, dtype=torch.int32, device=device),
         use_exact=torch.tensor(lanes % 2 == 1, device=device),
-        gammas=t(rng.uniform(0.05, 0.5, B) * 16.0 / d))
+        gammas=t(rng.uniform(0.05, 0.5, B) * gamma_span / d))
     b_state = dict(
         X=a_state["X"], sqn=a_state["sqn"], G=t(G_b), alpha_new=t(alpha_b),
         L=a_state["L"], U=a_state["U"], XQi=a_state["XQ"],
@@ -551,7 +568,7 @@ def single_state(l, d, seed, dtype, device):
     pass A and, with a raised G, of pass B's next-i scan."""
     rng = np.random.default_rng(seed)
     ta, tb = 5, l - 3
-    X = rng.normal(size=(l, d))
+    X = _points(rng, l, d)
     X[tb] = X[ta]
     y = rng.choice([-1.0, 1.0], size=l)
     L, U = np.minimum(0.0, 2.0 * y), np.maximum(0.0, 2.0 * y)
@@ -644,7 +661,7 @@ def check_single(s, dtype, label, errs_a, errs_b):
     return n_ties
 
 
-def dup_state(l, d, B, seed, dtype, device):
+def dup_state(l, d, B, seed, dtype, device, gamma_span=16.0):
     """H = 2 pass A and pass B inputs: (B, 2l) state over the base X, with
     the CPU tests' edge cases.  Points 5 and l-3 coincide and half 1 at 5
     carries half 0's state at l-3, so the two tie exactly across halves
@@ -653,7 +670,7 @@ def dup_state(l, d, B, seed, dtype, device):
     in pass A and has an empty I_up in pass B; lane 0 takes mu = 0."""
     rng = np.random.default_rng(seed)
     ta, tb = 5, l - 3
-    X = rng.normal(size=(l, d))
+    X = _points(rng, l, d)
     X[tb] = X[ta]
     C = rng.choice([0.5, 1.0, 10.0], size=(B, 1))
     zero = np.zeros((B, l))
@@ -688,7 +705,7 @@ def dup_state(l, d, B, seed, dtype, device):
              g_i=t(G[lanes, i_idx] + 1.0),
              i_idx=torch.tensor(i_idx, dtype=torch.int32, device=device),
              use_exact=torch.tensor(lanes % 2 == 1, device=device),
-             gammas=t(rng.uniform(0.05, 0.5, B) * 16.0 / d))
+             gammas=t(rng.uniform(0.05, 0.5, B) * gamma_span / d))
     b = dict(X=a["X"], sqn=a["sqn"], G=t(G_b), alpha_new=t(alpha_b),
              L=a["L"], U=a["U"], XQi=a["XQ"], sqqi=a["sqq"], XQj=t(X[jb]),
              sqqj=t(sqn[jb]), mu=t(mu), gammas=a["gammas"])
@@ -884,11 +901,13 @@ def check_new_b(src, b, act, dtype, label, errs, want, empty, dup):
 
 
 def check_slice4(l, d, B, n_stack, dtype, device, label, errs,
-                 halves=(False, True)):
+                 halves=(False, True), sources=("rbf", "bank"),
+                 gamma_span=16.0):
     """The six variants of this slice at one shape: the ``act`` variants of
     kernels 1, 2, 4 and 5 with one state half and (``True`` in
     ``halves``) with two, and then the H = 2 bank passes (kernels 4 and
-    5)."""
+    5); only the rbf (kernels 1, 2) or bank (4, 5) ones with
+    ``sources``."""
     n_ties = 0
     for dup in halves:
         n = 2 * l if dup else l
@@ -898,10 +917,10 @@ def check_slice4(l, d, B, n_stack, dtype, device, label, errs,
         wa = _expected(B, lo, hi, True)
         wb = _expected(B, lo, hi, False)
         h = "H=2" if dup else "H=1"
-        for src in ("rbf", "bank"):
+        for src in sources:
             if src == "rbf":
                 a, b = (dup_state if dup else kernel_state)(
-                    l, d, B, l + d + B, dtype, device)
+                    l, d, B, l + d + B, dtype, device, gamma_span)
             else:
                 a, b = bank_state(l, B, n_stack, l + B, dtype, device,
                                   dup=dup)
@@ -1011,18 +1030,19 @@ def check_conj(src, b, act, dtype, label, errs, want, empty, dup):
 
 
 def check_slice5(l, d, B, n_stack, dtype, device, label, errs,
-                 halves=(False, True)):
-    """The conjugate variants of kernels 2 and 5 at one shape: one state
-    half and (``True`` in ``halves``) two, each with and without the
-    active-set mask."""
+                 halves=(False, True), sources=("rbf", "bank"),
+                 gamma_span=16.0):
+    """The conjugate variants of kernels 2 and 5 (or those of ``sources``)
+    at one shape: one state half and (``True`` in ``halves``) two, each
+    with and without the active-set mask."""
     n_ties = 0
     for dup in halves:
         n = 2 * l if dup else l
         lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
-        for src in ("rbf", "bank"):
+        for src in sources:
             if src == "rbf":
                 _, b = (dup_state if dup else kernel_state)(
-                    l, d, B, l + d + B + 1, dtype, device)
+                    l, d, B, l + d + B + 1, dtype, device, gamma_span)
             else:
                 b = bank_state(l, B, n_stack, l + B + 1, dtype, device,
                                dup=dup)[1]
@@ -1036,6 +1056,42 @@ def check_slice5(l, d, B, n_stack, dtype, device, label, errs,
                     *_expected(B, lo, hi if masked else None, False), dup)
             del b
     return n_ties
+
+
+# Shapes where the tiled rbf passes (rbf_tile.cuh) have edges: one column
+# past a block (l = 129, also odd, so the 16-byte paths are off); one lane
+# group of 16, of 32 with one lane used, two and three groups (l = 1000,
+# d = 128: X resident in shared memory); X streamed again per lane group
+# (d = 1000, one and two groups); one feature.  At d = 1000 the lanes'
+# gammas span 4 / d times U(0.05, 0.5), so gamma |x|^2 lies in 0.2-2 as
+# gamma="scale" times the grid's 0.5-2 puts it: with the 16 / d of the
+# other shapes (gamma |x|^2 up to 8) a float32 row's value at its own
+# point sums 1000 products whose rounding alone moves it by 1e-5 (kernel
+# 0.9999821, plain version 0.9999924, exactly 1), the f32 tolerance.
+TILE_EDGES = ((129, 37, 17), (1000, D, 16), (1000, D, 17), (1000, D, 33),
+              (1000, D, 90), (2048, 1000, 17), (2048, 1000, 33),
+              (1000, 1, 17))
+
+
+def check_tile_edge(l, d, B, dtype, device, label, errs):
+    """Every variant of kernels 1 and 2 at one shape against its plain
+    version, with the checks of the main shapes: H = 1 (ties across
+    blocks, mu = 0 bitwise, all-masked lane), H = 2 (the cross-half tie),
+    ``act`` with one and two halves (all-false lane, hidden argmax, G with
+    the mask bitwise G without) and the conjugate variants (mu = mu2 = 0
+    and mu2 = 0 lanes bitwise)."""
+    span = 16.0 if d <= D else 4.0
+    a, b = kernel_state(l, d, B, l + d + B, dtype, device, span)
+    n = check_pass_a(a, dtype, label, errs["rbf_row_wss_batched"])
+    n += check_pass_b(b, dtype, label, errs["rbf_update_wss_batched"])
+    a, b = dup_state(l, d, B, l + d + B, dtype, device, span)
+    n += check_h2(a, b, dtype, label, errs["rbf_row_wss_batched_h2"],
+                  errs["rbf_update_wss_batched_h2"])
+    del a, b
+    n += check_slice4(l, d, B, 1, dtype, device, label, errs,
+                      sources=("rbf",), gamma_span=span)
+    return n + check_slice5(l, d, B, 1, dtype, device, label, errs,
+                            sources=("rbf",), gamma_span=span)
 
 
 NEW_A = {"rbf": "rbf_row_wss_batched", "bank": "row_wss_batched_rows"}
@@ -1139,11 +1195,53 @@ def phase_kernels(device) -> dict:
                 f"bitwise, mu2 = 0 lane bitwise equal to the variant "
                 f"without dirv, mu2 != 0 lanes moved, ties, all-false "
                 f"lane) ({n} f32 near-ties): {label}")
+        for l, d, B in TILE_EDGES:
+            label = f"tile edge l={l} d={d} B={B} {str(dtype)[6:]}"
+            n = check_tile_edge(l, d, B, dtype, device, label, errs)
+            say(f"[kernels] every variant of kernels 1 and 2 (H = 1, 2, act, "
+                f"conjugate) ok at a tile edge ({n} f32 near-ties): {label}")
     torch.cuda.synchronize()
     worst = {k: max(v) for k, v in errs.items()}
     say(f"[kernels] all kernels agree with their plain versions; max abs "
         f"err {worst}")
     return worst
+
+
+# The batched rbf variants of the main paths (kernel, B, H, act, conj):
+# the SVC's B = 10, the e-SVR grid's B = 18 at H = 2, the (C, gamma) grid's
+# B = 90 with shrinking, and the conjugate variants as phase 10 launches
+# them (B = 18 for the H = 2 mask, which it does not).
+TILE_VARIANTS = (
+    ("rbf_row_wss_batched", K, 1, False, False),
+    ("rbf_row_wss_batched", SVR_B, 2, False, False),
+    ("rbf_row_wss_batched", GRID_B, 1, True, False),
+    ("rbf_update_wss_batched", K, 1, False, False),
+    ("rbf_update_wss_batched", SVR_B, 2, False, False),
+    ("rbf_update_wss_batched", GRID_B, 1, True, False),
+    ("rbf_update_wss_batched", K, 1, False, True),
+    ("rbf_update_wss_batched", GRID_B, 1, True, True),
+    ("rbf_update_wss_batched", 1, 2, False, True),
+    ("rbf_update_wss_batched", SVR_B, 2, True, True),
+)
+
+
+def phase_resources():
+    """Registers, local memory (spills included) and shared memory of the
+    tiled variants of kernels 1 and 2, from ``cudaFuncGetAttributes``."""
+    from repro_torch.kernels import build
+    out = []
+    for name, B, H, act, conj in TILE_VARIANTS:
+        for bits in (64, 32):
+            r = build.tile_attrs(name, bits, B, H, act, conj)
+            out.append(dict(kernel=name, f=bits, B=B, H=H, act=act,
+                            conj=conj, **r))
+    spills = [r for r in out if r["local_bytes"]]
+    say(f"[resources] tiled kernels 1 and 2: registers a thread "
+        f"{min(r['regs'] for r in out)}-{max(r['regs'] for r in out)}, "
+        f"shared memory a block {min(r['dynamic_smem'] for r in out)}-"
+        f"{max(r['dynamic_smem'] for r in out)} B, "
+        f"{len(spills)} variants with local memory (spills)")
+    say("[resources] " + json.dumps(out))
 
 
 # ---------------------------------------------------------------------------
@@ -2940,7 +3038,13 @@ def slice4_kernel_times(device, timer):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1-3 and every kernel's timing only, "
+                         "without the end-to-end phases and without the "
+                         "result lines")
+    kernels_only = ap.parse_args(argv).kernels
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2957,7 +3061,15 @@ def main() -> int:
     phase_build()
     timer = DeviceTimer()
     errs = phase_kernels(device)
+    phase_resources()
     say(f"[time] kernel checks done at {time.perf_counter() - t_start:.1f} s")
+    if kernels_only:
+        for times in (kernel_times, grid_kernel_times, slice3_kernel_times,
+                      slice4_kernel_times, conj_kernel_times):
+            times(device, timer)
+        say(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s; "
+            f"card: {smi}")
+        return 0
     phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
     recs, counts, lane0, svc_ref = phase_full(device, timer)

@@ -60,6 +60,13 @@ SIGNATURES = {
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }
+# Resource queries of the batched rbf passes' tiled variants (name +
+# "_attrs", not kernels): B H masked | out int[4]; pass B adds conj before
+# out.
+ATTRS = {
+    "rbf_row_wss_batched": [_I] * 3 + [_P],
+    "rbf_update_wss_batched": [_I] * 4 + [_P],
+}
 
 
 def sources() -> list[pathlib.Path]:
@@ -160,12 +167,34 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    for name, argtypes in ATTRS.items():
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + "_attrs" + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
 def entry(name: str, dtype_bits: int):
     """The loaded C entry ``name`` for float32 (32) or float64 (64)."""
     return getattr(load(), f"{name}_f{dtype_bits}")
+
+
+def tile_attrs(name: str, dtype_bits: int, B: int, H: int, masked: bool,
+               conj: bool = False) -> dict:
+    """Resources of the tiled variant that a launch of the batched rbf pass
+    ``name`` ("rbf_row_wss_batched" or "rbf_update_wss_batched") at B
+    lanes takes, from ``cudaFuncGetAttributes``: registers a thread, local
+    memory a thread (spills included: 0 means none), static and dynamic
+    shared memory a block."""
+    out = (ctypes.c_int * 4)()
+    args = [B, H, int(masked)]
+    if name == "rbf_update_wss_batched":
+        args.append(int(conj))
+    fn = f"{name}_attrs_f{dtype_bits}"
+    check(getattr(load(), fn)(*args, out), fn)
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem"),
+                    out))
 
 
 def check(err: int, name: str) -> None:

@@ -12,12 +12,15 @@
 
 namespace repro {
 
-// Columns of the example axis l owned by one thread block of the pass A /
-// pass B kernels (one column per thread).  The Python side reads it back
+// Columns of the example axis l in one block of the pass A / pass B
+// kernels' per-block outputs (and in one thread block: one column per
+// thread in the bank and single-lane kernels, a micro-tiled block in the
+// batched rbf kernels, rbf_tile.cuh).  The Python side reads it back
 // through repro_block_l() and refuses a library that disagrees.
 constexpr int kBlockL = 128;
 constexpr int kWarps = kBlockL / 32;
-// Feature slice of the query rows staged in shared memory per step.
+// Feature slice of the query row the single-lane kernels stage in shared
+// memory per step.
 constexpr int kChunkD = 32;
 // LIBSVM's guard for vanishing curvature (repro_torch.core.qp.TAU).
 constexpr double kTau = 1e-12;
@@ -68,17 +71,6 @@ __device__ __forceinline__ void warp_min(T& v) {
   for (int off = 16; off > 0; off >>= 1) {
     v = fmin(v, __shfl_down_sync(0xffffffffu, v, off));
   }
-}
-
-// Number of lanes a thread carries accumulators for: the smallest of
-// 1, 2, 4, 8, 16 that holds B; larger batches add lane groups along
-// gridDim.y.
-inline int lane_group(int B) {
-  if (B <= 1) return 1;
-  if (B <= 2) return 2;
-  if (B <= 4) return 4;
-  if (B <= 8) return 8;
-  return 16;
 }
 
 inline int n_blocks(int l) { return (l + kBlockL - 1) / kBlockL; }

@@ -1,6 +1,6 @@
 """Pass A wrappers: the WSS2 selection kernels, with rows recomputed from
-``X`` (``csrc/rbf_row_wss.cu``: lane-batched with one or two state
-halves, and single-lane with the row stored) or read from the Gram bank
+``X`` (``csrc/rbf_row_wss.cuh``: lane-batched with one or two state
+halves; ``csrc/rbf_row_wss_single.cu``: single-lane with the row stored) or read from the Gram bank
 (``csrc/row_wss_rows.cu``: one or two state halves).  The ``*_act``
 wrappers launch the variants that take a (B, n) bool active-set mask
 (soft shrinking), with one state half or two (``dup=True``).

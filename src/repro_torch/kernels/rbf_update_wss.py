@@ -1,6 +1,7 @@
 """Pass B wrappers: the gradient update + stopping-scan kernels, with both
-rows recomputed from ``X`` (``csrc/rbf_update_wss.cu``: lane-batched with
-one or two state halves, and single-lane reading the stored k_i) or read
+rows recomputed from ``X`` (``csrc/rbf_update_wss.cuh``: lane-batched with
+one or two state halves; ``csrc/rbf_update_wss_single.cu``: single-lane
+reading the stored k_i) or read
 from the Gram bank (``csrc/update_wss_rows.cu``: one or two state
 halves).  The ``*_act`` wrappers launch the variants whose scans stay
 within a (B, n) bool active-set mask (soft shrinking); their update of G

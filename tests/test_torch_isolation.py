@@ -154,8 +154,10 @@ def test_default_dtype_follows_torch():
 def test_build_targets_hopper_with_ieee_math(tmp_path):
     cmds = build.compile_commands("nvcc", tmp_path)
     assert {pathlib.Path(c[c.index("-c") + 1]).name for c in cmds} == {
-        "rbf_row_wss.cu", "rbf_update_wss.cu", "gram_block.cu",
-        "row_wss_rows.cu", "update_wss_rows.cu"}
+        "rbf_row_wss.cu", "rbf_row_wss_f32.cu", "rbf_update_wss.cu",
+        "rbf_update_wss_f32.cu", "rbf_row_wss_single.cu",
+        "rbf_update_wss_single.cu", "gram_block.cu", "row_wss_rows.cu",
+        "update_wss_rows.cu"}
     for c in cmds:
         assert "arch=compute_90a,code=sm_90a" in c
         assert not any("fast_math" in a or "fast-math" in a for a in c)
