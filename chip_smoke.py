@@ -25,12 +25,16 @@ failure raises and the script exits non-zero without a result line:
    equal to the variant without the direction).
    Every variant of kernels 1 and 2 is also held at the edges of their
    tiling (``TILE_EDGES``: one column past a block, lane counts around a
-   group, X streamed per group, one feature).
+   group, X streamed per group, one feature), and kernels 6 and 7 at the
+   edges of their segments and ring (``SINGLE_EDGES``: l = 127, 129, 1001
+   by d = 1, 37, 1000) and on an XT off 16-byte alignment (bitwise equal
+   to the aligned launch).
    Tolerance: values to rtol 1e-12 (f64) / 1e-5 (f32); indices exactly,
    except that in f32 an argmax may differ where the plain version's gains
    at both picks agree to 1e-6 relative (the kernel sums its products in
-   another order).  Then a ``[resources]`` line: each tiled variant's
-   registers, local memory (spills) and shared memory.
+   another order).  Then a ``[resources]`` line: the registers, local
+   memory (spills) and shared memory of each tiled variant of kernels 1
+   and 2 and of kernels 6 and 7.
 4. end to end, small — binary and 3-class SVC, smo and pasmo, a 3-class
    2 x 2 (C, gamma) grid through both row sources, single-lane
    ``solve_fused`` (smo, pasmo), SVR, OneClassSVM and a 2 x 2 x 2 e-SVR
@@ -58,7 +62,8 @@ failure raises and the script exits non-zero without a result line:
    the one-class grid (3 nus x the 3 gammas) through both row sources.
 7. single lane, full width (slice 3) — ``solve_fused`` on lane 0 of phase
    5's problem against the batched fit's lane 0 (objective, drift, KKT
-   gap, launches, relaunches that ran), the fused row of
+   gap, launches, relaunches that ran), run twice (bitwise equal), kernel
+   6's launches split into runs and no-op relaunches, the fused row of
    ``benchmarks/solver_micro.py`` at its largest size as a timing row, and
    a ``torch.profiler`` window.
 8. e-SVR and one-class, full width (slice 3) — ``SVR(C=10, epsilon=0.1,
@@ -67,7 +72,9 @@ failure raises and the script exits non-zero without a result line:
    (the H = 2 bank passes), ``OneClassSVM(nu=0.1)`` and the SVR again in f32: convergence,
    drift against p - Q alpha, KKT gap, sum(alpha), held-out R^2, bank
    against rbf objectives, launch counts, profiler windows; then kernels
-   6, 7 and the H = 2 variants timed beside their bounds.
+   6, 7 and the H = 2 variants timed beside their bounds, kernels 6 and 7
+   also with one and two stages of their ring in flight, and ``X @ xq``
+   (cuBLAS GEMV) on the same inputs.
 9. shrinking, full width (slice 4) — the 90-lane grid of phase 6 with
    ``shrinking=True`` through the bank and through the rbf passes, the
    compacted grid (hard shrinking, ``chunk=96``, its C = 0.5 lanes)
@@ -151,10 +158,11 @@ SOURCES = {
     "update_wss_batched_rows": (
         "src/repro_torch/kernels/csrc/update_wss_rows.cu",
         "src/repro/kernels/rbf_update_wss.py:261"),
-    "rbf_row_wss": ("src/repro_torch/kernels/csrc/rbf_row_wss.cu",
+    "rbf_row_wss": ("src/repro_torch/kernels/csrc/rbf_row_wss_single.cu",
                     "src/repro/kernels/rbf_row_wss.py:292"),
-    "rbf_update_wss": ("src/repro_torch/kernels/csrc/rbf_update_wss.cu",
-                       "src/repro/kernels/rbf_update_wss.py:316"),
+    "rbf_update_wss": (
+        "src/repro_torch/kernels/csrc/rbf_update_wss_single.cu",
+        "src/repro/kernels/rbf_update_wss.py:316"),
     "rbf_row_wss_batched_h2": ("src/repro_torch/kernels/csrc/rbf_row_wss.cu",
                                "src/repro/kernels/rbf_row_wss.py:193"),
     "rbf_update_wss_batched_h2": (
@@ -563,11 +571,12 @@ def check_gram(X1, X2, gamma, dtype, label, errs):
 
 
 def single_state(l, d, seed, dtype, device):
-    """Kernel 6 and 7 inputs (one lane): points 5 and l-3 are duplicates
-    with equal state, an exact gain tie across blocks that is the best of
-    pass A and, with a raised G, of pass B's next-i scan."""
+    """Kernel 6 and 7 inputs (one lane): points 5 and l-1 are duplicates
+    with equal state, an exact gain tie across the first and the last
+    128-column segment (one segment at l <= 128) that is the best of pass
+    A and, with a raised G, of pass B's next-i scan."""
     rng = np.random.default_rng(seed)
-    ta, tb = 5, l - 3
+    ta, tb = 5, l - 1
     X = _points(rng, l, d)
     X[tb] = X[ta]
     y = rng.choice([-1.0, 1.0], size=l)
@@ -599,14 +608,34 @@ SINGLE_A = ("X", "sqn", "G", "alpha", "L", "U", "xq", "sqq", "a_i", "L_i",
             "U_i", "g_i", "i_idx", "use_exact", "gamma")
 
 
+def offset_xt(X):
+    """X transposed to (d, l), contiguous, at an address one value past a
+    16-byte boundary: the kernels then copy X one value at a time, as they
+    do for any odd l."""
+    l, d = X.shape
+    buf = torch.empty(d * l + 1, dtype=X.dtype, device=X.device)
+    XT = buf[1:].view(d, l)
+    XT.copy_(X.T)
+    assert XT.data_ptr() % 16 != 0
+    return XT
+
+
 def check_single(s, dtype, label, errs_a, errs_b):
     """Kernel 6 (with its relaunch flag both ways) and kernel 7 (with
-    mu = 0 bitwise) against their plain versions."""
+    mu = 0 bitwise) against their plain versions; both again on an XT off
+    16-byte alignment, bitwise equal to the aligned launch (the same sum
+    order, other copy widths), with the relaunch flag both ways there."""
     from repro_torch.kernels import build, ops, rbf_row_wss, rbf_update_wss
     from repro_torch.kernels import ref
     args = [s[k] for k in SINGLE_A]
     bl = build.BLOCK_L
+    XT_off = offset_xt(s["X"])
     k_k, bmax, barg = rbf_row_wss.rbf_row_wss(*args)
+    k_o, omax, oarg = rbf_row_wss.rbf_row_wss(*args, XT=XT_off)
+    if not (torch.equal(k_o, k_k) and torch.equal(omax, bmax)
+            and torch.equal(oarg, barg)):
+        raise AssertionError(f"kernel 6 {label}: an XT off 16-byte "
+                             f"alignment changed the result")
     k_p, pmax, parg = ref.rbf_row_wss_blocks(*args, block_l=bl)
     vals = ref._wss_vals(k_p[None], *[s[k][None] for k in (
         "G", "alpha", "L", "U")], *[s[k] for k in (
@@ -618,21 +647,23 @@ def check_single(s, dtype, label, errs_a, errs_b):
     j_c = ops._first_max(bmax[None], barg[None])[0]
     assert int(j_c[0]) == 5, (label, int(j_c[0]))
     # the relaunch: a false flag leaves the stored row bitwise as it was
-    sentinel = torch.full_like(k_k, 7.0)
-    stored = sentinel.clone()
     other = dict(s, xq=s["xq_j"], sqq=s["sqq_j"])
     other_args = [other[k] for k in SINGLE_A]
-    stored = rbf_row_wss.rbf_row_wss(
-        *other_args, k_out=stored, run=torch.zeros_like(s["use_exact"]))[0]
-    if not torch.equal(stored, sentinel):
-        raise AssertionError(f"kernel 6 {label}: a false relaunch flag "
-                             f"changed the stored row")
-    stored = rbf_row_wss.rbf_row_wss(
-        *other_args, k_out=stored, run=torch.ones_like(s["use_exact"]))[0]
-    err = max(err, _close(f"kernel 6 relaunched k {label}", stored,
-                          ref.rbf_row_wss_blocks(*other_args,
-                                                 block_l=bl)[0],
-                          TOL[dtype], 1.0))
+    want = ref.rbf_row_wss_blocks(*other_args, block_l=bl)[0]
+    for XT in (None, XT_off):
+        sentinel = torch.full_like(k_k, 7.0)
+        stored = sentinel.clone()
+        stored = rbf_row_wss.rbf_row_wss(
+            *other_args, XT=XT, k_out=stored,
+            run=torch.zeros_like(s["use_exact"]))[0]
+        if not torch.equal(stored, sentinel):
+            raise AssertionError(f"kernel 6 {label}: a false relaunch flag "
+                                 f"changed the stored row")
+        stored = rbf_row_wss.rbf_row_wss(
+            *other_args, XT=XT, k_out=stored,
+            run=torch.ones_like(s["use_exact"]))[0]
+        err = max(err, _close(f"kernel 6 relaunched k {label}", stored,
+                              want, TOL[dtype], 1.0))
     errs_a.append(err)
 
     b_args = [s["X"], s["sqn"], s["G_b"], k_p, s["alpha"], s["L"], s["U"],
@@ -642,6 +673,12 @@ def check_single(s, dtype, label, errs_a, errs_b):
     for mu in (s["mu"], torch.zeros_like(s["mu"])):
         G_k, bmax, barg, bmin = rbf_update_wss.rbf_update_wss(
             *b_args, mu, s["gamma"])
+        off = rbf_update_wss.rbf_update_wss(*b_args, mu, s["gamma"],
+                                            XT=XT_off)
+        if not all(torch.equal(a, b) for a, b in zip(off, (G_k, bmax, barg,
+                                                           bmin))):
+            raise AssertionError(f"kernel 7 {label}: an XT off 16-byte "
+                                 f"alignment changed the result")
         G_p, pmax, parg, pmin = ref.rbf_update_wss_blocks(
             *b_args, mu, s["gamma"], block_l=bl)
         if float(mu) == 0.0 and not torch.equal(G_k, s["G_b"]):
@@ -1094,6 +1131,13 @@ def check_tile_edge(l, d, B, dtype, device, label, errs):
                             sources=("rbf",), gamma_span=span)
 
 
+# The edges of kernels 6 and 7's segments and copies: a segment short of
+# 128 columns, one column past a segment, odd rows of XT off 16-byte
+# alignment; one feature, a ragged last stage of the ring, d = 1000 (the
+# ring cycled eight times, gamma |x|^2 about 2).
+SINGLE_EDGES = tuple((l, d, "edge") for l in (127, 129, 1001)
+                     for d in (1, 37, 1000))
+
 NEW_A = {"rbf": "rbf_row_wss_batched", "bank": "row_wss_batched_rows"}
 NEW_B = {"rbf": "rbf_update_wss_batched", "bank": "update_wss_batched_rows"}
 PASS_A_KEYS = ("X", "sqn", "G", "alpha", "L", "U", "XQ", "sqq", "a_i", "L_i",
@@ -1140,14 +1184,15 @@ def phase_kernels(device) -> dict:
             say(f"[kernels] bank pass A ok ({ta} f32 near-ties), bank pass "
                 f"B ok ({tb} f32 near-ties): {label}")
         for l, d, kind in ((N_TRAIN, D, "main"), (1000, 37, "odd"),
-                           (300, 5, "odd")):
+                           (300, 5, "odd"), *SINGLE_EDGES):
             label = f"{kind} l={l} d={d} {str(dtype)[6:]}"
             n = check_single(single_state(l, d, l + d, dtype, device), dtype,
                              label, errs["rbf_row_wss"],
                              errs["rbf_update_wss"])
             say(f"[kernels] kernel 6 ok (relaunch flag false: row "
-                f"untouched; true: replaced), kernel 7 ok (mu = 0 bitwise) "
-                f"({n} f32 near-ties): {label}")
+                f"untouched; true: replaced), kernel 7 ok (mu = 0 bitwise), "
+                f"both bitwise on an XT off 16-byte alignment ({n} f32 "
+                f"near-ties): {label}")
         for l, d, B, kind in ((N_TRAIN, D, SVR_B, "main"),
                               (N_TRAIN, D, 7, "odd"), (1000, 37, 1, "odd"),
                               (300, 5, 19, "odd")):
@@ -1227,7 +1272,8 @@ TILE_VARIANTS = (
 
 def phase_resources():
     """Registers, local memory (spills included) and shared memory of the
-    tiled variants of kernels 1 and 2, from ``cudaFuncGetAttributes``."""
+    tiled variants of kernels 1 and 2 and of kernels 6 and 7, from
+    ``cudaFuncGetAttributes``."""
     from repro_torch.kernels import build
     out = []
     for name, B, H, act, conj in TILE_VARIANTS:
@@ -1235,8 +1281,12 @@ def phase_resources():
             r = build.tile_attrs(name, bits, B, H, act, conj)
             out.append(dict(kernel=name, f=bits, B=B, H=H, act=act,
                             conj=conj, **r))
+    for name in SINGLE_PASSES:
+        for bits in (64, 32):
+            out.append(dict(kernel=name, f=bits, B=1, H=1, act=False,
+                            conj=False, **build.single_attrs(name, bits)))
     spills = [r for r in out if r["local_bytes"]]
-    say(f"[resources] tiled kernels 1 and 2: registers a thread "
+    say(f"[resources] kernels 1, 2, 6 and 7: registers a thread "
         f"{min(r['regs'] for r in out)}-{max(r['regs'] for r in out)}, "
         f"shared memory a block {min(r['dynamic_smem'] for r in out)}-"
         f"{max(r['dynamic_smem'] for r in out)} B, "
@@ -2100,6 +2150,20 @@ def phase_single(device, timer, lane0):
     check_only(counts, {"rbf_row_wss": 2 * t, "rbf_update_wss": t},
                "single lane")
     assert stats["relaunches"] == t
+    # the same fit again: kernels 6 and 7 sum in a fixed order, so it
+    # repeats bitwise
+    stats2 = {}
+    r2, counts2, wall2 = counted(lambda: solve_fused(
+        Xtr, y0, 1.0, lane0["gamma"], cfg, device=device,
+        dtype=torch.float64, stats=stats2))
+    for f in ("alpha", "b", "G", "objective", "iterations"):
+        if not torch.equal(torch.as_tensor(getattr(r, f)),
+                           torch.as_tensor(getattr(r2, f))):
+            raise AssertionError(f"solve_fused run twice: {f} differs")
+    assert counts2 == counts and stats2 == stats, (counts2, stats2)
+    say(f"[single] solve_fused lane 0 run twice: bitwise equal (alpha, b, "
+        f"G, objective, iterations), the same launches and relaunches; second "
+        f"run {wall2:.3f} s = {wall2 / t * 1e3:.4f} ms/iteration")
     rel = abs(float(r.objective) / lane0["objective"] - 1.0)
     say(f"[single] objective {float(r.objective)!r} vs batched lane 0 "
         f"{lane0['objective']!r}: rel diff {rel:.3e} (batched lane 0 took "
@@ -2136,36 +2200,70 @@ def phase_single(device, timer, lane0):
         f"{float(rm.kkt_gap):.4e}")
     check_only(counts_m, {"rbf_row_wss": 2 * tm, "rbf_update_wss": tm},
                "solver_micro row")
+    # kernel 6's launches over one lane-0 fit and the solver_micro row (the
+    # repeat above only checks): one unconditional and one relaunch a
+    # planning iteration; a relaunch with a false flag returns at once
+    k6 = counts["rbf_row_wss"] + counts_m["rbf_row_wss"]
+    ran = t + stats["relaunches_ran"] + tm + stats_m["relaunches_ran"]
+    say(f"[single] kernel 6 in this phase: {k6} launches, of which {ran} "
+        f"ran ({t + tm} unconditional, "
+        f"{stats['relaunches_ran'] + stats_m['relaunches_ran']} relaunches "
+        f"with a true flag) and {k6 - ran} were no-op relaunches")
     profile_iterations(
         lambda: solve_fused(Xtr, y0, 1.0, lane0["gamma"],
                             SolverConfig(algorithm="pasmo", eps=1e-3,
                                          max_iter=PROFILE_ITERS),
                             device=device, dtype=torch.float64),
         "solve_fused f64 full width", ms_iter)
-    return {"rbf_row_wss": counts["rbf_row_wss"] + counts_m["rbf_row_wss"],
-            "rbf_update_wss": counts["rbf_update_wss"]
-            + counts_m["rbf_update_wss"]}
+    return {name: counts[name] + counts_m[name] for name in SINGLE_PASSES}
+
+
+def single_inputs(l, dtype, device):
+    """Kernels 6 and 7's inputs at (l, D) in copies that together hold four
+    L2s, and the per-copy calls: {"n": copies, name: (kernel(c),
+    plain(c)), "X", "xq": per-copy tensors}; kernel 6 stores its row into
+    the row that kernel 7 reads."""
+    from repro_torch.kernels import build, rbf_row_wss, rbf_update_wss, ref
+    item = torch.tensor([], dtype=dtype).element_size()
+    n = n_cold((l * D + 5 * l) * item)
+    cs = cold_copies(single_state(l, D, 1, dtype, device), n)
+    a = [[c[k] for k in SINGLE_A] for c in cs]
+    k_row = [torch.empty_like(c["G"]) for c in cs]
+    XT = [c["X"].T.contiguous() for c in cs]
+    b = [[c["X"], c["sqn"], c["G_b"], k, c["alpha"], c["L"], c["U"],
+          c["xq_j"], c["sqq_j"], c["mu"], c["gamma"]]
+         for c, k in zip(cs, k_row)]
+    bl = build.BLOCK_L
+    return {
+        "n": n, "X": [c["X"] for c in cs], "xq": [c["xq"] for c in cs],
+        "rbf_row_wss": (
+            lambda c, run=None: rbf_row_wss.rbf_row_wss(
+                *a[c], XT=XT[c], k_out=k_row[c], run=run),
+            lambda c: ref.rbf_row_wss_blocks(*a[c], block_l=bl)),
+        "rbf_update_wss": (
+            lambda c: rbf_update_wss.rbf_update_wss(*b[c], XT=XT[c]),
+            lambda c: ref.rbf_update_wss_blocks(*b[c], block_l=bl)),
+    }
 
 
 def slice3_kernel_times(device, timer):
     """Kernels 6 and 7 at l = 16384 (one lane) and the H = 2 variants of
     kernels 1 and 2 at the e-SVR grid's B = 18: device time, plain
-    version's time and bound."""
+    version's time and bound.  Beside kernels 6 and 7, the time of
+    ``X @ xq`` (cuBLAS GEMV: the same bytes of X, less work) on the same
+    cycled inputs.  What a launch of kernel 6 or 7 costs beside
+    its bytes: kernel 6 with a false relaunch flag (every block returns at
+    once), and both at 4 l, where three l's worth more bytes give the rate
+    at which the kernel streams them."""
     from repro_torch.kernels import build, rbf_row_wss, rbf_update_wss, ref
     recs = {}
     l, d, bl = N_TRAIN, D, build.BLOCK_L
     nb = -(-l // bl)
     for dtype in (torch.float64, torch.float32):
+        dt = str(dtype)[6:]
         item = torch.tensor([], dtype=dtype).element_size()
-        s1 = single_state(l, d, 1, dtype, device)
-        n1 = n_cold((l * d + 5 * l) * item)
-        c1 = cold_copies(s1, n1)
-        args6 = [[c[k] for k in SINGLE_A] for c in c1]
-        k_row = [torch.empty_like(c["G"]) for c in c1]
-        XT = [c["X"].T.contiguous() for c in c1]
-        args7 = [[c["X"], c["sqn"], c["G_b"], k, c["alpha"], c["L"], c["U"],
-                  c["xq_j"], c["sqq_j"], c["mu"], c["gamma"]]
-                 for c, k in zip(c1, k_row)]
+        one = single_inputs(l, dtype, device)
+        n1 = one["n"]
         B, n = SVR_B, 2 * l
         a, b = dup_state(l, d, SVR_B, 1, dtype, device)
         n2 = n_cold((l * d + 4 * B * n) * item)
@@ -2175,19 +2273,14 @@ def slice3_kernel_times(device, timer):
         args_b = [[c[k] for k in PASS_B_KEYS] for c in cb]
         cases = {
             "rbf_row_wss": (
-                lambda c: rbf_row_wss.rbf_row_wss(*args6[c], XT=XT[c],
-                                                  k_out=k_row[c]),
-                lambda c: ref.rbf_row_wss_blocks(*args6[c], block_l=bl),
-                n1,
+                *one["rbf_row_wss"], n1,
                 # X, sqn, 4 state vectors, query, 7 scalars in; the row,
                 # (nb,) max and arg out
                 (l * d + 5 * l + d + 6) * item + 5 + l * item
                 + nb * (item + 4),
                 2 * l * d + 25 * l),
             "rbf_update_wss": (
-                lambda c: rbf_update_wss.rbf_update_wss(*args7[c], XT=XT[c]),
-                lambda c: ref.rbf_update_wss_blocks(*args7[c], block_l=bl),
-                n1,
+                *one["rbf_update_wss"], n1,
                 # X, sqn, G, k_i, alpha, L, U, query, 3 scalars in; G and
                 # (nb,) max, arg and min out
                 (l * d + 6 * l + d + 3) * item + l * item
@@ -2214,6 +2307,11 @@ def slice3_kernel_times(device, timer):
                 + B * n * item + B * nb * (2 * item + 4),
                 4 * B * l * d + 12 * B * n),
         }
+        gemv = cycling(lambda c: torch.mv(one["X"][c], one["xq"][c]), n1)
+        ms_g = min(timer.ms(gemv, 100), timer.ms(gemv, 100))
+        say(f"[time] X @ xq (cuBLAS GEMV) {dt}: {ms_g:.5f} ms, X read at "
+            f"{l * d * item / ms_g / 1e6:.1f} GB/s")
+        ms_one = {}
         for name, (kern, plain, nc, nbytes, nops) in cases.items():
             kern, plain = cycling(kern, nc), cycling(plain, nc)
             ms_k = timer.ms(kern, 100)
@@ -2221,15 +2319,30 @@ def slice3_kernel_times(device, timer):
             ms_k2 = timer.ms(kern, 100)
             ms_p2 = timer.ms(plain, 20)
             bms, by = bound_ms(nbytes, nops, dtype)
-            say(f"[time] {name} {str(dtype)[6:]}: kernel {ms_k:.5f} / "
-                f"{ms_k2:.5f} ms, plain {ms_p:.5f} / {ms_p2:.5f} ms, bound "
-                f"{bms:.5f} ms by {by} ({nbytes / 1e6:.3f} MB, "
-                f"{nops / 1e9:.4f} GFLOP)")
+            ms_one[name] = (min(ms_k, ms_k2), nbytes)
+            say(f"[time] {name} {dt}: kernel {ms_k:.5f} / {ms_k2:.5f} ms, "
+                f"plain {ms_p:.5f} / {ms_p2:.5f} ms, bound {bms:.5f} ms by "
+                f"{by} ({nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} GFLOP; "
+                f"{nbytes / min(ms_k, ms_k2) / 1e6:.1f} GB/s)")
             if dtype == torch.float64:
                 recs[name] = dict(ms=min(ms_k, ms_k2),
                                   plain_ms=min(ms_p, ms_p2), bound_ms=bms,
                                   bound_by=by)
-        del s1, c1, a, b, ca, cb, args6, args7, args_a, args_b, XT, XT2, k_row
+        no = torch.zeros((1,), dtype=torch.bool, device=device)
+        noop = one["rbf_row_wss"][0]
+        ms_no = timer.ms(cycling(lambda c: noop(c, run=no), n1), 100)
+        say(f"[time] rbf_row_wss {dt}: no-op relaunch (false flag) "
+            f"{ms_no:.5f} ms")
+        del one, a, b, ca, cb, args_a, args_b, XT2
+        four = single_inputs(4 * l, dtype, device)
+        for name in SINGLE_PASSES:
+            ms4 = timer.ms(cycling(four[name][0], four["n"]), 100)
+            ms1, nbytes = ms_one[name]
+            rate = 3 * nbytes / (ms4 - ms1)        # bytes a ms
+            say(f"[time] {name} {dt}: {ms4:.5f} ms at l = {4 * l}; so X "
+                f"streams at {rate / 1e6:.1f} GB/s and a launch costs "
+                f"{ms1 - nbytes / rate:.5f} ms beside its bytes")
+        del noop, four
     return recs
 
 

@@ -60,12 +60,14 @@ SIGNATURES = {
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }
-# Resource queries of the batched rbf passes' tiled variants (name +
-# "_attrs", not kernels): B H masked | out int[4]; pass B adds conj before
-# out.
+# Resource queries of the rbf passes (name + "_attrs", not kernels): the
+# batched passes' tiled variants take B H masked | out int[4], pass B with
+# conj before out; the single-lane passes (kernels 6 and 7) out alone.
 ATTRS = {
     "rbf_row_wss_batched": [_I] * 3 + [_P],
     "rbf_update_wss_batched": [_I] * 4 + [_P],
+    "rbf_row_wss": [_P],
+    "rbf_update_wss": [_P],
 }
 
 
@@ -193,6 +195,17 @@ def tile_attrs(name: str, dtype_bits: int, B: int, H: int, masked: bool,
         args.append(int(conj))
     fn = f"{name}_attrs_f{dtype_bits}"
     check(getattr(load(), fn)(*args, out), fn)
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem"),
+                    out))
+
+
+def single_attrs(name: str, dtype_bits: int) -> dict:
+    """Resources of the single-lane pass ``name`` ("rbf_row_wss", kernel 6,
+    or "rbf_update_wss", kernel 7) in the variant the main path launches,
+    as :func:`tile_attrs` gives them."""
+    out = (ctypes.c_int * 4)()
+    fn = f"{name}_attrs_f{dtype_bits}"
+    check(getattr(load(), fn)(out), fn)
     return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem"),
                     out))
 

@@ -1,152 +1,96 @@
 // Kernel 7, single-lane pass B of the fused PA-SMO iteration: k_i read
 // from the row kernel 6 stored, k_j recomputed from X, the gradient update
-// G_new = G - mu (k_i - k_j), and per block the next-i first-max over
-// alpha < U and the gap's other end, min G over alpha > L.
+// G_new = G - mu (k_i - k_j), and per 128-column segment the next-i
+// first-max over alpha < U and the gap's other end, min G over alpha > L.
 //
 // Replaces: src/repro/kernels/rbf_update_wss.py, rbf_update_wss_pallas
 // (_kernel).
 //
-// What bounds it on an H100: bytes.  It moves l d + 7 l values and is
-// launch-bound at the repo's sizes.
+// What bounds it on an H100: bytes.  It moves l d + 7 l values (X once,
+// sqn, G, k_i and three state vectors in, G out); its 2 l d operations
+// take a fortieth of that time.
 //
-// Design: one thread a column, instantiated for one lane with the stored
-// row (STORED): X is read transposed, the query row staged in slices of
-// kChunkD features, G written out of place (mu == 0 writes it back
-// bitwise unchanged).  The cross-block reductions stay in
-// PyTorch (repro_torch/kernels/ops.py).
+// What held it back: as kernel 6 (rbf_row_wss_single.cu), one thread a
+// column with at most 4 KB of X in flight on an SM (2 KB in f32): 24% of
+// the bound at l = 16384, d = 128.
+//
+// Design (rbf_single.cuh): kernel 6's X stream, a cp.async ring of 64 KB
+// (two 32-feature stages in f64, four in f32), with the query row of j
+// beside each stage and the segment's sqn, G, k_i, alpha, L and U in the
+// first commit group; the d-sum split over two halves of the block and
+// combined once in a fixed order.  The epilogue (one thread a
+// column) writes G out of place (mu == 0 writes it back bitwise unchanged)
+// and reduces to the segment's first max and min.  The cross-segment
+// reductions stay in PyTorch (repro_torch/kernels/ops.py).  What holds it
+// now is kernel 6's: the fixed cost of a launch and the rate at which one
+// block an SM streams X (PERF.md).
 
-#include "common.cuh"
+#include "rbf_single.cuh"
 
 namespace repro {
 
-template <typename T, int LG, int H, bool STORED, bool ACT, bool CONJ>
-__global__ void __launch_bounds__(kBlockL)
-update_wss_kernel(const T* __restrict__ XT, const T* __restrict__ sqn,
-                  const T* __restrict__ G, const T* __restrict__ alpha,
-                  const T* __restrict__ L, const T* __restrict__ U,
-                  const T* __restrict__ XQi, const T* __restrict__ sqqi,
-                  const T* __restrict__ KI, const T* __restrict__ XQj,
-                  const T* __restrict__ sqqj, const T* __restrict__ mu,
-                  const T* __restrict__ gammas,
-                  const bool* __restrict__ act,
-                  const T* __restrict__ dirv, const T* __restrict__ mu2,
-                  T* __restrict__ G_out, T* __restrict__ bmax,
-                  int* __restrict__ barg, T* __restrict__ bmin,
-                  T* __restrict__ r_out, int B, int l, int d) {
-  __shared__ T sqi[STORED ? 1 : LG][kChunkD];
-  __shared__ T sqj[LG][kChunkD];
-  __shared__ T red_v[LG][kWarps];
-  __shared__ int red_i[LG][kWarps];
-  __shared__ T red_m[LG][kWarps];
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSingleThreads, 1)
+update_wss_single_kernel(const T* __restrict__ XT,
+                         const T* __restrict__ sqn, const T* __restrict__ G,
+                         const T* __restrict__ k_i,
+                         const T* __restrict__ alpha,
+                         const T* __restrict__ L, const T* __restrict__ U,
+                         const T* __restrict__ xqj,
+                         const T* __restrict__ sqqj,
+                         const T* __restrict__ mu,
+                         const T* __restrict__ gamma, T* __restrict__ G_out,
+                         T* __restrict__ bmax, int* __restrict__ barg,
+                         T* __restrict__ bmin, int l, int d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red_v[kWarps];
+  __shared__ int red_i[kWarps];
+  __shared__ T red_m[kWarps];
+  const SingleSegment<T, VEC> seg(reinterpret_cast<T*>(smem_raw), l, d);
+  enum { SQN, GV, KI, AL, LO, UP };
+  seg.stage(SQN, sqn);
+  seg.stage(GV, G);
+  seg.stage(KI, k_i);
+  seg.stage(AL, alpha);
+  seg.stage(LO, L);
+  seg.stage(UP, U);
+  // the lane's scalars, asked for before the stream so they arrive with it
+  const T sq = *sqqj, m = *mu, gam = *gamma;
+  const T prod = seg.run(XT, xqj);
 
   const int tid = threadIdx.x;
-  const int j = blockIdx.x * kBlockL + tid;
-  const int b0 = blockIdx.y * LG;
-  const int nl = min(LG, B - b0);
-  const bool in = j < l;
-
-  T acc_i[LG], acc_j[LG];
-#pragma unroll
-  for (int b = 0; b < LG; ++b) {
-    acc_i[b] = T(0);
-    acc_j[b] = T(0);
+  if (tid >= kBlockL) return;  // no barrier follows for the other parts
+  const int j = seg.j0 + tid;
+  T v = -pos_inf<T>();
+  int vi = j;  // out-of-range columns lose every tie to real ones
+  T mn = pos_inf<T>();
+  if (j < l) {
+    const T kj = rbf_entry(sq, seg.state(SQN), prod, gam);
+    const T g = seg.state(GV) - m * (seg.state(KI) - kj);
+    G_out[j] = g;
+    const T al = seg.state(AL);
+    if (al < seg.state(UP)) v = g;
+    if (al > seg.state(LO)) mn = g;
   }
-
-  for (int k0 = 0; k0 < d; k0 += kChunkD) {
-    const int kn = min(kChunkD, d - k0);
-    for (int e = tid; e < LG * kChunkD; e += kBlockL) {
-      const int b = e / kChunkD, kk = e % kChunkD;
-      const bool ok = b < nl && kk < kn;
-      const size_t src = (size_t)(b0 + b) * d + k0 + kk;
-      if (!STORED) sqi[b][kk] = ok ? XQi[src] : T(0);
-      sqj[b][kk] = ok ? XQj[src] : T(0);
-    }
-    __syncthreads();
-    if (in) {
-      const T* xcol = XT + (size_t)k0 * l + j;
-#pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        const T x = xcol[(size_t)kk * l];
-#pragma unroll
-        for (int b = 0; b < LG; ++b) {
-          if (!STORED) acc_i[b] = fma(sqi[STORED ? 0 : b][kk], x, acc_i[b]);
-          acc_j[b] = fma(sqj[b][kk], x, acc_j[b]);
-        }
-      }
-    }
-    __syncthreads();
+  warp_first_max(v, vi);
+  warp_min(mn);
+  if ((tid & 31) == 0) {
+    red_v[tid >> 5] = v;
+    red_i[tid >> 5] = vi;
+    red_m[tid >> 5] = mn;
   }
-
-  const T sn = in ? sqn[j] : T(0);
-#pragma unroll
-  for (int b = 0; b < LG; ++b) {
-    T v = -pos_inf<T>();
-    int vi = j;  // out-of-range columns lose every tie to real ones
-    T m = pos_inf<T>();
-    if (b < nl && in) {
-      const int lane = b0 + b;
-      const T gam = gammas[lane];
-      const T ki = STORED ? KI[(size_t)lane * l + j]
-                          : rbf_entry(sqqi[lane], sn, acc_i[b], gam);
-      const T kj = rbf_entry(sqqj[lane], sn, acc_j[b], gam);
-      const T r = ki - kj;
-      const T mul = mu[lane];
-      T dv = T(0), m2 = T(0);
-      if (CONJ) {
-        dv = dirv[(size_t)lane * l + j];
-        m2 = mu2[lane];
-        r_out[(size_t)lane * l + j] = r;
-      }
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const size_t o = ((size_t)lane * H + h) * l + j;
-        T g = G[o] - mul * r;
-        if (CONJ) g = g - m2 * dv;
-        G_out[o] = g;
-        const T al = alpha[o];
-        const bool in_set = !ACT || act[o];
-        if (in_set && al < U[o]) take_first_max(v, vi, g, h * l + j);
-        if (in_set && al > L[o]) m = fmin(m, g);
-      }
-    }
-    warp_first_max(v, vi);
-    warp_min(m);
-    if ((tid & 31) == 0) {
-      red_v[b][tid >> 5] = v;
-      red_i[b][tid >> 5] = vi;
-      red_m[b][tid >> 5] = m;
-    }
-  }
-  __syncthreads();
-  if (tid < nl) {
-    T v = red_v[tid][0];
-    int vi = red_i[tid][0];
-    T m = red_m[tid][0];
+  // the first kWarps warps only: the block's other parts have returned
+  asm volatile("bar.sync 1, %0;" ::"n"(kBlockL) : "memory");
+  if (tid == 0) {
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) {
-      take_first_max(v, vi, red_v[tid][w], red_i[tid][w]);
-      m = fmin(m, red_m[tid][w]);
+      take_first_max(v, vi, red_v[w], red_i[w]);
+      mn = fmin(mn, red_m[w]);
     }
-    const size_t out = (size_t)(b0 + tid) * gridDim.x + blockIdx.x;
-    bmax[out] = v;
-    barg[out] = vi;
-    bmin[out] = m;
+    bmax[blockIdx.x] = v;
+    barg[blockIdx.x] = vi;
+    bmin[blockIdx.x] = mn;
   }
-}
-
-template <typename T, int LG, int H, bool STORED, bool ACT, bool CONJ>
-void launch_update_wss(const T* XT, const T* sqn, const T* G,
-                       const T* alpha, const T* L, const T* U, const T* XQi,
-                       const T* sqqi, const T* KI, const T* XQj,
-                       const T* sqqj, const T* mu, const T* gammas,
-                       const bool* act, const T* dirv, const T* mu2,
-                       T* G_out, T* bmax, int* barg, T* bmin, T* r_out,
-                       int B, int l, int d, cudaStream_t stream) {
-  const dim3 grid(n_blocks(l), (B + LG - 1) / LG);
-  update_wss_kernel<T, LG, H, STORED, ACT, CONJ>
-      <<<grid, kBlockL, 0, stream>>>(XT, sqn, G, alpha, L, U, XQi, sqqi, KI,
-                                     XQj, sqqj, mu, gammas, act, dirv, mu2,
-                                     G_out, bmax, barg, bmin, r_out, B, l, d);
 }
 
 template <typename T>
@@ -157,11 +101,18 @@ int update_wss_single(const T* XT, const T* sqn, const T* G, const T* k_i,
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  launch_update_wss<T, 1, 1, true, false, false>(
-      XT, sqn, G, alpha, L, U, nullptr, nullptr, k_i, xqj, sqqj, mu, gamma,
-      nullptr, nullptr, nullptr, G_out, bmax, barg, bmin, nullptr, 1, l, d,
-      static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  static bool ready[2][kMaxDevices] = {};
+  return launch_single<T>(update_wss_single_kernel<T, true>,
+                          update_wss_single_kernel<T, false>, ready, XT, l,
+                          device, static_cast<cudaStream_t>(stream), XT, sqn,
+                          G, k_i, alpha, L, U, xqj, sqqj, mu, gamma, G_out,
+                          bmax, barg, bmin, l, d);
+}
+
+template <typename T>
+int update_wss_single_attrs(int* out) {
+  return tile_attrs(update_wss_single_kernel<T, true>,
+                    single_smem_bytes<T>(), out);
 }
 
 }  // namespace repro
@@ -189,6 +140,17 @@ int rbf_update_wss_f64(const double* XT, const double* sqn, const double* G,
   return repro::update_wss_single<double>(XT, sqn, G, k_i, alpha, L, U, xqj,
                                           sqqj, mu, gamma, G_out, bmax, barg,
                                           bmin, l, d, device, stream);
+}
+
+// Resources of the variant the main path launches (16-byte copies of X):
+// out = {registers a thread, local bytes a thread (spills included),
+// static shared bytes, dynamic shared bytes}.
+int rbf_update_wss_attrs_f32(int* out) {
+  return repro::update_wss_single_attrs<float>(out);
+}
+
+int rbf_update_wss_attrs_f64(int* out) {
+  return repro::update_wss_single_attrs<double>(out);
 }
 
 }  // extern "C"
