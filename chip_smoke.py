@@ -28,13 +28,17 @@ failure raises and the script exits non-zero without a result line:
    group, X streamed per group, one feature), and kernels 6 and 7 at the
    edges of their segments and ring (``SINGLE_EDGES``: l = 127, 129, 1001
    by d = 1, 37, 1000) and on an XT off 16-byte alignment (bitwise equal
-   to the aligned launch).
+   to the aligned launch).  The Gram kernel is held at its tiles' edges
+   (``GRAM_EDGES``: m, n of 1, 127, 128, 129, 1000 against 333 and 4096,
+   d = 1, 37, 128, 1000) and in its symmetric mode (``GRAM_SYM_EDGES``:
+   l = 127, 129, 1001 and 16384, written into bank[1] of a 3-entry bank,
+   bitwise equal to its transpose, the other entries untouched).
    Tolerance: values to rtol 1e-12 (f64) / 1e-5 (f32); indices exactly,
    except that in f32 an argmax may differ where the plain version's gains
    at both picks agree to 1e-6 relative (the kernel sums its products in
    another order).  Then a ``[resources]`` line: the registers, local
    memory (spills) and shared memory of each tiled variant of kernels 1
-   and 2 and of kernels 6 and 7.
+   and 2, of the Gram kernel's instances and of kernels 6 and 7.
 4. end to end, small — binary and 3-class SVC, smo and pasmo, a 3-class
    2 x 2 (C, gamma) grid through both row sources, single-lane
    ``solve_fused`` (smo, pasmo), SVR, OneClassSVM and a 2 x 2 x 2 e-SVR
@@ -58,7 +62,8 @@ failure raises and the script exits non-zero without a result line:
    against rbf objectives, gradient
    drift and KKT gap, launch counts, held-out accuracy per (gamma, C),
    peak memory, wall time an iteration, a ``torch.profiler`` window,
-   kernels 1, 2, 4 and 5 timed at B = 90 and the bank build timed; then
+   kernels 1, 2, 4 and 5 timed at B = 90 and the bank build timed (beside
+   its symmetric bound and cuBLAS's X @ X.T); then
    the one-class grid (3 nus x the 3 gammas) through both row sources.
 7. single lane, full width (slice 3) — ``solve_fused`` on lane 0 of phase
    5's problem against the batched fit's lane 0 (objective, drift, KKT
@@ -103,14 +108,20 @@ The solvers replay their loop body as CUDA graphs on the card
 check chunk, which the loop runs eagerly, so no graph is captured inside a
 window.
 
-The line before the last is the kernels' JSON record; the last is the
-contract line ``{"ok": true, "device": {...}}``.  No JAX and nothing of the
+Every counted run of phases 5-10 (fits, grids, predicts and decisions;
+not the bitwise repeat of phase 7, the profiler windows or the timings)
+adds its launches to one tally, which the kernels' JSON record reports;
+a ``[gram]`` line splits the Gram's launches into bank builds (symmetric)
+and predicts and decisions (cross).  The line before the last is the
+kernels' JSON record; the last is the contract line ``{"ok": true,
+"device": {...}}``.  No JAX and nothing of the
 reference package is imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import itertools
@@ -219,6 +230,10 @@ MICRO = dict(n=16384, C=100.0, gamma=0.5, max_iter=30_000)
 # the loop runs its first chunk eagerly, so no CUDA graph is captured
 # inside a window; the kernels an iteration are the same as a replay's.
 PROFILE_ITERS = 32
+# Launches of every counted run of the main paths (phases 5-10), summed
+# over the runs; "gram_symmetric" counts the Gram's symmetric-mode (bank)
+# launches among "gram_block"'s.  The kernels' JSON line reads it.
+MAIN_LAUNCHES = collections.Counter()
 
 
 def say(*parts):
@@ -565,9 +580,32 @@ def check_bank_b(b, dtype, label, errs):
 
 def check_gram(X1, X2, gamma, dtype, label, errs):
     from repro_torch.kernels import gram_block, ref
+    sym = gram_block.gram_cross.symmetric_launches
     K_k = gram_block.gram_cross(X1, X2, gamma)
+    assert gram_block.gram_cross.symmetric_launches == sym, label
     K_p = ref.gram_cross(X1, X2, gamma)
     errs.append(_close(f"gram {label}", K_k, K_p, TOL[dtype], 1.0))
+
+
+def check_gram_bank(X, gamma, dtype, label, errs):
+    """The Gram of X with itself in symmetric mode, written into bank[1]
+    of a 3-entry bank (at odd l an offset off 16-byte alignment): against
+    the plain version, bitwise equal to its transpose, entries 0 and 2
+    untouched."""
+    from repro_torch.kernels import gram_block, ref
+    l = X.shape[0]
+    bank = torch.full((3, l, l), math.nan, dtype=dtype, device=X.device)
+    sym = gram_block.gram_cross.symmetric_launches
+    K = gram_block.gram_cross(X, X, gamma, out=bank[1])
+    assert gram_block.gram_cross.symmetric_launches == sym + 1, label
+    assert K.data_ptr() == bank[1].data_ptr(), label
+    errs.append(_close(f"gram symmetric {label}", K, ref.gram_cross(
+        X, X, gamma), TOL[dtype], 1.0))
+    if not torch.equal(K, K.T):
+        raise AssertionError(f"gram symmetric {label}: K differs from K.T")
+    if not (bank[0].isnan().all() and bank[2].isnan().all()):
+        raise AssertionError(f"gram symmetric {label}: wrote outside "
+                             f"bank[1]")
 
 
 def single_state(l, d, seed, dtype, device):
@@ -1138,6 +1176,21 @@ def check_tile_edge(l, d, B, dtype, device, label, errs):
 SINGLE_EDGES = tuple((l, d, "edge") for l in (127, 129, 1001)
                      for d in (1, 37, 1000))
 
+# The Gram kernel's edges (tiles of 128 x 64 in f64, 128 x 128 in f32): one
+# row or column, a tile, one short of it and one past it, each against
+# 333 (odd: single-value stores) and 4096 on the other side; d = 1, 37
+# (f64 rows off 16-byte alignment: single-value copies), 128 and 1000
+# (the ring cycled 63 times).  The symmetric mode at l = 127, 129, 1001
+# (bank[1] of a 3-entry bank starts off 16-byte alignment) and 16384.
+# gamma = 1 / (2 d) puts gamma |x|^2 near 0.5 for normal rows, inside the
+# 0.2-2 that TILE_EDGES draws at d = 1000 for the reason given there.
+GRAM_SIDES = (1, 127, 128, 129, 1000)
+GRAM_EDGES = tuple((a, b, d) for s in GRAM_SIDES for o in (333, 4096)
+                   for a, b in ((s, o), (o, s)) for d in (1, 37, 128, 1000))
+GRAM_SYM_EDGES = (tuple((l, d) for l in (127, 129, 1001)
+                        for d in (1, 37, 128, 1000))
+                  + ((N_TRAIN, D), (N_TRAIN, 37)))
+
 NEW_A = {"rbf": "rbf_row_wss_batched", "bank": "row_wss_batched_rows"}
 NEW_B = {"rbf": "rbf_update_wss_batched", "bank": "update_wss_batched_rows"}
 PASS_A_KEYS = ("X", "sqn", "G", "alpha", "L", "U", "XQ", "sqq", "a_i", "L_i",
@@ -1171,6 +1224,29 @@ def phase_kernels(device) -> dict:
             check_gram(X1, X2, 1.0 / (2 * d), dtype, label,
                        errs["gram_block"])
             say(f"[kernels] gram ok: {label}")
+        # the edges slice two pools of rows (each sliced copy contiguous)
+        P1 = torch.tensor(rng.normal(size=(4096, 1000)), dtype=dtype,
+                          device=device)
+        P2 = torch.tensor(rng.normal(size=(4096, 1000)), dtype=dtype,
+                          device=device)
+        for m, n, d in GRAM_EDGES:
+            check_gram(P1[:m, :d].contiguous(), P2[:n, :d].contiguous(),
+                       1.0 / (2 * d), dtype, f"edge {m}x{n} d={d}",
+                       errs["gram_block"])
+        say(f"[kernels] gram ok at its {len(GRAM_EDGES)} edges (m, n in "
+            f"{GRAM_SIDES} against 333 and 4096, d = 1, 37, 128, 1000) "
+            f"{str(dtype)[6:]}")
+        del P1, P2
+        for l, d in GRAM_SYM_EDGES:
+            X = torch.tensor(rng.normal(size=(l, d)), dtype=dtype,
+                             device=device)
+            label = f"l={l} d={d} {str(dtype)[6:]}"
+            check_gram_bank(X, 1.0 / (2 * d), dtype, label,
+                            errs["gram_block"])
+            del X
+            say(f"[kernels] gram symmetric ok (into bank[1] of 3, bitwise "
+                f"equal to its transpose, bank[0] and bank[2] untouched): "
+                f"{label}")
         for l, B, n_stack, kind in ((N_TRAIN, GRID_B, 3, "main"),
                                     (1000, 1, 1, "odd"), (300, 19, 3, "odd")):
             label = (f"{kind} l={l} B={B} bank={n_stack} "
@@ -1272,10 +1348,17 @@ TILE_VARIANTS = (
 
 def phase_resources():
     """Registers, local memory (spills included) and shared memory of the
-    tiled variants of kernels 1 and 2 and of kernels 6 and 7, from
-    ``cudaFuncGetAttributes``."""
-    from repro_torch.kernels import build
+    tiled variants of kernels 1 and 2, of the Gram kernel (kernel 3) and of
+    kernels 6 and 7, from ``cudaFuncGetAttributes``."""
+    from repro_torch.kernels import build, gram_block
     out = []
+    # the Gram: f64 with and without 16-byte copies, f32 (one instance)
+    for bits, vec in ((64, True), (64, False), (32, False)):
+        r = build.gram_attrs(bits, vec)
+        tile = (r.pop("tm"), r.pop("tn"))
+        assert tile == gram_block.TILE[bits], (bits, tile)
+        out.append(dict(kernel="gram_block", f=bits, vec=vec, tile=tile,
+                        **r))
     for name, B, H, act, conj in TILE_VARIANTS:
         for bits in (64, 32):
             r = build.tile_attrs(name, bits, B, H, act, conj)
@@ -1286,7 +1369,7 @@ def phase_resources():
             out.append(dict(kernel=name, f=bits, B=1, H=1, act=False,
                             conj=False, **build.single_attrs(name, bits)))
     spills = [r for r in out if r["local_bytes"]]
-    say(f"[resources] kernels 1, 2, 6 and 7: registers a thread "
+    say(f"[resources] kernels 1, 2, 3, 6 and 7: registers a thread "
         f"{min(r['regs'] for r in out)}-{max(r['regs'] for r in out)}, "
         f"shared memory a block {min(r['dynamic_smem'] for r in out)}-"
         f"{max(r['dynamic_smem'] for r in out)} B, "
@@ -1645,7 +1728,7 @@ def phase_full(device, timer):
                                            device)
     c32, p32, wall32, t32, ps32 = fit_full(Xtr, ytr, Xte, torch.float32,
                                            device)
-    counts = kernels.launches()              # ... and ends here
+    counts = read_launches()                 # ... and ends here
     say(f"[full] launches on the main path: {counts}")
     for name in ("rbf_row_wss_batched", "rbf_update_wss_batched"):
         assert counts[name] == t64 + t32, (name, counts, t64, t32)
@@ -1704,7 +1787,7 @@ def phase_full(device, timer):
                  iterations=int(r64.iterations[0]))
     svc_ref = dict(objective=r64.objective, pred=p64,
                    iterations=r64.iterations, loop=t64, ms_iter=ms_iter)
-    return rec, counts, lane0, svc_ref
+    return rec, lane0, svc_ref
 
 
 def profile_iterations(run, label, ms_iter, n_iter=None):
@@ -1796,6 +1879,8 @@ def kernel_times(device, timer):
                 (N_TEST * D + N_TRAIN * D + N_TEST * N_TRAIN) * item,
                 2 * N_TEST * N_TRAIN * D + 6 * N_TEST * N_TRAIN),
         }
+        # the product alone (cuBLAS): a yardstick, not the same function
+        gemm_ms = timer.ms(lambda: Xte @ Xtr.T, 10)
         for name, (kern, plain, comp, nbytes, nops) in cases.items():
             # reps keep every queued launch inside the card's queue
             reps, preps = (10, 10) if name == "gram_block" else (100, 20)
@@ -1814,7 +1899,8 @@ def kernel_times(device, timer):
                 f"{PEAK_OPS_PER_S[dtype] / 1e12} TFLOP/s)"
                 + ("" if comp_ms is None else
                    f"; composite yardstick exp(-g*cdist^2), three PyTorch "
-                   f"calls the port never makes: {comp_ms:.5f} ms"))
+                   f"calls the port never makes: {comp_ms:.5f} ms; the "
+                   f"product alone, cuBLAS X1 @ X2.T: {gemm_ms:.5f} ms"))
             if dtype == torch.float64:
                 recs[name] = dict(ms=min(ms_k, ms_k2),
                                   plain_ms=min(ms_p, ms_p2), bound_ms=bms,
@@ -1827,9 +1913,24 @@ def kernel_times(device, timer):
 # ---------------------------------------------------------------------------
 
 
-def counted(run):
+def read_launches(tally: bool = True) -> dict:
+    """The launch counts since the last reset; with ``tally`` also added to
+    :data:`MAIN_LAUNCHES` (a run of a main path, not a repeat that only
+    checks)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import gram_block
+    counts = kernels.launches()
+    if tally:
+        MAIN_LAUNCHES.update(counts)
+        MAIN_LAUNCHES["gram_symmetric"] += \
+            gram_block.gram_cross.symmetric_launches
+    return counts
+
+
+def counted(run, tally: bool = True):
     """``run()`` with the launch counts set to 0 just before and read just
-    after: (result, counts, wall s)."""
+    after (and tallied, see :func:`read_launches`): (result, counts,
+    wall s)."""
     from repro_torch import kernels
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1837,7 +1938,16 @@ def counted(run):
     r = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return r, kernels.launches(), wall
+    return r, read_launches(tally), wall
+
+
+def predicted(run, label):
+    """``run()``, a predict or a score: counted, and it launched the Gram
+    kernel and no other kernel."""
+    r, counts, _ = counted(run)
+    check_only(counts, {"gram_block": counts["gram_block"]}, label)
+    assert counts["gram_block"] >= 1, (label, counts)
+    return r
 
 
 def check_only(counts, on, label):
@@ -1889,7 +1999,7 @@ def phase_grid(device, timer):
     eps = 1e-3
     cfg = SolverConfig(algorithm="pasmo", eps=eps)
     Y = mc.ovr_labels(mc.class_index(ytr)[1], K, torch.float64, device)
-    runs, bank_counts = {}, {}
+    runs = {}
     for tag, dtype, precompute in (("bank f64", torch.float64, True),
                                    ("rbf f64", torch.float64, False),
                                    ("bank f32", torch.float32, True)):
@@ -1899,10 +2009,9 @@ def phase_grid(device, timer):
                                     device=device, dtype=dtype), device)
         say(f"[grid] {tag}: launches {counts}")
         check_counts(counts, t, precompute, tag)
-        if precompute:
-            for name in BANK_PASSES:
-                bank_counts[name] = bank_counts.get(name, 0) + counts[name]
-        df = grid.grid_decision(Xte, Xtr, gammas, r.alpha, r.b)
+        df, counts, _ = counted(lambda: grid.grid_decision(
+            Xte, Xtr, gammas, r.alpha, r.b))
+        check_only(counts, {"gram_block": len(gammas)}, f"{tag} decision")
         acc = (torch.argmax(df, dim=1).cpu().numpy()
                == yte[None, None, :]).mean(axis=-1)       # (n_gamma, n_C)
         its = r.iterations
@@ -1959,7 +2068,7 @@ def phase_grid(device, timer):
                                 dtype=torch.float64),
         "grid bank f64 full width", ms_bank)
     phase_oneclass(Xtr, gammas, device)
-    return recs, bank_counts, shrink_off
+    return recs, shrink_off
 
 
 def svc_grid_checks(Xtr, Y, gammas, results, device, Cs=GRID_CS):
@@ -2067,10 +2176,22 @@ def grid_kernel_times(device, timer):
         gammas = [0.5 / d, 1.0 / d, 2.0 / d]
         ms_k = timer.ms(lambda: ops.gram_bank(X, gammas, impl="cuda"), 3)
         ms_p = timer.ms(lambda: ops.gram_bank(X, gammas, impl="torch"), 3)
-        bms, by = bound_ms(3 * l * l * item + l * d * item,
-                           3 * (2 * l * l * d + 6 * l * l), dtype)
+        ms_k2 = timer.ms(lambda: ops.gram_bank(X, gammas, impl="cuda"), 3)
+        gemm_ms = timer.ms(lambda: X @ X.T, 3)
+        # what a symmetric Gram needs, whatever computes it: l (l + 1) / 2
+        # products of d and 6 operations an entry; l^2 values written and
+        # X read once, for each gamma
+        nbytes = 3 * l * l * item + l * d * item
+        nops = 3 * (l * (l + 1) * d + 6 * l * l)
+        bms, by = bound_ms(nbytes, nops, dtype)
+        bms1, by1 = bound_ms(l * l * item + l * d * item,
+                             l * (l + 1) * d + 6 * l * l, dtype)
         say(f"[time] bank build 3 x {l}^2 {str(dtype)[6:]}: Gram kernel "
-            f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bms:.4f} ms by {by}")
+            f"{ms_k:.4f} / {ms_k2:.4f} ms, plain {ms_p:.4f} ms, bound "
+            f"{bms:.4f} ms by {by}; one gamma (symmetric): kernel "
+            f"{min(ms_k, ms_k2) / 3:.5f} ms, bound {bms1:.5f} ms by {by1}, "
+            f"share {bms1 / (min(ms_k, ms_k2) / 3):.4f}; the product alone, "
+            f"cuBLAS X @ X.T: {gemm_ms:.5f} ms")
         del X
     return recs
 
@@ -2155,7 +2276,7 @@ def phase_single(device, timer, lane0):
     stats2 = {}
     r2, counts2, wall2 = counted(lambda: solve_fused(
         Xtr, y0, 1.0, lane0["gamma"], cfg, device=device,
-        dtype=torch.float64, stats=stats2))
+        dtype=torch.float64, stats=stats2), tally=False)
     for f in ("alpha", "b", "G", "objective", "iterations"):
         if not torch.equal(torch.as_tensor(getattr(r, f)),
                            torch.as_tensor(getattr(r2, f))):
@@ -2215,7 +2336,6 @@ def phase_single(device, timer, lane0):
                                          max_iter=PROFILE_ITERS),
                             device=device, dtype=torch.float64),
         "solve_fused f64 full width", ms_iter)
-    return {name: counts[name] + counts_m[name] for name in SINGLE_PASSES}
 
 
 def single_inputs(l, dtype, device):
@@ -2371,7 +2491,7 @@ def svr_checks(X, P, L, U, alpha, G, gamma):
 
 def fit_svr(Xtr, ytr, Xte, yte, dtype, device, eps):
     """SVR(C=10, epsilon=0.1, gamma="scale") at full width, launches
-    counted: (estimator, launches, ms an iteration)."""
+    counted: (estimator, ms an iteration)."""
     from repro_torch.core.solver_fused import CHECK_EVERY
     from repro_torch.svm import SVR
     tag = str(dtype)[6:]
@@ -2381,14 +2501,15 @@ def fit_svr(Xtr, ytr, Xte, yte, dtype, device, eps):
     r = reg.fit_result_
     t = loop_iterations(r.iterations, CHECK_EVERY, reg.max_iter)
     check_only(counts, {n: t for n in H2_PASSES}, f"SVR {tag}")
+    r2 = predicted(lambda: reg.score(Xte, yte), f"SVR {tag} score")
     say(f"[svr] SVR {tag}: l={N_TRAIN} (2l={2 * N_TRAIN} variables) d={D} "
         f"gamma={reg.gamma_:.6g}; iterations {int(r.iterations)}; "
         f"{wall:.3f} s = {wall / t * 1e3:.4f} ms/iteration; launches "
         f"{counts}; SVs {reg.n_support_}; held-out R^2 "
-        f"{reg.score(Xte, yte):.4f}; converged {bool(r.converged)}, KKT gap "
+        f"{r2:.4f}; converged {bool(r.converged)}, KKT gap "
         f"{float(r.kkt_gap):.4e}")
     assert bool(r.converged), f"SVR {tag} did not converge"
-    return reg, counts, wall / t * 1e3
+    return reg, wall / t * 1e3
 
 
 def phase_svr(device):
@@ -2406,8 +2527,7 @@ def phase_svr(device):
     Xtr, ytr, Xte, yte = X[:N_TRAIN], yv[:N_TRAIN], X[N_TRAIN:], yv[N_TRAIN:]
     Xt = torch.tensor(Xtr, dtype=torch.float64, device=device)
     eps = 1e-3
-    reg, counts_all, ms_iter = fit_svr(Xtr, ytr, Xte, yte, torch.float64,
-                                       device, eps)
+    reg, ms_iter = fit_svr(Xtr, ytr, Xte, yte, torch.float64, device, eps)
     r = reg.fit_result_
     svr_ref = dict(objective=r.objective, iterations=r.iterations.reshape(1),
                    loop=loop_iterations(r.iterations, CHECK_EVERY,
@@ -2439,8 +2559,6 @@ def phase_svr(device):
         if precompute:
             want["gram_block"] = len(SVR_GAMMA_FACTORS)
         check_only(counts, want, f"e-SVR grid {src}")
-        for n in on:
-            counts_all[n] = counts_all.get(n, 0) + counts[n]
         say(f"[svr] e-SVR grid {src} f64: lanes "
             f"{tuple(rg.alpha.shape[:3])} of 2l={2 * N_TRAIN}; "
             f"gammas {[f'{g:.6g}' for g in gammas]}, epsilons "
@@ -2453,8 +2571,10 @@ def phase_svr(device):
         assert bool(rg.converged.all()), f"an e-SVR grid lane ({src}) did " \
                                          f"not converge"
         worst = svr_grid_checks(Xt, ytr, gammas, rg, device)
-        df = grid.grid_decision(Xte, Xtr, gammas, qp.svr_fold(rg.alpha),
-                                rg.b)
+        df, counts, _ = counted(lambda: grid.grid_decision(
+            Xte, Xtr, gammas, qp.svr_fold(rg.alpha), rg.b))
+        check_only(counts, {"gram_block": len(gammas)},
+                   f"e-SVR grid {src} decision")
         r2s = 1.0 - ((torch.tensor(yte, device=device) - df) ** 2).sum(
             -1) / float(((yte - yte.mean()) ** 2).sum())
         say(f"[svr] e-SVR grid {src}: |G_carried - (p - Q alpha)|_max = "
@@ -2484,7 +2604,8 @@ def phase_svr(device):
     r = oc.fit_result_
     t = loop_iterations(r.iterations, CHECK_EVERY, oc.max_iter)
     check_only(counts, {n: t for n in RBF_PASSES}, "OneClassSVM")
-    out_frac = float((oc.predict(Xtr) < 0).mean())
+    out_frac = float((predicted(lambda: oc.predict(Xtr),
+                                "OneClassSVM predict") < 0).mean())
     say(f"[svr] OneClassSVM(nu=0.1) f64: l={N_TRAIN}; iterations "
         f"{int(r.iterations)}; {wall:.3f} s = {wall / t * 1e3:.4f} "
         f"ms/iteration; launches {counts}; training outlier fraction "
@@ -2493,16 +2614,15 @@ def phase_svr(device):
         f"sum alpha - 1 = {float(r.alpha.sum()) - 1:.3e}")
     assert bool(r.converged) and float(r.kkt_gap) <= eps
 
-    r32, counts, _ = fit_svr(Xtr, ytr, Xte, yte, torch.float32, device, eps)
-    for n in H2_PASSES:
-        counts_all[n] += counts[n]
-    diff = float((r32.predict(Xte).double() - reg.predict(Xte)).abs().max())
+    r32, _ = fit_svr(Xtr, ytr, Xte, yte, torch.float32, device, eps)
+    p32 = predicted(lambda: r32.predict(Xte), "SVR f32 predict")
+    p64 = predicted(lambda: reg.predict(Xte), "SVR f64 predict")
+    diff = float((p32.double() - p64).abs().max())
     rel = abs(float(r32.fit_result_.objective)
               / float(reg.fit_result_.objective) - 1.0)
     say(f"[svr] SVR f32 against f64: held-out predictions max diff "
         f"{diff:.3e}, objective rel diff {rel:.3e}")
-    return ({n: counts_all[n] for n in H2_PASSES + H2_BANK_PASSES},
-            grids["bank"], svr_ref)
+    return grids["bank"], svr_ref
 
 
 def svr_grid_checks(Xt, ytr, gammas, rg, device):
@@ -2620,7 +2740,7 @@ def phase_shrink(device, timer, grid_off, svr_off):
     YC = Y[None, :, None, :] * torch.tensor(
         GRID_CS, dtype=torch.float64, device=device)[None, None, :, None]
     L, U = torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
-    counts_all, recs = {}, {}
+    recs = {}
     objectives_agree = functools.partial(agree_objectives, "[shrink]",
                                          "the shrink-off run")
 
@@ -2637,8 +2757,6 @@ def phase_shrink(device, timer, grid_off, svr_off):
         if precompute:
             want["gram_block"] = len(GRID_GAMMA_FACTORS)
         check_only(counts, want, f"grid shrinking {src}")
-        for n in on:
-            counts_all[n] = counts_all.get(n, 0) + counts[n]
         n_un = probe.result.n_unshrink
         share = active_share(r.G, r.alpha, L, U)
         ms = wall / t * 1e3
@@ -2686,8 +2804,6 @@ def phase_shrink(device, timer, grid_off, svr_off):
                         "gram_block": len(GRID_GAMMA_FACTORS)},
                "compacted grid")
     assert counts[BANK_ACT[0]] > 0
-    for n in BANK_ACT:
-        counts_all[n] += counts[n]
     n_rounds, rows = len(rounds.rows), [int(m) for m in rounds.rows]
     off = {k: grid_off[k][:, :, :len(COMPACT_CS)]
            for k in ("objective", "iterations")}
@@ -2729,8 +2845,6 @@ def phase_shrink(device, timer, grid_off, svr_off):
     check_only(counts, {BANK_ACT[0]: t, BANK_ACT[1]: t,
                         "gram_block": len(SVR_GAMMA_FACTORS)},
                "e-SVR grid shrinking")
-    for n in BANK_ACT:
-        counts_all[n] += counts[n]
     yt = torch.tensor(yv, dtype=torch.float64, device=device)
     P = torch.stack([qp.svr_qp(yt, 1.0, e).p for e in SVR_EPSILONS])
     Lg = torch.stack([qp.svr_qp(yt, c, 0.0).bounds.lower
@@ -2765,7 +2879,6 @@ def phase_shrink(device, timer, grid_off, svr_off):
                                     device=device, dtype=torch.float64),
         "e-SVR grid bank f64 shrinking=True (one mask refresh inside)", ms,
         2 * PROFILE_ITERS)
-    return counts_all
 
 
 # ---------------------------------------------------------------------------
@@ -2832,9 +2945,7 @@ def phase_conj(device, timer, svc_ref, grid_off, svr_ref):
                lambda: clf.fit(Xtr, ytr).fit_result_,
                {"rbf_row_wss_batched": None, CONJ_PASSES[0]: None},
                svc_ref)
-    df, counts, _ = counted(lambda: clf.decision_function(Xte))
-    check_only(counts, {"gram_block": counts["gram_block"]}, "predict")
-    assert counts["gram_block"] >= 1
+    df = predicted(lambda: clf.decision_function(Xte), "predict")
     pred = clf.classes_[torch.argmax(df, dim=-1).cpu().numpy()]
     agree = float(np.mean(pred == svc_ref["pred"]))
     objectives_agree("SVC", r.objective, svc_ref["objective"])
@@ -3185,20 +3296,19 @@ def main(argv=None) -> int:
         return 0
     phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
-    recs, counts, lane0, svc_ref = phase_full(device, timer)
+    MAIN_LAUNCHES.clear()                   # phases 5-10 tally from here
+    recs, lane0, svc_ref = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
-    grid_recs, bank_counts, grid_off = phase_grid(device, timer)
+    grid_recs, grid_off = phase_grid(device, timer)
     recs.update(grid_recs)
-    counts.update(bank_counts)
     say(f"[time] slice 2 phases done at {time.perf_counter() - t_start:.1f} s")
-    counts.update(phase_single(device, timer, lane0))
+    phase_single(device, timer, lane0)
     say(f"[time] single-lane phase done at "
         f"{time.perf_counter() - t_start:.1f} s")
-    svr_counts, svr_off, svr_ref = phase_svr(device)
-    counts.update(svr_counts)
+    svr_off, svr_ref = phase_svr(device)
     recs.update(slice3_kernel_times(device, timer))
     say(f"[time] slice 3 phases done at {time.perf_counter() - t_start:.1f} s")
-    counts.update(phase_shrink(device, timer, grid_off, svr_off))
+    phase_shrink(device, timer, grid_off, svr_off)
     recs.update(slice4_kernel_times(device, timer))
     say(f"[time] slice 4 phases done at {time.perf_counter() - t_start:.1f} s")
     variants = phase_conj(device, timer, svc_ref, grid_off, svr_ref)
@@ -3208,16 +3318,23 @@ def main(argv=None) -> int:
         # on the main path
         src = "rbf" if name == CONJ_PASSES[0] else "bank"
         mine = {k: n for k, n in variants.items() if k[0] == src}
-        counts[name] = sum(mine.values())
+        assert MAIN_LAUNCHES[name] == sum(mine.values()), (name, mine)
         recs[name] = conj_recs[max(mine, key=mine.get)]
         say(f"[conj] {name}: launches by (source, H, act, B) {mine}; the "
             f"record's times are those of {max(mine, key=mine.get)}")
     say(f"[time] slice 5 phase done at {time.perf_counter() - t_start:.1f} s")
+    n_gram = MAIN_LAUNCHES["gram_block"]
+    n_sym = MAIN_LAUNCHES["gram_symmetric"]
+    say(f"[gram] launches over phases 5-10: {n_gram}; bank builds (l x l, "
+        f"symmetric, l = {N_TRAIN}): {n_sym}; predict and decision (m x l, "
+        f"cross): {n_gram - n_sym}")
+    idle = [name for name in SOURCES if MAIN_LAUNCHES[name] == 0]
+    assert not idle, f"kernels the main paths never launched: {idle}"
     out = []
     for name, (src, replaces) in SOURCES.items():
         r = recs[name]
         out.append(dict(name=name, route="cuda", source=src,
-                        replaces=replaces, launches=counts[name],
+                        replaces=replaces, launches=MAIN_LAUNCHES[name],
                         max_abs_err=errs[name], ms=r["ms"],
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"], library_ms=None))

@@ -4,6 +4,8 @@ PyTorch versions.
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``); :func:`reset_launches` and :func:`launches` read
 and clear them together, so a run can show which kernels it went through.
+The Gram wrapper also counts its symmetric-mode launches
+(``gram_block.gram_cross.symmetric_launches``, cleared with the rest).
 A CUDA graph launches kernels without calling their wrappers: whoever
 replays one adds its launches with :func:`add_launches`.
 """
@@ -38,6 +40,7 @@ WRAPPERS = {
 def reset_launches() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
+    gram_block.gram_cross.symmetric_launches = 0
 
 
 def launches() -> dict:

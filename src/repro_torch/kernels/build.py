@@ -60,14 +60,16 @@ SIGNATURES = {
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }
-# Resource queries of the rbf passes (name + "_attrs", not kernels): the
-# batched passes' tiled variants take B H masked | out int[4], pass B with
-# conj before out; the single-lane passes (kernels 6 and 7) out alone.
+# Resource queries (name + "_attrs", not kernels): the batched passes'
+# tiled variants take B H masked | out int[4], pass B with conj before
+# out; the single-lane passes (kernels 6 and 7) out alone; the Gram vec |
+# out int[6].
 ATTRS = {
     "rbf_row_wss_batched": [_I] * 3 + [_P],
     "rbf_update_wss_batched": [_I] * 4 + [_P],
     "rbf_row_wss": [_P],
     "rbf_update_wss": [_P],
+    "gram_block": [_I, _P],
 }
 
 
@@ -208,6 +210,17 @@ def single_attrs(name: str, dtype_bits: int) -> dict:
     check(getattr(load(), fn)(out), fn)
     return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem"),
                     out))
+
+
+def gram_attrs(dtype_bits: int, vec: bool) -> dict:
+    """Resources of the Gram kernel's instance with (``vec``, f64 only)
+    or without 16-byte copies of X1 and X2, as :func:`tile_attrs` gives
+    them, and its output tile (``tm`` x ``tn``)."""
+    out = (ctypes.c_int * 6)()
+    fn = f"gram_block_attrs_f{dtype_bits}"
+    check(getattr(load(), fn)(int(vec), out), fn)
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem",
+                     "tm", "tn"), out))
 
 
 def check(err: int, name: str) -> None:
