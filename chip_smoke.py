@@ -102,17 +102,32 @@ failure raises and the script exits non-zero without a result line:
    (reused), a profiler window; then the eight conjugate variants timed
    beside their bounds, the variants without the direction and their
    plain versions.
+11. classic engine, full width (slice 9) — ``engine="batched"`` and
+   ``impl=None``: (a) the 10-lane SVC of phase 5 on its Gram (kernel 3,
+   symmetric mode) in f64 and f32, with a profiler window; (b) the same
+   fit with rows from ``X[i] @ X.T``; (c) the paper's variants (smo,
+   pasmo_simple, overshoot, pasmo with 3 candidates, ``wss="mvp"``, the
+   conjugate step), a Table-2-style line each; (d) the Fig. 3 recorder,
+   ``mu/mu* - 1`` in ``benchmarks/fig3_stepsizes.py``'s buckets; (e)
+   ``solve_grid(impl=None)`` over phase 6's grid and the classic
+   compacted grid over its C = 0.5 lanes, without and with shrinking;
+   (f) ``SVR`` and ``OneClassSVM`` on phase 8's problems and
+   ``train_svm`` on lane 0.  Every lane converged, G within 1e-8 of
+   p - Q alpha, the full-set gap at most eps, objectives within rtol
+   1e-6 of the fused results of phases 5, 6 and 8 (reused) or of (a),
+   held-out predictions at least 99% equal; the phase's time is
+   printed.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows span one
 check chunk, which the loop runs eagerly, so no graph is captured inside a
 window.
 
-Every counted run of phases 5-10 (fits, grids, predicts and decisions;
+Every counted run of phases 5-11 (fits, grids, predicts and decisions;
 not the bitwise repeat of phase 7, the profiler windows or the timings)
 adds its launches to one tally, which the kernels' JSON record reports;
-a ``[gram]`` line splits the Gram's launches into bank builds (symmetric)
-and predicts and decisions (cross).  The line before the last is the
+a ``[gram]`` line splits the Gram's launches into bank and Gram builds
+(symmetric) and predicts and decisions (cross).  The line before the last is the
 kernels' JSON record; the last is the contract line ``{"ok": true,
 "device": {...}}``.  No JAX and nothing of the
 reference package is imported.
@@ -230,7 +245,7 @@ MICRO = dict(n=16384, C=100.0, gamma=0.5, max_iter=30_000)
 # the loop runs its first chunk eagerly, so no CUDA graph is captured
 # inside a window; the kernels an iteration are the same as a replay's.
 PROFILE_ITERS = 32
-# Launches of every counted run of the main paths (phases 5-10), summed
+# Launches of every counted run of the main paths (phases 5-11), summed
 # over the runs; "gram_symmetric" counts the Gram's symmetric-mode (bank)
 # launches among "gram_block"'s.  The kernels' JSON line reads it.
 MAIN_LAUNCHES = collections.Counter()
@@ -2613,6 +2628,7 @@ def phase_svr(device):
         f"converged {bool(r.converged)}, KKT gap {float(r.kkt_gap):.4e}; "
         f"sum alpha - 1 = {float(r.alpha.sum()) - 1:.3e}")
     assert bool(r.converged) and float(r.kkt_gap) <= eps
+    svr_ref["oneclass"] = r.objective
 
     r32, _ = fit_svr(Xtr, ytr, Xte, yte, torch.float32, device, eps)
     p32 = predicted(lambda: r32.predict(Xte), "SVR f32 predict")
@@ -3262,6 +3278,321 @@ def slice4_kernel_times(device, timer):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the classic engine at full width
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig3_stepsizes.py's buckets of a planning step's mu/mu* - 1
+FIG3_BUCKETS = ((-math.inf, -1.0, "reversed"), (-1.0, -0.1, "shrunk"),
+                (-0.1, 0.1, "near-newton"), (0.1, 1.0, "overshoot<2x"),
+                (1.0, 10.0, "overshoot<11x"), (10.0, math.inf,
+                                               "overshoot>11x"))
+# The paper's variants of (c): algorithm, planning candidates, selection
+# and step; each runs on the one-vs-rest problem of (a).
+CLASSIC_VARIANTS = (("smo", dict(algorithm="smo")),
+                    ("pasmo_simple", dict(algorithm="pasmo_simple")),
+                    ("overshoot", dict(algorithm="overshoot")),
+                    ("pasmo N=3", dict(algorithm="pasmo",
+                                       plan_candidates=3)),
+                    ("wss=mvp", dict(algorithm="pasmo", wss="mvp")),
+                    ("smo conjugate", dict(algorithm="smo",
+                                           step="conjugate")))
+CLASSIC_COUNTERS = ("n_planning", "n_free", "n_clipped", "n_reverted")
+
+
+class LaneProbe:
+    """Records the lane count of every classic loop
+    (``repro_torch.core.grid.solve_lanes``) while installed: one entry a
+    C of the classic grid, one a chunk (round) of the compacted one."""
+
+    def __enter__(self):
+        from repro_torch.core import grid
+        self.orig, self.lanes = grid.solve_lanes, []
+
+        def spy(kernel, p, *args, **kw):
+            self.lanes.append(p.shape[0])
+            return self.orig(kernel, p, *args, **kw)
+
+        grid.solve_lanes = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import grid
+        grid.solve_lanes = self.orig
+
+
+def classic_loop(iterations) -> int:
+    """Iterations the classic host loop runs over lanes with these counts
+    (it stops at the first check after the last lane converged)."""
+    from repro_torch.core.solver import CHECK_EVERY
+    return loop_iterations(iterations, CHECK_EVERY, 1_000_000)
+
+
+def counters_text(r) -> str:
+    return "; ".join(f"{f} {getattr(r, f).flatten().tolist()}"
+                     for f in CLASSIC_COUNTERS)
+
+
+def phase_classic(device, svc_ref, grid_off, svr_ref):
+    """Slice 9 at full width: the classic engine (``engine="batched"``,
+    ``impl=None``) on phase 5's 10-lane SVC (Gram kernel in symmetric mode,
+    f64 and f32; and rows recomputed from X), the paper's variants, the
+    Fig. 3 recorder, phase 6's grid and the compacted grid, phase 8's SVR
+    and one-class problems and ``train_svm`` on lane 0's binary problem.
+    Every lane converged with its full-set gap at most eps, G within 1e-8
+    of p - Q alpha, objectives within rtol 1e-6 of the fused results of
+    phases 5, 6 and 8 (reused, not rerun) or of (a)."""
+    from repro_torch.core import grid
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core import qp
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.kernels import gram_block, ops, ref
+    from repro_torch.svm import SVC, SVR, OneClassSVM, data, model
+    t0 = time.perf_counter()
+    X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    Xtr, ytr, Xte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:]
+    eps = 1e-3
+    f64 = dict(device=device, dtype=torch.float64)
+    Y = mc.ovr_labels(mc.class_index(ytr)[1], K, torch.float64, device)
+    objectives_agree = functools.partial(agree_objectives, "[classic]")
+
+    def fit(tag, run, on):
+        """``run()`` counted: exactly the kernels ``on`` ran; a fit's Gram
+        is a symmetric launch.  (result, wall s)."""
+        r, counts, wall = counted(run)
+        check_only(counts, on, tag)
+        assert gram_block.gram_cross.symmetric_launches == on.get(
+            "gram_block", 0), tag
+        return r, wall
+
+    def converged(tag, r):
+        assert bool(r.converged.all()), f"classic {tag}: not converged"
+        assert float(r.kkt_gap.max()) <= eps, tag
+
+    def exact_g(r, gamma):
+        """Drift of the carried G against p - K alpha and the full-set
+        gap recomputed from it (maxima over the lanes)."""
+        Kfull = ref.gram_cross(Xt, Xt, gamma)
+        G_exact = Y - r.alpha.double() @ Kfull
+        del Kfull
+        gap = max(float(qp.kkt_gap(G_exact[b], r.alpha[b].double(),
+                                   qp.make_bounds(Y[b], 1.0)))
+                  for b in range(K))
+        return float((G_exact - r.G.double()).abs().max()), gap
+
+    # (a) the main path: 10 one-vs-rest lanes on the Gram (kernel 3)
+    clf = SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=eps,
+              engine="batched", **f64)
+    r, wall = fit("SVC f64", lambda: clf.fit(Xtr, ytr).fit_result_,
+                  {"gram_block": 1})
+    converged("SVC f64", r)
+    t = classic_loop(r.iterations)
+    ms_iter = wall / t * 1e3
+    Xt = clf.X_
+    drift, gap = exact_g(r, clf.gamma_)
+    df = predicted(lambda: clf.decision_function(Xte), "classic predict")
+    pred = clf.classes_[torch.argmax(df, dim=-1).cpu().numpy()]
+    agree = float(np.mean(pred == svc_ref["pred"]))
+    say(f"[classic] SVC f64 engine={clf.engine_} (Gram kernel 3, "
+        f"symmetric): iterations per lane {r.iterations.tolist()}; loop "
+        f"iterations {t} (fused: {svc_ref['loop']}); fit {wall:.3f} s = "
+        f"{ms_iter:.4f} ms/iteration (fused {svc_ref['ms_iter']:.4f}); "
+        f"{counters_text(r)}; |G_carried - (p - K alpha)|_max = "
+        f"{drift:.3e}; KKT gap recomputed {gap:.4e}; held-out predictions "
+        f"equal to the fused fit's {agree:.4f}")
+    objectives_agree("the fused fit's", "SVC f64", r.objective,
+                     svc_ref["objective"])
+    assert drift <= 1e-8 and gap <= eps and agree >= 0.99, (drift, gap,
+                                                            agree)
+    ref_a = dict(objective=r.objective, pred=pred, iterations=r.iterations,
+                 lane0=float(r.objective[0]), gamma=clf.gamma_,
+                 df0=df[:, 0])
+    profile_iterations(
+        lambda: SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=eps,
+                    engine="batched", max_iter=PROFILE_ITERS,
+                    **f64).fit(Xtr, ytr),
+        "classic SVC f64 full width", ms_iter)
+    c32 = SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=eps,
+              engine="batched", device=device, dtype=torch.float32)
+    r32, wall = fit("SVC f32", lambda: c32.fit(Xtr, ytr).fit_result_,
+                    {"gram_block": 1})
+    converged("SVC f32", r32)
+    df32 = predicted(lambda: c32.decision_function(Xte), "classic f32")
+    p32 = c32.classes_[torch.argmax(df32, dim=-1).cpu().numpy()]
+    agree = float(np.mean(p32 == pred))
+    say(f"[classic] SVC f32: iterations per lane {r32.iterations.tolist()}; "
+        f"{wall:.3f} s = {wall / classic_loop(r32.iterations) * 1e3:.4f} "
+        f"ms/iteration; held-out predictions equal to f64's {agree:.4f}")
+    assert agree >= 0.99, agree
+    del clf, c32, r32, df, df32
+
+    # (b) rows recomputed from X (X[i] @ X.T): no kernel of the port
+    clf = SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=eps,
+              engine="batched", precompute=False, **f64)
+    r, wall = fit("SVC rows", lambda: clf.fit(Xtr, ytr).fit_result_, {})
+    converged("SVC rows", r)
+    say(f"[classic] SVC f64 rows from X: iterations per lane "
+        f"{r.iterations.tolist()}; {wall:.3f} s = "
+        f"{wall / classic_loop(r.iterations) * 1e3:.4f} ms/iteration")
+    objectives_agree("(a)", "SVC rows", r.objective, ref_a["objective"])
+    del clf, r
+
+    # (c) the paper's variants (Table 2 style), on the problem of (a)
+    for tag, kw in CLASSIC_VARIANTS:
+        cfg = SolverConfig(eps=eps, **kw)
+        if "wss" in kw:                     # no facade knob: solve_ovr
+            def run():
+                Kg = ops.gram(Xt, gamma=ref_a["gamma"], device=device)
+                return mc.solve_ovr(qp.PrecomputedKernel(Kg), Y, 1.0, cfg,
+                                    device=device)
+        else:
+            def run():
+                return SVC(C=1.0, gamma="scale", eps=eps, engine="batched",
+                           **kw, **f64).fit(Xtr, ytr).fit_result_
+        r, wall = fit(tag, run, {"gram_block": 1})
+        converged(tag, r)
+        say(f"[classic] Table 2 {tag}: iterations max "
+            f"{int(r.iterations.max())} sum {int(r.iterations.sum())} "
+            f"(pasmo: max {int(ref_a['iterations'].max())} sum "
+            f"{int(ref_a['iterations'].sum())}); counters summed over the "
+            f"lanes " + ", ".join(f"{f} {int(getattr(r, f).sum())}"
+                        for f in CLASSIC_COUNTERS)
+            + f"; wall {wall:.3f} s")
+        objectives_agree("(a)", tag, r.objective, ref_a["objective"])
+        del r
+
+    # (d) Fig. 3: the recorder of planning-step ratios on (a)'s fit
+    cfg = SolverConfig(algorithm="pasmo", eps=eps, record_trace=True)
+
+    def run():
+        Kg = ops.gram(Xt, gamma=ref_a["gamma"], device=device)
+        return mc.solve_ovr(qp.PrecomputedKernel(Kg), Y, 1.0, cfg,
+                            device=device)
+
+    r, wall = fit("Fig. 3", run, {"gram_block": 1})
+    converged("Fig. 3", r)
+    kept = torch.clamp_max(r.n_trace, cfg.trace_cap)
+    assert torch.equal(r.n_trace, r.n_planning), (r.n_trace, r.n_planning)
+    assert torch.equal(r.iterations, ref_a["iterations"]), \
+        "the recorder changed the path"
+    ratios = torch.cat([r.trace[b, :int(kept[b])] for b in range(K)]) - 1.0
+    buckets = {label: int(((ratios > lo) & (ratios <= hi)).sum())
+               for lo, hi, label in FIG3_BUCKETS}
+    over = sum(n for label, n in buckets.items()
+               if label.startswith("overshoot"))
+    say(f"[classic] Fig. 3 on the card: planning steps per lane "
+        f"{r.n_planning.tolist()} (recorded {kept.tolist()}); mu/mu* - 1 "
+        f"summed over the lanes: {buckets}; share overshooting "
+        f"{over / max(len(ratios), 1):.4f}; "
+        f"{wall:.3f} s")
+    assert sum(buckets.values()) == len(ratios)
+    del r, ratios
+
+    # (e) the classic grid over phase 6's lanes, then the compacted grid
+    gammas = [1.0 / (D * float(Xtr.var())) * f for f in GRID_GAMMA_FACTORS]
+    cfg = SolverConfig(algorithm="pasmo", eps=eps)
+    torch.cuda.reset_peak_memory_stats(device)
+    with LaneProbe() as loops:
+        r, wall = fit("grid", lambda: grid.solve_grid(
+            Xtr, Y, GRID_CS, gammas, cfg, **f64),
+            {"gram_block": len(gammas)})
+    peak = torch.cuda.max_memory_allocated(device)
+    converged("grid", r)
+    t = sum(classic_loop(r.iterations[:, :, ci])
+            for ci in range(len(GRID_CS)))
+    drift, gap = svc_grid_checks(Xtr, Y, gammas, {"classic": r}, device)
+    say(f"[classic] grid impl=None f64 (warm-started C chain, "
+        f"{len(loops.lanes)} loops of {loops.lanes} lanes): iterations per "
+        f"C (max over lanes) "
+        f"{[int(r.iterations[:, :, c].max()) for c in range(len(GRID_CS))]}"
+        f"; loop iterations {t} (fused, cold: {grid_off['loop']}); "
+        f"{wall:.3f} s = {wall / t * 1e3:.4f} ms/iteration (fused "
+        f"{grid_off['ms_iter']:.4f}); counters summed "
+        + ", ".join(f"{f} {int(getattr(r, f).sum())}"
+                    for f in CLASSIC_COUNTERS)
+        + f"; |G_carried - (p - K alpha)|_max {drift['classic']:.3e}; KKT "
+        f"gap recomputed {gap['classic']:.4e}; peak device memory "
+        f"{peak / 1e9:.3f} GB")
+    objectives_agree("the fused grid's", "grid", r.objective,
+                     grid_off["objective"])
+    assert drift["classic"] <= 1e-8 and gap["classic"] <= eps
+    del r
+    off = grid_off["objective"][:, :, :len(COMPACT_CS)]
+    for shrinking in (False, True):
+        tag = f"compacted grid shrinking={shrinking}"
+        torch.cuda.reset_peak_memory_stats(device)
+        with LaneProbe() as rounds:
+            r, wall = fit(tag, lambda: grid.solve_grid_compacted(
+                Xtr, Y, COMPACT_CS, gammas, cfg, chunk=96,
+                shrinking=shrinking, **f64), {"gram_block": len(gammas)})
+        peak = torch.cuda.max_memory_allocated(device)
+        converged(tag, r)
+        n = len(rounds.lanes)
+        drift, gap = svc_grid_checks(Xtr, Y, gammas, {"c": r}, device,
+                                     COMPACT_CS)
+        say(f"[classic] {tag} impl=None f64 (Cs {list(COMPACT_CS)}, "
+            f"chunk=96): rounds {n}; lane bucket per round {rounds.lanes}; "
+            f"iterations per lane max {int(r.iterations.max())} sum "
+            f"{int(r.iterations.sum())}; {wall:.3f} s = "
+            f"{wall / n * 1e3:.3f} ms/round; counters summed "
+            + ", ".join(f"{f} {int(getattr(r, f).sum())}"
+                        for f in CLASSIC_COUNTERS)
+            + f"; |G - (p - K alpha)|_max {drift['c']:.3e}; KKT gap "
+            f"recomputed {gap['c']:.4e}; peak device memory "
+            f"{peak / 1e9:.3f} GB")
+        objectives_agree("the fused grid's", tag, r.objective, off)
+        assert drift["c"] <= 1e-8 and gap["c"] <= eps
+        del r
+
+    # (f) phase 8's SVR and one-class problems, and train_svm on lane 0
+    yv = sinc_target(X, 7)[:N_TRAIN]
+    reg = SVR(C=10.0, epsilon=0.1, gamma="scale", eps=eps, engine="batched",
+              **f64)
+    r, wall = fit("SVR", lambda: reg.fit(Xtr, yv).fit_result_,
+                  {"gram_block": 1})
+    converged("SVR", r)
+    q = qp.svr_qp(torch.tensor(yv, **f64), 10.0, 0.1)
+    drift, gap, asum = svr_checks(reg.X_, q.p, q.bounds.lower,
+                                  q.bounds.upper, r.alpha, r.G, reg.gamma_)
+    say(f"[classic] SVR f64 (2l = {2 * N_TRAIN}): iterations "
+        f"{int(r.iterations)} (fused {int(svr_ref['iterations'][0])}); "
+        f"{wall:.3f} s = {wall / classic_loop(r.iterations) * 1e3:.4f} "
+        f"ms/iteration (fused {svr_ref['ms_iter']:.4f}); "
+        f"{counters_text(r)}; |G_carried - (p - Q alpha)|_max = "
+        f"{drift:.3e}; KKT gap recomputed {gap:.4e}; |sum alpha| {asum:.3e}")
+    objectives_agree("the fused fit's", "SVR", r.objective.reshape(1),
+                     svr_ref["objective"].reshape(1))
+    assert drift <= 1e-8 and gap <= eps and asum <= 1e-8, (drift, gap, asum)
+    oc = OneClassSVM(nu=0.1, gamma="scale", eps=eps, engine="batched", **f64)
+    r, wall = fit("one-class", lambda: oc.fit(Xtr).fit_result_,
+                  {"gram_block": 1})
+    converged("one-class", r)
+    say(f"[classic] OneClassSVM(nu=0.1) f64: iterations "
+        f"{int(r.iterations)}; {wall:.3f} s; {counters_text(r)}; sum "
+        f"alpha - 1 = {float(r.alpha.sum()) - 1:.3e}")
+    objectives_agree("the fused fit's", "one-class", r.objective.reshape(1),
+                     svr_ref["oneclass"].reshape(1))
+    assert abs(float(r.alpha.sum()) - 1.0) <= 1e-8
+    del reg, oc, r
+
+    (m, r), wall = fit("train_svm", lambda: model.train_svm(
+        Xtr, Y[0], 1.0, ref_a["gamma"],
+        SolverConfig(algorithm="pasmo", eps=eps), device=device), {})
+    converged("train_svm", r)
+    pm = predicted(lambda: model.predict(m, Xte), "train_svm predict")
+    agree = float((pm == torch.where(ref_a["df0"] >= 0, 1.0, -1.0)).double()
+                  .mean())
+    say(f"[classic] train_svm lane 0 (rows from X, one lane): iterations "
+        f"{int(r.iterations)} ((a)'s lane 0: "
+        f"{int(ref_a['iterations'][0])}); {wall:.3f} s; held-out signs "
+        f"equal to (a)'s lane 0 {agree:.4f}")
+    objectives_agree("(a)'s lane 0", "train_svm", r.objective.reshape(1),
+                     torch.tensor([ref_a["lane0"]], **f64))
+    assert agree >= 0.99, agree
+    say(f"[classic] phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -3296,7 +3627,7 @@ def main(argv=None) -> int:
         return 0
     phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
-    MAIN_LAUNCHES.clear()                   # phases 5-10 tally from here
+    MAIN_LAUNCHES.clear()                   # phases 5-11 tally from here
     recs, lane0, svc_ref = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
     grid_recs, grid_off = phase_grid(device, timer)
@@ -3323,11 +3654,13 @@ def main(argv=None) -> int:
         say(f"[conj] {name}: launches by (source, H, act, B) {mine}; the "
             f"record's times are those of {max(mine, key=mine.get)}")
     say(f"[time] slice 5 phase done at {time.perf_counter() - t_start:.1f} s")
+    phase_classic(device, svc_ref, grid_off, svr_ref)
+    say(f"[time] slice 9 phase done at {time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
-    say(f"[gram] launches over phases 5-10: {n_gram}; bank builds (l x l, "
-        f"symmetric, l = {N_TRAIN}): {n_sym}; predict and decision (m x l, "
-        f"cross): {n_gram - n_sym}")
+    say(f"[gram] launches over phases 5-11: {n_gram}; bank and Gram builds "
+        f"(l x l, symmetric, l = {N_TRAIN}): {n_sym}; predict and decision "
+        f"(m x l, cross): {n_gram - n_sym}")
     idle = [name for name in SOURCES if MAIN_LAUNCHES[name] == 0]
     assert not idle, f"kernels the main paths never launched: {idle}"
     out = []

@@ -1,8 +1,16 @@
-"""C/gamma model-selection grids as one fused lane batch (the fused drivers
-of ``repro.core.grid``).
+"""C/gamma model-selection grids (``repro.core.grid``): the classic
+engine's warm-started C chain, and one fused lane batch.
 
 A hyper-parameter grid over an RBF-SVM is ``n_gamma * n_class * n_C``
-QPs that share one dataset.  The fused drivers flatten every grid axis
+QPs that share one dataset.  ``impl=None`` (the default) runs the classic
+engine (:mod:`repro_torch.core.solver`): the (gamma, class) lanes index a
+shared (n_gamma, l, l) Gram bank (the Gram kernel on the card) through a
+:class:`~repro_torch.core.qp.StackedKernel`, and the C axis runs in
+ascending order, each C warm-started from the last optimum scaled by
+``r = C / C_prev``: ``a0 = r alpha`` is feasible for the grown box and
+``g0 = (1 - r) y + r G`` is its exact gradient, so a restart costs O(l).
+A kernel backend name (``impl="auto"``, ``"cuda"``, ``"torch"``) runs
+the fused drivers, which flatten every grid axis
 into the B lanes of one :func:`~repro_torch.core.solver_fused.
 solve_fused_batched_qp` loop: two batched kernel passes per iteration,
 converged lanes frozen in the passes, lane order (gamma, class, C)
@@ -31,8 +39,9 @@ starts a fresh direction, as the reference's chunk seam does.
 
 The fused engine does not track the per-step counters ``n_free`` /
 ``n_clipped`` / ``n_reverted``: they carry the ``UNTRACKED`` (-1)
-sentinel, never zeros.  ``n_free_sv``, the free support vectors at the
-final ``alpha``, is reported for every lane.
+sentinel, never zeros; the classic engine counts them.  ``n_free_sv``,
+the free support vectors at the final ``alpha``, is reported for every
+lane.
 
 Axis convention for stacked results: ``(n_gamma, n_class, n_C, ...)``.
 """
@@ -45,8 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import qp as qp_mod
-from repro_torch.core.solver import SolveResult, SolverConfig
-from repro_torch.core.solver_fused import (FusedResult,
+from repro_torch.core.solver import (SolveResult, SolverConfig,
+                                     resolve_shrink_cfg, solve_lanes)
+from repro_torch.core.solver_fused import (FusedResult, _pow2,
                                            solve_fused_batched_qp,
                                            solve_fused_chunked_qp)
 from repro_torch.device import resolve_device, resolve_dtype
@@ -87,12 +97,7 @@ def _trace_fields(dims, dtype, device) -> dict:
                 steps_j=zeros(cap, torch.int32), steps_mu=zeros(cap, dtype))
 
 
-def _check_later_slices(impl, mesh, devices, diagnostics):
-    if impl is None:
-        raise NotImplementedError(
-            "impl=None (the classic vmapped grid engine) is a later slice "
-            "of the port (ROADMAP queue 1, step 10); pass a kernel backend "
-            "such as impl='auto'")
+def _check_later_slices(mesh, devices, diagnostics):
     if mesh is not None or devices is not None:
         raise NotImplementedError(
             "mesh and devices (lane sharding over several cards) are a "
@@ -184,12 +189,133 @@ def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute, shrinking,
     return _grid_result(fr, L, U, (len(gammas), k, len(Cs)))
 
 
+def _classic_lanes(X, Y, gammas):
+    """The classic grid's (gamma, class) lanes: labels (B, l) and a
+    :class:`~repro_torch.core.qp.StackedKernel` over the Gram bank (the
+    Gram kernel on the card)."""
+    k = Y.shape[0]
+    bank = ops.gram_bank(X, gammas, impl="auto")
+    g = torch.arange(len(gammas), dtype=torch.int32,
+                     device=X.device).repeat_interleave(k)
+    return Y.repeat(len(gammas), 1), qp_mod.StackedKernel(bank, g)
+
+
+def _box(Y, C):
+    YC = Y * C
+    return torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0)
+
+
+def _stack_c(results, dims) -> SolveResult:
+    """Per-C lane-flat results as one (n_gamma, k, n_C, ...) result."""
+    return SolveResult(**{f.name: torch.stack(
+        [getattr(r, f.name) for r in results], dim=1).reshape(
+        dims + getattr(results[0], f.name).shape[1:])
+        for f in dataclasses.fields(SolveResult)})
+
+
+def _solve_grid_classic(X, Y, Cs, gammas, cfg, warm_start) -> SolveResult:
+    """The classic engine over the C axis in the (ascending) order of
+    ``Cs``, each C one loop over the (gamma, class) lanes."""
+    Yf, kern = _classic_lanes(X, Y, gammas)
+    Cs_t = torch.as_tensor(Cs, dtype=X.dtype, device=X.device)
+    # alpha = 0, G = y is the C-free cold start: the scaled carry maps it
+    # to itself, so the first step is exact for any C_prev
+    alpha, G, C_prev = torch.zeros_like(Yf), Yf, Cs_t[0]
+    out = []
+    for C in Cs_t:
+        r = C / C_prev
+        res = solve_lanes(kern, Yf, *_box(Yf, C), cfg, alpha * r,
+                          (1.0 - r) * Yf + r * G)
+        if warm_start:
+            alpha, G, C_prev = res.alpha, res.G, C
+        out.append(res)
+    return _stack_c(out, (len(gammas), Y.shape[0], len(Cs)))
+
+
+# step-type counters a chunked solve resumes across chunks (plain
+# per-step sums, so the per-chunk values add up to solve_grid's)
+_CHUNK_COUNTERS = ("iterations", "n_planning", "n_free", "n_clipped",
+                   "n_reverted")
+
+
+def _compacted_classic(X, Y, Cs_np, gammas_np, cfg, chunk) -> SolveResult:
+    """The classic chunked grid: the C axis ascending with scaled warm
+    starts, and within each C the (gamma, class) lanes solved ``chunk``
+    iterations at a time, with the converged lanes dropped between chunks
+    (lane counts bucketed to powers of two by repeating the first live
+    lane).  Each chunk starts a fresh planning history; the carried alpha
+    and G stay in float64 on the device."""
+    dev, dtype = X.device, X.dtype
+    k, l = Y.shape
+    nG, nC = len(gammas_np), len(Cs_np)
+    B = nG * k
+    Yf, kern = _classic_lanes(X, Y, gammas_np)
+    Y64 = Yf.double()
+    # never exceed the caller's budget: the last chunk may be partial
+    ccfg = dataclasses.replace(cfg, max_iter=min(chunk, cfg.max_iter))
+    order = np.argsort(Cs_np, kind="stable")
+    alpha = torch.zeros((B, l), dtype=torch.float64, device=dev)
+    G = Y64.clone()
+    C_prev = float(Cs_np[order][0])
+
+    def zeros(*shape, dt=torch.float64):
+        return torch.zeros((B, nC) + shape, dtype=dt, device=dev)
+
+    out = dict(alpha=zeros(l), G=zeros(l), b=zeros(), objective=zeros(),
+               kkt_gap=zeros(), converged=zeros(dt=torch.bool),
+               **{f: zeros(dt=torch.int64) for f in _CHUNK_COUNTERS})
+    max_chunks = max(1, -(-cfg.max_iter // chunk))
+    for ci in order:
+        C = float(Cs_np[ci])
+        r = C / C_prev
+        a_c = alpha * r                                  # scaled warm start
+        g_c = (1.0 - r) * Y64 + r * G
+        live = np.arange(B)
+        for _ in range(max_chunks):
+            n = len(live)
+            idx = torch.as_tensor(np.concatenate(
+                [live, np.repeat(live[:1], _pow2(n) - n)]), device=dev)
+            Yc = Yf[idx]
+            res = solve_lanes(
+                qp_mod.StackedKernel(kern.Ks, kern.g[idx]), Yc,
+                *_box(Yc, C), ccfg, a_c[idx].to(dtype), g_c[idx].to(dtype))
+            at = idx[:n]
+            a_c[at] = res.alpha[:n].double()
+            g_c[at] = res.G[:n].double()
+            for f in _CHUNK_COUNTERS:
+                out[f][at, ci] += getattr(res, f)[:n]
+            for f in ("b", "objective", "kkt_gap", "converged"):
+                out[f][at, ci] = getattr(res, f)[:n].to(out[f].dtype)
+            live = live[~res.converged[:n].cpu().numpy()]
+            if len(live) == 0:
+                break
+        out["alpha"][:, ci] = a_c
+        out["G"][:, ci] = g_c
+        alpha, G, C_prev = a_c, g_c, C
+
+    YC = Y64[:, None, :] * torch.as_tensor(Cs_np, device=dev)[None, :, None]
+    n_free_sv = _free_sv_count(out["alpha"], torch.clamp_max(YC, 0.0),
+                               torch.clamp_min(YC, 0.0))
+    dims = (nG, k, nC)
+
+    def shape(t, dt):
+        return t.reshape(dims + t.shape[2:]).to(dt)
+
+    ints = dict(n_free_sv=shape(n_free_sv, torch.int32), **{
+        f: shape(out[f], torch.int32) for f in _CHUNK_COUNTERS})
+    return SolveResult(
+        **{f: shape(out[f], dtype) for f in ("alpha", "b", "G", "objective",
+                                             "kkt_gap")},
+        converged=shape(out["converged"], torch.bool), **ints,
+        **_trace_fields(dims, dtype, dev))
+
+
 def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
                warm_start: bool = True, impl: str | None = None,
                block_l: int = 1024, precompute: bool | None = None,
                shrinking: bool = False, mesh=None, devices=None,
                diagnostics=None, device=None, dtype=None) -> SolveResult:
-    """Solve the full (gamma, class, C) grid as one fused lane batch.
+    """Solve the full (gamma, class, C) grid.
 
     ``X``: (l, d) shared inputs; ``Y``: (k, l) signed label vectors (a 1-D
     ``y`` is one class head); ``Cs``: (n_C,); ``gammas``: (n_gamma,)
@@ -198,27 +324,35 @@ def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
     ``Cs`` and ``gammas`` (the C axis is solved sorted and scattered back,
     as the reference does).
 
-    ``impl`` (``"cuda"``, ``"torch"`` or ``"auto"``) picks the kernels of
-    the fused engine; ``precompute`` picks the row source (module notes).
-    ``device`` defaults to the CUDA card and raises without one; ``dtype``
-    defaults to ``X``'s when it is a floating tensor, else to
-    ``torch.get_default_dtype()``.  ``shrinking=True`` masks bound-pinned
-    variables out of the passes' scans in the loop (soft shrinking; the
-    optima do not change).  ``warm_start`` has no effect on the fused
-    engine (every lane starts cold), and ``block_l`` is accepted and
-    ignored: the CUDA passes tile the example axis at
-    :data:`repro_torch.kernels.build.BLOCK_L`.  ``impl=None`` (the classic
-    vmapped engine), ``mesh``/``devices`` and ``diagnostics`` are later
-    slices and raise ``NotImplementedError``.
+    ``impl=None`` (the default) runs the classic engine over the Gram
+    bank, the C axis chained by scaled warm starts (``warm_start=False``:
+    every C starts cold, the same optima in more iterations), with the
+    per-step counters counted.  ``impl`` ``"cuda"``, ``"torch"`` or
+    ``"auto"`` picks the kernels of the fused engine, where every lane
+    starts cold and ``warm_start`` has no effect; ``precompute`` picks its
+    row source (module notes).  ``device`` defaults to the CUDA card and
+    raises without one; ``dtype`` defaults to ``X``'s when it is a
+    floating tensor, else to ``torch.get_default_dtype()``.
+    ``shrinking=True`` turns on soft shrinking (the classic engine's
+    ``cfg.shrink_every`` cycle; the fused passes' masked scans); the
+    optima do not change.  ``block_l`` is accepted and ignored: the CUDA
+    passes tile the example axis at
+    :data:`repro_torch.kernels.build.BLOCK_L`.  ``mesh``/``devices`` and
+    ``diagnostics`` are later slices and raise ``NotImplementedError``.
     """
-    del warm_start, block_l
-    _check_later_slices(impl, mesh, devices, diagnostics)
+    del block_l
+    _check_later_slices(mesh, devices, diagnostics)
     X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
     dev = X.device
     order = np.argsort(Cs_np, kind="stable")
-    impl = ops.resolve_impl(impl, dev)
-    res = _solve_grid_fused(X, Y, Cs_np[order], gammas_np, cfg, impl,
-                            precompute, shrinking)
+    if impl is None:
+        res = _solve_grid_classic(
+            X, Y, Cs_np[order], gammas_np,
+            resolve_shrink_cfg(cfg, True) if shrinking else cfg, warm_start)
+    else:
+        res = _solve_grid_fused(X, Y, Cs_np[order], gammas_np, cfg,
+                                ops.resolve_impl(impl, dev), precompute,
+                                shrinking)
     if np.any(order != np.arange(len(Cs_np))):
         inv = torch.as_tensor(np.argsort(order, kind="stable"), device=dev)
         res = SolveResult(**{f.name: getattr(res, f.name).index_select(2, inv)
@@ -246,7 +380,7 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
     ``(n_gamma, n_nu)``; the decision offset is ``rho = -b``.
     """
     del block_l
-    _check_later_slices(impl, mesh, devices, diagnostics)
+    _check_later_slices(mesh, devices, diagnostics)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     l = X.shape[0]
@@ -301,7 +435,7 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     folded to coefficients by :func:`repro_torch.core.qp.svr_fold`.
     """
     del block_l
-    _check_later_slices(impl, mesh, devices, diagnostics)
+    _check_later_slices(mesh, devices, diagnostics)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     impl = ops.resolve_impl(impl, dev)
@@ -341,22 +475,32 @@ def solve_grid_compacted(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(),
     ``chunk`` iterations and compacted between them, so converged lanes
     stop costing time.
 
-    ``impl`` (a kernel backend) runs the fused branch: every (gamma,
-    class, C) point is a cold-started lane in the flat layout, the result
-    axes follow the *input* order of ``Cs`` and ``gammas``, and
+    ``impl=None`` (the default) runs the classic engine: the C axis
+    ascending with scaled warm starts, each C's (gamma, class) lanes in
+    chunks over the Gram bank, the converged lanes dropped between chunks
+    and the live ones bucketed to a power of two; the per-step counters
+    add up over chunks and each chunk starts a fresh planning history.
+    ``shrinking=True`` there turns on the ``cfg.shrink_every`` cycle in
+    each chunk.  A kernel backend ``impl`` runs the fused branch: every
+    (gamma, class, C) point is a cold-started lane in the flat layout, the
+    result axes follow the *input* order of ``Cs`` and ``gammas``, and
     ``precompute`` picks the row source as in :func:`solve_grid` (the bank
     is sliced to the kept rows per chunk).  ``shrinking=True`` adds hard
     row compaction with an exact rebuild of G and a full-set KKT check
     before any lane retires (unshrink events counted per lane), and soft
     shrinking inside each chunk.  ``n_free``/``n_clipped``/``n_reverted``
     carry the ``UNTRACKED`` sentinel, ``n_free_sv`` the free SVs.
-    ``device``, ``dtype`` and ``block_l`` are as in :func:`solve_grid`.
-    ``impl=None`` (the classic engine's chunked path), ``mesh``/``devices``
-    and ``diagnostics`` are later slices and raise ``NotImplementedError``.
+    ``device``, ``dtype`` and ``block_l`` are as in :func:`solve_grid`;
+    ``mesh``/``devices`` and ``diagnostics`` are later slices and raise
+    ``NotImplementedError``.
     """
     del block_l
-    _check_later_slices(impl, mesh, devices, diagnostics)
+    _check_later_slices(mesh, devices, diagnostics)
     X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
+    if impl is None:
+        return _compacted_classic(
+            X, Y, Cs_np, gammas_np,
+            resolve_shrink_cfg(cfg, True) if shrinking else cfg, chunk)
     impl = ops.resolve_impl(impl, X.device)
     return _solve_grid_fused(X, Y, Cs_np, gammas_np, cfg, impl, precompute,
                              shrinking, chunk)

@@ -1,8 +1,8 @@
-"""One-vs-rest multiclass layer over the fused engine.
+"""One-vs-rest multiclass layer over the classic and the fused engine.
 
 A k-class SVM in the one-vs-rest (OVR) reduction is k binary QPs that
-differ only in the sign pattern of ``y``; they share ``X`` and run as the
-k lanes of one fused solve.
+differ only in the sign pattern of ``y``; they share ``X`` (or one kernel
+oracle) and run as the k lanes of one solve.
 
 Conventions: ``y_idx`` integer class indices (l,) in [0, k); ``Y``
 stacked signed label vectors (k, l) with rows in {-1, +1}.
@@ -15,7 +15,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.solver import SolverConfig
+from repro_torch.core import qp as qp_mod
+from repro_torch.core.solver import (CHECK_EVERY, SolveResult, SolverConfig,
+                                     placement, solve_qp)
 from repro_torch.core.solver_fused import solve_fused_batched
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -34,6 +36,37 @@ def ovr_labels(y_idx, n_classes: int, dtype=torch.float64,
     y_idx = torch.as_tensor(np.asarray(y_idx), device=device)
     onehot = y_idx[None, :] == torch.arange(n_classes, device=device)[:, None]
     return torch.where(onehot, 1.0, -1.0).to(dtype)
+
+
+def ovr_bounds(Y: torch.Tensor, C) -> qp_mod.Bounds:
+    """Per-class box bounds with (k, l) leaves; ``C`` is a scalar or a
+    (k,) vector of per-class budgets."""
+    C = torch.as_tensor(C, dtype=Y.dtype, device=Y.device).broadcast_to(
+        (Y.shape[0],))
+    return qp_mod.make_bounds(Y, C[:, None])
+
+
+def solve_ovr(kernel, Y, C, cfg: SolverConfig = SolverConfig(),
+              alpha0=None, G0=None, *, device=None, dtype=None,
+              check_every: int = CHECK_EVERY) -> SolveResult:
+    """Solve all one-vs-rest heads as the lanes of one classic loop.
+
+    ``kernel`` is one oracle that every class shares (a precomputed Gram
+    matrix is gathered, never recomputed, per class).  ``Y`` is (k, l);
+    ``C`` a scalar, (k,) per-class or (k, l) per-sample budgets
+    (class-weighted SVC); ``alpha0``/``G0`` optional (k, l) warm starts.
+    ``device`` defaults to the CUDA card and raises without one;
+    ``dtype`` defaults to ``Y``'s when it is a floating tensor.  Returns a
+    :class:`~repro_torch.core.solver.SolveResult` with a leading class
+    axis.
+    """
+    dev, dtype = placement(Y, device, dtype)
+    Y = torch.as_tensor(Y, dtype=dtype, device=dev)
+    C = torch.as_tensor(C, dtype=Y.dtype, device=dev)
+    bounds = (qp_mod.make_bounds(Y, C) if C.ndim == 2
+              else ovr_bounds(Y, C))
+    return solve_qp(kernel, qp_mod.DualQP(p=Y, bounds=bounds), cfg, alpha0,
+                    G0, device=dev, dtype=Y.dtype, check_every=check_every)
 
 
 def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,

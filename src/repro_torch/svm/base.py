@@ -1,8 +1,10 @@
 """Shared plumbing for the sklearn-style facades: the solver knobs, the
 ``gamma="scale"`` rule, the engine choice and the query Gram.
 
-The port has the fused engine only in this slice; the knobs that pick
-another engine, a device mesh or the flight recorder raise
+A fit runs on the fused engine (``engine="fused"``) or on the classic one
+(``engine="batched"``); ``"auto"`` picks the fused engine for the configs
+it runs and the classic one for the others.  The knobs that pick the
+sharded engine, a device mesh or the flight recorder raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import qp as qp_mod
 from repro_torch.core.solver import SolverConfig
 from repro_torch.device import resolve_dtype
 from repro_torch.kernels import ops
@@ -27,10 +30,6 @@ class SVMEstimatorBase:
         if engine not in ("auto", "fused", "batched", "sharded"):
             raise ValueError(f"engine must be auto|fused|batched|sharded, "
                              f"got {engine!r}")
-        if engine == "batched":
-            raise NotImplementedError(
-                "engine='batched' (the classic vmapped solver) is a later "
-                "slice of the port (ROADMAP queue 1, step 10)")
         if engine == "sharded" or mesh is not None or devices is not None:
             raise NotImplementedError(
                 "engine='sharded', mesh and devices (lane sharding over "
@@ -65,13 +64,24 @@ class SVMEstimatorBase:
         return float(self.gamma)
 
     def _resolve_engine(self) -> str:
-        """The fit engine: the fused one, when the config allows it."""
+        """The fit engine: ``engine`` when it names one; for ``"auto"`` the
+        fused engine when it runs the config (``algorithm`` smo or pasmo,
+        one planning candidate), else the classic ``"batched"`` one."""
+        if self.engine != "auto":
+            return self.engine
         if self.algorithm not in ("smo", "pasmo") or self.plan_candidates != 1:
-            raise NotImplementedError(
-                "algorithm other than smo/pasmo, or plan_candidates > 1, "
-                "runs on the classic engine, a later slice of the port "
-                "(ROADMAP queue 1, step 10)")
+            return "batched"
         return "fused"
+
+    def _classic_kernel(self, X):
+        """The classic engine's oracle over ``X``: with ``precompute`` the
+        Gram matrix (the Gram kernel on the card), else RBF rows
+        recomputed from ``X``."""
+        if self.precompute:
+            return qp_mod.PrecomputedKernel(ops.gram(
+                X, gamma=self.gamma_, impl=self.impl, device=X.device,
+                dtype=self.dtype))
+        return qp_mod.make_rbf(X, self.gamma_)
 
     def _check_fitted(self):
         if not hasattr(self, self._fit_attr):

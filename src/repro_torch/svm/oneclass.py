@@ -1,5 +1,5 @@
 """sklearn-style ``OneClassSVM`` facade: nu novelty detection on the port's
-fused PA-SMO engine.
+PA-SMO engines.
 
 The fit is the one-class instance of the generalized dual
 (:func:`repro_torch.core.qp.oneclass_qp`): ``p = 0``, box ``[0, 1/(nu l)]``,
@@ -7,7 +7,8 @@ The fit is the one-class instance of the generalized dual
 (:func:`repro_torch.core.qp.oneclass_alpha0`), since 0 is infeasible, with
 its gradient ``G0 = -K alpha0`` paid as one matvec before the loop: the
 blocked :meth:`repro_torch.core.qp.RBFKernel.matvec` on the card, the Gram
-bank on the plain backend.  The decision function is
+bank on the plain backend; on the classic engine the oracle's matvec.
+The decision function is
 
     f(x) = k(x, X) @ alpha - rho,   rho = -b
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import qp as qp_mod
+from repro_torch.core.solver import SolveResult, solve_qp
 from repro_torch.core.solver_fused import FusedResult, solve_fused_batched_qp
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -33,8 +35,8 @@ class OneClassSVM(SVMEstimatorBase):
 
     ``nu`` in (0, 1] upper-bounds the training-outlier fraction and
     lower-bounds the support-vector fraction.  The other knobs are as in
-    :class:`repro_torch.svm.svc.SVC` (``step="conjugate"`` with
-    ``algorithm="smo"`` included).
+    :class:`repro_torch.svm.svc.SVC` (``engine`` and ``step="conjugate"``
+    with ``algorithm="smo"`` included).
     """
 
     def __init__(self, nu: float = 0.5, gamma: Union[float, str] = "scale",
@@ -64,6 +66,10 @@ class OneClassSVM(SVMEstimatorBase):
         self.engine_ = self._resolve_engine()
         qp = qp_mod.oneclass_qp(l, self.nu, self.dtype, dev)
         a0 = qp_mod.oneclass_alpha0(l, self.nu, self.dtype, dev)
+        if self.engine_ == "batched":
+            return self._fitted(solve_qp(self._classic_kernel(X), qp,
+                                         self._config(), alpha0=a0,
+                                         device=dev, dtype=self.dtype))
         bank_kw = {}
         if self.precompute and ops.resolve_impl(self.impl, dev) == "torch":
             K = ops.gram(X, gamma=self.gamma_, impl=self.impl, device=dev,
@@ -77,8 +83,10 @@ class OneClassSVM(SVMEstimatorBase):
             X, qp.p[None], qp.bounds.lower[None], qp.bounds.upper[None],
             self.gamma_, self._config(), impl=self.impl, alpha0=a0[None],
             G0=G0[None], **bank_kw)
-        res = out.lane(0)
-        self.fit_result_: FusedResult = res
+        return self._fitted(out.lane(0))
+
+    def _fitted(self, res: Union[SolveResult, FusedResult]) -> "OneClassSVM":
+        self.fit_result_ = res
         self.alpha_ = res.alpha
         self.b_ = res.b
         self.rho_ = float(-res.b)

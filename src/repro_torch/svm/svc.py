@@ -1,8 +1,9 @@
-"""sklearn-style ``SVC`` facade over the port's fused PA-SMO engine.
+"""sklearn-style ``SVC`` facade over the port's PA-SMO engines.
 
 Binary problems are one signed-dual QP; multiclass problems are reduced
 one-vs-rest, one lane per class head, all advanced together by the fused
-solver (:mod:`repro_torch.core.solver_fused`).  Prediction computes the
+solver (:mod:`repro_torch.core.solver_fused`) or the classic one
+(:mod:`repro_torch.core.solver`).  Prediction computes the
 query cross-kernel once for all heads (:func:`repro_torch.kernels.ops.gram`).
 
     >>> clf = SVC(C=10.0, gamma=0.5).fit(X, y)       # on the CUDA card
@@ -13,12 +14,14 @@ query cross-kernel once for all heads (:func:`repro_torch.kernels.ops.gram`).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import multiclass as mc
+from repro_torch.core.solver import SolveResult
 from repro_torch.core.solver_fused import FusedResult
 from repro_torch.device import resolve_device
 from repro_torch.svm.base import SVMEstimatorBase
@@ -31,18 +34,24 @@ class SVC(SVMEstimatorBase):
     vector for one-vs-rest), ``gamma`` (float or ``"scale"``),
     ``class_weight`` (``None``, ``"balanced"`` or a ``{label: weight}``
     dict; sample ``i`` of class ``c`` gets budget ``C * w_c``; needs a
-    scalar ``C``), and the solver knobs ``algorithm`` (smo | pasmo),
-    ``step`` (``"plain"``, or ``"conjugate"``, the Conjugate-SMO step, with
-    ``algorithm="smo"``), ``eps``, ``max_iter``.  ``impl`` picks the kernels (``"cuda"``,
-    ``"torch"`` or ``"auto"``) for the fit and the predict Gram.
-    ``device`` defaults to the CUDA card: ``fit`` raises without one unless
-    ``device="cpu"`` is given.  ``dtype`` defaults to
-    ``torch.get_default_dtype()``.  ``precompute`` (default ``True``)
-    builds the shared Gram matrix and reads rows from it on the plain
-    backend only; the CUDA kernels recompute rows from ``X``, as the
-    reference's accelerator path does.  ``engine="batched"`` /
-    ``"sharded"``, ``mesh``, ``devices`` and ``diagnostics`` belong to
-    later slices and raise ``NotImplementedError``.
+    scalar ``C``), and the solver knobs ``algorithm`` (smo | pasmo |
+    pasmo_simple | overshoot), ``plan_candidates``, ``step``
+    (``"plain"``, or ``"conjugate"``, the Conjugate-SMO step, with
+    ``algorithm="smo"``), ``eps``, ``max_iter``.  ``engine`` picks the
+    solver: ``"fused"`` (smo or pasmo, one planning candidate),
+    ``"batched"`` (the classic engine, every config) or ``"auto"`` (the
+    fused one when it runs the config).  ``impl`` picks the kernels
+    (``"cuda"``, ``"torch"`` or ``"auto"``) for the fit and the predict
+    Gram.  ``device`` defaults to the CUDA card: ``fit`` raises without
+    one unless ``device="cpu"`` is given.  ``dtype`` defaults to
+    ``torch.get_default_dtype()``.  ``precompute`` (default ``True``):
+    the fused engine builds the shared Gram matrix and reads rows from it
+    on the plain backend only (the CUDA kernels recompute rows from
+    ``X``, as the reference's accelerator path does); the classic engine
+    builds it on either (the Gram kernel on the card) and without it
+    recomputes RBF rows from ``X``.  ``engine="sharded"``, ``mesh``,
+    ``devices`` and ``diagnostics`` belong to later slices and raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, C: Union[float, np.ndarray] = 1.0,
@@ -90,7 +99,7 @@ class SVC(SVMEstimatorBase):
         self.gamma_ = self._resolve_gamma(X)
         self.X_ = X
         cfg = self._config()
-        self.engine_ = self._resolve_engine()
+        self.engine_ = engine = self._resolve_engine()
 
         if k == 2 and np.asarray(self.C).size != 1:
             raise ValueError("per-class C requires more than two "
@@ -115,11 +124,19 @@ class SVC(SVMEstimatorBase):
         else:
             Y = mc.ovr_labels(y_idx, k, self.dtype, dev)
 
-        out = mc.solve_ovr_fused(X, Y, C_lanes, self.gamma_, cfg,
-                                 impl=self.impl, precompute=self.precompute,
-                                 device=dev, dtype=self.dtype)
-        res = out.lane(0) if k == 2 else out
-        self.fit_result_: FusedResult = res
+        if engine == "batched":
+            out = mc.solve_ovr(self._classic_kernel(X), Y, C_lanes, cfg,
+                               device=dev, dtype=self.dtype)
+            res = (SolveResult(**{f.name: getattr(out, f.name)[0]
+                                  for f in dataclasses.fields(out)})
+                   if k == 2 else out)
+        else:
+            out = mc.solve_ovr_fused(X, Y, C_lanes, self.gamma_, cfg,
+                                     impl=self.impl,
+                                     precompute=self.precompute, device=dev,
+                                     dtype=self.dtype)
+            res = out.lane(0) if k == 2 else out
+        self.fit_result_: Union[SolveResult, FusedResult] = res
         self.alpha_ = res.alpha          # (l,) binary, (k, l) one-vs-rest
         self.b_ = res.b
         return self

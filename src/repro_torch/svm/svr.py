@@ -1,11 +1,12 @@
 """sklearn-style ``SVR`` facade: ε-insensitive regression on the port's
-fused PA-SMO engine.
+PA-SMO engines.
 
 The fit is one generalized dual QP (:func:`repro_torch.core.qp.svr_qp`):
 2l doubled variables sharing the base l x l kernel, run as one lane of
 :func:`repro_torch.core.solver_fused.solve_fused_batched_qp` with
-``doubled=True`` (on the card the H = 2 passes; no 2l x 2l matrix exists
-anywhere).  Prediction is ``f(x) = k(x, X) @ beta + b`` with
+``doubled=True`` (on the card the H = 2 passes), or on the classic engine
+through :class:`repro_torch.core.qp.DoubledKernel`; no 2l x 2l matrix
+exists anywhere.  Prediction is ``f(x) = k(x, X) @ beta + b`` with
 ``beta = alpha[:l] + alpha[l:]`` (:func:`repro_torch.core.qp.svr_fold`).
 
     >>> reg = SVR(C=10.0, epsilon=0.1, gamma=0.5).fit(X, y)   # on the card
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import qp as qp_mod
+from repro_torch.core.solver import SolveResult, solve_qp
 from repro_torch.core.solver_fused import FusedResult, solve_fused_batched_qp
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -33,10 +35,11 @@ class SVR(SVMEstimatorBase):
     ``C`` is the box budget, ``epsilon`` the insensitive tube's half-width,
     ``gamma`` a float or ``"scale"``; ``eps`` is the KKT stopping accuracy
     (the solver's tolerance, not the tube).  The other knobs are as in
-    :class:`repro_torch.svm.svc.SVC`: ``step="conjugate"`` (with
-    ``algorithm="smo"``) runs the Conjugate-SMO step, ``precompute``
-    (default ``True``) banks the Gram matrix on the plain backend only, and
-    the knobs of later slices raise ``NotImplementedError``.
+    :class:`repro_torch.svm.svc.SVC`: ``engine`` picks the fused or the
+    classic solver, ``step="conjugate"`` (with ``algorithm="smo"``) runs
+    the Conjugate-SMO step, ``precompute`` (default ``True``) banks the
+    Gram matrix as there, and the knobs of later slices raise
+    ``NotImplementedError``.
     """
 
     _fit_attr = "beta_"
@@ -66,6 +69,10 @@ class SVR(SVMEstimatorBase):
         self.X_ = X
         self.engine_ = self._resolve_engine()
         qp = qp_mod.svr_qp(y, float(self.C), float(self.epsilon))
+        if self.engine_ == "batched":
+            return self._fitted(solve_qp(
+                qp_mod.DoubledKernel(self._classic_kernel(X)), qp,
+                self._config(), device=dev, dtype=self.dtype))
         bank_kw = {}
         if self.precompute and ops.resolve_impl(self.impl, dev) == "torch":
             K = ops.gram(X, gamma=self.gamma_, impl=self.impl, device=dev,
@@ -76,8 +83,10 @@ class SVR(SVMEstimatorBase):
             X, qp.p[None], qp.bounds.lower[None], qp.bounds.upper[None],
             self.gamma_, self._config(), impl=self.impl, doubled=True,
             **bank_kw)
-        res = out.lane(0)
-        self.fit_result_: FusedResult = res
+        return self._fitted(out.lane(0))
+
+    def _fitted(self, res: Union[SolveResult, FusedResult]) -> "SVR":
+        self.fit_result_ = res
         self.alpha_ = res.alpha                    # (2l,) doubled dual
         self.beta_ = qp_mod.svr_fold(res.alpha)    # (l,) coefficients
         self.b_ = res.b

@@ -106,8 +106,7 @@ def test_slice_3_impl_cuda_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("cls", [SVR, OneClassSVM])
-@pytest.mark.parametrize("kw", [dict(engine="batched"),
-                                dict(engine="sharded"),
+@pytest.mark.parametrize("kw", [dict(engine="sharded"),
                                 dict(devices=("cuda:0",)),
                                 dict(diagnostics=object())])
 def test_svr_oneclass_later_slices_raise_not_implemented(cls, kw):
@@ -130,8 +129,7 @@ def test_impl_cuda_on_cpu_tensors_raises():
         ops.resolve_impl("triton", "cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(engine="batched"),
-                                dict(engine="sharded"),
+@pytest.mark.parametrize("kw", [dict(engine="sharded"),
                                 dict(devices=("cuda:0",)),
                                 dict(diagnostics=object())])
 def test_later_slices_raise_not_implemented(kw):
@@ -210,8 +208,7 @@ def test_grid_impl_cuda_on_cpu_tensors_raises():
                                      precompute=precompute, device="cpu")
 
 
-@pytest.mark.parametrize("kw,step", [(dict(impl=None), "step 10"),
-                                     (dict(mesh=object()), "step 12"),
+@pytest.mark.parametrize("kw,step", [(dict(mesh=object()), "step 12"),
                                      (dict(devices=("cuda:0",)), "step 12"),
                                      (dict(diagnostics=object()), "step 9")])
 def test_grid_later_slices_raise_not_implemented(kw, step):
@@ -219,16 +216,14 @@ def test_grid_later_slices_raise_not_implemented(kw, step):
     kw = {"impl": "auto", **kw}
     with pytest.raises(NotImplementedError, match=step):
         grid.solve_grid(X, Y, [1.0], [0.5], device="cpu", **kw)
-    if kw["impl"] is not None:
-        with pytest.raises(NotImplementedError, match=step):
-            grid.solve_grid_oneclass(X, [0.2], [0.5], device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=step):
-            grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5], device="cpu",
-                                **kw)
+    with pytest.raises(NotImplementedError, match=step):
+        grid.solve_grid_oneclass(X, [0.2], [0.5], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match=step):
+        grid.solve_grid_svr(X, Y[0], [1.0], [0.1], [0.5], device="cpu",
+                            **kw)
 
 
-@pytest.mark.parametrize("kw,step", [(dict(impl=None), "step 10"),
-                                     (dict(mesh=object()), "step 12"),
+@pytest.mark.parametrize("kw,step", [(dict(mesh=object()), "step 12"),
                                      (dict(devices=("cuda:0",)), "step 12"),
                                      (dict(diagnostics=object()), "step 9")])
 def test_grid_compacted_later_slices_raise_not_implemented(kw, step):
@@ -236,6 +231,29 @@ def test_grid_compacted_later_slices_raise_not_implemented(kw, step):
     kw = {"impl": "auto", **kw}
     with pytest.raises(NotImplementedError, match=step):
         grid.solve_grid_compacted(X, Y, [1.0], [0.5], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("entry", ["svc", "svr", "oneclass", "grid",
+                                   "compacted", "solve", "ovr", "batched",
+                                   "train_svm"])
+def test_classic_entry_points_without_a_card_raise(no_cuda, entry):
+    from repro_torch.core import multiclass, qp, solver
+    from repro_torch.svm import train_svm
+    X, Y = _grid_problem()
+    K = qp.PrecomputedKernel(torch.as_tensor(X @ X.T))
+    call = {
+        "svc": lambda: SVC(engine="batched").fit(X, Y[0]),
+        "svr": lambda: SVR(engine="batched").fit(X, Y[0]),
+        "oneclass": lambda: OneClassSVM(engine="batched").fit(X),
+        "grid": lambda: grid.solve_grid(X, Y, [1.0], [0.5]),
+        "compacted": lambda: grid.solve_grid_compacted(X, Y, [1.0], [0.5]),
+        "solve": lambda: solver.solve(K, Y[0], 1.0),
+        "ovr": lambda: multiclass.solve_ovr(K, Y, 1.0),
+        "batched": lambda: solver.solve_batched(K.K[None], Y[:1], 1.0),
+        "train_svm": lambda: train_svm(X, Y[0], 1.0, 0.5),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
 
 
 def test_grid_cpu_path_launches_no_kernel():
