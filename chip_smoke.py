@@ -117,13 +117,28 @@ failure raises and the script exits non-zero without a result line:
    1e-6 of the fused results of phases 5, 6 and 8 (reused) or of (a),
    held-out predictions at least 99% equal; the phase's time is
    printed.
+12. flight recorder, full width (slice 10) — ``Diagnostics(ring=
+   RingConfig())`` on (a) phase 5's SVC, off, on, on, off, off, on: ring-on
+   iterations and alpha bitwise equal to ring-off, 10 lanes drained, each
+   lane's last stamp its last iteration, ratio events equal to accepted
+   planning steps; ms an iteration off and on, t_off/t_on (the ratio of
+   the medians of three) and the kernels
+   an iteration with and without the ring (two profiler windows); (b)
+   phase 6's 90-lane bank grid (``solve_grid(diagnostics=...)``):
+   iterations equal to phase 6's, 90 lanes in caller order, ``trace``/
+   ``n_trace`` equal to the drained ratio channel; (c) phase 10's
+   conjugate SVC: accepted conjugate steps equal the ratio events; (d)
+   phase 4's compacted grid (``chunk=32``): bitwise equal to the run
+   without, run-wide stamps, ``chunk_solve`` events; (e) the grid's JSONL
+   rendered by ``repro_torch.launch.telemetry_report`` (environment,
+   convergence and straggler lines printed).  The phase's time is printed.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows span one
 check chunk, which the loop runs eagerly, so no graph is captured inside a
 window.
 
-Every counted run of phases 5-11 (fits, grids, predicts and decisions;
+Every counted run of phases 5-12 (fits, grids, predicts and decisions;
 not the bitwise repeat of phase 7, the profiler windows or the timings)
 adds its launches to one tally, which the kernels' JSON record reports;
 a ``[gram]`` line splits the Gram's launches into bank and Gram builds
@@ -245,7 +260,7 @@ MICRO = dict(n=16384, C=100.0, gamma=0.5, max_iter=30_000)
 # the loop runs its first chunk eagerly, so no CUDA graph is captured
 # inside a window; the kernels an iteration are the same as a replay's.
 PROFILE_ITERS = 32
-# Launches of every counted run of the main paths (phases 5-11), summed
+# Launches of every counted run of the main paths (phases 5-12), summed
 # over the runs; "gram_symmetric" counts the Gram's symmetric-mode (bank)
 # launches among "gram_block"'s.  The kernels' JSON line reads it.
 MAIN_LAUNCHES = collections.Counter()
@@ -1811,7 +1826,9 @@ def profile_iterations(run, label, ms_iter, n_iter=None):
     fit capped at ``n_iter`` iterations at full width (the lanes do not
     converge within it).  The fit's one-off copies (X up, X down for
     ``gamma="scale"``, results down) and Gram-bank builds are reported
-    apart from the iterations' kernels."""
+    apart from the iterations' kernels.  Returns the device kernels an
+    iteration and their busy ms an iteration (None without device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     n_iter = PROFILE_ITERS if n_iter is None else n_iter
     run()                                    # warm-up, outside the window
@@ -1820,8 +1837,16 @@ def profile_iterations(run, label, ms_iter, n_iter=None):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # record_function ranges (the fit's and the ring's phase scopes) show
+    # up on the device's track too, under their host names: they are
+    # spans, not kernels
+    avgs = prof.key_averages()
+    host = {e.key for e in avgs
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    events = [e for e in avgs
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in host
+              and not getattr(e, "is_user_annotation", False)]
     once = [e for e in events if e.key.startswith(("Memcpy", "Memset"))
             or "gram_kernel" in e.key]
     kern = [e for e in events if e not in once]
@@ -1829,7 +1854,7 @@ def profile_iterations(run, label, ms_iter, n_iter=None):
     if dev_us <= 0:
         say(f"[profile] {label}: torch.profiler recorded no device time: "
             f"busy share not measured")
-        return
+        return None
     busy_ms = dev_us / 1e3 / n_iter
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     say(f"[profile] {label}, {n_iter} iterations: "
@@ -1844,6 +1869,7 @@ def profile_iterations(run, label, ms_iter, n_iter=None):
                     f"x{e.count / n_iter:.1f} "
                     f"{e.self_device_time_total / 1e3 / n_iter:.4f} ms"
                     for e in top))
+    return dict(kernels=sum(e.count for e in kern) / n_iter, busy_ms=busy_ms)
 
 
 def kernel_times(device, timer):
@@ -2914,7 +2940,8 @@ def phase_conj(device, timer, svc_ref, grid_off, svr_ref):
     converged, G within 1e-8 of p - Q alpha, the full-set gap at most eps,
     and the objectives within rtol 1e-6 of the same problems' PA-SMO
     results of phases 5, 6 and 8 (reused, not rerun).  Returns the
-    launches per conjugate variant, keyed (source, H, act, B)."""
+    launches per conjugate variant, keyed (source, H, act, B), and the
+    conjugate SVC's iterations and accepted steps per lane."""
     from repro_torch.core import grid
     from repro_torch.core import multiclass as mc
     from repro_torch.core import qp
@@ -2978,6 +3005,7 @@ def phase_conj(device, timer, svc_ref, grid_off, svr_ref):
         f"gap recomputed {gap:.4e}")
     assert agree >= 0.99 and drift <= 1e-8 and gap <= eps, (agree, drift,
                                                             gap)
+    conj_svc = dict(iterations=r.iterations, n_planning=r.n_planning)
     del G_exact, r, clf
 
     # 2-4. phase 6's grid: bank (kernel 5, H = 1), bank with shrinking
@@ -3047,7 +3075,7 @@ def phase_conj(device, timer, svc_ref, grid_off, svr_ref):
         f"{drift:.3e}; KKT gap recomputed {gap:.4e}; |sum alpha| "
         f"{asum:.3e}; n_unshrink {r.n_unshrink.flatten().tolist()}")
     assert drift <= 1e-8 and gap <= eps and asum <= 1e-8, (drift, gap, asum)
-    return variants
+    return variants, conj_svc
 
 
 def conj_kernel_times(device, timer):
@@ -3592,6 +3620,209 @@ def phase_classic(device, svc_ref, grid_off, svr_ref):
     assert agree >= 0.99, agree
     say(f"[classic] phase 11 took {time.perf_counter() - t0:.1f} s")
 
+# ---------------------------------------------------------------------------
+# phase 12: the flight recorder at full width
+# ---------------------------------------------------------------------------
+
+
+def lane_series_ok(rec, label):
+    """A drained lane's sample stamps rise strictly and end on its last
+    iteration, and its ratio events number its accepted steps."""
+    ts = rec["samples"]["t"]
+    assert all(a < b for a, b in zip(ts, ts[1:])), (label, ts)
+    assert ts and ts[-1] == rec["iterations"] - 1, (label, ts[-1:], rec)
+    assert rec["n_ratio"] == rec["n_planning"], (label, rec["n_ratio"],
+                                                 rec["n_planning"])
+
+
+def phase_telemetry(device, svc_ref, grid_off, conj_svc):
+    """Slice 10 at full width, f64: the flight recorder on the main paths.
+    (a) phase 5's 10-lane SVC off, on, on, off, off, on
+    (``Diagnostics(ring=RingConfig())``): ring-on iterations and alpha
+    bitwise equal to ring-off and to phase 5's, 10 lanes drained, each
+    lane's last stamp its last iteration, ``n_ratio == n_planning``; ms an
+    iteration off and on, t_off/t_on (the ratio of the medians of three),
+    and the kernels an iteration with and without the ring from two
+    profiler windows.  (b) phase 6's 90-lane grid through the bank
+    with ``diagnostics``: iterations bitwise equal to phase 6's, 90 lanes
+    in caller order, ``trace``/``n_trace`` equal to the drained ratio
+    channel.  (c) phase 10's conjugate SVC with a ring: iterations equal
+    to phase 10's, accepted conjugate steps equal ``n_ratio``.  (d) phase
+    4's small compacted grid (``chunk=32``, shrinking, bank) with
+    diagnostics against the run without: bitwise equal, run-wide stamps,
+    ``chunk_solve`` events.  (e) the grid's JSONL rendered by
+    ``repro_torch.launch.telemetry_report``."""
+    import tempfile
+    from repro_torch.core import grid
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.core.solver_fused import CHECK_EVERY
+    from repro_torch.launch import telemetry_report
+    from repro_torch.svm import SVC, data
+    from repro_torch.telemetry import Diagnostics, RingConfig
+    t_phase = time.perf_counter()
+    X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    Xtr, ytr = X[:N_TRAIN], y[:N_TRAIN]
+    f64 = dict(device=device, dtype=torch.float64)
+    eps = 1e-3
+
+    def svc(diag, **kw):
+        return SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=eps,
+                   diagnostics=diag, **f64, **kw)
+
+    # (a) the SVC: off, on, on, off, off, on.  Repeated fits of one call
+    # on an H100 vary by about 10% in wall time, more than the ring costs,
+    # so three of each, and the ratio of the medians
+    fits = []
+    for on in (False, True, True, False, False, True):
+        diag = Diagnostics(ring=RingConfig()) if on else None
+        clf = svc(diag)
+        _, counts, wall = counted(lambda: clf.fit(Xtr, ytr))
+        r = clf.fit_result_
+        t = loop_iterations(r.iterations, CHECK_EVERY, clf.max_iter)
+        check_only(counts, {name: t for name in RBF_PASSES},
+                   f"SVC ring {'on' if on else 'off'}")
+        fits.append((on, r, wall / t * 1e3, diag))
+    off = [f for f in fits if not f[0]]
+    ring_on = [f for f in fits if f[0]]
+    r0 = off[0][1]
+    assert torch.equal(r0.iterations, svc_ref["iterations"]), "phase 5"
+    for on, r, _, diag in fits:
+        assert torch.equal(r.iterations, r0.iterations), "iterations"
+        assert torch.equal(r.alpha, r0.alpha), "alpha"
+        if on:
+            assert len(diag.lanes) == K, len(diag.lanes)
+            for b, rec in enumerate(diag.lanes):
+                assert rec["label"] == b and rec["iterations"] == int(
+                    r.iterations[b]), (b, rec["iterations"])
+                lane_series_ok(rec, f"SVC lane {b}")
+    ms_off = sorted(f[2] for f in off)
+    ms_on = sorted(f[2] for f in ring_on)
+    ratio = ms_off[1] / ms_on[1]
+    say(f"[telemetry] SVC {K} lanes f64, ring off/on/on/off/off/on: "
+        f"iterations and alpha bitwise equal to ring off and to phase 5 "
+        f"(max lane {int(r0.iterations.max())}); ms an iteration in order "
+        + ", ".join(f"{'on' if f[0] else 'off'} {f[2]:.4f}" for f in fits)
+        + f"; t_off/t_on (ratio of the medians) {ratio:.4f}; accepted "
+        f"planning steps = ratio events on every lane (sum "
+        f"{int(r0.n_planning.sum())})")
+    prof_off = profile_iterations(
+        lambda: svc(None, max_iter=PROFILE_ITERS).fit(Xtr, ytr),
+        "SVC f64, ring off", ms_off[1])
+    prof_on = profile_iterations(
+        lambda: svc(Diagnostics(ring=RingConfig()),
+                    max_iter=PROFILE_ITERS).fit(Xtr, ytr),
+        "SVC f64, ring on", ms_on[1])
+    if prof_off and prof_on:
+        say(f"[telemetry] kernels an iteration: ring off "
+            f"{prof_off['kernels']:.1f}, on {prof_on['kernels']:.1f} (+"
+            f"{prof_on['kernels'] - prof_off['kernels']:.1f}); busy ms an "
+            f"iteration off {prof_off['busy_ms']:.4f}, on "
+            f"{prof_on['busy_ms']:.4f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the 90-lane bank grid, its JSONL kept for (e)
+        path = pathlib.Path(tmp) / "grid.jsonl"
+        gammas = [1.0 / (D * float(Xtr.var())) * f for f in GRID_GAMMA_FACTORS]
+        Y = mc.ovr_labels(mc.class_index(ytr)[1], K, torch.float64, device)
+        diag = Diagnostics(path, ring=RingConfig())
+        r, counts, wall, t, _ = fit_grid(lambda: grid.solve_grid(
+            Xtr, Y, GRID_CS, gammas, SolverConfig(algorithm="pasmo", eps=eps),
+            impl="auto", precompute=True, diagnostics=diag, **f64), device)
+        check_counts(counts, t, True, "grid with the ring")
+        assert torch.equal(r.iterations, grid_off["iterations"]), "phase 6"
+        assert len(diag.lanes) == GRID_B, len(diag.lanes)
+        cells = [(g, c, ci) for g in range(len(gammas)) for c in range(K)
+                 for ci in range(len(GRID_CS))]
+        for rec, (g, c, ci) in zip(diag.lanes, cells):
+            assert (rec["gamma"], rec["label"], rec["C"]) == (
+                gammas[g], c, GRID_CS[ci]), rec
+            assert rec["iterations"] == int(r.iterations[g, c, ci])
+            lane_series_ok(rec, f"grid lane {rec['lane']}")
+            n = rec["n_ratio"]
+            assert int(r.n_trace[g, c, ci]) == n
+            assert r.trace[g, c, ci, :min(n, r.trace.shape[-1])].tolist() \
+                == rec["ratio"]["value"]
+        summary = diag.finalize()
+        keys = ("n_lanes", "n_converged", "max_iterations", "total_planning")
+        say(f"[telemetry] grid bank {GRID_B} lanes with the ring: iterations "
+            f"bitwise equal to phase 6, {len(diag.lanes)} lanes drained in "
+            f"caller order, trace/n_trace equal to the ratio channel; "
+            f"{wall / t * 1e3:.4f} ms an iteration (phase 6 "
+            f"{grid_off['ms_iter']:.4f}) over {t} loop iterations; summary "
+            f"{dict((k, summary[k]) for k in keys)}")
+
+        # (c) phase 10's conjugate SVC with a ring
+        diag_c = Diagnostics(ring=RingConfig())
+        clf = SVC(C=1.0, gamma="scale", algorithm="smo", step="conjugate",
+                  eps=eps, diagnostics=diag_c, **f64)
+        _, counts, wall = counted(lambda: clf.fit(Xtr, ytr))
+        rc_ = clf.fit_result_
+        t = loop_iterations(rc_.iterations, CHECK_EVERY, clf.max_iter)
+        check_only(counts, {"rbf_row_wss_batched": t, CONJ_PASSES[0]: t},
+                   "conjugate SVC with the ring")
+        assert torch.equal(rc_.iterations, conj_svc["iterations"]), "ph. 10"
+        assert torch.equal(rc_.n_planning, conj_svc["n_planning"])
+        for rec in diag_c.lanes:
+            lane_series_ok(rec, f"conjugate lane {rec['lane']}")
+        say(f"[telemetry] conjugate SVC with the ring: iterations and "
+            f"accepted steps equal to phase 10's; ratio events per lane "
+            f"{[rec['n_ratio'] for rec in diag_c.lanes]}; "
+            f"{wall / t * 1e3:.4f} ms an iteration")
+
+        # (d) phase 4's small compacted grid on the card
+        Xs, ys = data.multiclass_blobs(150, seed=2, k=3, d=8, sep=4.0)
+        Ys = mc.ovr_labels(mc.class_index(ys)[1], 3, torch.float64, device)
+        kw = dict(chunk=32, impl="cuda", precompute=True, shrinking=True,
+                  **f64)
+        cfg_s = SolverConfig(eps=1e-5)
+        plain = grid.solve_grid_compacted(Xs, Ys, (4.0, 1.0), (0.05, 0.2),
+                                          cfg_s, **kw)
+        diag_d = Diagnostics(ring=RingConfig(sample_every=4, cap=64))
+        rd, counts, _ = counted(lambda: grid.solve_grid_compacted(
+            Xs, Ys, (4.0, 1.0), (0.05, 0.2), cfg_s, diagnostics=diag_d,
+            **kw))
+        for f in ("iterations", "alpha", "n_planning"):
+            assert torch.equal(getattr(rd, f), getattr(plain, f)), f
+        assert len(diag_d.lanes) == rd.iterations.numel()
+        for rec in diag_d.lanes:
+            lane_series_ok(rec, f"compacted lane {rec['lane']}")
+        rounds = [e for e in diag_d.sink.events
+                  if e.get("name") == "chunk_solve"]
+        assert len(rounds) >= 2 and all(e["seconds"] > 0 for e in rounds)
+        warnings = [e for e in diag_d.sink.events
+                    if e["event"] == "straggler_warning"]
+        say(f"[telemetry] compacted grid chunk=32 with diagnostics: bitwise "
+            f"equal to the run without; {len(rounds)} chunk_solve events "
+            f"(s: {[round(e['seconds'], 4) for e in rounds]}, live lanes "
+            f"{[e['lanes'] for e in rounds]}); {len(warnings)} straggler "
+            f"warnings; launches {counts}")
+
+        # (e) the report of (b)'s JSONL
+        text = telemetry_report.render_report(
+            telemetry_report.load_events(str(path)), top_k=3, trace_lane=0)
+        secs = {sec.split("\n", 1)[0]: sec for sec in text.split("## ")[1:]}
+        for name in ("environment", "host phases", "convergence",
+                     "stragglers", "planning trace (Fig. 3), lane 0",
+                     "summary"):
+            assert name in secs, (name, list(secs))
+        def body(name):
+            return [ln for ln in secs[name].splitlines()[1:] if ln.strip()]
+
+        conv = body("convergence")
+        say(f"[telemetry] report of {path.name} "
+            f"({path.stat().st_size / 1e6:.3f} MB): environment "
+            + "; ".join(ln.strip("| ").replace(" | ", "=")
+                        for ln in body("environment")
+                        if "device_kind" in ln or "cuda_version" in ln))
+        for ln in conv[:5] + [f"... {len(conv) - 2} lane rows in all"]:
+            say(f"[telemetry]   {ln}")
+        for ln in body("stragglers"):
+            say(f"[telemetry]   {ln}")
+    say(f"[telemetry] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return ratio
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3627,7 +3858,7 @@ def main(argv=None) -> int:
         return 0
     phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
-    MAIN_LAUNCHES.clear()                   # phases 5-11 tally from here
+    MAIN_LAUNCHES.clear()                   # phases 5-12 tally from here
     recs, lane0, svc_ref = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
     grid_recs, grid_off = phase_grid(device, timer)
@@ -3642,7 +3873,8 @@ def main(argv=None) -> int:
     phase_shrink(device, timer, grid_off, svr_off)
     recs.update(slice4_kernel_times(device, timer))
     say(f"[time] slice 4 phases done at {time.perf_counter() - t_start:.1f} s")
-    variants = phase_conj(device, timer, svc_ref, grid_off, svr_ref)
+    variants, conj_svc = phase_conj(device, timer, svc_ref, grid_off,
+                                    svr_ref)
     conj_recs = conj_kernel_times(device, timer)
     for name in CONJ_PASSES:
         # the record of each conjugate wrapper: its variant launched most
@@ -3656,9 +3888,11 @@ def main(argv=None) -> int:
     say(f"[time] slice 5 phase done at {time.perf_counter() - t_start:.1f} s")
     phase_classic(device, svc_ref, grid_off, svr_ref)
     say(f"[time] slice 9 phase done at {time.perf_counter() - t_start:.1f} s")
+    phase_telemetry(device, svc_ref, grid_off, conj_svc)
+    say(f"[time] slice 10 phase done at {time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
-    say(f"[gram] launches over phases 5-11: {n_gram}; bank and Gram builds "
+    say(f"[gram] launches over phases 5-12: {n_gram}; bank and Gram builds "
         f"(l x l, symmetric, l = {N_TRAIN}): {n_sym}; predict and decision "
         f"(m x l, cross): {n_gram - n_sym}")
     idle = [name for name in SOURCES if MAIN_LAUNCHES[name] == 0]

@@ -37,6 +37,13 @@ driver's lanes with the Conjugate-SMO step (the conjugate variants of the
 pass B kernels on the card); in :func:`solve_grid_compacted` each chunk
 starts a fresh direction, as the reference's chunk seam does.
 
+``diagnostics=`` (a :class:`repro_torch.telemetry.Diagnostics`) on the
+fused drivers turns on the flight recorder: the solve runs in a phase
+scope, every lane's ring is drained into the handle's sink keyed by its
+hyper-parameters in the caller's order, and the (gamma, class, C) grids'
+``trace``/``n_trace`` carry the Fig. 3 mu/mu* channel.  The classic
+``impl=None`` drivers refuse it, as the reference's do.
+
 The fused engine does not track the per-step counters ``n_free`` /
 ``n_clipped`` / ``n_reverted``: they carry the ``UNTRACKED`` (-1)
 sentinel, never zeros; the classic engine counts them.  ``n_free_sv``,
@@ -48,7 +55,9 @@ Axis convention for stacked results: ``(n_gamma, n_class, n_C, ...)``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -59,8 +68,9 @@ from repro_torch.core.solver import (SolveResult, SolverConfig,
 from repro_torch.core.solver_fused import (FusedResult, _pow2,
                                            solve_fused_batched_qp,
                                            solve_fused_chunked_qp)
-from repro_torch.device import resolve_device, resolve_dtype
+from repro_torch.device import resolve_device, resolve_dtype, synchronize
 from repro_torch.kernels import ops, row_source
+from repro_torch.telemetry import ring as ring_mod
 
 UNTRACKED = -1  # sentinel for counters the fused iteration never tracks
 
@@ -84,28 +94,67 @@ def _use_bank(impl: str, precompute, device) -> bool:
     return bool(precompute)
 
 
-def _trace_fields(dims, dtype, device) -> dict:
-    """Placeholder trace/step-recording buffers of a fused-engine
-    :class:`SolveResult` (the flight recorder is a later slice)."""
+def _trace_fields(dims, dtype, device, ring=None) -> dict:
+    """The trace/step-recording buffers of a fused-engine
+    :class:`SolveResult`: placeholders, and when the flight recorder ran
+    (``ring``, the grid-shaped ring) ``trace``/``n_trace`` carry its Fig. 3
+    mu/mu* channel with the classic semantics: one entry an accepted
+    planning step, the oldest kept at the cap, the count running on."""
     cap = tuple(dims) + (1,)
 
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    return dict(trace=zeros(cap, dtype), n_trace=zeros(dims, torch.int32),
-                steps_i=zeros(cap, torch.int32),
-                steps_j=zeros(cap, torch.int32), steps_mu=zeros(cap, dtype))
+    fields = dict(trace=zeros(cap, dtype), n_trace=zeros(dims, torch.int32),
+                  steps_i=zeros(cap, torch.int32),
+                  steps_j=zeros(cap, torch.int32),
+                  steps_mu=zeros(cap, dtype))
+    if ring is not None:
+        fields["trace"] = ring.ratio.to(dtype)
+        fields["n_trace"] = ring.n_ratio
+    return fields
 
 
-def _check_later_slices(mesh, devices, diagnostics):
+def _ring_map(fn, ring):
+    """``fn`` applied to every field of a ring."""
+    return ring_mod.TelemetryRing(*(fn(getattr(ring, f))
+                                    for f in ring_mod.FIELDS))
+
+
+def _drain_grid_ring(diagnostics, ring, meta, result):
+    """Flatten a grid-shaped ring to lanes and hand it to ``diagnostics``
+    (a result without a field leaves it out of the lane events)."""
+    ndim = result.iterations.ndim
+    flat = _ring_map(lambda x: x.reshape((-1,) + x.shape[ndim:]), ring)
+    flat_res = SimpleNamespace(**{
+        k: getattr(result, k).reshape(-1)
+        for k in ("iterations", "kkt_gap", "converged", "n_planning",
+                  "n_unshrink") if getattr(result, k, None) is not None})
+    return diagnostics.drain_ring(flat, meta, flat_res)
+
+
+def _scope(diagnostics, name, **meta):
+    """The driver's phase scope, or nothing without ``diagnostics``."""
+    if diagnostics is None:
+        return contextlib.nullcontext()
+    return diagnostics.scope(name, **meta)
+
+
+def _ring_config(diagnostics):
+    return None if diagnostics is None else diagnostics.ring_config
+
+
+def _check_later_slices(mesh, devices):
     if mesh is not None or devices is not None:
         raise NotImplementedError(
             "mesh and devices (lane sharding over several cards) are a "
             "later slice of the port (ROADMAP queue 1, step 12)")
+
+
+def _check_classic_diagnostics(diagnostics):
     if diagnostics is not None:
-        raise NotImplementedError(
-            "diagnostics (the flight recorder) is a later slice of the "
-            "port (ROADMAP queue 1, step 9)")
+        raise ValueError("diagnostics rides the fused engine: set impl "
+                         "(e.g. impl='auto') with diagnostics")
 
 
 def _as_data(X, device, dtype):
@@ -152,8 +201,10 @@ def _grid_lanes(X, Y, Cs, gammas):
     return Yf, torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0), gf
 
 
-def _grid_result(fr: FusedResult, L, U, dims) -> SolveResult:
-    """A flat :class:`FusedResult` as the grid's :class:`SolveResult`."""
+def _grid_result(fr: FusedResult, L, U, dims, ring=None) -> SolveResult:
+    """A flat :class:`FusedResult` as the grid's :class:`SolveResult`
+    (``ring``: the grid-shaped ring, whose ratio channel fills
+    ``trace``/``n_trace``)."""
     dev, dtype = fr.alpha.device, fr.alpha.dtype
 
     def to_grid(t):
@@ -167,26 +218,35 @@ def _grid_result(fr: FusedResult, L, U, dims) -> SolveResult:
         n_planning=to_grid(fr.n_planning), n_free=untracked,
         n_clipped=untracked, n_reverted=untracked,
         n_free_sv=to_grid(_free_sv_count(fr.alpha, L, U)),
-        **_trace_fields(dims, dtype, dev))
+        **_trace_fields(dims, dtype, dev, ring))
 
 
 def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute, shrinking,
-                      chunk=None) -> SolveResult:
+                      chunk=None, diagnostics=None):
     """The flat (gamma, class, C) lanes through one fused loop, or with
     ``chunk`` through the chunked driver, which drops converged lanes and,
     with ``shrinking``, gathers the surviving rows between chunks (the
-    reference's ``_compacted_fused_flat``)."""
+    reference's ``_compacted_fused_flat``).  With a ring in
+    ``diagnostics`` returns ``(SolveResult, grid-shaped ring, flat
+    FusedResult)``, else ``(SolveResult, None, flat FusedResult)``."""
     Yf, L, U, gf = _grid_lanes(X, Y, Cs, gammas)
     k = Y.shape[0]
+    dims = (len(gammas), k, len(Cs))
+    rc = _ring_config(diagnostics)
     kw = (_bank_kw(X, gammas, k * len(Cs), impl)
           if _use_bank(impl, precompute, X.device) else {})
     if chunk is None:
         solve = solve_fused_batched_qp
+        kw.update(telemetry=rc)
     else:
         solve = solve_fused_chunked_qp
-        kw.update(chunk=chunk)
+        kw.update(chunk=chunk, diagnostics=diagnostics)
     fr = solve(X, Yf, L, U, gf, cfg, impl=impl, shrinking=shrinking, **kw)
-    return _grid_result(fr, L, U, (len(gammas), k, len(Cs)))
+    ring = None
+    if rc is not None:
+        fr, ring = fr
+        ring = _ring_map(lambda x: x.reshape(dims + x.shape[1:]), ring)
+    return _grid_result(fr, L, U, dims, ring), ring, fr
 
 
 def _classic_lanes(X, Y, gammas):
@@ -310,6 +370,12 @@ def _compacted_classic(X, Y, Cs_np, gammas_np, cfg, chunk) -> SolveResult:
         **_trace_fields(dims, dtype, dev))
 
 
+def _grid_meta(gammas_np, k, Cs_np):
+    """The (gamma, class, C) lanes' keys, row-major as the result axes."""
+    return [{"gamma": float(g), "label": int(c), "C": float(Cv)}
+            for g in gammas_np for c in range(k) for Cv in Cs_np]
+
+
 def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
                warm_start: bool = True, impl: str | None = None,
                block_l: int = 1024, precompute: bool | None = None,
@@ -337,26 +403,47 @@ def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
     ``cfg.shrink_every`` cycle; the fused passes' masked scans); the
     optima do not change.  ``block_l`` is accepted and ignored: the CUDA
     passes tile the example axis at
-    :data:`repro_torch.kernels.build.BLOCK_L`.  ``mesh``/``devices`` and
-    ``diagnostics`` are later slices and raise ``NotImplementedError``.
+    :data:`repro_torch.kernels.build.BLOCK_L`.  ``mesh``/``devices`` are
+    a later slice and raise ``NotImplementedError``.
+
+    ``diagnostics`` (a :class:`repro_torch.telemetry.Diagnostics`; fused
+    engine only, ``impl=None`` raises ``ValueError``) turns on the flight
+    recorder: the solve runs in a ``solve_grid_fused`` phase scope (the
+    card synchronised before it closes), every lane's ring is drained
+    into the handle's sink keyed by (gamma, class, C) in the caller's
+    order, and ``trace``/``n_trace`` carry the Fig. 3 planning-ratio
+    channel.
     """
     del block_l
-    _check_later_slices(mesh, devices, diagnostics)
+    _check_later_slices(mesh, devices)
+    if impl is None:
+        _check_classic_diagnostics(diagnostics)
     X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
     dev = X.device
     order = np.argsort(Cs_np, kind="stable")
+    ring = None
     if impl is None:
         res = _solve_grid_classic(
             X, Y, Cs_np[order], gammas_np,
             resolve_shrink_cfg(cfg, True) if shrinking else cfg, warm_start)
     else:
-        res = _solve_grid_fused(X, Y, Cs_np[order], gammas_np, cfg,
-                                ops.resolve_impl(impl, dev), precompute,
-                                shrinking)
+        with _scope(diagnostics, "solve_grid_fused",
+                    lanes=len(gammas_np) * Y.shape[0] * len(Cs_np)):
+            res, ring, _ = _solve_grid_fused(
+                X, Y, Cs_np[order], gammas_np, cfg,
+                ops.resolve_impl(impl, dev), precompute, shrinking,
+                diagnostics=diagnostics)
+            if diagnostics is not None:
+                synchronize(dev)
     if np.any(order != np.arange(len(Cs_np))):
         inv = torch.as_tensor(np.argsort(order, kind="stable"), device=dev)
         res = SolveResult(**{f.name: getattr(res, f.name).index_select(2, inv)
                              for f in dataclasses.fields(res)})
+        if ring is not None:
+            ring = _ring_map(lambda x: x.index_select(2, inv), ring)
+    if ring is not None:
+        _drain_grid_ring(diagnostics, ring,
+                         _grid_meta(gammas_np, Y.shape[0], Cs_np), res)
     return res
 
 
@@ -375,12 +462,14 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
     (:meth:`repro_torch.core.qp.RBFKernel.matvec`) when there is not.
     ``precompute``, ``impl``, ``shrinking``, ``device``, ``dtype`` and the
     knobs that raise ``NotImplementedError`` are as in :func:`solve_grid`;
-    ``block_l`` is accepted and ignored.  Returns a
+    ``block_l`` is accepted and ignored.  ``diagnostics`` turns on the
+    flight recorder as in :func:`solve_grid` (scope
+    ``solve_grid_oneclass``, lanes keyed by (gamma, nu)).  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
     ``(n_gamma, n_nu)``; the decision offset is ``rho = -b``.
     """
     del block_l
-    _check_later_slices(mesh, devices, diagnostics)
+    _check_later_slices(mesh, devices)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     l = X.shape[0]
@@ -404,9 +493,20 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
     else:
         G0 = -torch.cat([torch.stack([qp_mod.make_rbf(X, g).matvec(a)
                                       for a in A0]) for g in gammas_np])
-    out = solve_fused_batched_qp(X, zeros, zeros, Uf, gf, cfg, impl=impl,
-                                 alpha0=alpha0, G0=G0, shrinking=shrinking,
-                                 **bank_kw)
+    rc = _ring_config(diagnostics)
+    with _scope(diagnostics, "solve_grid_oneclass", lanes=nG * nN):
+        out = solve_fused_batched_qp(X, zeros, zeros, Uf, gf, cfg,
+                                     impl=impl, alpha0=alpha0, G0=G0,
+                                     shrinking=shrinking, telemetry=rc,
+                                     **bank_kw)
+        if rc is not None:
+            out, ring = out
+        if diagnostics is not None:
+            synchronize(dev)
+    if rc is not None:
+        diagnostics.drain_ring(ring, [{"gamma": g, "nu": float(nu)}
+                                      for g in gf[::nN].tolist()
+                                      for nu in nus_np], out)
     return FusedResult(**{f.name: getattr(out, f.name).reshape(
         (nG, nN) + getattr(out, f.name).shape[1:])
         for f in dataclasses.fields(out)})
@@ -429,13 +529,15 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     on the card); ``shrinking=True`` masks each half of the doubled state
     on its own.  ``impl``, ``device``, ``dtype`` and the knobs that raise
     ``NotImplementedError`` are as in :func:`solve_grid`; ``block_l`` is
-    accepted and ignored.  Returns a
+    accepted and ignored.  ``diagnostics`` turns on the flight recorder as
+    in :func:`solve_grid` (scope ``solve_grid_svr``, lanes keyed by
+    (gamma, epsilon, C)).  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
     ``(n_gamma, n_eps, n_C)``; ``alpha`` is the doubled (..., 2l) dual,
     folded to coefficients by :func:`repro_torch.core.qp.svr_fold`.
     """
     del block_l
-    _check_later_slices(mesh, devices, diagnostics)
+    _check_later_slices(mesh, devices)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     impl = ops.resolve_impl(impl, dev)
@@ -457,9 +559,21 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     gf = gam_t.repeat_interleave(nE * nC)
     bank_kw = (_bank_kw(X, gammas_np, nE * nC, impl)
                if _use_bank(impl, precompute, dev) else {})
-    out = solve_fused_batched_qp(X, Pf, Lf, Uf, gf, cfg, impl=impl,
-                                 doubled=True, shrinking=shrinking,
-                                 **bank_kw)
+    rc = _ring_config(diagnostics)
+    with _scope(diagnostics, "solve_grid_svr", lanes=nG * nE * nC):
+        out = solve_fused_batched_qp(X, Pf, Lf, Uf, gf, cfg, impl=impl,
+                                     doubled=True, shrinking=shrinking,
+                                     telemetry=rc, **bank_kw)
+        if rc is not None:
+            out, ring = out
+        if diagnostics is not None:
+            synchronize(dev)
+    if rc is not None:
+        # lane order (gamma, epsilon, C) row-major, as the result axes
+        diagnostics.drain_ring(
+            ring, [{"gamma": float(g), "epsilon": float(e), "C": float(Cv)}
+                   for g in gam_t.tolist() for e in eps_t.tolist()
+                   for Cv in Cs_t.tolist()], out)
     return FusedResult(**{f.name: getattr(out, f.name).reshape(
         (nG, nE, nC) + getattr(out, f.name).shape[1:])
         for f in dataclasses.fields(out)})
@@ -491,19 +605,39 @@ def solve_grid_compacted(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(),
     shrinking inside each chunk.  ``n_free``/``n_clipped``/``n_reverted``
     carry the ``UNTRACKED`` sentinel, ``n_free_sv`` the free SVs.
     ``device``, ``dtype`` and ``block_l`` are as in :func:`solve_grid`;
-    ``mesh``/``devices`` and ``diagnostics`` are later slices and raise
+    ``mesh``/``devices`` are a later slice and raise
     ``NotImplementedError``.
+
+    ``diagnostics`` (fused branch only; ``impl=None`` raises
+    ``ValueError``) turns on the flight recorder: the chunked driver emits
+    a ``chunk_solve`` phase event a round and ``straggler_warning``
+    events, the chunks' rings are merged into run-wide per-lane series,
+    and ``trace``/``n_trace`` carry the Fig. 3 planning-ratio channel as
+    in :func:`solve_grid`.
     """
     del block_l
-    _check_later_slices(mesh, devices, diagnostics)
+    _check_later_slices(mesh, devices)
     X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
     if impl is None:
+        _check_classic_diagnostics(diagnostics)
         return _compacted_classic(
             X, Y, Cs_np, gammas_np,
             resolve_shrink_cfg(cfg, True) if shrinking else cfg, chunk)
     impl = ops.resolve_impl(impl, X.device)
-    return _solve_grid_fused(X, Y, Cs_np, gammas_np, cfg, impl, precompute,
-                             shrinking, chunk)
+    res, ring, fr = _solve_grid_fused(X, Y, Cs_np, gammas_np, cfg, impl,
+                                      precompute, shrinking, chunk,
+                                      diagnostics)
+    if ring is not None:
+        # no C sort on this path: the lanes are in the caller's order
+        _drain_grid_ring(diagnostics, ring,
+                         _grid_meta(gammas_np, Y.shape[0], Cs_np),
+                         SimpleNamespace(
+                             iterations=res.iterations, kkt_gap=res.kkt_gap,
+                             converged=res.converged,
+                             n_planning=res.n_planning,
+                             n_unshrink=fr.n_unshrink.reshape(
+                                 res.iterations.shape)))
+    return res
 
 
 def grid_decision(Xq, X, gammas, alpha: torch.Tensor, b: torch.Tensor, *,

@@ -70,8 +70,9 @@ def solve_ovr(kernel, Y, C, cfg: SolverConfig = SolverConfig(),
 
 
 def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
-                    impl: str = "auto", precompute: bool = False,
-                    device=None, dtype=None):
+                    impl: str = "auto", block_l: int = 1024,
+                    precompute: bool = False, device=None, dtype=None,
+                    telemetry=None):
     """Solve all one-vs-rest heads as the lanes of one fused solve.
 
     ``C`` is a scalar, (k,) per-class or (k, l) per-sample budgets;
@@ -81,8 +82,14 @@ def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
     does on ``"jnp"``; otherwise rows are recomputed from ``X``.
     ``device`` defaults to the CUDA card and raises without one.  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with a leading
-    class axis.
+    class axis.  ``telemetry`` (a
+    :class:`~repro_torch.telemetry.ring.RingConfig`) turns on the fused
+    loop's flight recorder: the return value is then the ``(FusedResult,
+    TelemetryRing)`` pair, the ring's fields class-leading.  ``block_l``
+    is accepted and ignored: the CUDA passes fix their tiles when they are
+    built (:data:`repro_torch.kernels.build.BLOCK_L`).
     """
+    del block_l
     dev = resolve_device(device)
     bank_kw = {}
     if precompute and ops.resolve_impl(impl, dev) == "torch":
@@ -90,7 +97,7 @@ def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
         bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
             (len(Y),), dtype=torch.int64, device=dev))
     return solve_fused_batched(X, Y, C, gamma, cfg, impl=impl, device=dev,
-                               dtype=dtype, **bank_kw)
+                               dtype=dtype, telemetry=telemetry, **bank_kw)
 
 
 def ovr_decision(Kq: torch.Tensor, alpha: torch.Tensor,

@@ -63,14 +63,25 @@ start of every call (so at every chunk seam of
 ``n_planning``.  The single-lane :func:`solve_fused`
 refuses the mode, as the reference does.
 
+``telemetry=`` (a :class:`~repro_torch.telemetry.ring.RingConfig`) on the
+batched solvers turns on the flight recorder: the ring's buffers and a
+device int32 loop counter ride the carried state (:class:`_TelState`),
+each iteration writes them in place with masked writes and no host read
+(:func:`repro_torch.telemetry.ring.ring_write`), and the solver returns
+``(FusedResult, TelemetryRing)``.  With ``telemetry=None`` the carry, the
+body and its kernels are those of the ring-free loop.
+
 The port covers the plain and the conjugate step, ``algorithm`` in
-``{smo, pasmo}``, both row sources, the doubled operator, warm starts and
-shrinking; telemetry is a later slice.
+``{smo, pasmo}``, both row sources, the doubled operator, warm starts,
+shrinking and the flight recorder.  The tile knob ``block_l`` is accepted
+and ignored everywhere: the CUDA passes fix their tiles when they are
+built (:data:`repro_torch.kernels.build.BLOCK_L`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -82,8 +93,11 @@ from repro_torch.core import qp as qp_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.qp import TAU
 from repro_torch.core.solver import DEFAULT_SHRINK_EVERY, SolverConfig
-from repro_torch.device import resolve_device, resolve_dtype
+from repro_torch.device import resolve_device, resolve_dtype, synchronize
 from repro_torch.kernels import ops, row_source
+from repro_torch.runtime.fault import StepMonitor
+from repro_torch.telemetry import ring as ring_mod
+from repro_torch.telemetry.ring import RingConfig, TelemetryRing
 
 # Host-check cadence of the loop: iterations between reads of any(~done).
 CHECK_EVERY = 32
@@ -214,6 +228,15 @@ class _BatchState(NamedTuple):
     ok: torch.Tensor             # (B,) bool the direction is valid
 
 
+# The carry with the flight recorder on: the batch state, the loop counter
+# ``step`` (device int32, so a replayed graph stamps the live iteration)
+# and the ring's buffers (RingBuffers, scratch columns included).
+_TelState = NamedTuple("_TelState", [
+    (f, torch.Tensor) for f in _BatchState._fields + ("step",) + tuple(
+        "ring_" + f for f in ring_mod.FIELDS)])
+_N_STATE = len(_BatchState._fields)
+
+
 def _check_config(cfg: SolverConfig) -> None:
     if cfg.algorithm not in ("smo", "pasmo"):
         raise ValueError(f"the fused engine runs algorithm smo or pasmo, got "
@@ -233,8 +256,8 @@ def _check_cadence(check_every: int) -> None:
 
 
 def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
-                impl: str = "auto", device=None, dtype=None,
-                check_every: int = CHECK_EVERY,
+                impl: str = "auto", block_l: int = 1024, device=None,
+                dtype=None, check_every: int = CHECK_EVERY,
                 stats: dict | None = None) -> FusedResult:
     """Solve one RBF classification QP with the single-lane fused passes.
 
@@ -253,7 +276,12 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
     passed as ``stats`` receives ``relaunches``, the conditional pass A
     launches (one per planning iteration), and ``relaunches_ran``, how
     many of them had a true flag (read once, after the loop).
+    ``block_l`` is accepted and ignored: the CUDA kernels fix their tiles
+    when they are built (:data:`repro_torch.kernels.build.BLOCK_L`).  The
+    single-lane loop takes no flight recorder, as the reference's does
+    not.
     """
+    del block_l
     _check_config(cfg)
     if cfg.step != "plain":
         raise ValueError("step='conjugate' is a lane-batched mode "
@@ -445,10 +473,11 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
 
 def solve_fused_batched_qp(X, P, L, U, gamma,
                            cfg: SolverConfig = SolverConfig(), *,
-                           impl: str = "auto", alpha0=None, G0=None,
-                           gram=None, gram_idx=None, doubled: bool = False,
-                           shrinking: bool = False,
-                           check_every: int = CHECK_EVERY) -> FusedResult:
+                           impl: str = "auto", block_l: int = 1024,
+                           alpha0=None, G0=None, gram=None, gram_idx=None,
+                           doubled: bool = False, shrinking: bool = False,
+                           check_every: int = CHECK_EVERY,
+                           telemetry: RingConfig | None = None):
     """Solve B general dual QPs over the shared ``X`` in one loop.
 
     ``X`` (l, d), ``P`` (B, n), ``L``/``U`` (B, n) are tensors on one
@@ -469,7 +498,17 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     The loop reads ``any(~done)`` every ``check_every`` iterations; the
     result does not depend on it.  Returns a :class:`FusedResult` whose
     ``iterations`` count per-lane iterations until that lane converged.
+
+    ``telemetry`` (a :class:`~repro_torch.telemetry.ring.RingConfig`)
+    turns on the flight recorder: every lane's KKT gap, active-set size
+    and unshrink count are sampled every ``telemetry.sample_every``
+    iterations and on the iteration the lane converges, and mu/mu* on each
+    accepted planning (or conjugate) step; the return value is then
+    ``(FusedResult, TelemetryRing)``, and the result is bitwise that of
+    the run without it.  ``block_l`` is accepted and ignored (module
+    notes).
     """
+    del block_l
     _check_config(cfg)
     _check_cadence(check_every)
     if (alpha0 is None) != (G0 is None):
@@ -499,6 +538,11 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     lane_base = lanes * n
     base_l = n // H
     no_lanes = torch.zeros((B,), dtype=torch.bool, device=device)
+    collect = telemetry is not None
+    if collect:
+        ring_bases = ring_mod.flat_bases(telemetry, B, device)
+        if not shrinking:
+            n_full = torch.full((B,), n, dtype=torch.int32, device=device)
 
     def take(M, idx):
         """Per-lane gathers at (k, B) or (B,) int indices -> same shape,
@@ -506,7 +550,8 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
         pointer)."""
         return M.take(lane_base + idx.long())
 
-    def body(s: _BatchState, refresh: bool) -> _BatchState:
+    def body(c, refresh: bool):
+        s = _BatchState(*c[:_N_STATE]) if collect else c
         alpha, G = s.alpha, s.G
         active = ~s.done
         use_exact = (~s.p_smo) & (~s.prev_ratio_ok) if planning else no_lanes
@@ -696,7 +741,7 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
             if shrinking:
                 c_ok = torch.zeros_like(c_ok) if refresh else c_ok & ~unshrink
             ok_new = torch.where(active, c_ok, s.ok)
-        return _BatchState(
+        new_s = _BatchState(
             alpha=alpha, G=G_new,
             i=torch.where(active, i_next, s.i),
             g_i=torch.where(active, g_i_next, s.g_i),
@@ -715,6 +760,31 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
             prev_ratio_ok=torch.where(active, ratio_ok, s.prev_ratio_ok),
             n_planning=s.n_planning + (do_plan & active).to(torch.int32),
             act=act_new, n_unshrink=n_unshrink, u=u_new, ok=ok_new)
+        if not collect:
+            return new_s
+
+        # ---- flight recorder: O(B) masked writes, no host read ------------
+        with record_function("telemetry_ring"):
+            plan_kw = {}
+            if planning or conjugate:
+                # conjugate steps ride the planning channel (the modes
+                # exclude each other): mu1/mu* of each accepted step
+                if conjugate:
+                    ratio = mu1c / torch.where(torch.abs(mu_star) > 0,
+                                               mu_star, 1.0)
+                plan_kw = dict(plan_event=do_plan, ratio=ratio)
+            # the write rule masks both with ``active``: ``done`` there is
+            # the lanes that froze on this iteration, ``do_plan`` the
+            # accepted steps (one kernel each saved)
+            bufs = ring_mod.RingBuffers(*c[_N_STATE + 1:])
+            ring_mod.ring_write(
+                bufs, telemetry, t=c.step, active=active,
+                newly_done=done, gap=new_s.gap,
+                n_active=(act_new.sum(dim=1, dtype=torch.int32)
+                          if shrinking else n_full),
+                n_unshrink=n_unshrink, bases=ring_bases, **plan_kw)
+            c.step.add_(1)
+        return _TelState(*new_s, c.step, *bufs)
 
     # ---- init: alpha = 0, G = P unless warm-started ------------------------
     if alpha0 is None:
@@ -743,6 +813,10 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
                     p_smo=~no_lanes, prev_free=no_lanes,
                     prev_ratio_ok=~no_lanes, n_planning=zB, act=act0,
                     n_unshrink=zB, u=u0, ok=no_lanes)
+    if collect:
+        s = _TelState(*s, torch.zeros((), dtype=torch.int32, device=device),
+                      *ring_mod.ring_buffers(ring_mod.ring_init(
+                          telemetry, B, dtype, device)))
 
     s, _ = _drive(body, s, cfg.max_iter, check_every,
                   impl == "cuda" and P.is_cuda, period if shrinking else 0)
@@ -751,20 +825,24 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
     dn = s.alpha > L
     g_up = torch.where(up, s.G, float("-inf")).amax(dim=1)
     g_dn = torch.where(dn, s.G, float("inf")).amin(dim=1)
-    return FusedResult(
+    res = FusedResult(
         alpha=s.alpha, b=qp_mod.safe_bias(g_up, g_dn), G=s.G,
         iterations=s.iters,
         objective=0.5 * (torch.sum(P * s.alpha, dim=1)
                          + torch.sum(s.G * s.alpha, dim=1)),
         kkt_gap=s.gap, converged=s.done, n_planning=s.n_planning,
         n_unshrink=s.n_unshrink)
+    if not collect:
+        return res
+    return res, ring_mod.ring_view(ring_mod.RingBuffers(*s[_N_STATE + 1:]))
 
 
 def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
-                        *, impl: str = "auto", alpha0=None, G0=None,
-                        gram=None, gram_idx=None, device=None, dtype=None,
-                        shrinking: bool = False,
-                        check_every: int = CHECK_EVERY) -> FusedResult:
+                        *, impl: str = "auto", block_l: int = 1024,
+                        alpha0=None, G0=None, gram=None, gram_idx=None,
+                        device=None, dtype=None, shrinking: bool = False,
+                        check_every: int = CHECK_EVERY,
+                        telemetry: RingConfig | None = None):
     """Solve B RBF *classification* QPs over the shared ``X`` in one loop —
     the ``p = y`` instance of :func:`solve_fused_batched_qp`.
 
@@ -775,9 +853,10 @@ def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
     to ``torch.get_default_dtype()``.  ``C`` is a scalar, (B,) per-lane or
     (B, l) per-sample budgets (class-weighted SVC); ``gamma`` a scalar or
     (B,).  The warm start ``alpha0``/``G0``, the Gram bank
-    ``gram``/``gram_idx`` and ``shrinking`` are as in
-    :func:`solve_fused_batched_qp`; the bank moves to ``device`` and
-    ``dtype`` too.
+    ``gram``/``gram_idx``, ``shrinking``, ``telemetry`` (the return value
+    is then ``(FusedResult, TelemetryRing)``) and the ignored ``block_l``
+    are as in :func:`solve_fused_batched_qp`; the bank moves to ``device``
+    and ``dtype`` too.
     """
     dev = resolve_device(device)
     if dtype is None and torch.is_tensor(Y) and Y.is_floating_point():
@@ -794,8 +873,9 @@ def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
         gram = torch.as_tensor(gram, dtype=dtype, device=dev).contiguous()
     return solve_fused_batched_qp(
         X, Y, torch.clamp_max(YC, 0.0), torch.clamp_min(YC, 0.0), gamma, cfg,
-        impl=impl, alpha0=alpha0, G0=G0, gram=gram, gram_idx=gram_idx,
-        shrinking=shrinking, check_every=check_every)
+        impl=impl, block_l=block_l, alpha0=alpha0, G0=G0, gram=gram,
+        gram_idx=gram_idx, shrinking=shrinking, check_every=check_every,
+        telemetry=telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -811,13 +891,46 @@ def _pow2(n: int) -> int:
     return b
 
 
+def _merge_chunk_ring(rc: RingConfig, ring: TelemetryRing, live, it_off,
+                      un_off, tel: dict) -> None:
+    """Fold one chunk's ring into the run's host buffers ``tel``.
+
+    A chunk's ring stamps chunk-local iterations and unshrink counts;
+    ``it_off``/``un_off`` (per live lane, before this chunk was added)
+    rebase them to the run's.  Slots follow the device rule (oldest kept,
+    the last slot the newest), so a chunked run keeps the samples one
+    unchunked ring would.  The chunk's ring is read to the host once.
+    """
+    m_live = len(live)
+    r = {k: getattr(ring, k)[:m_live].cpu().numpy() for k in ring_mod.FIELDS}
+    for k, lane in enumerate(live):
+        ns = int(min(r["n_samples"][k], rc.cap))
+        if ns:
+            # repeated last slots resolve to the newest write
+            slots = np.minimum(tel["n_samples"][lane] + np.arange(ns),
+                               rc.cap - 1)
+            tel["t"][lane, slots] = r["t"][k, :ns] + it_off[k]
+            tel["gap"][lane, slots] = r["gap"][k, :ns]
+            tel["n_active"][lane, slots] = r["n_active"][k, :ns]
+            tel["n_unshrink"][lane, slots] = (r["n_unshrink"][k, :ns]
+                                              + un_off[k])
+            tel["n_samples"][lane] += int(r["n_samples"][k])
+        nr = int(min(r["n_ratio"][k], rc.ratio_cap))
+        if nr:
+            slots = np.minimum(tel["n_ratio"][lane] + np.arange(nr),
+                               rc.ratio_cap - 1)
+            tel["ratio"][lane, slots] = r["ratio"][k, :nr]
+            tel["ratio_t"][lane, slots] = r["ratio_t"][k, :nr] + it_off[k]
+            tel["n_ratio"][lane] += int(r["n_ratio"][k])
+
+
 def solve_fused_chunked_qp(X, P, L, U, gamma,
                            cfg: SolverConfig = SolverConfig(), *,
-                           impl: str = "auto", chunk: int = 96,
-                           shrinking: bool = False, doubled: bool = False,
-                           alpha0=None, G0=None, gram=None, gram_idx=None,
-                           mesh=None, devices=None, diagnostics=None,
-                           check_every: int = CHECK_EVERY) -> FusedResult:
+                           impl: str = "auto", block_l: int = 1024,
+                           chunk: int = 96, shrinking: bool = False,
+                           doubled: bool = False, alpha0=None, G0=None,
+                           gram=None, gram_idx=None, mesh=None, devices=None,
+                           diagnostics=None, check_every: int = CHECK_EVERY):
     """:func:`solve_fused_batched_qp` in chunks of ``chunk`` iterations,
     with HARD compaction of both axes between chunks.
 
@@ -845,9 +958,20 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     every live lane's G and resets the rows to the full set.
 
     Arguments are those of :func:`solve_fused_batched_qp`, plus ``chunk``,
-    the iterations of one sub-solve.  ``mesh``/``devices`` (lane sharding,
-    ROADMAP queue 1, step 12) and ``diagnostics`` (the flight recorder,
-    step 9) raise ``NotImplementedError``.  The phases of a round run
+    the iterations of one sub-solve; ``block_l`` is accepted and ignored.
+    ``mesh``/``devices`` (lane sharding, ROADMAP queue 1, step 12) raise
+    ``NotImplementedError``.
+
+    ``diagnostics`` (a :class:`repro_torch.telemetry.Diagnostics`) turns
+    on the flight recorder here: each chunk solve emits a ``chunk_solve``
+    ``phase`` event (wall seconds after a device synchronisation, the
+    round, live lanes and kept rows), a
+    :class:`~repro_torch.runtime.fault.StepMonitor` over those times emits
+    ``straggler_warning`` events, and with ``diagnostics.ring_config`` the
+    chunks' rings are rebased to run-wide stamps and merged per lane, and
+    the return value is ``(FusedResult, TelemetryRing)``.  Without
+    ``diagnostics`` the driver adds no synchronisation.  The phases of a
+    round run
     inside ``torch.profiler`` ranges named ``chunked.slice`` (the gathers
     and the bank slice), ``chunked.solve`` (the chunk solve),
     ``chunked.rebuild`` (the matvec rebuilds) and ``chunked.checks`` (the
@@ -860,10 +984,7 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
         raise NotImplementedError(
             "mesh and devices (lane sharding over several cards) are a later "
             "slice of the port (ROADMAP queue 1, step 12)")
-    if diagnostics is not None:
-        raise NotImplementedError(
-            "diagnostics (the flight recorder) is a later slice of the port "
-            "(ROADMAP queue 1, step 9)")
+    del block_l
     _check_config(cfg)
     _check_cadence(check_every)
     if chunk < 1:
@@ -905,6 +1026,14 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     out_plan = np.zeros(B, np.int64)
     out_unshrink = np.zeros(B, np.int64)
 
+    # ---- flight recorder (host tier): no work without diagnostics --------
+    rc = None if diagnostics is None else diagnostics.ring_config
+    if diagnostics is not None:
+        monitor = StepMonitor(warmup_steps=1)
+    if rc is not None:
+        empty = ring_mod.ring_init(rc, B, torch.float64)
+        tel = {k: getattr(empty, k).numpy() for k in ring_mod.FIELDS}
+
     def reconstruct(idx):
         """Exact full-width G = P - Q alpha for the lanes ``idx``."""
         with record_function("chunked.rebuild"):
@@ -933,7 +1062,7 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     live = np.arange(B)
     keep = torch.arange(lb, device=dev)
     max_rounds = 4 * max(1, -(-cfg.max_iter // chunk)) + 16
-    for _ in range(max_rounds):
+    for rnd in range(max_rounds):
         if len(live) == 0:
             break
         m, m_live = keep.numel(), len(live)
@@ -965,12 +1094,32 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
                             0, keep).index_select(1, keep)
                 bank_kw = dict(gram=gsub, gram_idx=gidx[lanes])
             args = [gather(A) for A in (P64, L64, U64, alpha, G)]
+        if diagnostics is not None:
+            synchronize(dev)
+            t0 = time.perf_counter()
         with record_function("chunked.solve"):
             res = solve_fused_batched_qp(
                 X_sub, *args[:3], gam[lanes], ccfg, impl=impl,
                 alpha0=args[3], G0=args[4], doubled=doubled,
-                shrinking=shrinking, check_every=check_every, **bank_kw)
+                shrinking=shrinking, check_every=check_every, telemetry=rc,
+                **bank_kw)
         del bank_kw, args
+        if rc is not None:
+            res, ring = res
+        if diagnostics is not None:
+            synchronize(dev)
+            dt = time.perf_counter() - t0
+            diagnostics.event("phase", name="chunk_solve", seconds=dt,
+                              round=rnd, lanes=m_live, rows=m)
+            # the EWMA deadline over chunk wall times
+            if monitor.record(dt):
+                diagnostics.event(
+                    "straggler_warning", round=rnd, seconds=dt,
+                    deadline=monitor.deadline, lanes=live.tolist(), rows=m)
+        if rc is not None:
+            _merge_chunk_ring(rc, ring, live, out_iter[live],
+                              out_unshrink[live], tel)
+            del ring
 
         with record_function("chunked.checks"):
             live_t = lanes[:m_live]
@@ -1048,8 +1197,14 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     def as_i32(a):
         return torch.as_tensor(a, dtype=torch.int32, device=dev)
 
-    return FusedResult(
+    result = FusedResult(
         alpha=alpha.to(dtype), b=out_b.to(dtype), G=G.to(dtype),
         iterations=as_i32(out_iter), objective=out_obj.to(dtype),
         kkt_gap=out_gap.to(dtype), converged=out_conv,
         n_planning=as_i32(out_plan), n_unshrink=as_i32(out_unshrink))
+    if rc is None:
+        return result
+    return result, TelemetryRing(**{
+        k: torch.as_tensor(v, device=dev).to(
+            dtype if v.dtype == np.float64 else torch.int32)
+        for k, v in tel.items()})

@@ -39,3 +39,10 @@ def resolve_dtype(dtype=None) -> torch.dtype:
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got "
                          f"{dtype}")
     return dtype
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work when ``device`` is a CUDA device
+    (a timer's end); nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

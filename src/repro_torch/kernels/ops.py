@@ -251,16 +251,19 @@ def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
                                   dup=src.dup, act=act, dirv=dirv, mu2=mu2)
 
 
-def gram(X1, X2=None, gamma=1.0, *, impl: str = "auto", device=None,
-         dtype=None):
+def gram(X1, X2=None, gamma=1.0, *, impl: str = "auto", block_i: int = 256,
+         block_j: int = 256, device=None, dtype=None):
     """(Cross-)Gram matrix k(X1, X2) -> (l1, l2).
 
     An entry point: inputs (arrays or tensors) are moved to ``device``,
     which defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` for the plain path on the CPU.  ``dtype`` defaults to
     ``X1``'s when it is a floating tensor, else to
-    ``torch.get_default_dtype()``.
+    ``torch.get_default_dtype()``.  ``block_i``/``block_j`` are accepted
+    and ignored: the CUDA kernel fixes its output tile by dtype when it is
+    built (:data:`repro_torch.kernels.gram_block.TILE`).
     """
+    del block_i, block_j
     dev = resolve_device(device)
     if dtype is None and torch.is_tensor(X1) and X1.is_floating_point():
         dtype = X1.dtype

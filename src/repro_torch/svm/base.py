@@ -3,18 +3,22 @@
 
 A fit runs on the fused engine (``engine="fused"``) or on the classic one
 (``engine="batched"``); ``"auto"`` picks the fused engine for the configs
-it runs and the classic one for the others.  The knobs that pick the
-sharded engine, a device mesh or the flight recorder raise
-``NotImplementedError`` naming the slice that brings them.
+it runs and the classic one for the others.  ``diagnostics`` (a
+:class:`repro_torch.telemetry.Diagnostics`) records the fit as a phase
+and, on the fused engine with a ring, drains its lanes.  The knobs that
+pick the sharded engine or a device mesh raise ``NotImplementedError``
+naming the slice that brings them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.core import qp as qp_mod
 from repro_torch.core.solver import SolverConfig
-from repro_torch.device import resolve_dtype
+from repro_torch.device import resolve_dtype, synchronize
 from repro_torch.kernels import ops
 
 
@@ -35,10 +39,6 @@ class SVMEstimatorBase:
                 "engine='sharded', mesh and devices (lane sharding over "
                 "several cards) are a later slice of the port (ROADMAP "
                 "queue 1, step 12)")
-        if diagnostics is not None:
-            raise NotImplementedError(
-                "diagnostics (the flight recorder) is a later slice of the "
-                "port (ROADMAP queue 1, step 9)")
         if impl not in ops.IMPLS:
             raise ValueError(f"impl must be one of {ops.IMPLS}, got {impl!r}")
         self.algorithm = algorithm
@@ -50,7 +50,29 @@ class SVMEstimatorBase:
         self.engine = engine
         self.precompute = precompute
         self.device = device
+        self.diagnostics = diagnostics
         self.dtype = resolve_dtype(dtype)
+
+    def _ring_config(self):
+        """The ring geometry of the attached
+        :class:`~repro_torch.telemetry.Diagnostics`, or ``None`` (no
+        handle, or a handle that records host phases only): the fused
+        engine then runs its ring-free loop.  The classic engine carries
+        no ring; a handle records its fit phase only."""
+        if self.diagnostics is None:
+            return None
+        return self.diagnostics.ring_config
+
+    @contextlib.contextmanager
+    def _fit_scope(self, name: str, device, **meta):
+        """The fit's phase scope, which waits for the card before it
+        closes; nothing without a handle."""
+        if self.diagnostics is None:
+            yield
+            return
+        with self.diagnostics.scope(name, **meta):
+            yield
+            synchronize(device)
 
     def _config(self) -> SolverConfig:
         return SolverConfig(algorithm=self.algorithm, step=self.step,

@@ -36,7 +36,8 @@ class OneClassSVM(SVMEstimatorBase):
     ``nu`` in (0, 1] upper-bounds the training-outlier fraction and
     lower-bounds the support-vector fraction.  The other knobs are as in
     :class:`repro_torch.svm.svc.SVC` (``engine`` and ``step="conjugate"``
-    with ``algorithm="smo"`` included).
+    with ``algorithm="smo"`` included); ``diagnostics`` records a
+    ``oneclass_fit`` phase and drains the fused engine's lane.
     """
 
     def __init__(self, nu: float = 0.5, gamma: Union[float, str] = "scale",
@@ -66,24 +67,36 @@ class OneClassSVM(SVMEstimatorBase):
         self.engine_ = self._resolve_engine()
         qp = qp_mod.oneclass_qp(l, self.nu, self.dtype, dev)
         a0 = qp_mod.oneclass_alpha0(l, self.nu, self.dtype, dev)
-        if self.engine_ == "batched":
-            return self._fitted(solve_qp(self._classic_kernel(X), qp,
-                                         self._config(), alpha0=a0,
-                                         device=dev, dtype=self.dtype))
-        bank_kw = {}
-        if self.precompute and ops.resolve_impl(self.impl, dev) == "torch":
-            K = ops.gram(X, gamma=self.gamma_, impl=self.impl, device=dev,
-                         dtype=self.dtype)
-            G0 = -(K @ a0)
-            bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
-                (1,), dtype=torch.int64, device=dev))
-        else:
-            G0 = -qp_mod.make_rbf(X, self.gamma_).matvec(a0)
-        out = solve_fused_batched_qp(
-            X, qp.p[None], qp.bounds.lower[None], qp.bounds.upper[None],
-            self.gamma_, self._config(), impl=self.impl, alpha0=a0[None],
-            G0=G0[None], **bank_kw)
-        return self._fitted(out.lane(0))
+        tel = self._ring_config()
+        ring = None
+        with self._fit_scope("oneclass_fit", dev, engine=self.engine_,
+                             rows=int(X.shape[0])):
+            if self.engine_ == "batched":
+                res = solve_qp(self._classic_kernel(X), qp, self._config(),
+                               alpha0=a0, device=dev, dtype=self.dtype)
+            else:
+                bank_kw = {}
+                if (self.precompute
+                        and ops.resolve_impl(self.impl, dev) == "torch"):
+                    K = ops.gram(X, gamma=self.gamma_, impl=self.impl,
+                                 device=dev, dtype=self.dtype)
+                    G0 = -(K @ a0)
+                    bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
+                        (1,), dtype=torch.int64, device=dev))
+                else:
+                    G0 = -qp_mod.make_rbf(X, self.gamma_).matvec(a0)
+                out = solve_fused_batched_qp(
+                    X, qp.p[None], qp.bounds.lower[None],
+                    qp.bounds.upper[None], self.gamma_, self._config(),
+                    impl=self.impl, alpha0=a0[None], G0=G0[None],
+                    telemetry=tel, **bank_kw)
+                if tel is not None:
+                    out, ring = out
+                res = out.lane(0)
+        if ring is not None:
+            self.diagnostics.drain_ring(
+                ring, [{"gamma": self.gamma_, "nu": float(self.nu)}], out)
+        return self._fitted(res)
 
     def _fitted(self, res: Union[SolveResult, FusedResult]) -> "OneClassSVM":
         self.fit_result_ = res

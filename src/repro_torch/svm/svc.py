@@ -49,9 +49,12 @@ class SVC(SVMEstimatorBase):
     on the plain backend only (the CUDA kernels recompute rows from
     ``X``, as the reference's accelerator path does); the classic engine
     builds it on either (the Gram kernel on the card) and without it
-    recomputes RBF rows from ``X``.  ``engine="sharded"``, ``mesh``,
-    ``devices`` and ``diagnostics`` belong to later slices and raise
-    ``NotImplementedError``.
+    recomputes RBF rows from ``X``.  ``diagnostics`` (a
+    :class:`repro_torch.telemetry.Diagnostics`) records the fit as an
+    ``svc_fit`` phase and, on the fused engine with a ring, drains one
+    lane a class head (a binary fit's lone head is label 1).
+    ``engine="sharded"``, ``mesh`` and ``devices`` belong to a later
+    slice and raise ``NotImplementedError``.
     """
 
     def __init__(self, C: Union[float, np.ndarray] = 1.0,
@@ -124,18 +127,35 @@ class SVC(SVMEstimatorBase):
         else:
             Y = mc.ovr_labels(y_idx, k, self.dtype, dev)
 
-        if engine == "batched":
-            out = mc.solve_ovr(self._classic_kernel(X), Y, C_lanes, cfg,
-                               device=dev, dtype=self.dtype)
-            res = (SolveResult(**{f.name: getattr(out, f.name)[0]
-                                  for f in dataclasses.fields(out)})
-                   if k == 2 else out)
-        else:
-            out = mc.solve_ovr_fused(X, Y, C_lanes, self.gamma_, cfg,
-                                     impl=self.impl,
-                                     precompute=self.precompute, device=dev,
-                                     dtype=self.dtype)
-            res = out.lane(0) if k == 2 else out
+        tel = self._ring_config()
+        ring = None
+        with self._fit_scope("svc_fit", dev, engine=engine, n_class=k,
+                             rows=int(X.shape[0])):
+            if engine == "batched":
+                out = mc.solve_ovr(self._classic_kernel(X), Y, C_lanes, cfg,
+                                   device=dev, dtype=self.dtype)
+                res = (SolveResult(**{f.name: getattr(out, f.name)[0]
+                                      for f in dataclasses.fields(out)})
+                       if k == 2 else out)
+            else:
+                out = mc.solve_ovr_fused(X, Y, C_lanes, self.gamma_, cfg,
+                                         impl=self.impl,
+                                         precompute=self.precompute,
+                                         device=dev, dtype=self.dtype,
+                                         telemetry=tel)
+                if tel is not None:
+                    out, ring = out
+                res = out.lane(0) if k == 2 else out
+        if ring is not None:
+            # one lane a class head (a binary fit's lone head is the
+            # "classes_[1] vs rest" problem, label index 1)
+            Cv = np.asarray(self.C, float).reshape(-1)
+            heads = [1] if k == 2 else range(k)
+            meta = [{"gamma": self.gamma_, "label": int(c),
+                     **({} if self.class_weight is not None else
+                        {"C": float(Cv[c] if Cv.size > 1 else Cv[0])})}
+                    for c in heads]
+            self.diagnostics.drain_ring(ring, meta, out)
         self.fit_result_: Union[SolveResult, FusedResult] = res
         self.alpha_ = res.alpha          # (l,) binary, (k, l) one-vs-rest
         self.b_ = res.b

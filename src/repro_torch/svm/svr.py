@@ -38,8 +38,9 @@ class SVR(SVMEstimatorBase):
     :class:`repro_torch.svm.svc.SVC`: ``engine`` picks the fused or the
     classic solver, ``step="conjugate"`` (with ``algorithm="smo"``) runs
     the Conjugate-SMO step, ``precompute`` (default ``True``) banks the
-    Gram matrix as there, and the knobs of later slices raise
-    ``NotImplementedError``.
+    Gram matrix as there, ``diagnostics`` records the fit as an
+    ``svr_fit`` phase (and drains its lane on the fused engine), and the
+    knobs of later slices raise ``NotImplementedError``.
     """
 
     _fit_attr = "beta_"
@@ -69,21 +70,34 @@ class SVR(SVMEstimatorBase):
         self.X_ = X
         self.engine_ = self._resolve_engine()
         qp = qp_mod.svr_qp(y, float(self.C), float(self.epsilon))
-        if self.engine_ == "batched":
-            return self._fitted(solve_qp(
-                qp_mod.DoubledKernel(self._classic_kernel(X)), qp,
-                self._config(), device=dev, dtype=self.dtype))
-        bank_kw = {}
-        if self.precompute and ops.resolve_impl(self.impl, dev) == "torch":
-            K = ops.gram(X, gamma=self.gamma_, impl=self.impl, device=dev,
-                         dtype=self.dtype)
-            bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
-                (1,), dtype=torch.int64, device=dev))
-        out = solve_fused_batched_qp(
-            X, qp.p[None], qp.bounds.lower[None], qp.bounds.upper[None],
-            self.gamma_, self._config(), impl=self.impl, doubled=True,
-            **bank_kw)
-        return self._fitted(out.lane(0))
+        tel = self._ring_config()
+        ring = None
+        with self._fit_scope("svr_fit", dev, engine=self.engine_,
+                             rows=int(X.shape[0])):
+            if self.engine_ == "batched":
+                res = solve_qp(qp_mod.DoubledKernel(self._classic_kernel(X)),
+                               qp, self._config(), device=dev,
+                               dtype=self.dtype)
+            else:
+                bank_kw = {}
+                if (self.precompute
+                        and ops.resolve_impl(self.impl, dev) == "torch"):
+                    K = ops.gram(X, gamma=self.gamma_, impl=self.impl,
+                                 device=dev, dtype=self.dtype)
+                    bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
+                        (1,), dtype=torch.int64, device=dev))
+                out = solve_fused_batched_qp(
+                    X, qp.p[None], qp.bounds.lower[None],
+                    qp.bounds.upper[None], self.gamma_, self._config(),
+                    impl=self.impl, doubled=True, telemetry=tel, **bank_kw)
+                if tel is not None:
+                    out, ring = out
+                res = out.lane(0)
+        if ring is not None:
+            self.diagnostics.drain_ring(
+                ring, [{"gamma": self.gamma_, "C": float(self.C),
+                        "epsilon": float(self.epsilon)}], out)
+        return self._fitted(res)
 
     def _fitted(self, res: Union[SolveResult, FusedResult]) -> "SVR":
         self.fit_result_ = res

@@ -4,6 +4,7 @@ CUDA card and raise without one; ``impl="cuda"`` never runs on CPU
 tensors; the kernel build is set up for Hopper with IEEE arithmetic."""
 
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -107,8 +108,7 @@ def test_slice_3_impl_cuda_on_cpu_tensors_raises():
 
 @pytest.mark.parametrize("cls", [SVR, OneClassSVM])
 @pytest.mark.parametrize("kw", [dict(engine="sharded"),
-                                dict(devices=("cuda:0",)),
-                                dict(diagnostics=object())])
+                                dict(devices=("cuda:0",))])
 def test_svr_oneclass_later_slices_raise_not_implemented(cls, kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         cls(device="cpu", **kw)
@@ -130,8 +130,7 @@ def test_impl_cuda_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("kw", [dict(engine="sharded"),
-                                dict(devices=("cuda:0",)),
-                                dict(diagnostics=object())])
+                                dict(devices=("cuda:0",))])
 def test_later_slices_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         SVC(device="cpu", **kw)
@@ -209,8 +208,7 @@ def test_grid_impl_cuda_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("kw,step", [(dict(mesh=object()), "step 12"),
-                                     (dict(devices=("cuda:0",)), "step 12"),
-                                     (dict(diagnostics=object()), "step 9")])
+                                     (dict(devices=("cuda:0",)), "step 12")])
 def test_grid_later_slices_raise_not_implemented(kw, step):
     X, Y = _grid_problem()
     kw = {"impl": "auto", **kw}
@@ -224,13 +222,65 @@ def test_grid_later_slices_raise_not_implemented(kw, step):
 
 
 @pytest.mark.parametrize("kw,step", [(dict(mesh=object()), "step 12"),
-                                     (dict(devices=("cuda:0",)), "step 12"),
-                                     (dict(diagnostics=object()), "step 9")])
+                                     (dict(devices=("cuda:0",)), "step 12")])
 def test_grid_compacted_later_slices_raise_not_implemented(kw, step):
     X, Y = _grid_problem()
     kw = {"impl": "auto", **kw}
     with pytest.raises(NotImplementedError, match=step):
         grid.solve_grid_compacted(X, Y, [1.0], [0.5], device="cpu", **kw)
+
+
+def _block_knob_call(entry, knobs):
+    """One call of ``entry`` on the CPU, with the tile ``knobs`` or none."""
+    from repro_torch.core import multiclass
+    from repro_torch.core.solver_fused import (solve_fused_batched_qp,
+                                               solve_fused_chunked_qp)
+    X, y = xor_gaussians(32, seed=3)
+    Xt = torch.as_tensor(X, dtype=torch.float64)
+    Y = torch.as_tensor(np.stack([y, -y]), dtype=torch.float64)
+    L, U = torch.clamp_max(2.0 * Y, 0.0), torch.clamp_min(2.0 * Y, 0.0)
+    cfg = SolverConfig(eps=1e-3, max_iter=400)
+    kw = dict(block_l=128) if knobs else {}
+    call = {
+        "solve_fused": lambda: solve_fused(Xt, Y[0], 2.0, 0.5, cfg,
+                                           device="cpu", **kw),
+        "solve_fused_batched_qp": lambda: solve_fused_batched_qp(
+            Xt, Y, L, U, 0.5, cfg, **kw),
+        "solve_fused_batched": lambda: solve_fused_batched(
+            Xt, Y, 2.0, 0.5, cfg, device="cpu", **kw),
+        "solve_fused_chunked_qp": lambda: solve_fused_chunked_qp(
+            Xt, Y, L, U, 0.5, cfg, chunk=16, shrinking=True, **kw),
+        "solve_ovr_fused": lambda: multiclass.solve_ovr_fused(
+            Xt, Y, 2.0, 0.5, cfg, device="cpu", **kw),
+        "gram": lambda: ops.gram(
+            Xt, Xt[:7], 0.5, device="cpu",
+            **(dict(block_i=64, block_j=32) if knobs else {})),
+    }[entry]
+    return call()
+
+
+@pytest.mark.parametrize("entry", ["solve_fused", "solve_fused_batched_qp",
+                                   "solve_fused_batched",
+                                   "solve_fused_chunked_qp",
+                                   "solve_ovr_fused", "gram"])
+def test_tile_knobs_are_accepted_and_ignored(entry):
+    """The reference's tile knobs (``block_l``; ``block_i``/``block_j`` on
+    the Gram) are accepted at every entry point and change no bit: the
+    CUDA kernels fix their tiles when they are built."""
+    got, want = _block_knob_call(entry, True), _block_knob_call(entry, False)
+    if torch.is_tensor(want):
+        assert torch.equal(got, want)
+        return
+    for f in dataclasses.fields(want):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), \
+            f.name
+
+
+def test_no_error_names_the_telemetry_step():
+    """The flight recorder is ported: nothing in the package still refuses
+    it as a later slice."""
+    for path in PORT_FILES:
+        assert "step 9" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("entry", ["svc", "svr", "oneclass", "grid",

@@ -641,8 +641,7 @@ def test_chunked_refuses_what_the_port_lacks():
     P = torch.as_tensor(y)[None]
     args = (torch.as_tensor(X), P, -P.abs(), P.abs(), 0.5)
     for kw, step in ((dict(mesh=object()), "step 12"),
-                     (dict(devices=("cuda:0",)), "step 12"),
-                     (dict(diagnostics=object()), "step 9")):
+                     (dict(devices=("cuda:0",)), "step 12")):
         with pytest.raises(NotImplementedError, match=step):
             tsf.solve_fused_chunked_qp(*args, **kw)
     with pytest.raises(ValueError, match="chunk"):
