@@ -49,7 +49,11 @@ failure raises and the script exits non-zero without a result line:
    SVC, the (C, gamma) and e-SVR grids through both row sources and the
    one-class grid, each with and without shrinking, the compacted grid,
    one fit run twice (bitwise) and ``check_every=5`` against ``1``; f64,
-   ``impl="cuda"`` against ``impl="torch"``.
+   ``impl="cuda"`` against ``impl="torch"``; and both chunked drivers
+   (the compacted grid through both sources at ``chunk=32`` and ``96``,
+   the classic one with and without shrinking) with their per-call CUDA
+   graph cache against the same drivers with the cache defeated, bitwise,
+   and exactly one capture per (cache entry, chunk shape) visited.
 5. SVC, full width (slice 1's main path) — a 10-class one-vs-rest SVC at
    l = 16384, d = 128 in f64 and f32: convergence, gradient drift, KKT
    gap, held-out agreement, launch counts, and each kernel's device time
@@ -90,8 +94,11 @@ failure raises and the script exits non-zero without a result line:
    and 8's shrink-off results (reused, not rerun), iterations, unshrinks,
    the final active share, ms an iteration (a round for the compacted
    grid, with its split), profiler windows over 64 iterations (one mask
-   refresh), peak memory; then the six variants of this slice timed
-   beside their bounds.
+   refresh), peak memory; the compacted grid again without the graph
+   cache (bitwise equal; ms a round, ``chunked.solve``'s share, captures
+   and peak memory of both) and a profiler window over a round that
+   replays its cache entry's graphs; then the six variants of this slice
+   timed beside their bounds.
 10. conjugate step, full width (slice 5) — ``algorithm="smo",
    step="conjugate"`` on phase 5's SVC, phase 6's grid through the bank
    (without and with shrinking) and through the rbf passes with
@@ -110,7 +117,9 @@ failure raises and the script exits non-zero without a result line:
    conjugate step), a Table-2-style line each; (d) the Fig. 3 recorder,
    ``mu/mu* - 1`` in ``benchmarks/fig3_stepsizes.py``'s buckets; (e)
    ``solve_grid(impl=None)`` over phase 6's grid and the classic
-   compacted grid over its C = 0.5 lanes, without and with shrinking;
+   compacted grid over its C = 0.5 lanes, without and with shrinking
+   (without shrinking also with the graph cache defeated: bitwise equal,
+   ms a round, captures, peak memory);
    (f) ``SVR`` and ``OneClassSVM`` on phase 8's problems and
    ``train_svm`` on lane 0.  Every lane converged, G within 1e-8 of
    p - Q alpha, the full-set gap at most eps, objectives within rtol
@@ -129,14 +138,21 @@ failure raises and the script exits non-zero without a result line:
    ``n_trace`` equal to the drained ratio channel; (c) phase 10's
    conjugate SVC: accepted conjugate steps equal the ratio events; (d)
    phase 4's compacted grid (``chunk=32``): bitwise equal to the run
-   without, run-wide stamps, ``chunk_solve`` events; (e) the grid's JSONL
+   without, run-wide stamps, ``chunk_solve`` events, and ring, lanes and
+   events equal to the uncached driver's; (e) the grid's JSONL
    rendered by ``repro_torch.launch.telemetry_report`` (environment,
    convergence and straggler lines printed).  The phase's time is printed.
+13. analysis — ``repro_torch.analysis.capture_guard`` with real graphs
+   (the ``[analysis]`` line): exact captures of a fused and a classic fit
+   and of both chunked drivers over a (C, gamma) sweep, cached bitwise
+   equal to uncached; a sweep of fits builds no kernel, and each source
+   hash was built once in the process.
 
 The solvers replay their loop body as CUDA graphs on the card
-(``repro_torch.core.solver_fused._drive``); the profiler windows span one
-check chunk, which the loop runs eagerly, so no graph is captured inside a
-window.
+(``repro_torch.core.solver_fused._drive``); the profiler windows over a
+fit span one check chunk, which the loop runs eagerly, so no graph is
+captured inside them; the window over a compacted round spans replays
+only.
 
 Every counted run of phases 5-12 (fits, grids, predicts and decisions;
 not the bitwise repeat of phase 7, the profiler windows or the timings)
@@ -153,6 +169,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
@@ -317,6 +334,48 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# the chunked drivers' graph cache
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def uncached():
+    """The chunked drivers without their per-call CUDA-graph cache: the
+    cache's factory swapped for one that never hits
+    (``solver_fused._GraphCacheMiss``), so every round builds its loop and
+    captures its graphs anew."""
+    from repro_torch.core import solver_fused
+    saved = solver_fused._GraphCache
+    solver_fused._GraphCache = solver_fused._GraphCacheMiss
+    try:
+        yield
+    finally:
+        solver_fused._GraphCache = saved
+
+
+def same_result(a, b, tag):
+    """Every field of two results bitwise equal."""
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), \
+            (tag, f.name)
+
+
+def cache_text(log, uncached_log=None) -> str:
+    """A chunked call's captures (``capture_guard.CaptureLog``): exactly
+    one per (cache entry, chunk shape) visited and none twice; with the
+    uncached run's log, its captures beside them."""
+    want = log.expected_chunked()
+    assert len(log.captures) == want, (len(log.captures), want)
+    assert len(set(log.captures)) == len(log.captures)
+    text = (f"captures {len(log.captures)} (one per (entry, chunk shape) "
+            f"visited: {want}), entries {len({k for k, _ in log.loops})}, "
+            f"rounds {len(log.loops)}")
+    if uncached_log is not None:
+        text += f"; uncached: {len(uncached_log.captures)} captures"
+    return text
 
 
 # ---------------------------------------------------------------------------
@@ -1571,7 +1630,9 @@ def phase_small_slice4(device, impl):
     hard shrinking on both row sources, the e-SVR grid through the bank
     with and without shrinking, the one-class grid through the bank with
     shrinking, and the mask refresh under CUDA graphs against the eager
-    loop."""
+    loop; and both chunked drivers' graph caches against the uncached
+    drivers, bitwise."""
+    from repro_torch.analysis.capture_guard import CaptureLog
     from repro_torch.core import grid
     from repro_torch.core import multiclass as mc
     from repro_torch.core.solver import SolverConfig
@@ -1598,6 +1659,31 @@ def phase_small_slice4(device, impl):
             for which in (impl, "torch")}
         _agree(f"compacted grid chunk=32 shrinking, {src}", runs[impl],
                runs["torch"], eps)
+        # the graph cache: cached and uncached bitwise, one capture per
+        # (entry, chunk shape); chunk=96 runs three chunks a round
+        for chunk in (32, 96):
+            def compacted():
+                return grid.solve_grid_compacted(
+                    X, Y, (4.0, 1.0), (0.05, 0.2), cfg, chunk=chunk,
+                    impl=impl, **kw)
+            with CaptureLog() as log:
+                cached = compacted()
+            with uncached(), CaptureLog() as log_u:
+                same_result(cached, compacted(), "compacted grid")
+            say(f"[small] compacted grid chunk={chunk} shrinking, {src}: "
+                f"cached and uncached bitwise equal; {cache_text(log, log_u)}")
+    # the classic compacted grid (impl=None), cached and uncached
+    for shrinking in (False, True):
+        def classic():
+            return grid.solve_grid_compacted(
+                X, Y, (4.0, 1.0), (0.05, 0.2), SolverConfig(eps=eps),
+                chunk=96, shrinking=shrinking, **f64)
+        with CaptureLog() as log:
+            cached = classic()
+        with uncached(), CaptureLog() as log_u:
+            same_result(cached, classic(), "classic compacted grid")
+        say(f"[small] classic compacted grid chunk=96 shrinking={shrinking}:"
+            f" cached and uncached bitwise equal; {cache_text(log, log_u)}")
     for shrinking in (True, False):
         runs = {which: grid.solve_grid_svr(Xs, ys, (0.5, 2.0), (0.05, 0.2),
                                            (0.1, 0.4), cfg, impl=which,
@@ -1820,6 +1906,24 @@ def phase_full(device, timer):
     return rec, lane0, svc_ref
 
 
+def device_events(prof):
+    """The device events of a ``torch.profiler`` window, split into the
+    loop's kernels and the one-off work (copies, sets, Gram builds)."""
+    # record_function ranges (the fit's and the ring's phase scopes) show
+    # up on the device's track too, under their host names: they are
+    # spans, not kernels
+    avgs = prof.key_averages()
+    host = {e.key for e in avgs
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    events = [e for e in avgs
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in host
+              and not getattr(e, "is_user_annotation", False)]
+    once = [e for e in events if e.key.startswith(("Memcpy", "Memset"))
+            or "gram_kernel" in e.key]
+    return [e for e in events if e not in once], once
+
+
 def profile_iterations(run, label, ms_iter, n_iter=None):
     """Device kernels an iteration launches and the device's busy share of
     the iteration's wall time, from ``torch.profiler`` over ``run()``, a
@@ -1837,19 +1941,7 @@ def profile_iterations(run, label, ms_iter, n_iter=None):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    # record_function ranges (the fit's and the ring's phase scopes) show
-    # up on the device's track too, under their host names: they are
-    # spans, not kernels
-    avgs = prof.key_averages()
-    host = {e.key for e in avgs
-            if e.device_type == torch.autograd.DeviceType.CPU}
-    events = [e for e in avgs
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.key not in host
-              and not getattr(e, "is_user_annotation", False)]
-    once = [e for e in events if e.key.startswith(("Memcpy", "Memset"))
-            or "gram_kernel" in e.key]
-    kern = [e for e in events if e not in once]
+    kern, once = device_events(prof)
     dev_us = sum(e.self_device_time_total for e in kern)
     if dev_us <= 0:
         say(f"[profile] {label}: torch.profiler recorded no device time: "
@@ -2719,19 +2811,27 @@ class ChunkProbe:
     for ``record_function`` that reads the clock at both ends.  It adds no
     synchronization: work a range queues on the card without waiting for
     it (the slice's copies, the rebuild's matvec) is waited for, and
-    counted, in the next range that reads a result back."""
+    counted, in the next range that reads a result back.  ``solves``: (round
+    key, host seconds) of each chunk solve, which ends on the loop's last
+    read of the card."""
 
     def __enter__(self):
         from repro_torch.core import solver_fused
         self.mod = solver_fused
         self.orig = (solver_fused.solve_fused_batched_qp,
                      solver_fused.record_function)
-        self.rows, self.lanes, self.split = [], [], {}
+        self.rows, self.lanes, self.split, self.solves = [], [], {}, []
 
         def spy(X, P, L, U, *args, **kw):
             self.lanes.append(P.shape[0])
             self.rows.append(((L != 0) | (U != 0)).any(0).sum())
-            return self.orig[0](X, P, L, U, *args, **kw)
+            gram = kw.get("gram")
+            t0 = time.perf_counter()
+            out = self.orig[0](X, P, L, U, *args, **kw)
+            self.solves.append(((tuple(P.shape), None if gram is None
+                                 else gram.data_ptr()),
+                                time.perf_counter() - t0))
+            return out
 
         @contextlib.contextmanager
         def timed(name):
@@ -2754,6 +2854,77 @@ class ChunkProbe:
                          for k, v in sorted(self.split.items()))
 
 
+def round_split(solves) -> tuple:
+    """The median host seconds of the chunk solves that opened a cache
+    entry (its first round: eager chunks and captures) and of those that
+    replayed one, from (round key, seconds) pairs, with their counts."""
+    seen, first, later = set(), [], []
+    for key, sec in solves:
+        (later if key in seen else first).append(sec)
+        seen.add(key)
+    med = [float(np.median(v)) * 1e3 if v else float("nan")
+           for v in (first, later)]
+    return med[0], len(first), med[1], len(later)
+
+
+def median_ms(solves) -> float:
+    return float(np.median([sec for _, sec in solves])) * 1e3
+
+
+def split_text(solves) -> str:
+    f_ms, n_f, r_ms, n_r = round_split(solves)
+    return (f"solve of an entry's first round {f_ms:.3f} ms (median of "
+            f"{n_f}), of a replayed round {r_ms:.3f} ms (median of {n_r})")
+
+
+def replayed_round_window(run, label, ms_round):
+    """A ``torch.profiler`` window over one round of ``run()``, a chunked
+    call, that replays its cache entry's graphs: the first round whose
+    lanes, rows and row source an earlier round of the call had.  Prints
+    the round's device kernels an iteration and the device's busy share of
+    ``ms_round``, the unprofiled solve of a replayed round."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import solver_fused
+    orig = solver_fused.solve_fused_batched_qp
+    seen, out = set(), {}
+
+    def spy(X, P, *args, **kw):
+        gram = kw.get("gram")
+        key = (tuple(P.shape), None if gram is None else gram.data_ptr())
+        if key not in seen or out:
+            seen.add(key)
+            return orig(X, P, *args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = orig(X, P, *args, **kw)
+            torch.cuda.synchronize()
+        out.update(prof=prof, wall=time.perf_counter() - t0,
+                   lanes=P.shape[0], iters=loop_iterations(
+                       res.iterations, solver_fused.CHECK_EVERY,
+                       args[3].max_iter))
+        return res
+
+    solver_fused.solve_fused_batched_qp = spy
+    try:
+        run()
+    finally:
+        solver_fused.solve_fused_batched_qp = orig
+    assert out, f"{label}: no round replayed an entry"
+    kern, once = device_events(out["prof"])
+    n = out["iters"]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    say(f"[profile] {label}, a replayed round ({out['lanes']} lanes, {n} "
+        f"iterations): {sum(e.count for e in kern) / n:.1f} device kernels "
+        f"an iteration, kernels busy {dev_ms:.4f} ms in the round = "
+        f"{dev_ms / ms_round:.4f} of a replayed round's unprofiled solve, "
+        f"{ms_round:.3f} ms (idle share {1 - dev_ms / ms_round:.4f}); "
+        f"copies and sets "
+        f"{sum(e.self_device_time_total for e in once) / 1e3:.4f} ms; "
+        f"profiled wall {out['wall'] * 1e3:.3f} ms")
+
+
 def active_share(G, alpha, L, U):
     """The share of coordinates the shrink rule keeps at the final state."""
     from repro_torch.core import qp
@@ -2766,7 +2937,10 @@ def phase_shrink(device, timer, grid_off, svr_off):
     compacted grid (hard shrinking, chunk = 96, the C = 0.5 lanes) through
     the bank, and the e-SVR grid of phase 8 through the bank with soft
     shrinking; objectives against phases 6 and 8's shrink-off results (not
-    rerun)."""
+    rerun).  The compacted grid runs with the chunked driver's graph
+    cache and again without it (bitwise equal), and a profiler window
+    spans one round that replays its cache entry's graphs."""
+    from repro_torch.analysis.capture_guard import CaptureLog
     from repro_torch.core import grid
     from repro_torch.core import multiclass as mc
     from repro_torch.core.solver import SolverConfig
@@ -2834,13 +3008,16 @@ def phase_shrink(device, timer, grid_off, svr_off):
         "grid bank f64 shrinking=True (one mask refresh inside)",
         recs["grid bank"][0], 2 * PROFILE_ITERS)
 
-    # the compacted grid: hard row and lane compaction between chunks
-    with ChunkProbe() as rounds:
-        r, counts, wall, _, peak = fit_grid(
-            lambda: grid.solve_grid_compacted(
-                Xtr, Y, COMPACT_CS, gammas, cfg, chunk=96, impl="auto",
-                precompute=True, shrinking=True, device=device,
-                dtype=torch.float64), device)
+    # the compacted grid: hard row and lane compaction between chunks,
+    # its rounds replaying the graphs of the driver's cache
+    def compacted(c=cfg):
+        return grid.solve_grid_compacted(
+            Xtr, Y, COMPACT_CS, gammas, c, chunk=96, impl="auto",
+            precompute=True, shrinking=True, device=device,
+            dtype=torch.float64)
+
+    with ChunkProbe() as rounds, CaptureLog() as log:
+        r, counts, wall, _, peak = fit_grid(compacted, device)
     check_only(counts, {BANK_ACT[0]: counts[BANK_ACT[0]],
                         BANK_ACT[1]: counts[BANK_ACT[0]],
                         "gram_block": len(GRID_GAMMA_FACTORS)},
@@ -2863,6 +3040,29 @@ def phase_shrink(device, timer, grid_off, svr_off):
         f"launches {counts}; converged {int(r.converged.sum())}/"
         f"{r.converged.numel()}; max KKT gap "
         f"{float(r.kkt_gap.max()):.4e}")
+    # the same grid without the cache, every round capturing anew (a
+    # comparison: its launches are not tallied)
+    torch.cuda.reset_peak_memory_stats(device)
+    with ChunkProbe() as rounds_u, uncached(), CaptureLog() as log_u:
+        r_u, _, wall_u = counted(compacted, tally=False)
+    peak_u = torch.cuda.max_memory_allocated(device)
+    same_result(r, r_u, "compacted grid, cached against uncached")
+    assert len(rounds_u.rows) == n_rounds
+    del r_u
+    say(f"[shrink] compacted grid graph cache: bitwise equal to the "
+        f"uncached driver; {wall / n_rounds * 1e3:.3f} ms/round cached, "
+        f"{wall_u / n_rounds * 1e3:.3f} uncached ({wall:.3f} s against "
+        f"{wall_u:.3f} s); chunked.solve's share of the run "
+        f"{rounds.split.get('chunked.solve', 0.0) / wall:.4f} cached, "
+        f"{rounds_u.split.get('chunked.solve', 0.0) / wall_u:.4f} "
+        f"uncached; {split_text(rounds.solves)}, uncached every round "
+        f"{median_ms(rounds_u.solves):.3f} ms (median); peak device "
+        f"memory {peak / 1e9:.3f} GB cached, {peak_u / 1e9:.3f} GB "
+        f"uncached; {cache_text(log, log_u)}")
+    replayed_round_window(
+        lambda: compacted(dataclasses.replace(cfg, max_iter=5 * 96)),
+        "compacted grid bank f64 shrinking=True",
+        round_split(rounds.solves)[2])
     assert bool(r.converged.all()), "compacted grid"
     objectives_agree("compacted grid", r.objective, off["objective"])
     drift, gap = svc_grid_checks(Xtr, Y, gammas, {"compacted": r}, device,
@@ -3331,15 +3531,23 @@ CLASSIC_COUNTERS = ("n_planning", "n_free", "n_clipped", "n_reverted")
 class LaneProbe:
     """Records the lane count of every classic loop
     (``repro_torch.core.grid.solve_lanes``) while installed: one entry a
-    C of the classic grid, one a chunk (round) of the compacted one."""
+    C of the classic grid, one a chunk (round) of the compacted one; and
+    the host's wall time inside them (``solve_s``: a loop returns after
+    its last check has read the card)."""
 
     def __enter__(self):
         from repro_torch.core import grid
-        self.orig, self.lanes = grid.solve_lanes, []
+        self.orig, self.lanes, self.solve_s = grid.solve_lanes, [], 0.0
+
+        self.solves = []
 
         def spy(kernel, p, *args, **kw):
             self.lanes.append(p.shape[0])
-            return self.orig(kernel, p, *args, **kw)
+            t0 = time.perf_counter()
+            out = self.orig(kernel, p, *args, **kw)
+            self.solves.append((tuple(p.shape), time.perf_counter() - t0))
+            self.solve_s += self.solves[-1][1]
+            return out
 
         grid.solve_lanes = spy
         return self
@@ -3369,7 +3577,10 @@ def phase_classic(device, svc_ref, grid_off, svr_ref):
     and one-class problems and ``train_svm`` on lane 0's binary problem.
     Every lane converged with its full-set gap at most eps, G within 1e-8
     of p - Q alpha, objectives within rtol 1e-6 of the fused results of
-    phases 5, 6 and 8 (reused, not rerun) or of (a)."""
+    phases 5, 6 and 8 (reused, not rerun) or of (a).  The compacted grid
+    without shrinking runs again without the chunked driver's graph cache
+    (bitwise equal)."""
+    from repro_torch.analysis.capture_guard import CaptureLog
     from repro_torch.core import grid
     from repro_torch.core import multiclass as mc
     from repro_torch.core import qp
@@ -3549,11 +3760,14 @@ def phase_classic(device, svc_ref, grid_off, svr_ref):
     off = grid_off["objective"][:, :, :len(COMPACT_CS)]
     for shrinking in (False, True):
         tag = f"compacted grid shrinking={shrinking}"
-        torch.cuda.reset_peak_memory_stats(device)
-        with LaneProbe() as rounds:
-            r, wall = fit(tag, lambda: grid.solve_grid_compacted(
+
+        def compacted():
+            return grid.solve_grid_compacted(
                 Xtr, Y, COMPACT_CS, gammas, cfg, chunk=96,
-                shrinking=shrinking, **f64), {"gram_block": len(gammas)})
+                shrinking=shrinking, **f64)
+        torch.cuda.reset_peak_memory_stats(device)
+        with LaneProbe() as rounds, CaptureLog() as log:
+            r, wall = fit(tag, compacted, {"gram_block": len(gammas)})
         peak = torch.cuda.max_memory_allocated(device)
         converged(tag, r)
         n = len(rounds.lanes)
@@ -3568,9 +3782,30 @@ def phase_classic(device, svc_ref, grid_off, svr_ref):
                         for f in CLASSIC_COUNTERS)
             + f"; |G - (p - K alpha)|_max {drift['c']:.3e}; KKT gap "
             f"recomputed {gap['c']:.4e}; peak device memory "
-            f"{peak / 1e9:.3f} GB")
+            f"{peak / 1e9:.3f} GB; the loops' share of the run "
+            f"{rounds.solve_s / wall:.4f}; {cache_text(log)}")
         objectives_agree("the fused grid's", tag, r.objective, off)
         assert drift["c"] <= 1e-8 and gap["c"] <= eps
+        if not shrinking:
+            # the same grid without the cache (a comparison: its
+            # launches are not tallied)
+            torch.cuda.reset_peak_memory_stats(device)
+            with LaneProbe() as rounds_u, uncached(), \
+                    CaptureLog() as log_u:
+                r_u, _, wall_u = counted(compacted, tally=False)
+            peak_u = torch.cuda.max_memory_allocated(device)
+            same_result(r, r_u, f"classic {tag}, cached against uncached")
+            assert len(rounds_u.lanes) == n
+            del r_u
+            say(f"[classic] {tag} graph cache: bitwise equal to the "
+                f"uncached driver; {wall / n * 1e3:.3f} ms/round cached, "
+                f"{wall_u / n * 1e3:.3f} uncached; the loops' share "
+                f"{rounds.solve_s / wall:.4f} cached, "
+                f"{rounds_u.solve_s / wall_u:.4f} uncached; "
+                f"{split_text(rounds.solves)}, uncached every round "
+                f"{median_ms(rounds_u.solves):.3f} ms (median); peak "
+                f"device memory {peak / 1e9:.3f} GB cached, "
+                f"{peak_u / 1e9:.3f} GB uncached; {cache_text(log, log_u)}")
         del r
 
     # (f) phase 8's SVR and one-class problems, and train_svm on lane 0
@@ -3785,6 +4020,26 @@ def phase_telemetry(device, svc_ref, grid_off, conj_svc):
             **kw))
         for f in ("iterations", "alpha", "n_planning"):
             assert torch.equal(getattr(rd, f), getattr(plain, f)), f
+        # the same run without the chunked driver's graph cache: every
+        # field, the Fig. 3 channel and the events (their wall times
+        # aside) bitwise equal
+        diag_u = Diagnostics(ring=RingConfig(sample_every=4, cap=64))
+        with uncached():
+            ru = grid.solve_grid_compacted(
+                Xs, Ys, (4.0, 1.0), (0.05, 0.2), cfg_s, diagnostics=diag_u,
+                **kw)
+        same_result(rd, ru, "compacted grid with diagnostics, uncached")
+
+        def timeless(diag):
+            return [{k: v for k, v in e.items()
+                     if k not in ("ts", "seconds", "deadline")}
+                    for e in diag.sink.events
+                    if e["event"] != "straggler_warning"]
+        assert timeless(diag_d) == timeless(diag_u)
+        assert [{k: v for k, v in rec.items() if k != "ts"}
+                for rec in diag_d.lanes] == [
+            {k: v for k, v in rec.items() if k != "ts"}
+            for rec in diag_u.lanes]
         assert len(diag_d.lanes) == rd.iterations.numel()
         for rec in diag_d.lanes:
             lane_series_ok(rec, f"compacted lane {rec['lane']}")
@@ -3794,7 +4049,8 @@ def phase_telemetry(device, svc_ref, grid_off, conj_svc):
         warnings = [e for e in diag_d.sink.events
                     if e["event"] == "straggler_warning"]
         say(f"[telemetry] compacted grid chunk=32 with diagnostics: bitwise "
-            f"equal to the run without; {len(rounds)} chunk_solve events "
+            f"equal to the run without, and (ring, lanes, events) to the "
+            f"uncached driver; {len(rounds)} chunk_solve events "
             f"(s: {[round(e['seconds'], 4) for e in rounds]}, live lanes "
             f"{[e['lanes'] for e in rounds]}); {len(warnings)} straggler "
             f"warnings; launches {counts}")
@@ -3822,6 +4078,33 @@ def phase_telemetry(device, svc_ref, grid_off, conj_svc):
             say(f"[telemetry]   {ln}")
     say(f"[telemetry] phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return ratio
+
+
+# ---------------------------------------------------------------------------
+# the capture guard on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_analysis(device):
+    """``repro_torch.analysis.capture_guard`` with real graphs: exact
+    captures of a fused and a classic fit, of the fused chunked driver
+    (bank and rbf) and the classic compacted grid over a (C, gamma) sweep,
+    each bitwise equal to the uncached driver; then a (C, gamma) sweep of
+    fits builds no kernel, and every source hash was built once."""
+    from repro_torch.analysis import capture_guard
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    findings = capture_guard.run_probes(device)
+    for f in findings:
+        say(f"[analysis] {f.render()}")
+    assert not findings, "the capture guard found something"
+    say(f"[analysis] capture guard on the card: "
+        f"{len(capture_guard.PROBES) + 1} probes clean (captures exact per "
+        f"fit and per chunked call, cached bitwise equal to uncached); "
+        f"nvcc builds in this process by source hash {dict(build.BUILDS)} "
+        f"(current {build.source_hash()}, "
+        f"{'built here' if build.BUILDS else 'found built'}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -3890,6 +4173,8 @@ def main(argv=None) -> int:
     say(f"[time] slice 9 phase done at {time.perf_counter() - t_start:.1f} s")
     phase_telemetry(device, svc_ref, grid_off, conj_svc)
     say(f"[time] slice 10 phase done at {time.perf_counter() - t_start:.1f} s")
+    phase_analysis(device)
+    say(f"[time] analysis done at {time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
     say(f"[gram] launches over phases 5-12: {n_gram}; bank and Gram builds "

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import qp as qp_mod
+from repro_torch.core import solver_fused
 from repro_torch.core.solver import (SolveResult, SolverConfig,
                                      resolve_shrink_cfg, solve_lanes)
 from repro_torch.core.solver_fused import (FusedResult, _pow2,
@@ -298,13 +299,28 @@ _CHUNK_COUNTERS = ("iterations", "n_planning", "n_free", "n_clipped",
                    "n_reverted")
 
 
+def _classic_buffers(kern, bsz: int, l: int, dtype) -> SimpleNamespace:
+    """The buffers of a classic chunked round's cache entry (lane bucket
+    ``bsz``): the lanes' oracle over the bank, whose index ``g`` the round
+    writes, and their labels ``p`` and box ``L``, ``U`` (bsz, l)."""
+    def zeros():
+        return torch.zeros((bsz, l), dtype=dtype, device=kern.Ks.device)
+
+    g = torch.zeros((bsz,), dtype=kern.g.dtype, device=kern.Ks.device)
+    return SimpleNamespace(kernel=qp_mod.StackedKernel(kern.Ks, g),
+                           p=zeros(), L=zeros(), U=zeros())
+
+
 def _compacted_classic(X, Y, Cs_np, gammas_np, cfg, chunk) -> SolveResult:
     """The classic chunked grid: the C axis ascending with scaled warm
     starts, and within each C the (gamma, class) lanes solved ``chunk``
     iterations at a time, with the converged lanes dropped between chunks
     (lane counts bucketed to powers of two by repeating the first live
     lane).  Each chunk starts a fresh planning history; the carried alpha
-    and G stay in float64 on the device."""
+    and G stay in float64 on the device.  The chunks of one lane bucket
+    solve one loop over one set of buffers
+    (:class:`~repro_torch.core.solver_fused._GraphCache`), so on the card
+    they replay its CUDA graphs."""
     dev, dtype = X.device, X.dtype
     k, l = Y.shape
     nG, nC = len(gammas_np), len(Cs_np)
@@ -325,6 +341,9 @@ def _compacted_classic(X, Y, Cs_np, gammas_np, cfg, chunk) -> SolveResult:
                kkt_gap=zeros(), converged=zeros(dt=torch.bool),
                **{f: zeros(dt=torch.int64) for f in _CHUNK_COUNTERS})
     max_chunks = max(1, -(-cfg.max_iter // chunk))
+    # the chunks' loops and CUDA graphs, one entry a lane bucket, shared
+    # by the rounds of every C
+    cache = solver_fused._GraphCache()
     for ci in order:
         C = float(Cs_np[ci])
         r = C / C_prev
@@ -333,12 +352,19 @@ def _compacted_classic(X, Y, Cs_np, gammas_np, cfg, chunk) -> SolveResult:
         live = np.arange(B)
         for _ in range(max_chunks):
             n = len(live)
+            bsz = _pow2(n)
             idx = torch.as_tensor(np.concatenate(
-                [live, np.repeat(live[:1], _pow2(n) - n)]), device=dev)
-            Yc = Yf[idx]
-            res = solve_lanes(
-                qp_mod.StackedKernel(kern.Ks, kern.g[idx]), Yc,
-                *_box(Yc, C), ccfg, a_c[idx].to(dtype), g_c[idx].to(dtype))
+                [live, np.repeat(live[:1], bsz - n)]), device=dev)
+            ent = cache.entry((bsz, dtype, ccfg),
+                              lambda: _classic_buffers(kern, bsz, l, dtype))
+            b = ent.bufs
+            b.kernel.g.copy_(kern.g[idx])
+            b.p.copy_(Yf[idx])
+            for buf, v in zip((b.L, b.U), _box(b.p, C)):
+                buf.copy_(v)
+            with solver_fused._solving(ent):
+                res = solve_lanes(b.kernel, b.p, b.L, b.U, ccfg,
+                                  a_c[idx].to(dtype), g_c[idx].to(dtype))
             at = idx[:n]
             a_c[at] = res.alpha[:n].double()
             g_c[at] = res.G[:n].double()

@@ -37,6 +37,7 @@ decided per lane from that lane's own ``t``.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
@@ -465,18 +466,34 @@ def solve_lanes(kernel, p, L, U, cfg: SolverConfig = SolverConfig(),
     Returns a :class:`SolveResult` with a leading lane axis."""
     # the graph driver lives with the fused engine, which imports this
     # module's config
-    from repro_torch.core.solver_fused import _check_cadence, _drive
+    from repro_torch.core.solver_fused import (_check_cadence, _drive,
+                                               _loop_for, _use_graphs)
     _check_cadence(check_every)
     B, n = p.shape
     if kernel.n != n:
         raise ValueError(f"the oracle has {kernel.n} coordinates, the lanes "
                          f"{n}")
     bounds = Bounds(lower=L, upper=U)
-    diag = kernel.diag().to(p.dtype).expand(B, n)
-    body = _make_body(kernel, p, bounds, diag, cfg)
+    loop = _loop_for((kernel, p, L, U),
+                     lambda: _classic_loop(kernel, p, bounds, cfg))
     s = init_state(kernel, p, bounds, cfg, alpha0, G0)
-    s, _ = _drive(body, s, cfg.max_iter, check_every, p.is_cuda)
+    s, _ = _drive(loop.body, s, cfg.max_iter, check_every, _use_graphs(p))
     return _finalize(s, p, bounds)
+
+
+def _classic_loop(kernel, p, bounds: Bounds, cfg: SolverConfig):
+    """The classic loop of :func:`solve_lanes`: ``body`` over the oracle's
+    diagonal, and ``reload()``, which recomputes that diagonal in place for
+    a chunked round that wrote new bank indices into the oracle's ``g``
+    (:func:`repro_torch.core.solver_fused._loop_for`)."""
+    B, n = p.shape
+    diag = kernel.diag().to(p.dtype, copy=True)
+
+    def reload():
+        diag.copy_(kernel.diag())
+
+    body = _make_body(kernel, p, bounds, diag.expand(B, n), cfg)
+    return SimpleNamespace(body=body, reload=reload)
 
 
 def _lanes(t, dev, dtype):

@@ -80,8 +80,11 @@ built (:data:`repro_torch.kernels.build.BLOCK_L`).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import time
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -148,6 +151,64 @@ def _capture(body, static, refresh, pool=None):
     return graph, per_replay
 
 
+def _use_graphs(t: torch.Tensor, impl: str = "cuda") -> bool:
+    """Whether a loop over ``t``'s device replays CUDA graphs: the CUDA
+    kernels on the card.  The capture guard
+    (:mod:`repro_torch.analysis.capture_guard`) turns it on for CPU
+    tensors, with a stand-in for :func:`_capture`."""
+    return impl == "cuda" and t.is_cuda
+
+
+class _Pool:
+    """The memory pool that a set of graphs shares (``None`` until the
+    first of them is captured)."""
+
+    def __init__(self):
+        self.pool = None
+
+
+class _Graphs:
+    """The CUDA graphs of one loop body, keyed by a chunk's refresh tuple,
+    over one set of state buffers (``static``), and the chunk shapes that
+    ran eagerly.
+
+    The graphs of one loop share a memory pool (``pool``, which several
+    loops may share too), which is safe because each graph copies its
+    result into ``static`` and leaves nothing in the pool that another
+    reads.  ``reuse`` marks a loop that runs again over the same buffers
+    (a chunked driver's cache entry, :class:`_GraphCache`): each chunk
+    shape is then captured right after its first, eager, run, so the later
+    runs replay from their first chunk.  A loop that runs once captures a
+    shape when it comes round the second time.
+    """
+
+    def __init__(self, pool: _Pool | None = None):
+        self.reuse = pool is not None
+        self.pool = _Pool() if pool is None else pool
+        self.cache, self.seen, self.static = {}, set(), None
+
+    def hold(self, s, make: bool = False):
+        """The state ``s`` in the static buffers, made from ``s`` when
+        ``make`` and there are none yet; ``s`` itself without them."""
+        if self.static is None:
+            if not make:
+                return s
+            self.static = type(s)(*(x.clone() for x in s))
+        for dst, src in zip(self.static, s):
+            if dst is not src:
+                dst.copy_(src)
+        return self.static
+
+    def graph(self, body, refresh):
+        """(graph, kernel launches of one replay) of the chunk ``refresh``,
+        captured over the static buffers on the first call."""
+        if refresh not in self.cache:
+            self.cache[refresh] = _capture(body, self.static, refresh,
+                                           self.pool.pool)
+            self.pool.pool = self.cache[refresh][0].pool()
+        return self.cache[refresh]
+
+
 def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
            period: int = 0):
     """Run ``body(state, refresh)`` on the state ``s`` (a NamedTuple with a
@@ -164,14 +225,18 @@ def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
 
     With ``graphs`` (the CUDA kernels on the card) a chunk whose shape ran
     once eagerly (which loads and warms every kernel it launches) is one
-    replay of a graph captured for that shape: at most two graphs.  They
-    advance one set of state buffers and share one memory pool, which is
-    safe because each copies its result into those buffers and leaves
-    nothing in the pool that another reads.  Returns (state, iterations
-    run).
+    replay of a graph captured for that shape: at most two graphs.  When
+    ``body`` is the loop of the chunked round being solved
+    (:func:`_solving`), the graphs and their state buffers are its cache
+    entry's, from the entry's earlier rounds: the state ``s`` is copied
+    into those buffers first, and every chunk shape captured there
+    replays at once.  Returns (state, iterations run).
     """
+    ent = _ROUND.get()
+    held = (ent.loop.graphs if ent is not None and ent.loop is not None
+            and ent.loop.body is body else _Graphs())
+    s = held.hold(s)
     t = 0
-    cache, seen, static, pool = {}, set(), None, None
     while t < max_iter and bool(torch.any(~s.done)):
         steps = min(check_every, max_iter - t)
         if period > 0:
@@ -180,27 +245,116 @@ def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
                 steps = to_next + (steps - to_next) // period * period
         refresh = tuple(period > 0 and (t + k) % period == period - 1
                         for k in range(steps))
-        if graphs and refresh in seen:
-            if static is None:
-                static = type(s)(*(x.clone() for x in s))
-            if refresh not in cache:
-                cache[refresh] = _capture(body, static, refresh, pool)
-                pool = cache[refresh][0].pool()
-            graph, per_replay = cache[refresh]
+        if graphs and refresh in held.seen:
+            s = held.hold(s, make=True)
+            graph, per_replay = held.graph(body, refresh)
             graph.replay()
             kernels.add_launches(per_replay)
-            s = static
         else:
-            seen.add(refresh)
+            held.seen.add(refresh)
             for r in refresh:
                 s = body(s, r)
-            if static is not None:
-                for dst, src in zip(static, s):
-                    if dst is not src:
-                        dst.copy_(src)
-                s = static
+            s = held.hold(s, make=graphs and held.reuse)
+            if graphs and held.reuse:
+                held.graph(body, refresh)    # the next run replays it
         t += steps
     return s, t
+
+
+class _Entry:
+    """One bucket of a chunked driver's :class:`_GraphCache`: the input
+    buffers its rounds copy their values into (``bufs``), and the loop
+    built over them on the entry's first round (``loop``, holding the body
+    and its :class:`_Graphs`).  ``pool`` is the cache's shared memory pool,
+    ``None`` for an entry that serves one round."""
+
+    def __init__(self, bufs, pool: _Pool | None):
+        self.bufs, self.pool = bufs, pool
+        self.loop = self.inputs = None
+
+
+class _GraphCache:
+    """The loops, and so the CUDA graphs, of one call of a chunked driver
+    (:func:`solve_fused_chunked_qp`, the classic compacted grid), one
+    :class:`_Entry` a key.  The key names everything that changes a
+    captured body: the lane and row buckets, the dtype, the row source,
+    the config and the flags.  Rounds of the call that share a key replay
+    its graphs on its buffers; the cache, and every graph and buffer in
+    it, goes when the call returns.  ``slice(key, make)`` keeps buffers
+    that several entries share (the bank slice of a row bucket)."""
+
+    def __init__(self):
+        self.entries, self.shared, self.pool = {}, {}, _Pool()
+
+    def entry(self, key, make) -> _Entry:
+        """The entry of ``key``, its buffers ``make()`` on its first
+        round."""
+        if key not in self.entries:
+            self.entries[key] = _Entry(make(), self.pool)
+        return self.entries[key]
+
+    def slice(self, key, make):
+        if key not in self.shared:
+            self.shared[key] = make()
+        return self.shared[key]
+
+
+class _GraphCacheMiss(_GraphCache):
+    """A cache that never hits: every round builds its loop anew and
+    captures its graphs anew, as a plain fit does (the uncached driver,
+    which the tests and ``chip_smoke.py`` hold the cache against by
+    putting this class in :class:`_GraphCache`'s place)."""
+
+    def entry(self, key, make) -> _Entry:
+        return _Entry(make(), None)
+
+    def slice(self, key, make):
+        return make()
+
+
+# The cache entry whose buffers the running round solves (set by
+# :func:`_solving` around a chunked driver's solve call), else None; a
+# context variable, so a driver on another thread never sees it.
+_ROUND: contextvars.ContextVar = contextvars.ContextVar("_ROUND",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def _solving(entry: _Entry):
+    """Solve one chunked round in ``entry``: the solver called inside
+    (:func:`solve_fused_batched_qp`, :func:`repro_torch.core.solver.
+    solve_lanes`) reuses the entry's loop (:func:`_loop_for`)."""
+    token = _ROUND.set(entry)
+    try:
+        yield entry
+    finally:
+        _ROUND.reset(token)
+
+
+def _loop_for(inputs: tuple, build):
+    """The loop (a :class:`SimpleNamespace` with ``body`` and
+    ``reload``) a solver runs over ``inputs``, the tensors its body reads.
+
+    Outside a chunked round, ``build()`` anew.  In a round
+    (:func:`_solving`), the entry's loop, which also holds the entry's
+    :class:`_Graphs` (``graphs``, which :func:`_drive` finds there): built
+    on the entry's first round, then, since each round copies its values
+    into the same buffers (``inputs`` must be those very tensors),
+    reloaded (its derived tensors recomputed in place) and reused.
+    """
+    ent = _ROUND.get()
+    if ent is None:
+        return build()
+    if ent.loop is None:
+        ent.loop, ent.inputs = build(), inputs
+        ent.loop.graphs = _Graphs(ent.pool)
+    elif len(inputs) != len(ent.inputs) or any(
+            a is not b for a, b in zip(inputs, ent.inputs)):
+        raise RuntimeError("a chunked round solves its cache entry's "
+                           "buffers")
+    else:
+        ent.loop.reload()
+    return ent.loop
 
 
 class _BatchState(NamedTuple):
@@ -455,8 +609,7 @@ def solve_fused(X, y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
                     n_planning=z, act=~no[:, None], n_unshrink=z,
                     u=torch.zeros_like(y)[:1, None], ok=no)
 
-    s, t = _drive(body, s, cfg.max_iter, check_every,
-                  impl == "cuda" and y.is_cuda)
+    s, t = _drive(body, s, cfg.max_iter, check_every, _use_graphs(y, impl))
     if stats is not None:
         stats["relaunches"] = t if planning else 0
         stats["relaunches_ran"] = int(n_ran)
@@ -515,13 +668,34 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
         raise ValueError("warm starts need the (alpha0, G0) pair")
     if (gram is None) != (gram_idx is None):
         raise ValueError("the Gram bank needs the (gram, gram_idx) pair")
+    n = P.shape[1]
+    if X.shape[0] * (2 if doubled else 1) != n:
+        raise ValueError(f"X has {X.shape[0]} rows, the lanes {n} "
+                         f"coordinates (doubled={doubled})")
+    impl = ops.resolve_impl(impl, P.device)
+    loop = _loop_for(
+        (X, P, L, U, gamma, gram, gram_idx),
+        lambda: _batched_loop(X, P, L, U, gamma, cfg, impl, gram, gram_idx,
+                              doubled, shrinking, telemetry))
+    s, _ = _drive(loop.body, loop.init(alpha0, G0), cfg.max_iter,
+                  check_every, _use_graphs(P, impl), loop.period)
+    return loop.finish(s)
+
+
+def _batched_loop(X, P, L, U, gamma, cfg: SolverConfig, impl: str, gram,
+                  gram_idx, doubled: bool, shrinking: bool,
+                  telemetry: RingConfig | None) -> SimpleNamespace:
+    """The loop of :func:`solve_fused_batched_qp` over its (checked)
+    arguments: ``body(state, refresh)``, ``init(alpha0, G0)`` (the starting
+    state), ``finish(state)`` (the result), ``period`` (of the mask
+    refresh, 0 without shrinking) and ``reload()``, which recomputes in
+    place what the body reads and was derived from the inputs (the rbf
+    source's ``XT`` and squared norms, the lanes' gammas and bank
+    indices), for a chunked round that wrote new values into the same
+    input tensors (:func:`_loop_for`)."""
     dtype, device = P.dtype, P.device
     B, n = P.shape
     H = 2 if doubled else 1
-    if X.shape[0] * H != n:
-        raise ValueError(f"X has {X.shape[0]} rows, the lanes {n} "
-                         f"coordinates (doubled={doubled})")
-    impl = ops.resolve_impl(impl, device)
     eps, eta = cfg.eps, cfg.eta
     planning = cfg.algorithm == "pasmo"
     conjugate = cfg.step == "conjugate"
@@ -534,6 +708,15 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
             raise ValueError(f"a bank of {tuple(gram.shape)} and "
                              f"{src.gram_idx.shape[0]} bank indices for "
                              f"{B} lanes of {n} coordinates")
+
+    def reload():
+        fresh = (row_source.rbf_source(X, gamma, B, dup=doubled)
+                 if gram is None else
+                 row_source.bank_source(gram, gram_idx, gamma, dup=doubled))
+        for f in ("XT", "sqn", "gammas", "gram_idx"):
+            if getattr(src, f) is not None:
+                getattr(src, f).copy_(getattr(fresh, f))
+
     lanes = torch.arange(B, device=device)
     lane_base = lanes * n
     base_l = n // H
@@ -786,55 +969,64 @@ def solve_fused_batched_qp(X, P, L, U, gamma,
             c.step.add_(1)
         return _TelState(*new_s, c.step, *bufs)
 
-    # ---- init: alpha = 0, G = P unless warm-started ------------------------
-    if alpha0 is None:
-        alpha0, G0 = torch.zeros_like(P), P
-    else:
-        # alpha is updated in place: the caller's tensor stays untouched
-        alpha0 = torch.as_tensor(alpha0, dtype=dtype, device=device).clone()
-        G0 = torch.as_tensor(G0, dtype=dtype, device=device)
-        if alpha0.shape != P.shape or G0.shape != P.shape:
-            raise ValueError(f"alpha0 {tuple(alpha0.shape)} and G0 "
-                             f"{tuple(G0.shape)} must match P "
-                             f"{tuple(P.shape)}")
-    v_up = torch.where(alpha0 < U, G0, float("-inf"))
-    i0 = torch.argmax(v_up, dim=1).to(torch.int32)
-    g_i0 = take(v_up, i0)
-    gap0 = qp_mod.finite_gap(
-        g_i0 - torch.where(alpha0 > L, G0, float("inf")).amin(dim=1))
-    zB = torch.zeros((B,), dtype=torch.int32, device=device)
-    act0 = torch.ones((B, n) if shrinking else (B, 1), dtype=torch.bool,
-                      device=device)
-    # the conjugate carry starts empty in every call (a chunk seam too)
-    u0 = torch.zeros((B, base_l) if conjugate else (B, 1), dtype=dtype,
-                     device=device)
-    s = _BatchState(alpha=alpha0, G=G0, i=i0, g_i=g_i0, gap=gap0, iters=zB,
-                    done=gap0 <= eps, pi=zB, pj=zB, qi=zB, qj=zB, n_hist=zB,
-                    p_smo=~no_lanes, prev_free=no_lanes,
-                    prev_ratio_ok=~no_lanes, n_planning=zB, act=act0,
-                    n_unshrink=zB, u=u0, ok=no_lanes)
-    if collect:
-        s = _TelState(*s, torch.zeros((), dtype=torch.int32, device=device),
-                      *ring_mod.ring_buffers(ring_mod.ring_init(
-                          telemetry, B, dtype, device)))
+    def init(alpha0, G0):
+        """The starting state: alpha = 0, G = P unless warm-started."""
+        if alpha0 is None:
+            alpha0, G0 = torch.zeros_like(P), P
+        else:
+            # alpha is updated in place: the caller's tensor stays untouched
+            alpha0 = torch.as_tensor(alpha0, dtype=dtype,
+                                     device=device).clone()
+            G0 = torch.as_tensor(G0, dtype=dtype, device=device)
+            if alpha0.shape != P.shape or G0.shape != P.shape:
+                raise ValueError(f"alpha0 {tuple(alpha0.shape)} and G0 "
+                                 f"{tuple(G0.shape)} must match P "
+                                 f"{tuple(P.shape)}")
+        v_up = torch.where(alpha0 < U, G0, float("-inf"))
+        i0 = torch.argmax(v_up, dim=1).to(torch.int32)
+        g_i0 = take(v_up, i0)
+        gap0 = qp_mod.finite_gap(
+            g_i0 - torch.where(alpha0 > L, G0, float("inf")).amin(dim=1))
+        zB = torch.zeros((B,), dtype=torch.int32, device=device)
+        act0 = torch.ones((B, n) if shrinking else (B, 1), dtype=torch.bool,
+                          device=device)
+        # the conjugate carry starts empty in every call (a chunk seam too)
+        u0 = torch.zeros((B, base_l) if conjugate else (B, 1), dtype=dtype,
+                         device=device)
+        s = _BatchState(alpha=alpha0, G=G0, i=i0, g_i=g_i0, gap=gap0,
+                        iters=zB, done=gap0 <= eps, pi=zB, pj=zB, qi=zB,
+                        qj=zB, n_hist=zB, p_smo=~no_lanes,
+                        prev_free=no_lanes, prev_ratio_ok=~no_lanes,
+                        n_planning=zB, act=act0, n_unshrink=zB, u=u0,
+                        ok=no_lanes)
+        if collect:
+            s = _TelState(*s, torch.zeros((), dtype=torch.int32,
+                                          device=device),
+                          *ring_mod.ring_buffers(ring_mod.ring_init(
+                              telemetry, B, dtype, device)))
+        return s
 
-    s, _ = _drive(body, s, cfg.max_iter, check_every,
-                  impl == "cuda" and P.is_cuda, period if shrinking else 0)
+    def finish(s):
+        """The result of the final state ``s``."""
+        up = s.alpha < U
+        dn = s.alpha > L
+        g_up = torch.where(up, s.G, float("-inf")).amax(dim=1)
+        g_dn = torch.where(dn, s.G, float("inf")).amin(dim=1)
+        res = FusedResult(
+            alpha=s.alpha, b=qp_mod.safe_bias(g_up, g_dn), G=s.G,
+            iterations=s.iters,
+            objective=0.5 * (torch.sum(P * s.alpha, dim=1)
+                             + torch.sum(s.G * s.alpha, dim=1)),
+            kkt_gap=s.gap, converged=s.done, n_planning=s.n_planning,
+            n_unshrink=s.n_unshrink)
+        if not collect:
+            return res
+        return res, ring_mod.ring_view(
+            ring_mod.RingBuffers(*s[_N_STATE + 1:]))
 
-    up = s.alpha < U
-    dn = s.alpha > L
-    g_up = torch.where(up, s.G, float("-inf")).amax(dim=1)
-    g_dn = torch.where(dn, s.G, float("inf")).amin(dim=1)
-    res = FusedResult(
-        alpha=s.alpha, b=qp_mod.safe_bias(g_up, g_dn), G=s.G,
-        iterations=s.iters,
-        objective=0.5 * (torch.sum(P * s.alpha, dim=1)
-                         + torch.sum(s.G * s.alpha, dim=1)),
-        kkt_gap=s.gap, converged=s.done, n_planning=s.n_planning,
-        n_unshrink=s.n_unshrink)
-    if not collect:
-        return res
-    return res, ring_mod.ring_view(ring_mod.RingBuffers(*s[_N_STATE + 1:]))
+    return SimpleNamespace(body=body, init=init, finish=finish,
+                           reload=reload,
+                           period=period if shrinking else 0)
 
 
 def solve_fused_batched(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(),
@@ -922,6 +1114,29 @@ def _merge_chunk_ring(rc: RingConfig, ring: TelemetryRing, live, it_off,
             tel["ratio"][lane, slots] = r["ratio"][k, :nr]
             tel["ratio_t"][lane, slots] = r["ratio_t"][k, :nr] + it_off[k]
             tel["n_ratio"][lane] += int(r["n_ratio"][k])
+
+
+def _chunk_buffers(cache: _GraphCache, X, gram, dtype, bsz: int, rb: int,
+                   doubled: bool, whole: bool) -> SimpleNamespace:
+    """The input buffers of a chunked driver's cache entry (lane bucket
+    ``bsz``, row bucket ``rb``): ``X`` (rb, d), ``P``, ``L``, ``U`` (bsz,
+    rb or 2 rb) and ``gam`` (bsz,) in ``dtype``, and with a bank ``gram``
+    (``None`` for the rbf source) the lanes' entries ``gidx`` (bsz,) and
+    the rows' source: the bank itself when ``whole``, else the (n_stack,
+    rb, rb) slice of the row bucket, which the entries of one row bucket
+    share."""
+    n = rb * (2 if doubled else 1)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=X.device)
+
+    out = SimpleNamespace(X=X.new_zeros((rb, X.shape[1])), P=zeros(bsz, n),
+                          L=zeros(bsz, n), U=zeros(bsz, n), gam=zeros(bsz))
+    if gram is not None:
+        out.gidx = torch.zeros((bsz,), dtype=torch.int64, device=X.device)
+        out.gram = gram if whole else cache.slice(
+            ("bank", rb), lambda: gram.new_zeros((gram.shape[0], rb, rb)))
+    return out
 
 
 def solve_fused_chunked_qp(X, P, L, U, gamma,
@@ -1062,11 +1277,21 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     live = np.arange(B)
     keep = torch.arange(lb, device=dev)
     max_rounds = 4 * max(1, -(-cfg.max_iter // chunk)) + 16
+    cache = _GraphCache()
     for rnd in range(max_rounds):
         if len(live) == 0:
             break
         m, m_live = keep.numel(), len(live)
         bsz, rb = _pow2(m_live), _pow2(m)
+        # the bank itself serves a round that keeps every row of a
+        # power-of-two l; any other reads a slice of it
+        whole = bank and m == lb == rb
+        ent = cache.entry(
+            (bsz, rb, dtype, doubled, shrinking, bank, whole, ccfg, rc,
+             check_every),
+            lambda: _chunk_buffers(cache, X, gram if bank else None, dtype,
+                                   bsz, rb, doubled, whole))
+        b = ent.bufs
         with record_function("chunked.slice"):
             lanes = torch.as_tensor(np.concatenate(
                 [live, np.repeat(live[:1], bsz - m_live)]), device=dev)
@@ -1081,28 +1306,32 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
                          else [sub, z])
                 return torch.cat(parts, dim=1).to(dtype)
 
-            X_sub = torch.cat([X.index_select(0, keep),
-                               X.new_zeros((rb - m, d))])
+            # the round's values, written into the entry's buffers, which
+            # its captured graphs read
+            b.X.copy_(torch.cat([X.index_select(0, keep),
+                                 X.new_zeros((rb - m, d))]))
+            for buf, A in zip((b.P, b.L, b.U), (P64, L64, U64)):
+                buf.copy_(gather(A))
+            b.gam.copy_(gam[lanes])
             bank_kw = {}
             if bank:
-                if m == lb == rb:
-                    gsub = gram
-                else:
-                    gsub = gram.new_zeros((gram.shape[0], rb, rb))
+                b.gidx.copy_(gidx[lanes])
+                if not whole:
                     for g in range(gram.shape[0]):
-                        gsub[g, :m, :m] = gram[g].index_select(
+                        b.gram[g, :m, :m] = gram[g].index_select(
                             0, keep).index_select(1, keep)
-                bank_kw = dict(gram=gsub, gram_idx=gidx[lanes])
-            args = [gather(A) for A in (P64, L64, U64, alpha, G)]
+                    b.gram[:, m:].zero_()
+                    b.gram[:, :m, m:].zero_()
+                bank_kw = dict(gram=b.gram, gram_idx=b.gidx)
+            args = [gather(A) for A in (alpha, G)]
         if diagnostics is not None:
             synchronize(dev)
             t0 = time.perf_counter()
-        with record_function("chunked.solve"):
+        with record_function("chunked.solve"), _solving(ent):
             res = solve_fused_batched_qp(
-                X_sub, *args[:3], gam[lanes], ccfg, impl=impl,
-                alpha0=args[3], G0=args[4], doubled=doubled,
-                shrinking=shrinking, check_every=check_every, telemetry=rc,
-                **bank_kw)
+                b.X, b.P, b.L, b.U, b.gam, ccfg, impl=impl, alpha0=args[0],
+                G0=args[1], doubled=doubled, shrinking=shrinking,
+                check_every=check_every, telemetry=rc, **bank_kw)
         del bank_kw, args
         if rc is not None:
             res, ring = res

@@ -14,6 +14,7 @@ loads on its first call, which is the first kernel launch.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -71,6 +72,11 @@ ATTRS = {
     "rbf_update_wss": [_P],
     "gram_block": [_I, _P],
 }
+
+
+# nvcc builds this process ran, by source hash (the capture guard holds a
+# (C, gamma) sweep to one a hash)
+BUILDS: collections.Counter = collections.Counter()
 
 
 def sources() -> list[pathlib.Path]:
@@ -151,6 +157,7 @@ def build(verbose: bool = False) -> pathlib.Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(lib, path)
+    BUILDS[source_hash()] += 1
     return path
 
 
