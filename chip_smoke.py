@@ -142,11 +142,25 @@ failure raises and the script exits non-zero without a result line:
    events equal to the uncached driver's; (e) the grid's JSONL
    rendered by ``repro_torch.launch.telemetry_report`` (environment,
    convergence and straggler lines printed).  The phase's time is printed.
-13. analysis — ``repro_torch.analysis.capture_guard`` with real graphs
+13. several cards (slice 12), on every attached card (one card or
+   more) — (a) phase 5's SVC with ``engine="sharded"``: alpha and
+   iterations bitwise equal to phase 5's fused fit, ms and kernels an
+   iteration, peak memory a card, and with the ring bitwise equal to
+   phase 12's ring-on fit; the schedule and gather cost of a call; (b)
+   phase 6's one-class grid through both sources on
+   ``devices=[cuda:0]``, every field bitwise equal to phase 6's; (c)
+   phase 4's small compacted grids on ``devices=[cuda:0]``, bitwise equal
+   to phase 4's, one capture per (entry, chunk shape); (d)
+   ``repro_torch.core.sharded.solve_sharded`` in a one-rank NCCL group on
+   phase 5's lane 0: objective within rtol 1e-6 of that lane's, KKT gap
+   at most eps, ms, kernels and collectives an iteration, peak memory.
+   The phase's time is printed.
+14. analysis — ``repro_torch.analysis.capture_guard`` with real graphs
    (the ``[analysis]`` line): exact captures of a fused and a classic fit
-   and of both chunked drivers over a (C, gamma) sweep, cached bitwise
-   equal to uncached; a sweep of fits builds no kernel, and each source
-   hash was built once in the process.
+   and of the chunked drivers over a (C, gamma) sweep (the fused one also
+   lane-sharded over two slabs on the card), cached bitwise equal to
+   uncached; a sweep of fits builds no kernel, and each source hash was
+   built once in the process.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows over a
@@ -154,7 +168,7 @@ fit span one check chunk, which the loop runs eagerly, so no graph is
 captured inside them; the window over a compacted round spans replays
 only.
 
-Every counted run of phases 5-12 (fits, grids, predicts and decisions;
+Every counted run of phases 5-13 (fits, grids, predicts and decisions;
 not the bitwise repeat of phase 7, the profiler windows or the timings)
 adds its launches to one tally, which the kernels' JSON record reports;
 a ``[gram]`` line splits the Gram's launches into bank and Gram builds
@@ -277,7 +291,7 @@ MICRO = dict(n=16384, C=100.0, gamma=0.5, max_iter=30_000)
 # the loop runs its first chunk eagerly, so no CUDA graph is captured
 # inside a window; the kernels an iteration are the same as a replay's.
 PROFILE_ITERS = 32
-# Launches of every counted run of the main paths (phases 5-12), summed
+# Launches of every counted run of the main paths (phases 5-13), summed
 # over the runs; "gram_symmetric" counts the Gram's symmetric-mode (bank)
 # launches among "gram_block"'s.  The kernels' JSON line reads it.
 MAIN_LAUNCHES = collections.Counter()
@@ -1530,8 +1544,9 @@ def phase_small(device, impl):
             f"{rp.iterations.flatten().tolist()}), objective rel diff "
             f"{float(rel.max()):.3e}")
     phase_small_slice3(device, impl, eps)
-    phase_small_slice4(device, impl)
+    compacted = phase_small_slice4(device, impl)
     phase_small_slice5(device, impl)
+    return compacted
 
 
 def sinc_target(X, seed):
@@ -1640,6 +1655,7 @@ def phase_small_slice4(device, impl):
     from repro_torch.svm import data
     eps = 1e-5
     cfg = SolverConfig(eps=eps)
+    compacted_runs = {}
     # small: the plain versions run their loops eagerly on the card
     X, y = data.multiclass_blobs(150, seed=2, k=3, d=8, sep=4.0)
     Y = mc.ovr_labels(mc.class_index(y)[1], 3, torch.float64, device)
@@ -1672,6 +1688,7 @@ def phase_small_slice4(device, impl):
                 same_result(cached, compacted(), "compacted grid")
             say(f"[small] compacted grid chunk={chunk} shrinking, {src}: "
                 f"cached and uncached bitwise equal; {cache_text(log, log_u)}")
+            compacted_runs[(precompute, chunk)] = cached
     # the classic compacted grid (impl=None), cached and uncached
     for shrinking in (False, True):
         def classic():
@@ -1714,6 +1731,7 @@ def phase_small_slice4(device, impl):
     say(f"[small] soft shrinking, shrink_every=8: check_every=5 (graphs) "
         f"and 1 agree bitwise: iterations {runs[0].iterations.tolist()}, "
         f"n_unshrink {runs[0].n_unshrink.tolist()}")
+    return compacted_runs
 
 
 def phase_small_slice5(device, impl):
@@ -1901,8 +1919,9 @@ def phase_full(device, timer):
         "SVC f64 full width", ms_iter)
     lane0 = dict(objective=float(r64.objective[0]), gamma=c64.gamma_,
                  iterations=int(r64.iterations[0]))
-    svc_ref = dict(objective=r64.objective, pred=p64,
-                   iterations=r64.iterations, loop=t64, ms_iter=ms_iter)
+    svc_ref = dict(objective=r64.objective, pred=p64, alpha=r64.alpha,
+                   iterations=r64.iterations, loop=t64, ms_iter=ms_iter,
+                   gamma=c64.gamma_)
     return rec, lane0, svc_ref
 
 
@@ -2200,7 +2219,8 @@ def phase_grid(device, timer):
                                 impl="auto", precompute=True, device=device,
                                 dtype=torch.float64),
         "grid bank f64 full width", ms_bank)
-    phase_oneclass(Xtr, gammas, device)
+    shrink_off.update(oneclass=phase_oneclass(Xtr, gammas, device),
+                      gammas=gammas)
     return recs, shrink_off
 
 
@@ -2369,6 +2389,7 @@ def phase_oneclass(Xtr, gammas, device):
     say(f"[oneclass] objectives bank vs rbf max rel diff {rel:.3e}")
     np.testing.assert_allclose(res["bank"].objective.cpu().numpy(),
                                res["rbf"].objective.cpu().numpy(), rtol=1e-6)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2788,19 +2809,19 @@ class FusedProbe:
     ``SolveResult``, which has no unshrink counts), while installed."""
 
     def __enter__(self):
-        from repro_torch.core import grid
-        self.orig = grid.solve_fused_batched_qp
+        from repro_torch.core import solver_fused
+        self.orig = solver_fused.solve_fused_batched_qp
 
         def spy(*args, **kw):
             self.result = self.orig(*args, **kw)
             return self.result
 
-        grid.solve_fused_batched_qp = spy
+        solver_fused.solve_fused_batched_qp = spy
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.core import grid
-        grid.solve_fused_batched_qp = self.orig
+        from repro_torch.core import solver_fused
+        solver_fused.solve_fused_batched_qp = self.orig
 
 
 class ChunkProbe:
@@ -4077,7 +4098,237 @@ def phase_telemetry(device, svc_ref, grid_off, conj_svc):
         for ln in body("stragglers"):
             say(f"[telemetry]   {ln}")
     say(f"[telemetry] phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return ratio
+    return dict(ratio=ratio, svc_lanes=ring_on[0][3].lanes)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: several cards (slice 12)
+# ---------------------------------------------------------------------------
+
+
+def device_peaks(devs) -> str:
+    """Peak allocated memory of each device since its last reset, GB."""
+    return ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 1e9:.3f} GB"
+                     for d in devs)
+
+
+def median_wall(run, n: int = 5) -> float:
+    """Median wall ms of ``run()``, each ended by a synchronisation."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)[n // 2]
+
+
+@contextlib.contextmanager
+def collective_count(counts):
+    """Count the ``torch.distributed`` collectives made inside, by name."""
+    import torch.distributed as dist
+    saved = {name: getattr(dist, name) for name in ("all_reduce",
+                                                     "all_gather")}
+
+    def spy(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return call
+    for name in saved:
+        setattr(dist, name, spy(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def phase_multi(device, devs, svc_ref, grid_off, small_compacted,
+                ring_lanes):
+    """Slice 12 at full width, f64, on the cards ``devs`` (every attached
+    card), ``device`` the first:
+    (a) phase 5's SVC with ``engine="sharded"``: bitwise equal to phase
+    5's fused fit on one card, ms and kernels an iteration, peak memory a
+    card, and ring on bitwise equal to phase 12's ring; the schedule and
+    gather cost of a call (a sharded solve against a batched one, both
+    with ``max_iter=0``); (b) phase 6's one-class grid through both
+    sources on ``devices=[cuda:0]``, bitwise equal to phase 6's; (c) phase
+    4's small compacted grids on ``devices=[cuda:0]``, bitwise equal to
+    phase 4's, one capture per (entry, chunk shape); (d)
+    ``solve_sharded`` in a one-rank NCCL group on phase 5's lane 0: its
+    objective within rtol 1e-6 of that lane's, the KKT gap at most eps;
+    ms, kernels and collectives an iteration and peak memory."""
+    import os
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis.capture_guard import CaptureLog
+    from repro_torch.core import grid, sharded_lanes, solver_fused
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core.sharded import solve_sharded
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.core.solver_fused import CHECK_EVERY
+    from repro_torch.svm import SVC, data
+    from repro_torch.telemetry import Diagnostics, RingConfig
+    t_phase = time.perf_counter()
+    one = len(devs) == 1
+    X, y = data.multiclass_blobs(N_TRAIN + N_TEST, seed=0, k=K, d=D,
+                                 sep=12.0)
+    Xtr, ytr = X[:N_TRAIN], y[:N_TRAIN]
+    f64 = dict(device=device, dtype=torch.float64)
+    eps = 1e-3
+
+    def reset():
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+
+    def svc(**kw):
+        return SVC(C=1.0, gamma="scale", algorithm="pasmo", eps=eps,
+                   engine="sharded", **f64, **kw)
+
+    def agree(tag, got, want):
+        if one:
+            return
+        agree_objectives("[multi]", "the unsharded run", tag, got, want)
+
+    # (a) the sharded SVC on every attached card
+    reset()
+    clf = svc()
+    _, counts, wall = counted(lambda: clf.fit(Xtr, ytr))
+    r = clf.fit_result_
+    t = loop_iterations(r.iterations, CHECK_EVERY, clf.max_iter)
+    assert clf.engine_ == "sharded" and bool(r.converged.all())
+    if one:
+        check_only(counts, {name: t for name in RBF_PASSES}, "sharded SVC")
+        assert torch.equal(r.alpha, svc_ref["alpha"]), "phase 5 alpha"
+        assert torch.equal(r.iterations, svc_ref["iterations"]), "phase 5"
+    agree("SVC", r.objective, svc_ref["objective"])
+    ms_a = wall / t * 1e3
+    same = "alpha and iterations bitwise equal to phase 5; " if one else ""
+    say(f"[multi] SVC engine='sharded' on {len(devs)} card(s), {K} lanes "
+        f"f64: {same}{t} loop iterations, {wall:.3f} s = {ms_a:.4f} ms an iteration "
+        f"(phase 5 {svc_ref['ms_iter']:.4f}); launches {counts}; peak "
+        f"{device_peaks(devs)}")
+    profile_iterations(lambda: svc(max_iter=PROFILE_ITERS).fit(Xtr, ytr),
+                       "sharded SVC f64 full width", ms_a)
+    diag = Diagnostics(ring=RingConfig())
+    clf_r = svc(diagnostics=diag)
+    _, counts, wall_r = counted(lambda: clf_r.fit(Xtr, ytr))
+    if one:
+        assert torch.equal(clf_r.fit_result_.alpha, svc_ref["alpha"])
+        strip = [[{k: v for k, v in rec.items() if k != "ts"}
+                  for rec in lanes] for lanes in (diag.lanes, ring_lanes)]
+        assert strip[0] == strip[1], "the ring differs from phase 12's"
+    say(f"[multi] SVC sharded with the ring: {len(diag.lanes)} lanes"
+        f"{', bitwise equal to phase 12' if one else ''}; "
+        f"{wall_r / t * 1e3:.4f} ms an iteration")
+
+    # the schedule and gather cost of a call: a sharded solve against a
+    # batched one on the same lanes, neither running an iteration
+    Xt = clf.X_
+    Y = mc.ovr_labels(mc.class_index(ytr)[1], K, torch.float64, device)
+    L, U = torch.clamp_max(Y, 0.0), torch.clamp_min(Y, 0.0)
+    gam = torch.full((K,), clf.gamma_, dtype=torch.float64, device=device)
+    cfg0 = SolverConfig(algorithm="pasmo", eps=eps, max_iter=0)
+    calls = {
+        "batched": lambda: solver_fused.solve_fused_batched_qp(
+            Xt, Y, L, U, gam, cfg0),
+        "sharded": lambda: sharded_lanes.solve_fused_sharded_qp(
+            Xt, Y, L, U, gam, cfg0, devices=devs)}
+    ms0 = {k: [] for k in calls}
+    for k in ("batched", "sharded", "sharded", "batched"):
+        ms0[k].append(median_wall(calls[k]))
+    cost = min(ms0["sharded"]) - min(ms0["batched"])
+    say(f"[multi] schedule and gather of a {K}-lane call over {len(devs)} "
+        f"card(s): {cost:.4f} ms (a sharded solve with max_iter=0, "
+        f"{min(ms0['sharded']):.4f} ms, less a batched one, "
+        f"{min(ms0['batched']):.4f} ms; medians of five, the lower of two "
+        f"rounds, run batched, sharded, sharded, batched)")
+
+    # (b) phase 6's one-class grid on devices=[cuda:0]
+    cfg = SolverConfig(algorithm="pasmo", eps=eps)
+    for precompute, tag in ((True, "bank"), (False, "rbf")):
+        reset()
+        ro, counts, wall, t, _ = fit_grid(
+            lambda: grid.solve_grid_oneclass(
+                Xtr, GRID_NUS, grid_off["gammas"], cfg, impl="auto",
+                precompute=precompute, devices=[device], **f64), device)
+        check_counts(counts, t, precompute, f"sharded one-class {tag}")
+        same_result(ro, grid_off["oneclass"][tag], f"one-class {tag}")
+        say(f"[multi] one-class grid {tag} on devices=[{device}]: every "
+            f"field bitwise equal to phase 6; {t} loop iterations, "
+            f"{wall / t * 1e3:.4f} ms an iteration; peak "
+            f"{device_peaks(devs)}")
+
+    # (c) phase 4's small compacted grids on devices=[cuda:0]
+    Xs, ys = data.multiclass_blobs(150, seed=2, k=3, d=8, sep=4.0)
+    Ys = mc.ovr_labels(mc.class_index(ys)[1], 3, torch.float64, device)
+    for (precompute, chunk), want in small_compacted.items():
+        src = "bank" if precompute else "rbf"
+        with CaptureLog() as log:
+            rc, counts, _ = counted(lambda: grid.solve_grid_compacted(
+                Xs, Ys, (4.0, 1.0), (0.05, 0.2), SolverConfig(eps=1e-5),
+                chunk=chunk, impl="cuda", precompute=precompute,
+                shrinking=True, devices=[device], **f64))
+        same_result(rc, want, f"sharded compacted grid {src} {chunk}")
+        assert all(len(k) > 2 for k, _ in log.loops), "unsharded rounds"
+        say(f"[multi] compacted grid chunk={chunk} shrinking, {src}, on "
+            f"devices=[{device}]: bitwise equal to phase 4; "
+            f"{cache_text(log)}")
+
+    # (d) the row-sharded solver in a one-rank NCCL group, phase 5's lane 0
+    y0 = Y[0]
+    cfg_d = SolverConfig(algorithm="pasmo", eps=eps)
+    # a one-rank group on one host: its bootstrap needs the loopback only
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=timedelta(seconds=300))
+        try:
+            def row_sharded(c=cfg_d):
+                return solve_sharded(Xt, y0, 1.0, clf.gamma_, None, c,
+                                     **f64)
+            capped = SolverConfig(algorithm="pasmo", eps=eps,
+                                  max_iter=PROFILE_ITERS)
+            row_sharded(capped)          # warm-up: NCCL's communicator
+            # one chunk, which runs eagerly (replays issue no Python
+            # call): the collectives but the start's gap and the finish's
+            # objective, gap and alpha
+            colls = collections.Counter()
+            with collective_count(colls):
+                row_sharded(capped)
+            per_it = (sum(colls.values()) - 4) / PROFILE_ITERS
+            reset()
+            rs, counts, wall = counted(row_sharded)
+            check_only(counts, {}, "row-sharded solver")
+            its = int(rs.iterations)
+            loop = loop_iterations(rs.iterations.reshape(1), CHECK_EVERY,
+                                   cfg_d.max_iter)
+            obj, want = float(rs.objective), float(svc_ref["objective"][0])
+            rel = abs(obj - want) / abs(want)
+            assert bool(rs.converged) and float(rs.kkt_gap) <= eps
+            assert rel <= 1e-6, (obj, want)
+            ms_d = wall / loop * 1e3
+            say(f"[multi] solve_sharded, one NCCL rank on {device}, lane 0 "
+                f"(l={N_TRAIN}, d={D}, f64): {its} iterations ({loop} "
+                f"loop iterations), objective {obj:.10g} against phase 5's "
+                f"{want:.10g} (rel {rel:.3e}), KKT gap "
+                f"{float(rs.kkt_gap):.3e}, {int(rs.n_planning)} planning "
+                f"steps; {wall:.3f} s = {ms_d:.4f} ms an iteration "
+                f"(chunks of {CHECK_EVERY} replayed as CUDA graphs); "
+                f"collectives in an eager chunk {dict(colls)} = "
+                f"{per_it:.2f} an iteration; peak {device_peaks(devs)}")
+            profile_iterations(lambda: row_sharded(capped),
+                               "solve_sharded, one NCCL rank", ms_d)
+        finally:
+            dist.destroy_process_group()
+    say(f"[multi] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4139,9 +4390,9 @@ def main(argv=None) -> int:
         say(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s; "
             f"card: {smi}")
         return 0
-    phase_small(device, "cuda")
+    small_compacted = phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
-    MAIN_LAUNCHES.clear()                   # phases 5-12 tally from here
+    MAIN_LAUNCHES.clear()                   # phases 5-13 tally from here
     recs, lane0, svc_ref = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
     grid_recs, grid_off = phase_grid(device, timer)
@@ -4171,13 +4422,17 @@ def main(argv=None) -> int:
     say(f"[time] slice 5 phase done at {time.perf_counter() - t_start:.1f} s")
     phase_classic(device, svc_ref, grid_off, svr_ref)
     say(f"[time] slice 9 phase done at {time.perf_counter() - t_start:.1f} s")
-    phase_telemetry(device, svc_ref, grid_off, conj_svc)
+    tel = phase_telemetry(device, svc_ref, grid_off, conj_svc)
     say(f"[time] slice 10 phase done at {time.perf_counter() - t_start:.1f} s")
+    phase_multi(device, [torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count())],
+                svc_ref, grid_off, small_compacted, tel["svc_lanes"])
+    say(f"[time] slice 12 phase done at {time.perf_counter() - t_start:.1f} s")
     phase_analysis(device)
     say(f"[time] analysis done at {time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
-    say(f"[gram] launches over phases 5-12: {n_gram}; bank and Gram builds "
+    say(f"[gram] launches over phases 5-13: {n_gram}; bank and Gram builds "
         f"(l x l, symmetric, l = {N_TRAIN}): {n_sym}; predict and decision "
         f"(m x l, cross): {n_gram - n_sym}")
     idle = [name for name in SOURCES if MAIN_LAUNCHES[name] == 0]

@@ -78,8 +78,6 @@ def main(argv=None) -> int:
         findings = dispatch_audit.audit_all()
         print_findings("dispatch-audit", findings)
         failed |= bool(findings)
-        for name, why in dispatch_audit.WAITING.items():
-            print(f"dispatch-audit: {name} waits for {why}")
     if args.census:
         from repro_torch.analysis import dispatch_audit
         paths = dispatch_audit.emit_census(args.census)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import threading
 from typing import List
 
 import torch
@@ -107,60 +108,83 @@ class CaptureLog:
     ``captures``: (round key, refresh tuple) of every capture.
     ``loops``: one (round key, chunk shapes) a loop driven; the key names
     the cache entry as the guard sees it from outside: the lanes' state
-    shape, and whether a fused round read a Gram bank itself (``bank``,
-    or one that ``ops.gram_bank`` built while installed) rather than a
-    slice of it.
+    shape, whether a fused round read a Gram bank itself (``bank``, or one
+    that ``ops.gram_bank`` built while installed) rather than a slice of
+    it, and in a lane-sharded round the slab, its device and the whole
+    batch's state shape.  The keys of a solve in
+    progress are kept per host thread, since the slabs of the sharded
+    engine solve in threads of their own.
     """
 
     def __init__(self, bank=None):
         self.banks = [] if bank is None else [bank]
-        self.captures, self.loops, self._keys = [], [], []
+        self.captures, self.loops = [], []
+        self._local = threading.local()
+
+    def _keys(self) -> list:
+        """The calling thread's keys of the solves it has under way."""
+        if not hasattr(self._local, "keys"):
+            self._local.keys, self._local.slab = [], ()
+        return self._local.keys
 
     def __enter__(self):
-        from repro_torch.core import grid
+        from repro_torch.core import grid, sharded_lanes
         from repro_torch.core import solver_fused as sf
         from repro_torch.kernels import ops
         self._saved = (sf._capture, sf._drive, sf.solve_fused_batched_qp,
-                       grid.solve_lanes, ops.gram_bank)
-        capture, drive, fused, lanes, gram_bank = self._saved
+                       grid.solve_lanes, ops.gram_bank,
+                       sharded_lanes._solve_slab)
+        capture, drive, fused, lanes, gram_bank, slab = self._saved
 
         def capture_spy(body, static, refresh, pool=None):
-            self.captures.append((self._keys[-1] if self._keys else None,
-                                  refresh))
+            keys = self._keys()
+            self.captures.append((keys[-1] if keys else None, refresh))
             return capture(body, static, refresh, pool)
 
         def drive_spy(body, s, max_iter, check_every, graphs, period=0):
             out = drive(body, s, max_iter, check_every, graphs, period)
-            key = self._keys.pop() if self._keys else None
+            keys = self._keys()
+            key = keys.pop() if keys else None
             self.loops.append((key, chunk_schedule(out[1], max_iter,
                                                    check_every, period)))
             return out
 
         def fused_spy(X, P, *args, **kw):
             gram = kw.get("gram")
-            self._keys.append((tuple(P.shape),
-                               any(gram is b for b in self.banks)))
+            self._keys().append((tuple(P.shape),
+                                 any(gram is b for b in self.banks))
+                                + self._local.slab)
             return fused(X, P, *args, **kw)
 
         def lanes_spy(kernel, p, *args, **kw):
-            self._keys.append((tuple(p.shape),))
+            self._keys().append((tuple(p.shape),))
             return lanes(kernel, p, *args, **kw)
 
         def bank_spy(*args, **kw):
             self.banks.append(gram_bank(*args, **kw))
             return self.banks[-1]
 
+        def slab_spy(p, job, *args):
+            self._keys()
+            self._local.slab = (p, job.device, job.batch)
+            try:
+                return slab(p, job, *args)
+            finally:
+                self._local.slab = ()
+
         sf._capture, sf._drive = capture_spy, drive_spy
         sf.solve_fused_batched_qp, grid.solve_lanes = fused_spy, lanes_spy
         ops.gram_bank = bank_spy
+        sharded_lanes._solve_slab = slab_spy
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.core import grid
+        from repro_torch.core import grid, sharded_lanes
         from repro_torch.core import solver_fused as sf
         from repro_torch.kernels import ops
         (sf._capture, sf._drive, sf.solve_fused_batched_qp,
-         grid.solve_lanes, ops.gram_bank) = self._saved
+         grid.solve_lanes, ops.gram_bank,
+         sharded_lanes._solve_slab) = self._saved
         self.banks.clear()
 
     def expected_fit(self) -> int:
@@ -327,6 +351,37 @@ def probe_fused_chunked(findings, device="cpu", uncached=False) -> None:
             _same(name, got, _uncached(run), findings)
 
 
+def probe_sharded_chunked(findings, device="cpu") -> None:
+    """``solve_fused_chunked_qp`` lane-sharded over two slabs on
+    ``device``, through the bank and the rbf source, with hard shrinking:
+    each slab of a round solves in a cache entry of its own, captured
+    once per chunk shape it visits; results bitwise those of the sharded
+    driver without the cache."""
+    from repro_torch.core import solver_fused as sf
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.kernels import ops
+    X, P, L, U, gam = _sweep_lanes(device)
+    bank = ops.gram_bank(X, [0.4, 1.0])
+    gidx = torch.tensor([0] * 4 + [1] * 4, device=device)
+    cfg = SolverConfig(eps=1e-5, shrink_every=16, max_iter=PROBE_MAX_ITER)
+    for tag, kw in (("bank", dict(gram=bank, gram_idx=gidx)),
+                    ("rbf", {})):
+        def run():
+            return sf.solve_fused_chunked_qp(
+                X, P, L, U, gam, cfg, chunk=32, check_every=8,
+                shrinking=True, devices=(device, device), **kw)
+        with _graph_path(device), CaptureLog(bank) as log:
+            got = run()
+        name = f"sharded-chunked:{tag}"
+        _count_chunked(name, log, findings)
+        slabs = {k[2] for k, _ in log.loops if k is not None and len(k) > 2}
+        if slabs != {0, 1}:
+            findings.append(Finding(
+                "capture-probe", name,
+                f"the rounds solved slabs {sorted(slabs)}, not both"))
+        _same(name, got, _uncached(run), findings)
+
+
 def probe_classic_chunked(findings, device="cpu") -> None:
     """The classic compacted grid (``impl=None``): one capture per (lane
     bucket, chunk shape) visited over every C, results bitwise those of
@@ -376,7 +431,7 @@ def probe_builds(findings, device="cuda") -> None:
 
 
 PROBES = (probe_fused_fit, probe_classic_fit, probe_fused_chunked,
-          probe_classic_chunked)
+          probe_sharded_chunked, probe_classic_chunked)
 
 
 def run_probes(device="cpu", probes=PROBES) -> List[Finding]:

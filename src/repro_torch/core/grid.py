@@ -63,11 +63,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import qp as qp_mod
-from repro_torch.core import solver_fused
+from repro_torch.core import sharded_lanes, solver_fused
 from repro_torch.core.solver import (SolveResult, SolverConfig,
                                      resolve_shrink_cfg, solve_lanes)
 from repro_torch.core.solver_fused import (FusedResult, _pow2,
-                                           solve_fused_batched_qp,
                                            solve_fused_chunked_qp)
 from repro_torch.device import resolve_device, resolve_dtype, synchronize
 from repro_torch.kernels import ops, row_source
@@ -145,11 +144,16 @@ def _ring_config(diagnostics):
     return None if diagnostics is None else diagnostics.ring_config
 
 
-def _check_later_slices(mesh, devices):
-    if mesh is not None or devices is not None:
-        raise NotImplementedError(
-            "mesh and devices (lane sharding over several cards) are a "
-            "later slice of the port (ROADMAP queue 1, step 12)")
+def _lane_mesh(impl, mesh, devices):
+    """The lane mesh of a sharded grid, or ``None`` without
+    ``mesh``/``devices``; the classic engine (``impl=None``) refuses
+    them."""
+    if mesh is None and devices is None:
+        return None
+    if impl is None:
+        raise ValueError("lane sharding runs on the fused engine: set impl "
+                         "(e.g. impl='auto') with mesh/devices")
+    return sharded_lanes.resolve_lane_mesh(mesh, devices)
 
 
 def _check_classic_diagnostics(diagnostics):
@@ -223,13 +227,14 @@ def _grid_result(fr: FusedResult, L, U, dims, ring=None) -> SolveResult:
 
 
 def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute, shrinking,
-                      chunk=None, diagnostics=None):
+                      chunk=None, diagnostics=None, mesh=None):
     """The flat (gamma, class, C) lanes through one fused loop, or with
     ``chunk`` through the chunked driver, which drops converged lanes and,
     with ``shrinking``, gathers the surviving rows between chunks (the
-    reference's ``_compacted_fused_flat``).  With a ring in
-    ``diagnostics`` returns ``(SolveResult, grid-shaped ring, flat
-    FusedResult)``, else ``(SolveResult, None, flat FusedResult)``."""
+    reference's ``_compacted_fused_flat``); with a lane ``mesh`` sharded
+    over its slabs.  With a ring in ``diagnostics`` returns
+    ``(SolveResult, grid-shaped ring, flat FusedResult)``, else
+    ``(SolveResult, None, flat FusedResult)``."""
     Yf, L, U, gf = _grid_lanes(X, Y, Cs, gammas)
     k = Y.shape[0]
     dims = (len(gammas), k, len(Cs))
@@ -237,11 +242,11 @@ def _solve_grid_fused(X, Y, Cs, gammas, cfg, impl, precompute, shrinking,
     kw = (_bank_kw(X, gammas, k * len(Cs), impl)
           if _use_bank(impl, precompute, X.device) else {})
     if chunk is None:
-        solve = solve_fused_batched_qp
+        solve = sharded_lanes.lane_solver(mesh)
         kw.update(telemetry=rc)
     else:
         solve = solve_fused_chunked_qp
-        kw.update(chunk=chunk, diagnostics=diagnostics)
+        kw.update(chunk=chunk, diagnostics=diagnostics, mesh=mesh)
     fr = solve(X, Yf, L, U, gf, cfg, impl=impl, shrinking=shrinking, **kw)
     ring = None
     if rc is not None:
@@ -429,8 +434,12 @@ def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
     ``cfg.shrink_every`` cycle; the fused passes' masked scans); the
     optima do not change.  ``block_l`` is accepted and ignored: the CUDA
     passes tile the example axis at
-    :data:`repro_torch.kernels.build.BLOCK_L`.  ``mesh``/``devices`` are
-    a later slice and raise ``NotImplementedError``.
+    :data:`repro_torch.kernels.build.BLOCK_L`.  ``mesh``/``devices``
+    (fused engine only; ``impl=None`` raises ``ValueError``) shard the
+    flat lane batch over a lane mesh
+    (:mod:`repro_torch.core.sharded_lanes`): a
+    :class:`~repro_torch.launch.mesh.LaneMesh` with a ``data`` axis, or a
+    device list (``devices=("cpu",) * 2`` on the CPU).
 
     ``diagnostics`` (a :class:`repro_torch.telemetry.Diagnostics`; fused
     engine only, ``impl=None`` raises ``ValueError``) turns on the flight
@@ -441,7 +450,7 @@ def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
     channel.
     """
     del block_l
-    _check_later_slices(mesh, devices)
+    mesh = _lane_mesh(impl, mesh, devices)
     if impl is None:
         _check_classic_diagnostics(diagnostics)
     X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
@@ -458,7 +467,7 @@ def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
             res, ring, _ = _solve_grid_fused(
                 X, Y, Cs_np[order], gammas_np, cfg,
                 ops.resolve_impl(impl, dev), precompute, shrinking,
-                diagnostics=diagnostics)
+                diagnostics=diagnostics, mesh=mesh)
             if diagnostics is not None:
                 synchronize(dev)
     if np.any(order != np.arange(len(Cs_np))):
@@ -486,16 +495,17 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
     ``G0 = -K alpha0``: one matvec per lane, paid once before the loop,
     against the bank when there is one and blocked over rows of ``X``
     (:meth:`repro_torch.core.qp.RBFKernel.matvec`) when there is not.
-    ``precompute``, ``impl``, ``shrinking``, ``device``, ``dtype`` and the
-    knobs that raise ``NotImplementedError`` are as in :func:`solve_grid`;
-    ``block_l`` is accepted and ignored.  ``diagnostics`` turns on the
-    flight recorder as in :func:`solve_grid` (scope
+    ``precompute``, ``impl``, ``shrinking``, ``device``, ``dtype`` and
+    ``mesh``/``devices`` are as in :func:`solve_grid` (the deal's cost is
+    the box width ``1/(nu l)``: the small-nu stragglers spread over the
+    slabs); ``block_l`` is accepted and ignored.  ``diagnostics`` turns on
+    the flight recorder as in :func:`solve_grid` (scope
     ``solve_grid_oneclass``, lanes keyed by (gamma, nu)).  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
     ``(n_gamma, n_nu)``; the decision offset is ``rho = -b``.
     """
     del block_l
-    _check_later_slices(mesh, devices)
+    mesh = _lane_mesh(impl, mesh, devices)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     l = X.shape[0]
@@ -521,10 +531,9 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
                                       for a in A0]) for g in gammas_np])
     rc = _ring_config(diagnostics)
     with _scope(diagnostics, "solve_grid_oneclass", lanes=nG * nN):
-        out = solve_fused_batched_qp(X, zeros, zeros, Uf, gf, cfg,
-                                     impl=impl, alpha0=alpha0, G0=G0,
-                                     shrinking=shrinking, telemetry=rc,
-                                     **bank_kw)
+        out = sharded_lanes.lane_solver(mesh)(X, zeros, zeros, Uf, gf, cfg, impl=impl,
+                                 alpha0=alpha0, G0=G0, shrinking=shrinking,
+                                 telemetry=rc, **bank_kw)
         if rc is not None:
             out, ring = out
         if diagnostics is not None:
@@ -553,8 +562,8 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     is (gamma, epsilon, C) row-major.  ``precompute`` picks the row source
     as in :func:`solve_grid` (the base bank, read by the H = 2 bank passes
     on the card); ``shrinking=True`` masks each half of the doubled state
-    on its own.  ``impl``, ``device``, ``dtype`` and the knobs that raise
-    ``NotImplementedError`` are as in :func:`solve_grid`; ``block_l`` is
+    on its own.  ``impl``, ``device``, ``dtype`` and ``mesh``/``devices``
+    are as in :func:`solve_grid`; ``block_l`` is
     accepted and ignored.  ``diagnostics`` turns on the flight recorder as
     in :func:`solve_grid` (scope ``solve_grid_svr``, lanes keyed by
     (gamma, epsilon, C)).  Returns a
@@ -563,7 +572,7 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     folded to coefficients by :func:`repro_torch.core.qp.svr_fold`.
     """
     del block_l
-    _check_later_slices(mesh, devices)
+    mesh = _lane_mesh(impl, mesh, devices)
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     impl = ops.resolve_impl(impl, dev)
@@ -587,9 +596,9 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
                if _use_bank(impl, precompute, dev) else {})
     rc = _ring_config(diagnostics)
     with _scope(diagnostics, "solve_grid_svr", lanes=nG * nE * nC):
-        out = solve_fused_batched_qp(X, Pf, Lf, Uf, gf, cfg, impl=impl,
-                                     doubled=True, shrinking=shrinking,
-                                     telemetry=rc, **bank_kw)
+        out = sharded_lanes.lane_solver(mesh)(X, Pf, Lf, Uf, gf, cfg, impl=impl,
+                                 doubled=True, shrinking=shrinking,
+                                 telemetry=rc, **bank_kw)
         if rc is not None:
             out, ring = out
         if diagnostics is not None:
@@ -630,9 +639,9 @@ def solve_grid_compacted(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(),
     before any lane retires (unshrink events counted per lane), and soft
     shrinking inside each chunk.  ``n_free``/``n_clipped``/``n_reverted``
     carry the ``UNTRACKED`` sentinel, ``n_free_sv`` the free SVs.
-    ``device``, ``dtype`` and ``block_l`` are as in :func:`solve_grid`;
-    ``mesh``/``devices`` are a later slice and raise
-    ``NotImplementedError``.
+    ``device``, ``dtype``, ``block_l`` and ``mesh``/``devices`` are as in
+    :func:`solve_grid` (fused branch only): every chunk is lane-sharded,
+    the compaction stays on the host between chunks.
 
     ``diagnostics`` (fused branch only; ``impl=None`` raises
     ``ValueError``) turns on the flight recorder: the chunked driver emits
@@ -642,7 +651,7 @@ def solve_grid_compacted(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(),
     in :func:`solve_grid`.
     """
     del block_l
-    _check_later_slices(mesh, devices)
+    mesh = _lane_mesh(impl, mesh, devices)
     X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
     if impl is None:
         _check_classic_diagnostics(diagnostics)
@@ -652,7 +661,7 @@ def solve_grid_compacted(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(),
     impl = ops.resolve_impl(impl, X.device)
     res, ring, fr = _solve_grid_fused(X, Y, Cs_np, gammas_np, cfg, impl,
                                       precompute, shrinking, chunk,
-                                      diagnostics)
+                                      diagnostics, mesh)
     if ring is not None:
         # no C sort on this path: the lanes are in the caller's order
         _drain_grid_ring(diagnostics, ring,

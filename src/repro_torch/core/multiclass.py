@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import qp as qp_mod
 from repro_torch.core.solver import (CHECK_EVERY, SolveResult, SolverConfig,
                                      placement, solve_qp)
+from repro_torch.core.sharded_lanes import solve_fused_sharded
 from repro_torch.core.solver_fused import solve_fused_batched
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -71,8 +72,8 @@ def solve_ovr(kernel, Y, C, cfg: SolverConfig = SolverConfig(),
 
 def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
                     impl: str = "auto", block_l: int = 1024,
-                    precompute: bool = False, device=None, dtype=None,
-                    telemetry=None):
+                    precompute: bool = False, mesh=None, devices=None,
+                    device=None, dtype=None, telemetry=None):
     """Solve all one-vs-rest heads as the lanes of one fused solve.
 
     ``C`` is a scalar, (k,) per-class or (k, l) per-sample budgets;
@@ -87,7 +88,10 @@ def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
     loop's flight recorder: the return value is then the ``(FusedResult,
     TelemetryRing)`` pair, the ring's fields class-leading.  ``block_l``
     is accepted and ignored: the CUDA passes fix their tiles when they are
-    built (:data:`repro_torch.kernels.build.BLOCK_L`).
+    built (:data:`repro_torch.kernels.build.BLOCK_L`).  ``mesh``/``devices``
+    shard the class-head lanes over a lane mesh
+    (:func:`repro_torch.core.sharded_lanes.solve_fused_sharded`, the bank
+    of ``precompute`` passed along): the same results, one loop a slab.
     """
     del block_l
     dev = resolve_device(device)
@@ -96,6 +100,11 @@ def solve_ovr_fused(X, Y, C, gamma, cfg: SolverConfig = SolverConfig(), *,
         K = ops.gram(X, gamma=gamma, impl=impl, device=dev, dtype=dtype)
         bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
             (len(Y),), dtype=torch.int64, device=dev))
+    if mesh is not None or devices is not None:
+        return solve_fused_sharded(X, Y, C, gamma, cfg, mesh=mesh,
+                                   devices=devices, impl=impl, device=dev,
+                                   dtype=dtype, telemetry=telemetry,
+                                   **bank_kw)
     return solve_fused_batched(X, Y, C, gamma, cfg, impl=impl, device=dev,
                                dtype=dtype, telemetry=telemetry, **bank_kw)
 

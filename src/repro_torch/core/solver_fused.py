@@ -83,6 +83,9 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
+import gc
+import threading
 import time
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -126,6 +129,39 @@ class FusedResult:
                               for f in dataclasses.fields(self)})
 
 
+# One capture at a time in the process: entering a capture empties the
+# allocator's caches on every device, which must not happen while another
+# thread (a slab of the lane-sharded engine) captures on its own.
+_CAPTURE_LOCK = threading.Lock()
+# The side stream of each device's captures (``torch.cuda.graph``'s own
+# default is one stream for the process, on whichever device captured
+# first).
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream():
+    """The calling thread's current device's capture stream, made on its
+    first capture."""
+    dev = torch.cuda.current_device()
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cyclic garbage collector off inside: a collection during
+    a capture can free an earlier fit's graph, whose destruction is a CUDA
+    call that a capture forbids, and the capture fails."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _capture(body, static, refresh, pool=None):
     """Capture one chunk of ``body``, whose iterations refresh the shrink
     mask where ``refresh`` (a tuple of bools, one per iteration) says, into
@@ -134,19 +170,25 @@ def _capture(body, static, refresh, pool=None):
 
     Returns (graph, the kernel launches of one replay).  The wrappers
     counted their launches while the graph was captured, which launched
-    nothing: those counts are taken back here and given again at every
-    replay (:func:`_drive`).
+    nothing: those counts, read from the calling thread's own tally (other
+    slab threads launch meanwhile), are taken back here and given again at
+    every replay (:func:`_drive`).  The capture forbids unsafe CUDA calls
+    in this thread only (``thread_local``), so the other slab threads run
+    on, and runs with the garbage collector off (:func:`_no_collection`).
     """
-    before = kernels.launches()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        out = static
-        for r in refresh:
-            out = body(out, r)
-        for dst, src in zip(static, out):
-            if dst is not src:
-                dst.copy_(src)
-    per_replay = {k: n - before[k] for k, n in kernels.launches().items()}
+    with _CAPTURE_LOCK, _no_collection():
+        before = kernels.launches(thread=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=_capture_stream(),
+                              capture_error_mode="thread_local"):
+            out = static
+            for r in refresh:
+                out = body(out, r)
+            for dst, src in zip(static, out):
+                if dst is not src:
+                    dst.copy_(src)
+        per_replay = {k: n - before[k]
+                      for k, n in kernels.launches(thread=True).items()}
     kernels.add_launches(per_replay, -1)
     return graph, per_replay
 
@@ -209,6 +251,12 @@ class _Graphs:
         return self.cache[refresh]
 
 
+def _running(s) -> bool:
+    """Whether any lane of the state ``s`` runs on: ``any(~done)``, read
+    back to the host (the loop's one read of the device a chunk)."""
+    return bool(torch.any(~s.done))
+
+
 def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
            period: int = 0):
     """Run ``body(state, refresh)`` on the state ``s`` (a NamedTuple with a
@@ -237,7 +285,7 @@ def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
             and ent.loop.body is body else _Graphs())
     s = held.hold(s)
     t = 0
-    while t < max_iter and bool(torch.any(~s.done)):
+    while t < max_iter and _running(s):
         steps = min(check_every, max_iter - t)
         if period > 0:
             to_next = period - t % period    # up to the next refresh
@@ -265,12 +313,24 @@ class _Entry:
     """One bucket of a chunked driver's :class:`_GraphCache`: the input
     buffers its rounds copy their values into (``bufs``), and the loop
     built over them on the entry's first round (``loop``, holding the body
-    and its :class:`_Graphs`).  ``pool`` is the cache's shared memory pool,
-    ``None`` for an entry that serves one round."""
+    and its :class:`_Graphs`).  ``pool`` is the memory pool its graphs
+    share with the cache's other entries on its device, ``None`` for an
+    entry that serves one round.  A round that shards its lanes
+    (:mod:`repro_torch.core.sharded_lanes`) solves each slab in an entry
+    of its own, :meth:`slab`, keyed by this entry's key, the slab and its
+    device; ``cache`` and ``key`` find it."""
 
-    def __init__(self, bufs, pool: _Pool | None):
-        self.bufs, self.pool = bufs, pool
+    def __init__(self, bufs, pool: _Pool | None, cache=None, key=None):
+        self.bufs, self.pool, self.cache, self.key = bufs, pool, cache, key
         self.loop = self.inputs = None
+
+    def slab(self, p: int, device, make) -> "_Entry":
+        """The entry of lane slab ``p`` on ``device``, its buffers
+        ``make()`` on its first round."""
+        if self.cache is None:
+            return _Entry(make(), None)
+        return self.cache.entry(self.key + (("slab", p, device),), make,
+                                device)
 
 
 class _GraphCache:
@@ -278,19 +338,23 @@ class _GraphCache:
     (:func:`solve_fused_chunked_qp`, the classic compacted grid), one
     :class:`_Entry` a key.  The key names everything that changes a
     captured body: the lane and row buckets, the dtype, the row source,
-    the config and the flags.  Rounds of the call that share a key replay
-    its graphs on its buffers; the cache, and every graph and buffer in
-    it, goes when the call returns.  ``slice(key, make)`` keeps buffers
-    that several entries share (the bank slice of a row bucket)."""
+    the config and the flags (and a lane slab's index and device).  Rounds
+    of the call that share a key replay its graphs on its buffers; the
+    cache, and every graph and buffer in it, goes when the call returns.
+    ``slice(key, make)`` keeps buffers that several entries share (the
+    bank slice of a row bucket).  The graphs of one device share one
+    memory pool."""
 
     def __init__(self):
-        self.entries, self.shared, self.pool = {}, {}, _Pool()
+        self.entries, self.shared, self.pools = {}, {}, {}
 
-    def entry(self, key, make) -> _Entry:
+    def entry(self, key, make, device=None) -> _Entry:
         """The entry of ``key``, its buffers ``make()`` on its first
-        round."""
+        round; its graphs draw on ``device``'s pool (the caller's
+        device, ``None``, by default)."""
         if key not in self.entries:
-            self.entries[key] = _Entry(make(), self.pool)
+            pool = self.pools.setdefault(device, _Pool())
+            self.entries[key] = _Entry(make(), pool, self, key)
         return self.entries[key]
 
     def slice(self, key, make):
@@ -305,7 +369,7 @@ class _GraphCacheMiss(_GraphCache):
     which the tests and ``chip_smoke.py`` hold the cache against by
     putting this class in :class:`_GraphCache`'s place)."""
 
-    def entry(self, key, make) -> _Entry:
+    def entry(self, key, make, device=None) -> _Entry:
         return _Entry(make(), None)
 
     def slice(self, key, make):
@@ -1174,8 +1238,12 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
 
     Arguments are those of :func:`solve_fused_batched_qp`, plus ``chunk``,
     the iterations of one sub-solve; ``block_l`` is accepted and ignored.
-    ``mesh``/``devices`` (lane sharding, ROADMAP queue 1, step 12) raise
-    ``NotImplementedError``.
+    ``mesh``/``devices`` lane-shard every chunk
+    (:func:`repro_torch.core.sharded_lanes.solve_fused_sharded_qp` is then
+    the chunk solver): lane compaction stays on the host between chunks,
+    so sharding and compaction stack, and each slab of a round solves in a
+    cache entry of its own (:meth:`_Entry.slab`), captured once per chunk
+    shape however many rounds it serves.
 
     ``diagnostics`` (a :class:`repro_torch.telemetry.Diagnostics`) turns
     on the flight recorder here: each chunk solve emits a ``chunk_solve``
@@ -1195,10 +1263,6 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     ``iterations``/``n_planning``/``n_unshrink`` add up over chunks and
     whose ``G`` is exact on every coordinate.
     """
-    if mesh is not None or devices is not None:
-        raise NotImplementedError(
-            "mesh and devices (lane sharding over several cards) are a later "
-            "slice of the port (ROADMAP queue 1, step 12)")
     del block_l
     _check_config(cfg)
     _check_cadence(check_every)
@@ -1208,6 +1272,11 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
         raise ValueError("warm starts need the (alpha0, G0) pair")
     if (gram is None) != (gram_idx is None):
         raise ValueError("the Gram bank needs the (gram, gram_idx) pair")
+    # sharded_lanes imports this module
+    from repro_torch.core import sharded_lanes
+    chunk_solver = sharded_lanes.lane_solver(
+        None if mesh is None and devices is None
+        else sharded_lanes.resolve_lane_mesh(mesh, devices))
     dtype, dev = P.dtype, P.device
     f64 = torch.float64
     B, n = P.shape
@@ -1328,7 +1397,7 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
             synchronize(dev)
             t0 = time.perf_counter()
         with record_function("chunked.solve"), _solving(ent):
-            res = solve_fused_batched_qp(
+            res = chunk_solver(
                 b.X, b.P, b.L, b.U, b.gam, ccfg, impl=impl, alpha0=args[0],
                 G0=args[1], doubled=doubled, shrinking=shrinking,
                 check_every=check_every, telemetry=rc, **bank_kw)

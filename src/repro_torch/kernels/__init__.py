@@ -7,10 +7,13 @@ and clear them together, so a run can show which kernels it went through.
 The Gram wrapper also counts its symmetric-mode launches
 (``gram_block.gram_cross.symmetric_launches``, cleared with the rest).
 A CUDA graph launches kernels without calling their wrappers: whoever
-replays one adds its launches with :func:`add_launches`.
+replays one adds its launches with :func:`add_launches`.  The counters
+are exact across host threads (:mod:`repro_torch.kernels.tally`), and
+``launches(thread=True)`` reads the calling thread's own.
 """
 
-from repro_torch.kernels import gram_block, rbf_row_wss, rbf_update_wss
+from repro_torch.kernels import (gram_block, rbf_row_wss, rbf_update_wss,
+                                 tally)
 
 # the single-lane wrappers share their modules' names, so the registry
 # reaches every wrapper through its module
@@ -38,16 +41,23 @@ WRAPPERS = {
 
 
 def reset_launches() -> None:
-    for w in WRAPPERS.values():
-        w.launches = 0
-    gram_block.gram_cross.symmetric_launches = 0
+    with tally.LOCK:
+        for w in WRAPPERS.values():
+            w.launches = 0
+        gram_block.gram_cross.symmetric_launches = 0
 
 
-def launches() -> dict:
+def launches(thread: bool = False) -> dict:
+    """{name: launches} of the process, or with ``thread`` of the calling
+    thread alone."""
+    if thread:
+        mine = tally.mine()
+        return {name: mine[w] for name, w in WRAPPERS.items()}
     return {name: w.launches for name, w in WRAPPERS.items()}
 
 
 def add_launches(counts: dict, times: int = 1) -> None:
-    """Add ``times`` x ``counts`` ({name: launches}) to the counters."""
+    """Add ``times`` x ``counts`` ({name: launches}) to the counters, the
+    calling thread's included."""
     for name, n in counts.items():
-        WRAPPERS[name].launches += times * n
+        tally.count(WRAPPERS[name], times * n)

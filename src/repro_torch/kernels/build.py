@@ -9,20 +9,22 @@ of the checkout, named by a hash of the sources and flags, so a changed
 source builds anew and an unchanged one loads at once.
 
 Nothing here runs when the module is imported: :func:`load` builds and
-loads on its first call, which is the first kernel launch.
+loads on its first call, which is the first kernel launch.  The slabs of
+the lane-sharded engine launch from several host threads, so the build
+and the load run once a process, under a lock.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -77,6 +79,10 @@ ATTRS = {
 # nvcc builds this process ran, by source hash (the capture guard holds a
 # (C, gamma) sweep to one a hash)
 BUILDS: collections.Counter = collections.Counter()
+# the loaded library, once a process; _LOAD_LOCK serialises the first
+# build and load
+_LIB: list = []
+_LOAD_LOCK = threading.Lock()
 
 
 def sources() -> list[pathlib.Path]:
@@ -161,8 +167,19 @@ def build(verbose: bool = False) -> pathlib.Path:
     return path
 
 
-@functools.cache
 def load() -> ctypes.CDLL:
+    """The kernel library: built if needed and loaded on the first call of
+    the process (under a lock, so threads that launch together run one
+    ``nvcc`` build and one load), the same library after."""
+    if _LIB:
+        return _LIB[0]
+    with _LOAD_LOCK:
+        if not _LIB:
+            _LIB.append(_load())
+        return _LIB[0]
+
+
+def _load() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry's ``argtypes``."""
     lib = ctypes.CDLL(str(build()))
     lib.repro_block_l.argtypes = []

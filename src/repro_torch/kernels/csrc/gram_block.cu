@@ -406,7 +406,7 @@ template <typename T, bool VEC>
 int gram_launch(const T* X1, const T* X2, const T* s1, const T* s2, T* out,
                 double gamma, int m, int n, int d, bool sym, int device,
                 cudaStream_t stream) {
-  static bool ready[kMaxDevices] = {};
+  static std::atomic<bool> ready[kMaxDevices];
   const long long tiles = gram_tiles<T>(m, n, sym);
   if (tiles == 0) return 0;
   if (tiles > INT_MAX) return (int)cudaErrorInvalidConfiguration;

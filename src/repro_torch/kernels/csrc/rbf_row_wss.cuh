@@ -196,7 +196,7 @@ int launch_row_wss_tile(const T* XT, const T* sqn, const T* G,
                         const bool* use_exact, const T* gammas,
                         const bool* act, T* bmax, int* barg, int B, int l,
                         int d, int device, cudaStream_t s) {
-  static bool ready[kMaxDevices] = {};
+  static std::atomic<bool> ready[kMaxDevices];
   constexpr size_t smem = tile_smem_bytes<T, LG, 1>();
   auto kern = row_wss_tile_kernel<T, LG, H, ACT>;
   cudaError_t err = allow_smem(kern, smem, ready, device);

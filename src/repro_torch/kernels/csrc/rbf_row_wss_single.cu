@@ -118,7 +118,7 @@ int row_wss_single(const T* XT, const T* sqn, const T* G, const T* alpha,
                    int d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  static bool ready[2][kMaxDevices] = {};
+  static std::atomic<bool> ready[2][kMaxDevices];
   return launch_single<T>(row_wss_single_kernel<T, true>,
                           row_wss_single_kernel<T, false>, ready, XT, l,
                           device, static_cast<cudaStream_t>(stream), XT, sqn,

@@ -158,7 +158,8 @@ struct SingleSegment {
 // solvers make it eagerly, outside any CUDA graph capture); later
 // launches, the no-op relaunches of kernel 6 included, only read a flag.
 template <typename T, typename KV, typename KS, typename... Args>
-int launch_single(KV kern_vec, KS kern_scalar, bool (&ready)[2][kMaxDevices],
+int launch_single(KV kern_vec, KS kern_scalar,
+                  std::atomic<bool> (&ready)[2][kMaxDevices],
                   const T* XT, int l, int device, cudaStream_t s,
                   Args... args) {
   constexpr size_t smem = single_smem_bytes<T>();

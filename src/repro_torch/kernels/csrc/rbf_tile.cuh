@@ -30,6 +30,7 @@
 // one of two copies of its epilogue (VEC), so no load is behind a branch.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -442,15 +443,17 @@ __device__ __forceinline__ void tile_lane_groups(
 
 // Set a tiled kernel's dynamic shared memory once per device (before its
 // first launch there, which the solvers make eagerly, outside any CUDA
-// graph capture).
+// graph capture).  The flags are atomic: the lane-sharded engine launches
+// from one host thread a device, and two threads may set one attribute
+// at once (which is harmless: the value is the same).
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool (&done)[kMaxDevices],
-                       int device) {
+cudaError_t allow_smem(K kernel, size_t bytes,
+                       std::atomic<bool> (&done)[kMaxDevices], int device) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
+  if (done[device].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done[device] = true;
+  if (err == cudaSuccess) done[device].store(true, std::memory_order_release);
   return err;
 }
 

@@ -224,7 +224,7 @@ int launch_update_wss_tile(const T* XT, const T* sqn, const T* G,
                            const bool* act, const T* dirv, const T* mu2,
                            T* G_out, T* bmax, int* barg, T* bmin, T* r_out,
                            int B, int l, int d, int device, cudaStream_t s) {
-  static bool ready[kMaxDevices] = {};
+  static std::atomic<bool> ready[kMaxDevices];
   constexpr size_t smem = tile_smem_bytes<T, LG, 2>();
   auto kern = update_wss_tile_kernel<T, LG, H, ACT, CONJ>;
   cudaError_t err = allow_smem(kern, smem, ready, device);

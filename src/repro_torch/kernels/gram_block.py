@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, tally
 from repro_torch.kernels.checks import check_state, dtype_bits
 
 # The kernel's output tile (rows of X1, rows of X2) by dtype bits; must
@@ -86,8 +86,8 @@ def gram_cross(X1, X2, gamma: float, *, out=None):
     ptrs = [t.data_ptr() for t in (X1, X1 if sym else X2, s1, s2, out)]
     err = fn(*ptrs, float(gamma), l1, l2, d, X1.device.index,
              torch.cuda.current_stream(X1.device).cuda_stream)
-    gram_cross.launches += 1
-    gram_cross.symmetric_launches += sym
+    tally.count(gram_cross)
+    tally.count(gram_cross, int(sym), "symmetric_launches")
     build.check(err, "gram_block")
     return out
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, tally
 from repro_torch.kernels.checks import (act_ptr, check_bank,
                                         check_lane_scalars, check_state,
                                         dtype_bits, on_card)
@@ -72,7 +72,7 @@ def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
             use_exact, gammas, block_l=build.BLOCK_L)
     out = _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
                    i_idx, use_exact, gammas, XT, 1)
-    rbf_row_wss_batched.launches += 1
+    tally.count(rbf_row_wss_batched)
     return out
 
 
@@ -95,7 +95,7 @@ def rbf_row_wss_batched_h2(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
             use_exact, gammas, block_l=build.BLOCK_L, dup=True)
     out = _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
                    i_idx, use_exact, gammas, XT, 2)
-    rbf_row_wss_batched_h2.launches += 1
+    tally.count(rbf_row_wss_batched_h2)
     return out
 
 
@@ -118,7 +118,7 @@ def rbf_row_wss_batched_act(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
             use_exact, gammas, block_l=build.BLOCK_L, dup=dup, act=act)
     out = _batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i, g_i,
                    i_idx, use_exact, gammas, XT, 2 if dup else 1, act)
-    rbf_row_wss_batched_act.launches += 1
+    tally.count(rbf_row_wss_batched_act)
     return out
 
 
@@ -176,7 +176,7 @@ def rbf_row_wss(X, sqn, G, alpha, L, U, xq, sqq, a_i, L_i, U_i, g_i, i_idx,
     err = fn(*ptrs, None if run is None else run.data_ptr(),
              k_out.data_ptr(), bmax.data_ptr(), barg.data_ptr(), l, d,
              G.device.index, torch.cuda.current_stream(G.device).cuda_stream)
-    rbf_row_wss.launches += 1
+    tally.count(rbf_row_wss)
     build.check(err, "rbf_row_wss")
     return k_out, bmax, barg
 
@@ -227,7 +227,7 @@ def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
             use_exact, block_l=build.BLOCK_L)
     out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
                 use_exact, 1)
-    row_wss_batched_rows.launches += 1
+    tally.count(row_wss_batched_rows)
     return out
 
 
@@ -249,7 +249,7 @@ def row_wss_batched_rows_h2(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i,
             use_exact, block_l=build.BLOCK_L, dup=True)
     out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
                 use_exact, 2)
-    row_wss_batched_rows_h2.launches += 1
+    tally.count(row_wss_batched_rows_h2)
     return out
 
 
@@ -269,7 +269,7 @@ def row_wss_batched_rows_act(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i,
             use_exact, block_l=build.BLOCK_L, dup=dup, act=act)
     out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
                 use_exact, 2 if dup else 1, act)
-    row_wss_batched_rows_act.launches += 1
+    tally.count(row_wss_batched_rows_act)
     return out
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, tally
 from repro_torch.kernels.checks import (act_ptr, check_bank,
                                         check_lane_scalars, check_state,
                                         dirv_ptr, dtype_bits, on_card)
@@ -95,7 +95,7 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
             block_l=build.BLOCK_L)
     out = _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu,
                    gammas, XT, 1)
-    rbf_update_wss_batched.launches += 1
+    tally.count(rbf_update_wss_batched)
     return out
 
 
@@ -117,7 +117,7 @@ def rbf_update_wss_batched_h2(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
             block_l=build.BLOCK_L, dup=True)
     out = _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu,
                    gammas, XT, 2)
-    rbf_update_wss_batched_h2.launches += 1
+    tally.count(rbf_update_wss_batched_h2)
     return out
 
 
@@ -142,7 +142,7 @@ def rbf_update_wss_batched_act(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
             block_l=build.BLOCK_L, dup=dup, act=act)
     out = _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu,
                    gammas, XT, 2 if dup else 1, act)
-    rbf_update_wss_batched_act.launches += 1
+    tally.count(rbf_update_wss_batched_act)
     return out
 
 
@@ -167,7 +167,7 @@ def rbf_update_wss_batched_conj(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj,
             block_l=build.BLOCK_L, dup=dup, act=act, dirv=dirv, mu2=mu2)
     out = _batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj, mu,
                    gammas, XT, 2 if dup else 1, act, dirv, mu2)
-    rbf_update_wss_batched_conj.launches += 1
+    tally.count(rbf_update_wss_batched_conj)
     return out
 
 
@@ -210,7 +210,7 @@ def rbf_update_wss(X, sqn, G, k_i, alpha_new, L, U, xq_j, sqq_j, mu, gamma,
                                    bmin)]
     err = fn(*ptrs, l, d, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
-    rbf_update_wss.launches += 1
+    tally.count(rbf_update_wss)
     build.check(err, "rbf_update_wss")
     return G_out, bmax, barg, bmin
 
@@ -262,7 +262,7 @@ def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
             gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
             block_l=build.BLOCK_L)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, 1)
-    update_wss_batched_rows.launches += 1
+    tally.count(update_wss_batched_rows)
     return out
 
 
@@ -284,7 +284,7 @@ def update_wss_batched_rows_h2(gram, gram_idx, G, alpha_new, L, U, i_idx,
             gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
             block_l=build.BLOCK_L, dup=True)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, 2)
-    update_wss_batched_rows_h2.launches += 1
+    tally.count(update_wss_batched_rows_h2)
     return out
 
 
@@ -304,7 +304,7 @@ def update_wss_batched_rows_act(gram, gram_idx, G, alpha_new, L, U, i_idx,
             block_l=build.BLOCK_L, dup=dup, act=act)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
                 2 if dup else 1, act)
-    update_wss_batched_rows_act.launches += 1
+    tally.count(update_wss_batched_rows_act)
     return out
 
 
@@ -325,7 +325,7 @@ def update_wss_batched_rows_conj(gram, gram_idx, G, alpha_new, L, U, i_idx,
             block_l=build.BLOCK_L, dup=dup, act=act, dirv=dirv, mu2=mu2)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
                 2 if dup else 1, act, dirv, mu2)
-    update_wss_batched_rows_conj.launches += 1
+    tally.count(update_wss_batched_rows_conj)
     return out
 
 

@@ -1,13 +1,14 @@
 """Shared plumbing for the sklearn-style facades: the solver knobs, the
 ``gamma="scale"`` rule, the engine choice and the query Gram.
 
-A fit runs on the fused engine (``engine="fused"``) or on the classic one
-(``engine="batched"``); ``"auto"`` picks the fused engine for the configs
-it runs and the classic one for the others.  ``diagnostics`` (a
+A fit runs on the fused engine (``engine="fused"``), on the lane-sharded
+fused engine over several devices (``engine="sharded"``,
+:mod:`repro_torch.core.sharded_lanes`) or on the classic one
+(``engine="batched"``); ``"auto"`` picks the classic engine for the
+configs the fused one does not run, else the sharded engine when
+``mesh``/``devices`` is given, else the fused engine.  ``diagnostics`` (a
 :class:`repro_torch.telemetry.Diagnostics`) records the fit as a phase
-and, on the fused engine with a ring, drains its lanes.  The knobs that
-pick the sharded engine or a device mesh raise ``NotImplementedError``
-naming the slice that brings them.
+and, on the fused and sharded engines with a ring, drains their lanes.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import contextlib
 import torch
 
 from repro_torch.core import qp as qp_mod
+from repro_torch.core import sharded_lanes
 from repro_torch.core.solver import SolverConfig
 from repro_torch.device import resolve_dtype, synchronize
 from repro_torch.kernels import ops
@@ -34,11 +36,11 @@ class SVMEstimatorBase:
         if engine not in ("auto", "fused", "batched", "sharded"):
             raise ValueError(f"engine must be auto|fused|batched|sharded, "
                              f"got {engine!r}")
-        if engine == "sharded" or mesh is not None or devices is not None:
-            raise NotImplementedError(
-                "engine='sharded', mesh and devices (lane sharding over "
-                "several cards) are a later slice of the port (ROADMAP "
-                "queue 1, step 12)")
+        if engine in ("fused", "batched") and (mesh is not None
+                                               or devices is not None):
+            raise ValueError("mesh/devices belong to the sharded engine: "
+                             "drop them or use engine='sharded'/'auto', "
+                             f"got engine={engine!r}")
         if impl not in ops.IMPLS:
             raise ValueError(f"impl must be one of {ops.IMPLS}, got {impl!r}")
         self.algorithm = algorithm
@@ -49,6 +51,8 @@ class SVMEstimatorBase:
         self.impl = impl
         self.engine = engine
         self.precompute = precompute
+        self.mesh = mesh
+        self.devices = devices
         self.device = device
         self.diagnostics = diagnostics
         self.dtype = resolve_dtype(dtype)
@@ -86,14 +90,38 @@ class SVMEstimatorBase:
         return float(self.gamma)
 
     def _resolve_engine(self) -> str:
-        """The fit engine: ``engine`` when it names one; for ``"auto"`` the
-        fused engine when it runs the config (``algorithm`` smo or pasmo,
-        one planning candidate), else the classic ``"batched"`` one."""
+        """The fit engine: ``engine`` when it names one (``"sharded"`` only
+        for a config the fused engine runs: ``algorithm`` smo or pasmo,
+        one planning candidate); for ``"auto"`` the classic ``"batched"``
+        engine for any other config, else ``"sharded"`` when
+        ``mesh``/``devices`` is given, else ``"fused"``.  Unlike the
+        reference, ``"auto"`` does not shard because several cards are
+        attached: a slab's iterations cost what the whole batch's do on
+        the card (``PERF.md``), so sharding is asked for by name."""
+        fusable = (self.algorithm in ("smo", "pasmo")
+                   and self.plan_candidates == 1)
+        if self.engine == "sharded":
+            if not fusable:
+                raise ValueError(
+                    "engine='sharded' runs on the fused engine, which needs "
+                    "algorithm in ('smo', 'pasmo') and plan_candidates == 1")
+            return "sharded"
         if self.engine != "auto":
             return self.engine
-        if self.algorithm not in ("smo", "pasmo") or self.plan_candidates != 1:
+        if not fusable:
             return "batched"
+        if self.mesh is not None or self.devices is not None:
+            return "sharded"
         return "fused"
+
+    def _lane_mesh(self, device):
+        """The lane mesh of a sharded fit on ``device`` (the facade's
+        ``mesh``/``devices``, by default every CUDA device or the CPU
+        alone), ``None`` on the other engines."""
+        if self.engine_ != "sharded":
+            return None
+        return sharded_lanes.resolve_lane_mesh(self.mesh, self.devices,
+                                               home=device)
 
     def _classic_kernel(self, X):
         """The classic engine's oracle over ``X``: with ``precompute`` the

@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import qp as qp_mod
+from repro_torch.core import sharded_lanes
 from repro_torch.core.solver import SolveResult, solve_qp
-from repro_torch.core.solver_fused import FusedResult, solve_fused_batched_qp
+from repro_torch.core.solver_fused import FusedResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.svm.base import SVMEstimatorBase
@@ -85,7 +86,7 @@ class OneClassSVM(SVMEstimatorBase):
                         (1,), dtype=torch.int64, device=dev))
                 else:
                     G0 = -qp_mod.make_rbf(X, self.gamma_).matvec(a0)
-                out = solve_fused_batched_qp(
+                out = sharded_lanes.lane_solver(self._lane_mesh(dev))(
                     X, qp.p[None], qp.bounds.lower[None],
                     qp.bounds.upper[None], self.gamma_, self._config(),
                     impl=self.impl, alpha0=a0[None], G0=G0[None],

@@ -53,8 +53,11 @@ class SVC(SVMEstimatorBase):
     :class:`repro_torch.telemetry.Diagnostics`) records the fit as an
     ``svc_fit`` phase and, on the fused engine with a ring, drains one
     lane a class head (a binary fit's lone head is label 1).
-    ``engine="sharded"``, ``mesh`` and ``devices`` belong to a later
-    slice and raise ``NotImplementedError``.
+    ``engine="sharded"`` deals the class heads over a lane mesh
+    (:mod:`repro_torch.core.sharded_lanes`): the same fit, one loop a
+    device slab; ``mesh``/``devices`` pin the mesh (default: every CUDA
+    device, the CPU alone with ``device="cpu"``), and ``"auto"`` shards
+    when they are given.
     """
 
     def __init__(self, C: Union[float, np.ndarray] = 1.0,
@@ -141,6 +144,7 @@ class SVC(SVMEstimatorBase):
                 out = mc.solve_ovr_fused(X, Y, C_lanes, self.gamma_, cfg,
                                          impl=self.impl,
                                          precompute=self.precompute,
+                                         mesh=self._lane_mesh(dev),
                                          device=dev, dtype=self.dtype,
                                          telemetry=tel)
                 if tel is not None:

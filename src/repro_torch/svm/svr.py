@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import qp as qp_mod
+from repro_torch.core import sharded_lanes
 from repro_torch.core.solver import SolveResult, solve_qp
-from repro_torch.core.solver_fused import FusedResult, solve_fused_batched_qp
+from repro_torch.core.solver_fused import FusedResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.svm.base import SVMEstimatorBase
@@ -38,9 +39,11 @@ class SVR(SVMEstimatorBase):
     :class:`repro_torch.svm.svc.SVC`: ``engine`` picks the fused or the
     classic solver, ``step="conjugate"`` (with ``algorithm="smo"``) runs
     the Conjugate-SMO step, ``precompute`` (default ``True``) banks the
-    Gram matrix as there, ``diagnostics`` records the fit as an
-    ``svr_fit`` phase (and drains its lane on the fused engine), and the
-    knobs of later slices raise ``NotImplementedError``.
+    Gram matrix as there, and ``diagnostics`` records the fit as an
+    ``svr_fit`` phase (and drains its lane on the fused engine).  The fit
+    is one lane, so ``engine="auto"`` never shards it; ``engine="sharded"``
+    (with ``mesh``/``devices`` as in :class:`~repro_torch.svm.svc.SVC`)
+    runs the lane through the sharded engine all the same.
     """
 
     _fit_attr = "beta_"
@@ -86,7 +89,7 @@ class SVR(SVMEstimatorBase):
                                  device=dev, dtype=self.dtype)
                     bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
                         (1,), dtype=torch.int64, device=dev))
-                out = solve_fused_batched_qp(
+                out = sharded_lanes.lane_solver(self._lane_mesh(dev))(
                     X, qp.p[None], qp.bounds.lower[None],
                     qp.bounds.upper[None], self.gamma_, self._config(),
                     impl=self.impl, doubled=True, telemetry=tel, **bank_kw)

@@ -118,8 +118,18 @@ def test_matrix_follows_the_reference():
         "plain", "plain_shrink", "conjugate", "pasmo", "telemetry",
         "doubled", "bank", "classic_smo", "classic_pasmo", "chunked",
         "sharded_plain"}
-    assert dispatch_audit.MATRIX["sharded_plain"][0] is None
-    assert "step 12" in dispatch_audit.WAITING["sharded_plain"]
+    # every engine is ported: no entry waits for a slice
+    assert dispatch_audit.entries() == list(dispatch_audit.MATRIX)
+    assert not hasattr(dispatch_audit, "WAITING")
+
+
+def test_sharded_slab_body_is_the_batched_body():
+    """The lane-sharded engine's slab runs the batched engine's body: the
+    same aten-op multiset, with the same dtypes."""
+    sharded, _ = dispatch_audit.record_body("sharded_plain")
+    plain, _ = dispatch_audit.record_body("plain")
+    got = dispatch_audit.op_multiset(sharded)
+    assert got == dispatch_audit.op_multiset(plain) and sum(got.values())
 
 
 # ---------------------------------------------------------------------------

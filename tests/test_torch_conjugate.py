@@ -568,3 +568,33 @@ def test_card_dispatch_runs_only_the_conjugate_pass_b(shrinking,
             assert torch.equal(getattr(g, f), getattr(w, f)), f
         assert bool(g.converged.all())
         assert int(g.n_planning.max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the conjugate step over lane slabs
+# ---------------------------------------------------------------------------
+
+def test_conjugate_step_over_slabs_matches_batched():
+    """The conjugate carry is per lane, so each slab runs the batched
+    engine's conjugate loop: over two slabs on the CPU the iterations and
+    accepted steps equal the batched engine's (alpha to 1e-12), and the
+    objectives hold the reference's batched conjugate lanes."""
+    from repro_torch.core.sharded_lanes import solve_fused_sharded
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(24, 3))
+    y = np.where(rng.normal(size=24) >= 0, 1.0, -1.0)
+    Y = np.stack([y, -y])
+    cfg = dataclasses.replace(CONJ, max_iter=2000)
+    rs = solve_fused_sharded(X, Y, 2.0, 0.8, cfg, devices=("cpu", "cpu"),
+                             **F64)
+    rb = tsf.solve_fused_batched(X, Y, 2.0, 0.8, cfg, **F64)
+    assert torch.equal(rs.iterations, rb.iterations)
+    assert torch.equal(rs.n_planning, rb.n_planning)
+    assert int(rs.n_planning.sum()) > 0
+    np.testing.assert_allclose(rs.alpha.numpy(), rb.alpha.numpy(),
+                               rtol=RTOL, atol=0)
+    rj = jsf.solve_fused_batched(jnp.asarray(X), jnp.asarray(Y), 2.0, 0.8,
+                                 dataclasses.replace(JCONJ, max_iter=2000),
+                                 impl="jnp")
+    _obj_close(rs.objective, rj.objective)
+    _lanes_ok(rs, cfg.eps)

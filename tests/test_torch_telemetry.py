@@ -730,3 +730,68 @@ def test_drain_reads_tensors_and_keeps_the_caps():
     assert rec["gamma"] == 0.5 and rec["total_unshrink"] == 4
     assert isinstance(ring, TelemetryRing)
     assert Diagnostics(ring=None).drain_ring(ring) == []
+
+
+# ---------------------------------------------------------------------------
+# the lane-sharded engine: rings gathered back in the caller's lane order
+# ---------------------------------------------------------------------------
+
+def test_sharded_ring_matches_batched_one_slab():
+    """One slab's ring is bitwise the batched engine's, and holds the
+    reference's one-device sharded ring on a tie-free problem."""
+    from repro.core.sharded_lanes import solve_fused_sharded as j_sharded
+    from repro_torch.core.sharded_lanes import solve_fused_sharded
+    X, Y = _grid_problem(seed=3)
+    cfg = SolverConfig(eps=1e-3, max_iter=300)
+    rc = RingConfig(sample_every=8)
+    kw = dict(device="cpu", dtype=F64, telemetry=rc)
+    rs, ring_s = solve_fused_sharded(X, Y, 1.0, 0.8, cfg, devices=("cpu",),
+                                     **kw)
+    rb, ring_b = solver_fused.solve_fused_batched(X, Y, 1.0, 0.8, cfg, **kw)
+    assert torch.equal(rs.iterations, rb.iterations)
+    for f in FIELDS:
+        assert torch.equal(getattr(ring_s, f), getattr(ring_b, f)), f
+    jres, jring = j_sharded(jnp.asarray(X), jnp.asarray(Y), 1.0, 0.8,
+                            JConfig(eps=1e-3, max_iter=300), impl="jnp",
+                            telemetry=JRing(sample_every=8))
+    assert np.array_equal(rs.iterations.numpy(), np.asarray(jres.iterations))
+    want, got = _leaves(jring), _leaves(ring_s)
+    for f in INT_FIELDS:
+        assert np.array_equal(got[f], want[f]), f
+    for f in ("gap", "ratio"):
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-9, atol=0)
+
+
+def test_sharded_ring_gathers_back_in_caller_order():
+    """Heterogeneous lanes over four slabs of two: the deal permutes the
+    lanes across slabs, and every ring row comes back in the caller's
+    order (the integer channels exactly, the rest to 1e-12 of the batched
+    engine's); the objectives hold the reference's batched engine.  (A
+    slab of one lane is left out: its plain product of one query row
+    rounds apart from a batch's, as ``sharded_lanes`` notes.)"""
+    from repro_torch.core.sharded_lanes import solve_fused_sharded
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(24, 3))
+    y = np.where(rng.normal(size=24) >= 0, 1.0, -1.0)
+    Y = np.stack([y, -y, y, -y] * 2)
+    gam = np.array([0.3, 0.6, 1.0, 1.5, 0.4, 0.8, 1.2, 0.5])
+    C = np.array([8.0, 0.5, 2.0, 1.0, 4.0, 0.25, 16.0, 3.0])
+    cfg = SolverConfig(eps=1e-3, max_iter=500)
+    kw = dict(device="cpu", dtype=F64, telemetry=RingConfig(sample_every=8))
+    rs, ring_s = solve_fused_sharded(X, Y, C, gam, cfg,
+                                     devices=("cpu",) * 4, **kw)
+    rb, ring_b = solver_fused.solve_fused_batched(X, Y, C, gam, cfg, **kw)
+    assert torch.equal(rs.iterations, rb.iterations)
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(ring_s, f).numpy(),
+                                   getattr(ring_b, f).numpy(), rtol=1e-12,
+                                   atol=0)
+    for f in INT_FIELDS:
+        assert torch.equal(getattr(ring_s, f), getattr(ring_b, f)), f
+    assert int(ring_s.n_samples.min()) > 0
+    jres = j_qp(jnp.asarray(X), jnp.asarray(Y), jnp.asarray(
+        np.minimum(0.0, Y * C[:, None])), jnp.asarray(
+        np.maximum(0.0, Y * C[:, None])), jnp.asarray(gam),
+        JConfig(eps=1e-3, max_iter=500), impl="jnp")
+    np.testing.assert_allclose(rs.objective.numpy(),
+                               np.asarray(jres.objective), rtol=1e-6)
