@@ -161,6 +161,28 @@ failure raises and the script exits non-zero without a result line:
    lane-sharded over two slabs on the card), cached bitwise equal to
    uncached; a sweep of fits builds no kernel, and each source hash was
    built once in the process.
+15. the LM serving path and the SVM probe (step 15a), ``qwen2-0.5b`` at
+   full width (24 layers, d_model 896, vocab 151936), random weights
+   from seeds: (a) ``init_params`` in bf16 (parameter count beside
+   ``cfg.param_count()``, peak memory); (b) ``greedy_generate`` in bf16,
+   batch 8, prompt 512, 64 new tokens, twice (tokens bitwise equal;
+   prefill ms, decode ms a step, tokens/s, peak memory; no kernel of the
+   port launched: the LM path reaches no Pallas site), and the served
+   prefill's bf16 logits against an f32 forward of the same weights; (c)
+   in f32 with TF32 off, prefill of 256 tokens and 8 teacher-forced
+   decode steps against ``forward_logits`` on all 264 (rtol = atol =
+   2e-3, batch 4), again at batch 2 with ``sliding_window=128`` (the ring
+   wraps), and bf16 logits against f32 ones, of the full forward and of
+   a prefill and decode through the bf16 cache (each bf16 comparison:
+   max |diff| at most 0.2, top-1 agreement at least 0.9); (d)
+   the probe: features of 4096 sequences of 128 tokens in 4 classes (a
+   64-id band each) from the bf16 model, ``train_probe`` on 3072 (kernel
+   3 builds the Gram once, symmetric) with each head converged, its KKT
+   gap at most eps and its objective within rtol 1e-6 of
+   ``solve_ovr_fused`` on the same features, gamma and C;
+   ``predict_probe`` on 1024 (one cross Gram); held-out accuracy; kernel
+   3 at the probe's shapes against its plain version (the Gram bitwise
+   equal to its transpose) and timed.  The phase's time is printed.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows over a
@@ -168,8 +190,9 @@ fit span one check chunk, which the loop runs eagerly, so no graph is
 captured inside them; the window over a compacted round spans replays
 only.
 
-Every counted run of phases 5-13 (fits, grids, predicts and decisions;
-not the bitwise repeat of phase 7, the profiler windows or the timings)
+Every counted run of phases 5-13 and 15 (fits, grids, predicts and
+decisions, serving; not the bitwise repeat of phase 7, the probe's fused
+reference solve, the profiler windows or the timings)
 adds its launches to one tally, which the kernels' JSON record reports;
 a ``[gram]`` line splits the Gram's launches into bank and Gram builds
 (symmetric) and predicts and decisions (cross).  The line before the last is the
@@ -291,7 +314,7 @@ MICRO = dict(n=16384, C=100.0, gamma=0.5, max_iter=30_000)
 # the loop runs its first chunk eagerly, so no CUDA graph is captured
 # inside a window; the kernels an iteration are the same as a replay's.
 PROFILE_ITERS = 32
-# Launches of every counted run of the main paths (phases 5-13), summed
+# Launches of every counted run of the main paths (phases 5-13, 15), summed
 # over the runs; "gram_symmetric" counts the Gram's symmetric-mode (bank)
 # launches among "gram_block"'s.  The kernels' JSON line reads it.
 MAIN_LAUNCHES = collections.Counter()
@@ -4358,6 +4381,290 @@ def phase_analysis(device):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM serving path and the SVM probe at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2-0.5b"
+# (b) bf16 serving; (c) f32 prefill + teacher-forced decode, then the same
+# at batch 2 with a 128-token window, so the ring wraps
+LM_SERVE = dict(batch=8, prompt=512, new=64)
+LM_F32 = dict(batch=4, prompt=256, extra=8)
+LM_WINDOW = dict(batch=2, window=128)
+# the reference's own bound for prefill + decode against the full forward
+# (tests/test_models_smoke.py)
+LM_TOL = 2e-3
+# bf16 logits against f32 logits of the same weights, in (b) at the
+# served shape and in (c) through the bf16 cache: limits set from the
+# first full-width reading of bf16 against f32 (batch 4, 264 tokens, the
+# full forward: max |diff| 0.0515, top-1 agreement 0.9631; H100 80GB HBM3
+# at 700 W)
+BF16_MAX_DIFF = 0.2
+BF16_TOP1 = 0.9
+# (d) 4096 sequences of 128 tokens, class c's ids uniform over the 64
+# from c * (vocab // 4); features in batches of 512; the first 3072 train
+PROBE = dict(n=4096, seq=128, k=4, band=64, n_train=3072, batch=512,
+             C=10.0, eps=1e-3)
+
+
+def tree_leaves(tree) -> list:
+    from repro_torch.models.layers import tree_map
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def lm_prefill_decode(cfg, params, tokens, S, kv_dtype):
+    """Logits (B, T, V) of a prefill of the first ``S`` of ``tokens``
+    (B, T) and a teacher-forced decode step for each later one, and the
+    cache."""
+    from repro_torch.models import registry
+    T = tokens.shape[1]
+    logits, cache = registry.prefill(params, cfg, {"tokens": tokens[:, :S]},
+                                     T, kv_dtype=kv_dtype)
+    got = [logits]
+    for t in range(S, T):
+        logits, cache = registry.decode_step(params, cfg, cache,
+                                             tokens[:, t:t + 1], t)
+        got.append(logits)
+    return torch.cat(got, dim=1), cache
+
+
+def bf16_agrees(bf, full, label):
+    """bf16 logits against f32 ones of the same weights: max |diff| at
+    most ``BF16_MAX_DIFF`` and top-1 agreement at least ``BF16_TOP1``."""
+    diff = (bf.float() - full).abs()
+    top1 = float((bf.argmax(-1) == full.argmax(-1)).double().mean())
+    say(f"[lm] {label}, bf16 against f32 logits of the same weights "
+        f"{tuple(full.shape)}: max abs diff {float(diff.max()):.4f} (limit "
+        f"{BF16_MAX_DIFF}), mean {float(diff.mean()):.5f}, top-1 agreement "
+        f"{top1:.4f} (limit {BF16_TOP1})")
+    assert float(diff.max()) <= BF16_MAX_DIFF, (label, float(diff.max()))
+    assert top1 >= BF16_TOP1, (label, top1)
+
+
+def lm_decode_check(cfg, params, B, S, extra, device, label):
+    """Prefill of ``S`` tokens and ``extra`` teacher-forced decode steps in
+    f32 against ``forward_logits`` on all ``S + extra``: every logit within
+    ``|a - b| <= LM_TOL + LM_TOL |b|``.  Returns the full forward's logits
+    and the batch."""
+    from repro_torch.models import registry
+    batch = registry.demo_batch(cfg, B, S + extra, seed=0, device=device)
+    full, _ = registry.forward_logits(params, cfg, batch)
+    got, cache = lm_prefill_decode(cfg, params, batch["tokens"], S,
+                                   torch.float32)
+    err = (got - full).abs()
+    worst = float((err / (LM_TOL + LM_TOL * full.abs())).max())
+    ring = cache.kv.kpos[0]
+    say(f"[lm] (c) {label}: prefill {S} + {extra} decode steps against "
+        f"forward_logits on {S + extra}, batch {B}, f32: max abs err "
+        f"{float(err.max()):.3e} (max |logit| {float(full.abs().max()):.3f})"
+        f", worst err / (atol + rtol |b|) {worst:.4f} (rtol = atol = "
+        f"{LM_TOL}); cache slots {ring.numel()}, positions "
+        f"{int(ring.min())}..{int(ring.max())}")
+    assert worst <= 1.0, (label, worst)
+    return full, batch
+
+
+def phase_lm(device, timer, errs):
+    """Phase 15: ``qwen2-0.5b`` at full width, random weights, served and
+    probed; see the module docstring.  The Gram kernel's checks at the
+    probe's shapes raise ``errs["gram_block"]`` to their error."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core import multiclass as mc
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.kernels import gram_block, ref
+    from repro_torch.models import registry
+    from repro_torch.svm import probes
+    from repro_torch.train.serve_step import (_cast, greedy_generate,
+                                              make_prefill)
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    gb = 1e9
+
+    # (a) parameters in bf16 on the card
+    torch.cuda.reset_peak_memory_stats(device)
+    params = registry.init_params(0, cfg, torch.bfloat16, device=device)
+    torch.cuda.synchronize(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # param_count() leaves out the QKV biases and the final norm
+    extra = (cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads)
+             * cfg.head_dim * cfg.qkv_bias + cfg.d_model)
+    peak = torch.cuda.max_memory_allocated(device)
+    say(f"[lm] (a) {cfg.name}: {n_params} parameters (cfg.param_count() "
+        f"{cfg.param_count()} + {extra} QKV biases and final norm), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; bf16, peak {peak / gb:.3f} GB")
+    assert n_params == cfg.param_count() + extra
+
+    # (b) greedy serving in bf16, twice
+    B, S, new = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["new"]
+    rng = np.random.default_rng(0)
+    prompt = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, S)), dtype=torch.int32,
+        device=device)}
+    sc = ServeConfig(seq_len=S + new, batch=B, param_dtype="bfloat16",
+                     compute_dtype="bfloat16", kv_dtype="bfloat16")
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(device)
+        gen, counts, wall = counted(
+            lambda: greedy_generate(cfg, sc, params, prompt, new,
+                                    device=device))
+        check_only(counts, {}, "lm serve")
+        runs.append((gen, wall, torch.cuda.max_memory_allocated(device)))
+    assert torch.equal(runs[0][0], runs[1][0]), "greedy tokens differ"
+    assert runs[0][0].shape == (B, new)
+    prefill = make_prefill(cfg, sc)
+    t_pre = []
+    for _ in range(3):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        served, _ = prefill(params, prompt)
+        torch.cuda.synchronize(device)
+        t_pre.append(time.perf_counter() - t0)
+    walls = [r[1] for r in runs]
+    ms_pre = min(t_pre) * 1e3
+    ms_tok = (min(walls) * 1e3 - ms_pre) / (new - 1)
+    say(f"[lm] (b) greedy_generate bf16, batch {B}, prompt {S}, {new} new "
+        f"tokens: walls {walls[0]:.4f} s, {walls[1]:.4f} s (tokens bitwise "
+        f"equal); prefill alone {ms_pre:.3f} ms (min of "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in t_pre)}); decode "
+        f"{ms_tok:.3f} ms a step of {B} tokens ((best wall - prefill) / "
+        f"{new - 1}); {B * new / min(walls):.1f} tokens/s end to end, "
+        f"{B * 1e3 / ms_tok:.1f} tokens/s decoding; peak "
+        f"{max(r[2] for r in runs) / gb:.3f} GB; no kernel of the port "
+        f"launched (the LM path reaches no Pallas site); first sequence "
+        f"{runs[0][0][0, :12].tolist()}")
+    # the served prefill's logits at every position against an f32
+    # forward of the same weights, TF32 off
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert served.dtype == torch.bfloat16
+    full, _ = registry.forward_logits(_cast(params, torch.float32), cfg,
+                                      prompt)
+    bf16_agrees(served, full, f"(b) the served prefill, batch {B}, prompt "
+                f"{S}")
+    del served, full
+
+    # (c) f32 at full width, TF32 off: prefill + decode against the full
+    # forward, without and with a wrapped window; bf16 against f32 logits
+    # through the full forward and through the bf16 cache
+    torch.cuda.reset_peak_memory_stats(device)
+    params32 = registry.init_params(1, cfg, torch.float32, device=device)
+    full, batch = lm_decode_check(cfg, params32, LM_F32["batch"],
+                                  LM_F32["prompt"], LM_F32["extra"], device,
+                                  "full attention")
+    params16 = _cast(params32, torch.bfloat16)
+    bf, _ = registry.forward_logits(params16, cfg, batch)
+    bf16_agrees(bf, full, "(c) forward_logits")
+    bf, _ = lm_prefill_decode(cfg, params16, batch["tokens"],
+                              LM_F32["prompt"], torch.bfloat16)
+    bf16_agrees(bf, full, f"(c) prefill {LM_F32['prompt']} + "
+                f"{LM_F32['extra']} decode steps through the bf16 cache")
+    del full, bf, batch, params16
+    windowed = dataclasses.replace(cfg, sliding_window=LM_WINDOW["window"])
+    lm_decode_check(windowed, params32, LM_WINDOW["batch"], LM_F32["prompt"],
+                    LM_F32["extra"], device,
+                    f"sliding_window {LM_WINDOW['window']} (the ring wraps)")
+    say(f"[lm] (c) peak {torch.cuda.max_memory_allocated(device) / gb:.3f} "
+        f"GB (f32 and bf16 weights, f32 logits)")
+    del params32
+
+    # (d) the probe on the bf16 model's features
+    P = PROBE
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, P["k"], size=P["n"])
+    tokens = (labels[:, None] * (cfg.vocab // 4)
+              + rng.integers(0, P["band"], size=(P["n"], P["seq"])))
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    feats = torch.cat([
+        probes.extract_features(params, cfg, {"tokens": tokens[i:i + P[
+            "batch"]]}) for i in range(0, P["n"], P["batch"])]).double()
+    torch.cuda.synchronize(device)
+    t_feat = time.perf_counter() - t0
+    assert feats.shape == (P["n"], cfg.d_model)
+    assert bool(torch.isfinite(feats).all())
+    nt = P["n_train"]
+    Xtr, Xte = feats[:nt], feats[nt:]
+    ytr, yte = labels[:nt], labels[nt:]
+    scfg = SolverConfig(algorithm="pasmo", eps=P["eps"])
+    torch.cuda.reset_peak_memory_stats(device)
+    probe, counts, wall = counted(
+        lambda: probes.train_probe(Xtr, ytr, P["k"], C=P["C"], cfg=scfg,
+                                   device=device))
+    check_only(counts, {"gram_block": 1}, "probe fit")
+    assert gram_block.gram_cross.symmetric_launches == 1
+    peak = torch.cuda.max_memory_allocated(device)
+    pred = predicted(lambda: probes.predict_probe(probe, Xte), "probe")
+    acc = float((pred.cpu().numpy() == yte).mean())
+    say(f"[lm] (d) features: {P['n']} sequences of {P['seq']} tokens, "
+        f"{P['k']} classes (64-id bands), bf16 model in batches of "
+        f"{P['batch']}: {t_feat:.3f} s; gamma {probe.gamma:.6e} (median "
+        f"heuristic); fit {nt} x {cfg.d_model} f64, C = {P['C']}: "
+        f"{wall:.3f} s, peak {peak / gb:.3f} GB, Gram launches "
+        f"{counts['gram_block']} (symmetric)")
+    for c in range(P["k"]):
+        say(f"[lm] (d) head {c}: iterations {int(probe.iterations[c])}, KKT "
+            f"gap {float(probe.kkt_gap[c]):.3e}, converged "
+            f"{bool(probe.converged[c])}, objective "
+            f"{float(probe.objective[c]):.10e}")
+    assert bool(probe.converged.all())
+    assert float(probe.kkt_gap.max()) <= P["eps"]
+    Y = torch.where(torch.as_tensor(ytr, device=device)[None, :]
+                    == torch.arange(P["k"], device=device)[:, None],
+                    1.0, -1.0).double()
+    fused, _, fwall = counted(
+        lambda: mc.solve_ovr_fused(Xtr, Y, P["C"], probe.gamma, scfg,
+                                   device=device, dtype=torch.float64),
+        tally=False)
+    assert bool(fused.converged.all())
+    agree_objectives("[lm] (d)", "solve_ovr_fused (the rbf passes, "
+                     f"{fwall:.3f} s, iterations "
+                     f"{fused.iterations.tolist()})", "probe heads",
+                     probe.objective, fused.objective)
+    say(f"[lm] (d) held-out accuracy on {P['n'] - nt}: {acc:.4f} "
+        f"(reported, not a gate)")
+    # kernel 3 at the probe's shapes (X is 22 MB: warm in the L2)
+    item = 8
+    n, d, m = nt, cfg.d_model, P["n"] - nt
+    g = probe.gamma
+    for tag, kern, plain, nbytes, nops, sym in (
+            (f"Gram {n}^2 x {d} f64, symmetric",
+             lambda: gram_block.gram_cross(Xtr, Xtr, g),
+             lambda: ref.gram_cross(Xtr, Xtr, g),
+             (n * n + n * d) * item, n * (n + 1) * d + 6 * n * n, True),
+            (f"predict {m} x {n} x {d} f64, cross",
+             lambda: gram_block.gram_cross(Xte, Xtr, g),
+             lambda: ref.gram_cross(Xte, Xtr, g),
+             (m * n + (m + n) * d) * item, 2 * m * n * d + 6 * m * n,
+             False)):
+        # the kernel's result at the main path's shapes against the plain
+        # version (not tallied: outside a counted run)
+        n_sym = gram_block.gram_cross.symmetric_launches
+        K_k, K_p = kern(), plain()
+        assert gram_block.gram_cross.symmetric_launches == n_sym + sym, tag
+        err = _close(f"gram_block, the probe's {tag}", K_k, K_p,
+                     TOL[torch.float64], 1.0)
+        if sym and not torch.equal(K_k, K_k.T):
+            raise AssertionError(f"the probe's {tag}: K differs from K.T")
+        errs["gram_block"] = max(errs["gram_block"], err)
+        say(f"[lm] (d) gram_block, the probe's {tag}: max abs err {err:.3e} "
+            f"against the plain version (tolerance {TOL[torch.float64]})"
+            + (", bitwise equal to its transpose" if sym else ""))
+        del K_k, K_p
+        ms_k, ms_p = timer.ms(kern, 10), timer.ms(plain, 5)
+        bms, by = bound_ms(nbytes, nops, torch.float64)
+        say(f"[time] gram_block, the probe's {tag}: kernel {ms_k:.5f} ms, "
+            f"plain {ms_p:.5f} ms, bound {bms:.5f} ms by {by}, share "
+            f"{bms / ms_k:.4f} (inputs warm in the L2)")
+    del feats, Xtr, Xte, probe, fused, params
+    say(f"[lm] phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -4392,7 +4699,7 @@ def main(argv=None) -> int:
         return 0
     small_compacted = phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
-    MAIN_LAUNCHES.clear()                   # phases 5-13 tally from here
+    MAIN_LAUNCHES.clear()                   # phases 5-15 tally from here
     recs, lane0, svc_ref = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
     grid_recs, grid_off = phase_grid(device, timer)
@@ -4430,11 +4737,14 @@ def main(argv=None) -> int:
     say(f"[time] slice 12 phase done at {time.perf_counter() - t_start:.1f} s")
     phase_analysis(device)
     say(f"[time] analysis done at {time.perf_counter() - t_start:.1f} s")
+    phase_lm(device, timer, errs)
+    say(f"[time] LM phase done at {time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
-    say(f"[gram] launches over phases 5-13: {n_gram}; bank and Gram builds "
-        f"(l x l, symmetric, l = {N_TRAIN}): {n_sym}; predict and decision "
-        f"(m x l, cross): {n_gram - n_sym}")
+    say(f"[gram] launches over phases 5-13 and 15: {n_gram}; bank and Gram "
+        f"builds (l x l, symmetric; l = {N_TRAIN}, the probe's "
+        f"{PROBE['n_train']}): {n_sym}; predict and decision (m x l, "
+        f"cross): {n_gram - n_sym}")
     idle = [name for name in SOURCES if MAIN_LAUNCHES[name] == 0]
     assert not idle, f"kernels the main paths never launched: {idle}"
     out = []

@@ -1,0 +1,18 @@
+"""qwen2-0.5b [dense]: 24L d_model=896 14H (GQA kv=2) d_ff=4864
+vocab=151936 — GQA, QKV bias.  [arXiv:2407.10671; hf]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b", family="dense",
+    n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
+    d_ff=4864, vocab=151936, qkv_bias=True, tie_embeddings=True,
+)
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-0.5b-smoke", family="dense",
+        n_layers=2, d_model=56, n_heads=7, n_kv_heads=1,
+        d_ff=128, vocab=256, qkv_bias=True, tie_embeddings=True,
+    )

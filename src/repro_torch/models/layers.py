@@ -1,0 +1,298 @@
+"""Shared transformer layers: RMSNorm, RoPE, GQA attention, gated MLP.
+
+The port of ``repro.models.layers``, forward only (serving and feature
+extraction; the backward comes with training).  Tensors keep the
+reference's layouts: activations (B, S, d), heads (B, S, H, hd), weights
+as :class:`AttnParams` / :class:`MLPParams` below.  The projections, the
+MLP and the logits are matmuls, as the reference's einsums are: none of
+them is a Pallas kernel there.
+
+Attention is one function here.  The reference computes it with two
+schedules of the same arithmetic (its ``_chunk_attn`` scan and
+``flash.flash_attention``, chosen by the ``REPRO_ATTN`` environment
+variable); :func:`attention` computes that function, causal or windowed
+GQA softmax attention on absolute positions, with
+``torch.nn.functional.scaled_dot_product_attention``.  Decode attention
+(:func:`attn_decode`) follows the reference op for op: dots against the
+cache in its storage dtype, accumulated in float32, masked scores
+``NEG``.
+
+Parameter trees are NamedTuples whose leaves are tensors or ``None`` (an
+absent bias); :func:`tree_map` walks them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a NamedTuple tree; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, t) for t in tree))
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def trunc_normal(gen: torch.Generator, shape, std, dtype, device):
+    """Normal(0, std) truncated at +-2 std, drawn in float32 (inverse CDF
+    of a uniform draw from ``gen``) and cast to ``dtype``, as the
+    reference's ``trunc_normal`` draws its values."""
+    lo, hi = (math.erf(z / math.sqrt(2.0)) for z in (-2.0, 2.0))
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(lo, hi, generator=gen)
+    z = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return z.mul_(std).to(dtype)
+
+
+def dense_init(gen, fan_in, shape, dtype, device):
+    return trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta=10_000.0):
+    """Rotary embedding, llama-style half rotation.
+
+    x: (..., S, H, D); positions: (..., S) int.  The frequencies are
+    ``exp(-arange(half) * log(theta) / half)`` in float32, the reference's
+    formula (``theta ** (-2i / D)`` rounds differently)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    ang = positions[..., None].float() * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin,
+                      xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, q_positions, k_positions, *, causal=True, window=0):
+    """GQA softmax attention on absolute positions.
+
+    q: (B, Sq, H, D); k, v: (B, T, KH, D), H % KH == 0; positions (Sq,)
+    and (T,), RoPE already applied by the caller.  Query q sees key t when
+    ``q_pos >= k_pos`` (causal) and ``q_pos - k_pos < window`` (window >
+    0).  Self-attention over one sequence passes the same ascending
+    positions tensor twice; that is the top-left causal mask, which
+    ``is_causal`` gives without a mask tensor."""
+    Sq, T = q.shape[1], k.shape[1]
+    mask, is_causal = None, False
+    if causal and window == 0 and q_positions is k_positions and Sq == T:
+        is_causal = True
+    elif causal or window > 0:
+        rel = q_positions[:, None] - k_positions[None, :]
+        mask = torch.ones((Sq, T), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= rel >= 0
+        if window > 0:
+            mask &= rel < window
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor            # (d, H, hd)
+    wk: torch.Tensor            # (d, KH, hd)
+    wv: torch.Tensor            # (d, KH, hd)
+    wo: torch.Tensor            # (H, hd, d)
+    bq: Optional[torch.Tensor]  # (H, hd) or None
+    bk: Optional[torch.Tensor]
+    bv: Optional[torch.Tensor]
+
+
+def _proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def attn_project(p: AttnParams, x):
+    """x (B, S, d) -> q (B,S,H,hd), k/v (B,S,KH,hd), biases added."""
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if p.bq is not None:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    return q, k, v
+
+
+def attn_qkv(p: AttnParams, x, positions, theta):
+    """Project + RoPE (theta=None skips rotary — whisper-style absolute).
+
+    x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KH,hd)."""
+    q, k, v = attn_project(p, x)
+    if theta is not None:
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    return q, k, v
+
+
+def attn_out(p: AttnParams, o):
+    """``einsum("bshk,hkd->bsd", o, wo)`` as one matmul."""
+    h, k, d = p.wo.shape
+    return o.flatten(-2) @ p.wo.reshape(h * k, d)
+
+
+def attn_apply(p: AttnParams, cfg, x, positions, *, causal=True, window=0):
+    """Full-sequence self-attention (prefill / feature extraction)."""
+    theta = cfg.rope_theta if cfg.use_rope else None
+    q, k, v = attn_qkv(p, x, positions, theta)
+    o = attention(q, k, v, positions, positions, causal=causal,
+                  window=window)
+    return attn_out(p, o), (k, v)
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer KV cache: slot t holds the token whose absolute position
+    is ``kpos[t]`` (-1 = empty).  For full attention the ring never wraps
+    (capacity == horizon); for sliding-window attention the capacity is
+    the window, so a long stream needs only O(window) device memory."""
+
+    k: torch.Tensor     # (B, Tc, KH, hd)
+    v: torch.Tensor     # (B, Tc, KH, hd)
+    kpos: torch.Tensor  # (Tc,) int32 absolute positions; -1 = empty
+
+
+def kv_cache_init(batch, capacity, kv_heads, head_dim, dtype,
+                  device) -> KVCache:
+    shape = (batch, capacity, kv_heads, head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        kpos=torch.full((capacity,), -1, dtype=torch.int32, device=device))
+
+
+def kv_cache_from_prefill(k, v, positions, capacity, dtype) -> KVCache:
+    """Keep the last ``capacity`` tokens of a prefill (window semantics)."""
+    B, S = k.shape[:2]
+    cache = kv_cache_init(B, capacity, k.shape[2], k.shape[3], dtype,
+                          k.device)
+    if S <= capacity:
+        cache.k[:, :S] = k
+        cache.v[:, :S] = v
+        cache.kpos[:S] = positions
+        return cache
+    # ring layout: the token at absolute position p sits in slot p % capacity
+    tail_pos = positions[S - capacity:]
+    slots = (tail_pos % capacity).long()
+    cache.k[:, slots] = k[:, S - capacity:].to(dtype)
+    cache.v[:, slots] = v[:, S - capacity:].to(dtype)
+    cache.kpos[slots] = tail_pos.to(torch.int32)
+    return cache
+
+
+def attn_decode(p: AttnParams, cfg, x, cache: KVCache, pos: int, *,
+                window=0):
+    """One-token decode against a ring cache.
+
+    x: (B, 1, d); pos: the new token's absolute position (an int).  The
+    new k, v and position are written into ``cache`` in place, at slot
+    ``pos % Tc`` (the reference donates its cache for the same update).
+    Returns (y, cache)."""
+    B = x.shape[0]
+    q, k, v = attn_project(p, x)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    if cfg.use_rope:
+        q = rope(q, posv, cfg.rope_theta)
+        k = rope(k, posv, cfg.rope_theta)
+    Tc, KH = cache.k.shape[1], cache.k.shape[2]
+    slot = pos % Tc
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    cache.kpos[slot] = pos
+    H, D = q.shape[2], q.shape[3]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    # The cache stays in its storage dtype, as the reference keeps it: no
+    # float32 copy of it.  Its (B, Tc, KH, D) layout has no single batch
+    # stride over (batch, KV head), so the dots run over its (B, Tc, KH*D)
+    # view: the queries sit block-diagonally over the KV heads (the other
+    # heads' blocks add exact zeros), and of the outputs only the diagonal
+    # blocks are kept.
+    qb = torch.zeros((B, KH, G, KH, D), dtype=cache.k.dtype,
+                     device=x.device)
+    qb.diagonal(dim1=1, dim2=3).copy_(
+        q.reshape(B, KH, G, D).permute(0, 2, 3, 1))
+    s = _dots_f32(qb.reshape(B, H, KH * D),
+                  cache.k.reshape(B, Tc, KH * D).transpose(1, 2)) * scale
+    kp = cache.kpos
+    mask = (kp >= 0) & (kp <= pos)
+    if window > 0:
+        mask &= kp > pos - window
+    s = torch.where(mask[None, None, :], s, NEG)
+    pattn = torch.softmax(s, dim=-1)
+    o = _dots_f32(pattn.to(cache.v.dtype), cache.v.reshape(B, Tc, KH * D))
+    o = o.reshape(B, KH, G, KH, D).diagonal(dim1=1, dim2=3)
+    o = o.permute(0, 3, 1, 2).reshape(B, 1, H, D).to(x.dtype)
+    return attn_out(p, o), cache
+
+
+def _dots_f32(a, b):
+    """``torch.bmm(a, b)`` of storage-dtype operands, accumulated and
+    returned in float32 (the reference's ``preferred_element_type``).  On
+    the card cuBLAS writes the float32 product of bfloat16 operands
+    directly; on the CPU the operands are upcast, which is exact."""
+    if a.dtype == torch.float32 or not a.is_cuda:
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MLPParams(NamedTuple):
+    w_gate: torch.Tensor   # (d, f)
+    w_up: torch.Tensor     # (d, f)
+    w_down: torch.Tensor   # (f, d)
+
+
+def mlp_apply(p: MLPParams, x):
+    """The gated SiLU MLP of the dense and VLM families."""
+    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# embeddings / logits
+# ---------------------------------------------------------------------------
+
+def embed_lookup(table, tokens):
+    return F.embedding(tokens, table)
+
+
+def logits_proj(table_or_w, x):
+    """Final projection; ``table_or_w`` is (V, d) (tied or untied)."""
+    return x @ table_or_w.T

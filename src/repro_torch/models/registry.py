@@ -1,0 +1,92 @@
+"""Unified model API across families (the port of
+``repro.models.registry``'s serving half).
+
+The dense and VLM families run here.  The MoE, SSM, hybrid and
+encoder-decoder families are configs only so far: every call that needs
+their model raises ``NotImplementedError`` naming the family and its
+ROADMAP step.  ``demo_batch`` is data for any family, drawn exactly as
+the reference draws it, so one seed gives the reference's batch bitwise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer, vlm
+
+_MODULES = {"dense": transformer, "vlm": vlm}
+# ROADMAP step 15's sub-step that ports each remaining family
+_UNPORTED = {"moe": "15c", "ssm": "15d", "hybrid": "15d", "encdec": "15d"}
+
+
+def get_module(cfg: ModelConfig):
+    if cfg.family in _UNPORTED:
+        raise NotImplementedError(
+            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
+            f"ROADMAP step {_UNPORTED[cfg.family]} (of step 15)")
+    return _MODULES[cfg.family]
+
+
+def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
+                device=None):
+    """Random parameters (see :func:`transformer.init_params`)."""
+    return get_module(cfg).init_params(generator, cfg, dtype, device=device)
+
+
+def demo_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+               dtype=torch.float32, *, device=None) -> Dict[str, Any]:
+    """A small real batch: tokens and labels (int32), VLM patches and
+    encoder-decoder frames, from ``np.random.default_rng(seed)`` in the
+    reference's order.  ``device`` defaults to the CUDA card and raises
+    without one."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def ints():
+        return torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(batch, seq)).astype(np.int32),
+            device=dev)
+
+    def normal(rows):
+        return torch.as_tensor(
+            rng.normal(size=(batch, rows, cfg.d_model)) * 0.02,
+            dtype=dtype, device=dev)
+
+    out = {"tokens": ints(), "labels": ints()}
+    if cfg.family == "encdec":
+        out["frames"] = normal(cfg.encoder_seq)
+    if cfg.family == "vlm":
+        out["patches"] = normal(cfg.vision_tokens)
+    return out
+
+
+def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any]):
+    """Family-dispatched forward.  Returns (logits, aux_loss)."""
+    mod = get_module(cfg)
+    if cfg.family == "vlm":
+        return mod.apply(params, cfg, batch["tokens"], batch["patches"]), 0.0
+    return mod.apply(params, cfg, batch["tokens"]), 0.0
+
+
+def init_cache(cfg: ModelConfig, batch: int, horizon: int,
+               dtype=torch.bfloat16, *, device=None):
+    return get_module(cfg).init_cache(cfg, batch, horizon, dtype,
+                                      device=device)
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
+    return get_module(cfg).decode_step(params, cfg, cache, tokens, pos)
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], horizon: int,
+            kv_dtype=torch.bfloat16):
+    mod = get_module(cfg)
+    if cfg.family == "vlm":
+        return mod.prefill(params, cfg, batch["tokens"], batch["patches"],
+                           horizon, kv_dtype)
+    return mod.prefill(params, cfg, batch["tokens"], horizon, kv_dtype)

@@ -401,3 +401,58 @@ def test_slice_3_cpu_path_launches_no_kernel():
         OneClassSVM(nu=0.2, gamma=0.5, precompute=precompute, device="cpu",
                     dtype=torch.float64).fit(X).predict(X[:5])
     assert kernels.launches() == before
+
+
+def test_importing_the_lm_serving_path_loads_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("import sys, repro_torch.models, repro_torch.models.registry, "
+            "repro_torch.models.convert, repro_torch.train.serve_step, "
+            "repro_torch.launch.serve, repro_torch.svm.probes, "
+            "repro_torch.configs; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _lm_entry_call(entry, device):
+    """One call of an LM-path entry point on the qwen2 smoke config."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models import registry
+    from repro_torch.svm import probes
+    from repro_torch.train.serve_step import greedy_generate
+    cfg = get_smoke("qwen2-0.5b")
+    kw = {} if device is None else {"device": device}
+    if entry == "init_params":
+        return registry.init_params(0, cfg, **kw)
+    if entry == "greedy_generate":
+        params = registry.init_params(0, cfg, device="cpu")
+        prompt = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+        sc = ServeConfig(seq_len=6, batch=1, param_dtype="float32",
+                         compute_dtype="float32", kv_dtype="float32")
+        return greedy_generate(cfg, sc, params, prompt, 2, **kw)
+    X, y = xor_gaussians(24, seed=0)
+    return probes.train_probe(X, (y > 0).astype(int), 2, **kw)
+
+
+@pytest.mark.parametrize("entry", ["init_params", "greedy_generate",
+                                   "train_probe"])
+def test_lm_entry_points_without_a_card_raise(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _lm_entry_call(entry, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _lm_entry_call(entry, "cuda")
+    out = _lm_entry_call(entry, "cpu")
+    leaf = out.X if entry == "train_probe" else (
+        out.embed if entry == "init_params" else out)
+    assert leaf.device.type == "cpu"
+
+
+def test_serve_production_mesh_raises_not_implemented():
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="step 15"):
+        serve.main(["--smoke", "--device", "cpu", "--production-mesh"])
