@@ -167,8 +167,10 @@ failure raises and the script exits non-zero without a result line:
    ``cfg.param_count()``, peak memory); (b) ``greedy_generate`` in bf16,
    batch 8, prompt 512, 64 new tokens, twice (tokens bitwise equal;
    prefill ms, decode ms a step, tokens/s, peak memory; no kernel of the
-   port launched: the LM path reaches no Pallas site), and the served
-   prefill's bf16 logits against an f32 forward of the same weights; (c)
+   port launched: the LM path reaches no Pallas site), the aten ops one
+   decode step dispatches (``analysis.dispatch_audit.OpRecorder``), and
+   the served prefill's bf16 logits against an f32 forward of the same
+   weights; (c)
    in f32 with TF32 off, prefill of 256 tokens and 8 teacher-forced
    decode steps against ``forward_logits`` on all 264 (rtol = atol =
    2e-3, batch 4), again at batch 2 with ``sliding_window=128`` (the ring
@@ -183,6 +185,28 @@ failure raises and the script exits non-zero without a result line:
    ``predict_probe`` on 1024 (one cross Gram); held-out accuracy; kernel
    3 at the probe's shapes against its plain version (the Gram bitwise
    equal to its transpose) and timed.  The phase's time is printed.
+16. LM training (step 15b), ``qwen2-0.5b`` at full width from seeds:
+   (a) ``repro_torch.launch.train.main`` in bf16, batch 8, seq 512,
+   2 microbatches, 8 steps with a checkpoint every 4 into a temporary
+   directory, then again to 12 steps, which must resume from step 8:
+   every loss and gradient norm finite, every parameter leaf changed,
+   every moment nonzero, no kernel of the port launched (the training
+   path reaches no Pallas site); ms a step (steps 2-7), tokens/s, peak
+   memory; a ``torch.profiler`` window over one step names the SDPA
+   kernels of both directions (not the math backend); (b) bf16 against
+   f32 gradients of the same weights on one microbatch: cosine at least
+   ``BF16_GRAD_COS``, norms within ``BF16_GRAD_NORM_RDIFF``; (c) in f32
+   with TF32 off, batch 2 x 256, the gradient through SDPA's efficient
+   kernel against the math backend, every leaf within rtol = atol =
+   1e-4; (d) SDPA's backward at one layer's shape called 5 times under
+   each mode of the deterministic algorithms (off, warn-only, strict),
+   in bf16 and f32, by default and with each fused backend forced: the
+   bitwise verdict and worst difference printed, the default bitwise
+   under strict; then ``run_resilient`` at 4 layers (full width and
+   vocab), 8 steps, a checkpoint every 3, failures injected at steps 2
+   and 5, under PyTorch's deterministic algorithms: parameters and
+   optimizer state bitwise equal to an uninterrupted run.  The phase's time is
+   printed.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows over a
@@ -190,10 +214,11 @@ fit span one check chunk, which the loop runs eagerly, so no graph is
 captured inside them; the window over a compacted round spans replays
 only.
 
-Every counted run of phases 5-13 and 15 (fits, grids, predicts and
-decisions, serving; not the bitwise repeat of phase 7, the probe's fused
-reference solve, the profiler windows or the timings)
-adds its launches to one tally, which the kernels' JSON record reports;
+Every counted run of phases 5-13, 15 and 16 (fits, grids, predicts and
+decisions, serving, the training launcher; not the bitwise repeat of
+phase 7, the probe's fused reference solve, the profiler windows or the
+timings) adds its launches to one tally, which the kernels' JSON record
+reports (phase 16 adds none);
 a ``[gram]`` line splits the Gram's launches into bank and Gram builds
 (symmetric) and predicts and decisions (cross).  The line before the last is the
 kernels' JSON record; the last is the contract line ``{"ok": true,
@@ -211,10 +236,17 @@ import functools
 import itertools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
 import time
+
+# Phase 16(d) runs PyTorch's deterministic algorithms, which take cuBLAS
+# only with a fixed workspace; PyTorch reads this once, at the process's
+# first matmul.  ":4096:8" (eight 4 MiB buffers) is the size it already
+# takes on Hopper.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -4466,6 +4498,16 @@ def lm_decode_check(cfg, params, B, S, extra, device, label):
     return full, batch
 
 
+def decode_ops(cfg, params, cache, tok, pos) -> int:
+    """The aten ops (views included) that one ``registry.decode_step``
+    dispatches, recorded by the static analysis's ``OpRecorder``."""
+    from repro_torch.analysis.dispatch_audit import OpRecorder
+    from repro_torch.models import registry
+    with OpRecorder() as rec:
+        registry.decode_step(params, cfg, cache, tok, pos)
+    return len(rec.ops)
+
+
 def phase_lm(device, timer, errs):
     """Phase 15: ``qwen2-0.5b`` at full width, random weights, served and
     probed; see the module docstring.  The Gram kernel's checks at the
@@ -4478,7 +4520,7 @@ def phase_lm(device, timer, errs):
     from repro_torch.models import registry
     from repro_torch.svm import probes
     from repro_torch.train.serve_step import (_cast, greedy_generate,
-                                              make_prefill)
+                                              greedy_prefill, make_prefill)
     t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
     gb = 1e9
@@ -4538,6 +4580,12 @@ def phase_lm(device, timer, errs):
         f"{max(r[2] for r in runs) / gb:.3f} GB; no kernel of the port "
         f"launched (the LM path reaches no Pallas site); first sequence "
         f"{runs[0][0][0, :12].tolist()}")
+    # the host's load: the aten ops one decode step dispatches
+    p16, cache, tok = greedy_prefill(cfg, sc, params, prompt, device=device)
+    n_ops = decode_ops(cfg, p16, cache, tok, S)
+    say(f"[lm] (b) one decode step dispatches {n_ops} aten ops (views "
+        f"included), {ms_tok * 1e3 / n_ops:.1f} us of the step each")
+    del p16, cache, tok
     # the served prefill's logits at every position against an f32
     # forward of the same weights, TF32 off
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -4665,6 +4713,334 @@ def phase_lm(device, timer, errs):
     say(f"[lm] phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: dense LM training at full width
+# ---------------------------------------------------------------------------
+
+# (a) the launcher: 8 steps with a checkpoint every 4, then a resume to 12
+TRAIN = dict(batch=8, seq=512, microbatches=2, steps=8, save_every=4,
+             resume_to=12)
+# (c) f32 with TF32 off: the fused SDPA backward against the math backend
+# (the efficient kernel is the one fused backend that takes f32)
+TRAIN_F32 = dict(batch=2, seq=256)
+TRAIN_TOL = 1e-4
+TRAIN_F32_FUSED = "EFFICIENT_ATTENTION"
+# (d) run_resilient at 4 layers (full width and vocab), failures at 2, 5
+RESILIENT = dict(layers=4, batch=4, seq=256, steps=8, save_every=3,
+                 fail_at=(2, 5))
+# (d) SDPA's backward called repeatedly at one layer's full-width shape
+SDPA_REPEAT = dict(batch=4, heads=14, kv_heads=2, seq=512, head_dim=64,
+                   calls=5)
+# (b) bf16 against f32 gradients of the same weights, one microbatch
+# (4 x 512): limits set from the first full-width reading (cosine
+# 0.999764, norms 2.946923 and 2.942775, relative difference 0.001409;
+# H100 80GB HBM3 at 700 W), about 4x and 7x its distance from exact
+BF16_GRAD_COS = 0.999
+BF16_GRAD_NORM_RDIFF = 0.01
+
+
+def sdpa_kernels(prof) -> dict:
+    """The SDPA kernels of a profiler window, by direction: the backend
+    each ran on (``cudnn``, ``flash``, ``efficient``, or ``math`` when none
+    of theirs ran) and the kernel names."""
+    out = {"forward": [], "backward": []}
+    for e in device_events(prof)[0]:
+        k = e.key
+        backend = ("cudnn" if "sdpa" in k and "cudnn" in k else
+                   "flash" if "flash_fwd" in k or "flash_bwd" in k else
+                   "efficient" if "fmha_cutlass" in k else None)
+        if backend is None:
+            continue
+        bwd = any(s in k for s in ("bprop", "bwd", "cutlassB"))
+        out["backward" if bwd else "forward"].append((backend, k[:80]))
+    return out
+
+
+def grads_of(cfg, params, batch, remat="full"):
+    """The loss and its gradient leaves (``registry.loss_fn``) at
+    ``params``."""
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves, tree_map
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = registry.loss_fn(live, cfg, batch, remat=remat)
+    return loss.detach(), torch.autograd.grad(loss, leaves(live))
+
+
+@contextlib.contextmanager
+def deterministic(mode="strict"):
+    """PyTorch's deterministic algorithms in ``mode`` (``"off"``,
+    ``"warn"``: on with ``warn_only``, ``"strict"``), restored after."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(mode != "off",
+                                       warn_only=mode == "warn")
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def sdpa_repeatability(device):
+    """Whether attention's backward is bitwise repeatable on the card, as
+    the training step calls it (``layers.attention``: K and V repeated
+    from ``kv_heads`` to the query heads, then SDPA with ``is_causal``):
+    ``SDPA_REPEAT["calls"]`` forward and backward calls on the same
+    inputs and cotangent, under each mode of :func:`deterministic`, in
+    bf16 and f32, with each fused backend forced and by PyTorch's own
+    choice.  Returns {(mode, dtype, backend): (bitwise, worst
+    |difference| over out, dq, dk, dv, what ran)}, None where the backend
+    refused the call.  What PyTorch chose is the forced backend whose
+    forward output its own equals bitwise (the forwards are
+    deterministic and differ between backends), else ``math``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import warnings
+    from repro_torch.models import layers
+    P = SDPA_REPEAT
+    g = torch.Generator(device=device).manual_seed(7)
+    B, S, D = P["batch"], P["seq"], P["head_dim"]
+    pos = torch.arange(S, dtype=torch.int32, device=device)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=device,
+                                   dtype=dt)
+                       for h in (P["heads"], P["kv_heads"], P["kv_heads"],
+                                 P["heads"]))
+
+        def call():
+            a, b, c = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o = layers.attention(a, b, c, pos, pos, causal=True)
+            return (o.detach(),) + torch.autograd.grad(o, (a, b, c), do)
+
+        for mode in ("off", "warn", "strict"):
+            fwd = {}
+            for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION",
+                         "EFFICIENT_ATTENTION", "default"):
+                forced = name != "default"
+                key = (mode, str(dt).split(".")[1], name)
+                try:
+                    with warnings.catch_warnings(), deterministic(mode), \
+                            (sdpa_kernel(getattr(SDPBackend, name)) if forced
+                             else contextlib.nullcontext()):
+                        warnings.simplefilter("ignore")
+                        runs = [call() for _ in range(P["calls"])]
+                except RuntimeError:
+                    out[key] = None
+                    continue
+                first = runs[0]
+                worst = max(float((a.float() - b.float()).abs().max())
+                            for r in runs[1:] for a, b in zip(first, r))
+                ran = name.split("_")[0].lower()
+                if forced:
+                    fwd[ran] = first[0]
+                else:
+                    ran = "/".join(b for b, o in fwd.items()
+                                   if torch.equal(o, first[0])) or "math"
+                out[key] = (worst == 0.0, worst, ran)
+    return out
+
+
+def phase_train(device):
+    """Phase 16: ``qwen2-0.5b`` trained at full width from seeds; see the
+    module docstring."""
+    import io
+    import tempfile
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.runtime import FailureInjector, run_resilient
+    from repro_torch.train.serve_step import _cast
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch import kernels
+    from repro_torch.tree import leaves, leaves_with_path
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    cfg = get_config(LM_ARCH)
+    gb = 1e9
+    T = TRAIN
+
+    # (a) the launcher, then a resume
+    def launch(steps, ckpt):
+        buf = io.StringIO()
+        argv = ["--batch", str(T["batch"]), "--seq", str(T["seq"]),
+                "--microbatches", str(T["microbatches"]), "--steps",
+                str(steps), "--save-every", str(T["save_every"]), "--ckpt",
+                ckpt, "--device", str(device)]
+        torch.cuda.reset_peak_memory_stats(device)
+        with contextlib.redirect_stdout(buf):
+            run, counts, wall = counted(lambda: train.main(argv))
+        check_only(counts, {}, "lm train")
+        for line in buf.getvalue().splitlines():
+            say(f"[train] (a) | {line}")
+        finite = all(math.isfinite(x) for x in run.losses + run.grad_norms)
+        assert finite, (run.losses, run.grad_norms)
+        return run, buf.getvalue(), wall, torch.cuda.max_memory_allocated(
+            device)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        run, _, wall, peak = launch(T["steps"], ckpt)
+        ms = [s * 1e3 for s in run.step_s[2:]]
+        ms_step = float(np.median(ms))
+        tokens = T["batch"] * T["seq"]
+        say(f"[train] (a) launch.train bf16, batch {T['batch']}, seq "
+            f"{T['seq']}, microbatches {T['microbatches']}: {T['steps']} "
+            f"steps in {wall:.3f} s; ms a step (steps 2-{T['steps'] - 1}) "
+            f"{', '.join(f'{m:.3f}' for m in ms)}, median {ms_step:.3f}; "
+            f"{tokens * 1e3 / ms_step:.1f} tokens/s; peak {peak / gb:.3f} "
+            f"GB; losses {', '.join(f'{x:.4f}' for x in run.losses)}; "
+            f"grad norms {', '.join(f'{x:.4f}' for x in run.grad_norms)}; "
+            f"no kernel of the port launched")
+        p0 = registry.init_params(0, cfg, torch.bfloat16, device=device)
+        unchanged = [p for (p, a), b in zip(
+            leaves_with_path(run.state.params), leaves(p0))
+            if torch.equal(a, b)]
+        assert not unchanged, f"parameters unchanged by training: {unchanged}"
+        idle = [p for p, m in leaves_with_path(run.state.opt)
+                if p != "step" and not bool(m.abs().max() > 0)]
+        assert not idle, f"optimizer moments still zero: {idle}"
+        say(f"[train] (a) every parameter leaf changed; every moment "
+            f"nonzero; optimizer step {int(run.state.opt.step)}")
+        del p0, run
+        run, out, wall, peak2 = launch(T["resume_to"], ckpt)
+        assert f"resumed from step {T['steps']}" in out, out
+        assert run.start == T["steps"] and len(run.losses) == \
+            T["resume_to"] - T["steps"]
+        say(f"[train] (a) resumed from step {run.start}: "
+            f"{len(run.losses)} steps in {wall:.3f} s (restore and saves "
+            f"included), peak {peak2 / gb:.3f} GB")
+
+    # one step under the profiler: the SDPA backend of both directions
+    tc = dataclasses.replace(train.TrainConfig(), seq_len=T["seq"],
+                             global_batch=T["batch"],
+                             microbatches=T["microbatches"],
+                             accum_dtype="float32", remat="full")
+    step_fn = make_train_step(cfg, tc)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=T["seq"],
+                           global_batch=T["batch"])
+    batch = train.batch_at(data, cfg, T["resume_to"], device)
+    state = run.state
+    del run
+    torch.cuda.synchronize(device)
+    # the card's kernels only (a CPU rehearsal records its ops)
+    with profile(activities=[ProfilerActivity.CUDA if device.type == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize(device)
+    sd = sdpa_kernels(prof)
+    kern, _ = device_events(prof)
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:6]
+    say(f"[train] (a) done at {time.perf_counter() - t_phase:.1f} s; "
+        f"profiler, one step: {sum(e.count for e in kern)} "
+        f"kernels, {busy:.3f} ms of device time; SDPA forward "
+        f"{sorted(set(sd['forward']))}, backward "
+        f"{sorted(set(sd['backward']))}; top kernels "
+        + "; ".join(f"{e.key[:60]} {e.device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in top))
+    for d in ("forward", "backward"):
+        assert sd[d], f"no fused SDPA kernel in the {d}: the math backend"
+    del state, batch, prof
+
+    # (b) bf16 against f32 gradients, same weights, one microbatch
+    mb = T["batch"] // T["microbatches"]
+    params32 = registry.init_params(2, cfg, torch.float32, device=device)
+    b = {k: v[:mb] for k, v in train.batch_at(data, cfg, 0, device).items()}
+    l32, g32 = grads_of(cfg, params32, b)
+    l16, g16 = grads_of(cfg, _cast(params32, torch.bfloat16), b)
+    f32 = torch.cat([g.flatten() for g in g32])
+    f16 = torch.cat([g.float().flatten() for g in g16])
+    cos = float(torch.dot(f16, f32) / (f16.norm() * f32.norm()))
+    rdiff = abs(float(f16.norm() / f32.norm()) - 1.0)
+    say(f"[train] (b) at {time.perf_counter() - t_phase:.1f} s: bf16 "
+        f"against f32 gradients of the same weights, "
+        f"batch {mb} x {T['seq']}: losses {float(l16):.6f}, "
+        f"{float(l32):.6f}; cosine {cos:.6f} (limit {BF16_GRAD_COS}), "
+        f"norms {float(f16.norm()):.6f}, {float(f32.norm()):.6f}, relative "
+        f"difference {rdiff:.6f} (limit {BF16_GRAD_NORM_RDIFF})")
+    assert cos >= BF16_GRAD_COS, cos
+    assert rdiff <= BF16_GRAD_NORM_RDIFF, rdiff
+    del g32, g16, f32, f16
+
+    # (c) f32, TF32 off: the fused SDPA backward against the math backend
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, S = TRAIN_F32["batch"], TRAIN_F32["seq"]
+    bc = {k: v[:B, :S] for k, v in b.items()}
+    with sdpa_kernel(getattr(SDPBackend, TRAIN_F32_FUSED)):
+        _, fused = grads_of(cfg, params32, bc)
+    with sdpa_kernel(SDPBackend.MATH):
+        _, plain = grads_of(cfg, params32, bc)
+    worst, where = 0.0, ""
+    for (path, _), a, w in zip(leaves_with_path(params32), fused, plain):
+        r = float(((a - w).abs() / (TRAIN_TOL + TRAIN_TOL * w.abs())).max())
+        if r >= worst:
+            worst, where = r, path
+    say(f"[train] (c) at {time.perf_counter() - t_phase:.1f} s: f32 "
+        f"gradients, batch {B} x {S}: SDPA's {TRAIN_F32_FUSED} "
+        f"backend against the math backend, every leaf: worst |a - b| / "
+        f"(atol + rtol |b|) {worst:.4f} at {where} (rtol = atol = "
+        f"{TRAIN_TOL})")
+    assert worst <= 1.0, (worst, where)
+    del params32, fused, plain, b, bc
+
+    # (d) SDPA's backward repeated: the reason (d) runs deterministic
+    # algorithms
+    rep = sdpa_repeatability(device)
+    Q = SDPA_REPEAT
+    for mode, dt in dict.fromkeys(k[:2] for k in rep):
+        say(f"[train] (d) attention's backward, {Q['calls']} calls of "
+            f"batch {Q['batch']} x {Q['seq']}, {Q['heads']} heads over "
+            f"{Q['kv_heads']} KV heads, {dt}, deterministic algorithms "
+            f"{mode}: " + "; ".join(
+                f"{name}: " + ("refused" if r is None else
+                               f"bitwise {r[0]}, worst {r[1]:.3e}, ran "
+                               f"{r[2]}")
+                for (m, d, name), r in rep.items() if (m, d) == (mode, dt)))
+    for dt in ("bfloat16", "float32"):
+        assert rep[("strict", dt, "default")][0], rep
+    del rep
+
+    # (d) run_resilient against an uninterrupted run, bitwise
+    R = RESILIENT
+    cfg4 = dataclasses.replace(cfg, n_layers=R["layers"])
+    tc4 = dataclasses.replace(tc, microbatches=1, global_batch=R["batch"],
+                              seq_len=R["seq"])
+    data4 = SyntheticTokens(vocab=cfg.vocab, seq_len=R["seq"],
+                            global_batch=R["batch"])
+    step4 = make_train_step(cfg4, tc4)
+
+    def batch4(s):
+        return train.batch_at(data4, cfg4, s, device)
+
+    with deterministic():
+        state0 = init_state(0, cfg4, tc4, device=device)
+        ref = state0
+        for s in range(R["steps"]):
+            ref, _ = step4(ref, batch4(s))
+        inj = FailureInjector(fail_at=R["fail_at"])
+        with tempfile.TemporaryDirectory() as ck:
+            t0 = time.perf_counter()
+            final = run_resilient(step4, state0, batch4, R["steps"], ck,
+                                  save_every=R["save_every"], injector=inj)
+            torch.cuda.synchronize(device)
+            t_res = time.perf_counter() - t0
+    assert inj.fired == set(R["fail_at"]), inj.fired
+    diff = [p for (p, a), b in zip(leaves_with_path(ref), leaves(final))
+            if not torch.equal(a, b)]
+    say(f"[train] (d) at {time.perf_counter() - t_phase:.1f} s: "
+        f"run_resilient, {R['layers']} layers, batch "
+        f"{R['batch']} x {R['seq']}, {R['steps']} steps, save every "
+        f"{R['save_every']}, failures at {R['fail_at']}: {t_res:.3f} s; "
+        f"leaves differing from the uninterrupted run: {diff or 'none'} "
+        f"(deterministic algorithms on)")
+    assert not diff, diff
+    del state0, ref, final
+    check_only(kernels.launches(), {}, "phase 16")
+    say(f"[train] phase 16: {time.perf_counter() - t_phase:.1f} s; no "
+        f"kernel of the port launched in it")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -4699,7 +5075,7 @@ def main(argv=None) -> int:
         return 0
     small_compacted = phase_small(device, "cuda")
     say(f"[time] small runs done at {time.perf_counter() - t_start:.1f} s")
-    MAIN_LAUNCHES.clear()                   # phases 5-15 tally from here
+    MAIN_LAUNCHES.clear()                   # phases 5-16 tally from here
     recs, lane0, svc_ref = phase_full(device, timer)
     say(f"[time] slice 1 phases done at {time.perf_counter() - t_start:.1f} s")
     grid_recs, grid_off = phase_grid(device, timer)
@@ -4739,6 +5115,9 @@ def main(argv=None) -> int:
     say(f"[time] analysis done at {time.perf_counter() - t_start:.1f} s")
     phase_lm(device, timer, errs)
     say(f"[time] LM phase done at {time.perf_counter() - t_start:.1f} s")
+    phase_train(device)
+    say(f"[time] LM training phase done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
     say(f"[gram] launches over phases 5-13 and 15: {n_gram}; bank and Gram "

@@ -1,0 +1,7 @@
+"""Checkpointing of the port (``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, latest_step,
+                                         restore_checkpoint, save_checkpoint)
+
+__all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint",
+           "save_checkpoint"]

@@ -1,24 +1,25 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention, gated MLP.
 
-The port of ``repro.models.layers``, forward only (serving and feature
-extraction; the backward comes with training).  Tensors keep the
-reference's layouts: activations (B, S, d), heads (B, S, H, hd), weights
-as :class:`AttnParams` / :class:`MLPParams` below.  The projections, the
-MLP and the logits are matmuls, as the reference's einsums are: none of
-them is a Pallas kernel there.
+The port of ``repro.models.layers``; autograd differentiates it for
+training.  Tensors keep the reference's layouts: activations (B, S, d),
+heads (B, S, H, hd), weights as :class:`AttnParams` / :class:`MLPParams`
+below.  The projections, the MLP and the logits are matmuls, as the
+reference's einsums are: none of them is a Pallas kernel there.
 
 Attention is one function here.  The reference computes it with two
 schedules of the same arithmetic (its ``_chunk_attn`` scan and
 ``flash.flash_attention``, chosen by the ``REPRO_ATTN`` environment
 variable); :func:`attention` computes that function, causal or windowed
 GQA softmax attention on absolute positions, with
-``torch.nn.functional.scaled_dot_product_attention``.  Decode attention
+``torch.nn.functional.scaled_dot_product_attention``, whose own backward
+is the gradient (the tests hold it against ``jax.vjp`` of the reference's
+``flash_attention``).  Decode attention
 (:func:`attn_decode`) follows the reference op for op: dots against the
 cache in its storage dtype, accumulated in float32, masked scores
 ``NEG``.
 
 Parameter trees are NamedTuples whose leaves are tensors or ``None`` (an
-absent bias); :func:`tree_map` walks them.
+absent bias); :func:`repro_torch.tree.tree_map` walks them.
 """
 
 from __future__ import annotations
@@ -29,16 +30,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import tree_map  # noqa: F401  (the models' walker)
+
 NEG = -1e30
-
-
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a NamedTuple tree; ``None`` stays ``None``."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, t) for t in tree))
-    return fn(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -75,19 +69,28 @@ def rms_norm(x, scale, eps=1e-6):
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope(x, positions, theta=10_000.0):
-    """Rotary embedding, llama-style half rotation.
-
-    x: (..., S, H, D); positions: (..., S) int.  The frequencies are
-    ``exp(-arange(half) * log(theta) / half)`` in float32, the reference's
-    formula (``theta ** (-2i / D)`` rounds differently)."""
-    half = x.shape[-1] // 2
+def rope_tables(positions, dim: int, theta=10_000.0):
+    """cos and sin of RoPE's angles, each (..., S, 1, dim // 2) float32,
+    for heads of ``dim`` at ``positions`` (..., S) int.  The frequencies
+    are ``exp(-arange(half) * log(theta) / half)`` in float32, the
+    reference's formula (``theta ** (-2i / D)`` rounds differently)."""
+    half = dim // 2
     freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device)
+                                    device=positions.device)
                       * (math.log(theta) / half))
     ang = positions[..., None].float() * freqs          # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]                  # (..., S, 1, half)
-    sin = torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rope(x, tables):
+    """Rotary embedding, llama-style half rotation.
+
+    x: (..., S, H, D); ``tables``: :func:`rope_tables` of x's positions
+    (the reference's ``rope(x, positions, theta)`` computes them in each
+    call; a forward or decode step here computes them once for every
+    layer)."""
+    half = x.shape[-1] // 2
+    cos, sin = tables
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin,
                       xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
@@ -105,8 +108,18 @@ def attention(q, k, v, q_positions, k_positions, *, causal=True, window=0):
     ``q_pos >= k_pos`` (causal) and ``q_pos - k_pos < window`` (window >
     0).  Self-attention over one sequence passes the same ascending
     positions tensor twice; that is the top-left causal mask, which
-    ``is_causal`` gives without a mask tensor."""
+    ``is_causal`` gives without a mask tensor.
+
+    Grouped heads (KH < H) are handed to SDPA with K and V repeated to H
+    heads, head h reading KV head h // G, the reference's grouping.  With
+    ``enable_gqa`` instead, PyTorch has no fused kernel for float32 or for
+    a mask tensor other than cuDNN's (bf16 only), and the math backend
+    then holds every (Sq, T) score; the repeat is a (B, T, H, D) copy, and
+    its backward sums each group's gradients."""
     Sq, T = q.shape[1], k.shape[1]
+    H, KH = q.shape[2], k.shape[2]
+    if KH != H:
+        k, v = (_repeat_heads(t, H // KH) for t in (k, v))
     mask, is_causal = None, False
     if causal and window == 0 and q_positions is k_positions and Sq == T:
         is_causal = True
@@ -119,8 +132,16 @@ def attention(q, k, v, q_positions, k_positions, *, causal=True, window=0):
             mask &= rel < window
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+        attn_mask=mask, is_causal=is_causal)
     return out.transpose(1, 2)
+
+
+def _repeat_heads(t, G: int):
+    """(B, T, KH, D) -> (B, T, KH * G, D), each KV head repeated G times
+    next to itself (an expand and a copy; no index gather, whose backward
+    on the card would add with atomics)."""
+    B, T, KH, D = t.shape
+    return t[:, :, :, None].expand(B, T, KH, G, D).reshape(B, T, KH * G, D)
 
 
 class AttnParams(NamedTuple):
@@ -149,14 +170,14 @@ def attn_project(p: AttnParams, x):
     return q, k, v
 
 
-def attn_qkv(p: AttnParams, x, positions, theta):
-    """Project + RoPE (theta=None skips rotary — whisper-style absolute).
+def attn_qkv(p: AttnParams, x, tables):
+    """Project + RoPE (``tables``: :func:`rope_tables` of x's positions;
+    None skips rotary — whisper-style absolute).
 
     x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KH,hd)."""
     q, k, v = attn_project(p, x)
-    if theta is not None:
-        q = rope(q, positions, theta)
-        k = rope(k, positions, theta)
+    if tables is not None:
+        q, k = rope(q, tables), rope(k, tables)
     return q, k, v
 
 
@@ -166,10 +187,12 @@ def attn_out(p: AttnParams, o):
     return o.flatten(-2) @ p.wo.reshape(h * k, d)
 
 
-def attn_apply(p: AttnParams, cfg, x, positions, *, causal=True, window=0):
-    """Full-sequence self-attention (prefill / feature extraction)."""
-    theta = cfg.rope_theta if cfg.use_rope else None
-    q, k, v = attn_qkv(p, x, positions, theta)
+def attn_apply(p: AttnParams, cfg, x, positions, tables, *, causal=True,
+               window=0):
+    """Full-sequence self-attention (training, prefill, feature
+    extraction); ``tables`` as :func:`attn_qkv` takes them (None when
+    ``cfg`` has no RoPE)."""
+    q, k, v = attn_qkv(p, x, tables)
     o = attention(q, k, v, positions, positions, causal=causal,
                   window=window)
     return attn_out(p, o), (k, v)
@@ -214,20 +237,17 @@ def kv_cache_from_prefill(k, v, positions, capacity, dtype) -> KVCache:
     return cache
 
 
-def attn_decode(p: AttnParams, cfg, x, cache: KVCache, pos: int, *,
-                window=0):
+def attn_decode(p: AttnParams, cfg, x, cache: KVCache, pos: int, tables,
+                *, window=0):
     """One-token decode against a ring cache.
 
-    x: (B, 1, d); pos: the new token's absolute position (an int).  The
-    new k, v and position are written into ``cache`` in place, at slot
-    ``pos % Tc`` (the reference donates its cache for the same update).
-    Returns (y, cache)."""
+    x: (B, 1, d); pos: the new token's absolute position (an int);
+    ``tables``: :func:`rope_tables` of ``pos`` as a (1,) tensor, None when
+    ``cfg`` has no RoPE.  The new k, v and position are written into
+    ``cache`` in place, at slot ``pos % Tc`` (the reference donates its
+    cache for the same update).  Returns (y, cache)."""
     B = x.shape[0]
-    q, k, v = attn_project(p, x)
-    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    if cfg.use_rope:
-        q = rope(q, posv, cfg.rope_theta)
-        k = rope(k, posv, cfg.rope_theta)
+    q, k, v = attn_qkv(p, x, tables)
     Tc, KH = cache.k.shape[1], cache.k.shape[2]
     slot = pos % Tc
     cache.k[:, slot] = k[:, 0]

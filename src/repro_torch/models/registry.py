@@ -1,5 +1,5 @@
 """Unified model API across families (the port of
-``repro.models.registry``'s serving half).
+``repro.models.registry``: the forward, the training loss and serving).
 
 The dense and VLM families run here.  The MoE, SSM, hybrid and
 encoder-decoder families are configs only so far: every call that needs
@@ -65,12 +65,29 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
     return out
 
 
-def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any]):
+def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any],
+                   remat: str = "none"):
     """Family-dispatched forward.  Returns (logits, aux_loss)."""
     mod = get_module(cfg)
     if cfg.family == "vlm":
-        return mod.apply(params, cfg, batch["tokens"], batch["patches"]), 0.0
-    return mod.apply(params, cfg, batch["tokens"]), 0.0
+        return mod.apply(params, cfg, batch["tokens"], batch["patches"],
+                         remat=remat), 0.0
+    return mod.apply(params, cfg, batch["tokens"], remat=remat), 0.0
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any],
+            remat: str = "none", aux_weight: float = 0.01):
+    """Next-token cross entropy (+ the MoE load-balance aux, 0 for the
+    dense and VLM families): the logits in float32, ``logsumexp`` minus
+    the gold logit, averaged.  Returns (loss, {"nll", "aux"})."""
+    logits, aux = forward_logits(params, cfg, batch, remat)
+    logits = logits.float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None],
+                                dim=-1).squeeze(-1)
+    nll = torch.mean(logz - gold)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, horizon: int,

@@ -1,9 +1,12 @@
 """Dense GQA decoder-only LM (stablelm / qwen / deepseek / VLM backbone).
 
-The port of ``repro.models.transformer``, forward only.  Block parameters
-are stacked along a leading L axis, as the reference's are; the layers run
-in a Python loop over views of that stack.  Parameters are drawn from an
-explicit ``torch.Generator`` (or a seed), on the CUDA card unless the
+The port of ``repro.models.transformer``.  Block parameters are stacked
+along a leading L axis, as the reference's are; the layers run in a Python
+loop over views of that stack.  :func:`apply` is the training forward too:
+autograd runs through it, and ``remat="full"`` recomputes each block in the
+backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` around its scan body does.  Parameters are drawn from
+an explicit ``torch.Generator`` (or a seed), on the CUDA card unless the
 caller passes ``device="cpu"``.
 """
 
@@ -12,9 +15,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.tree import leaves, unflatten
 
 
 class BlockParams(NamedTuple):
@@ -110,9 +115,13 @@ def init_params(generator, cfg, dtype=torch.float32, *,
         unembed=None if s.unembed is None else embed(s.unembed))
 
 
-def layer(tree, i: int):
-    """Layer ``i`` of a stacked (L, ...) tree: views, no copies."""
-    return L.tree_map(lambda t: t[i], tree)
+def layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked (L, ...) tree, views from one
+    ``unbind`` a leaf.  Under autograd the backward of each ``unbind``
+    stacks the layers' gradients once, where ``n`` selections would each
+    write a zero-filled gradient the size of the whole stack."""
+    stacks = [t.unbind(0) for t in leaves(tree)]
+    return [unflatten(tree, [s[i] for s in stacks]) for i in range(n)]
 
 
 def _embed(params: DenseParams, tokens, prefix_embeds):
@@ -133,24 +142,46 @@ def _unembed(params: DenseParams, cfg, x):
     return L.logits_proj(table, x)
 
 
-def apply(params: DenseParams, cfg, tokens, *,
+REMAT = ("none", "full", "selective")
+
+
+def _rope_tables(cfg, positions):
+    """The RoPE tables of a forward, once for all its layers (None
+    without rotary embeddings)."""
+    return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta) \
+        if cfg.use_rope else None
+
+
+def _block_apply(cfg, positions, tables, x, blk: BlockParams):
+    h, _ = L.attn_apply(blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps),
+                        positions, tables, causal=True,
+                        window=cfg.sliding_window)
+    return _mlp_residual(x + h, blk, cfg)
+
+
+def apply(params: DenseParams, cfg, tokens, *, remat: str = "none",
           prefix_embeds: Optional[torch.Tensor] = None,
           return_hidden: bool = False) -> torch.Tensor:
-    """Forward: (B, S) int tokens -> (B, S, V) logits.
+    """Train/eval forward: (B, S) int tokens -> (B, S, V) logits.
 
-    ``prefix_embeds`` (B, P, d) replace the first P embedding rows (VLM
-    patch embeddings; not prepended).  ``return_hidden`` yields the final
-    normed hidden states (B, S, d) instead of logits (feature extraction,
-    SVM probes)."""
+    ``remat``: ``"full"`` saves only each block's input for the backward
+    and recomputes the block there; ``"selective"`` is ``"none"`` in the
+    dense model, as in the reference.  ``prefix_embeds`` (B, P, d) replace
+    the first P embedding rows (VLM patch embeddings; not prepended).
+    ``return_hidden`` yields the final normed hidden states (B, S, d)
+    instead of logits (feature extraction, SVM probes)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     x = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
-    for i in range(cfg.n_layers):
-        blk = layer(params.blocks, i)
-        h, _ = L.attn_apply(blk.attn, cfg,
-                            L.rms_norm(x, blk.ln1, cfg.norm_eps), positions,
-                            causal=True, window=cfg.sliding_window)
-        x = _mlp_residual(x + h, blk, cfg)
+    tables = _rope_tables(cfg, positions)
+    for blk in layers(params.blocks, cfg.n_layers):
+        if remat == "full":
+            x = checkpoint(_block_apply, cfg, positions, tables, x, blk,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block_apply(cfg, positions, tables, x, blk)
     if return_hidden:
         return L.rms_norm(x, params.ln_f, cfg.norm_eps)
     return _unembed(params, cfg, x)
@@ -185,12 +216,12 @@ def prefill(params: DenseParams, cfg, tokens, horizon,
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
     cap = cache_capacity(cfg, horizon)
+    tables = _rope_tables(cfg, positions)
     kvs = []
-    for i in range(cfg.n_layers):
-        blk = layer(params.blocks, i)
+    for blk in layers(params.blocks, cfg.n_layers):
         h, (k, v) = L.attn_apply(
             blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps), positions,
-            causal=True, window=cfg.sliding_window)
+            tables, causal=True, window=cfg.sliding_window)
         x = _mlp_residual(x + h, blk, cfg)
         kvs.append(L.kv_cache_from_prefill(k, v, positions, cap, kv_dtype))
     kv = L.KVCache(*(torch.stack(leaves) for leaves in zip(*kvs)))
@@ -203,11 +234,12 @@ def decode_step(params: DenseParams, cfg, cache: Cache, tokens, pos):
     returns (logits (B, 1, V), cache)."""
     pos = int(pos)
     x = L.embed_lookup(params.embed, tokens)
-    for i in range(cfg.n_layers):
-        blk = layer(params.blocks, i)
+    tables = _rope_tables(cfg, torch.full((1,), pos, dtype=torch.int32,
+                                          device=x.device))
+    n = cfg.n_layers
+    for blk, kv in zip(layers(params.blocks, n), layers(cache.kv, n)):
         h, _ = L.attn_decode(blk.attn, cfg,
-                             L.rms_norm(x, blk.ln1, cfg.norm_eps),
-                             layer(cache.kv, i), pos,
-                             window=cfg.sliding_window)
+                             L.rms_norm(x, blk.ln1, cfg.norm_eps), kv, pos,
+                             tables, window=cfg.sliding_window)
         x = _mlp_residual(x + h, blk, cfg)
     return _unembed(params, cfg, x), cache

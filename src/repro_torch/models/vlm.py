@@ -17,9 +17,10 @@ init_params = T.init_params
 init_cache = T.init_cache
 
 
-def apply(params, cfg, tokens, patch_embeds, *, return_hidden: bool = False):
-    return T.apply(params, cfg, tokens, prefix_embeds=patch_embeds,
-                   return_hidden=return_hidden)
+def apply(params, cfg, tokens, patch_embeds, *, remat: str = "none",
+          return_hidden: bool = False):
+    return T.apply(params, cfg, tokens, remat=remat,
+                   prefix_embeds=patch_embeds, return_hidden=return_hidden)
 
 
 def prefill(params, cfg, tokens, patch_embeds, horizon,

@@ -1,1 +1,2 @@
-"""Serving steps of the port (``repro.train``'s ``serve_step``)."""
+"""Training and serving steps of the port (``repro.train``): the
+optimizers, int8 gradient compression, the training step and serving."""

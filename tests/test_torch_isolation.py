@@ -456,3 +456,56 @@ def test_serve_production_mesh_raises_not_implemented():
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="step 15"):
         serve.main(["--smoke", "--device", "cpu", "--production-mesh"])
+
+
+def test_importing_the_training_path_loads_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("import sys, repro_torch.tree, repro_torch.train.optimizer, "
+            "repro_torch.train.compression, repro_torch.train.train_step, "
+            "repro_torch.data, repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.launch.train; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _train_entry_call(entry, device, tmp_path):
+    """One call of a training entry point on the qwen2 smoke config."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.train.train_step import init_state
+    cfg = get_smoke("qwen2-0.5b")
+    tc = TrainConfig(param_dtype="float32", compute_dtype="float32")
+    kw = {} if device is None else {"device": device}
+    if entry == "init_state":
+        return init_state(0, cfg, tc, **kw).params.embed
+    if entry == "restore_checkpoint":
+        like = {"w": torch.zeros(3)}
+        save_checkpoint(str(tmp_path), 1, like)
+        return restore_checkpoint(str(tmp_path), 1, like, **kw)["w"]
+    argv = ["--smoke", "--steps", "1", "--batch", "2", "--seq", "8",
+            "--ckpt", str(tmp_path / "ck")]
+    return train.main(argv + ([] if device is None else
+                              ["--device", device])).state.params.embed
+
+
+@pytest.mark.parametrize("entry", ["init_state", "restore_checkpoint",
+                                   "launch_train"])
+def test_train_entry_points_without_a_card_raise(no_cuda, entry, tmp_path):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _train_entry_call(entry, None, tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _train_entry_call(entry, "cuda", tmp_path)
+    assert _train_entry_call(entry, "cpu", tmp_path).device.type == "cpu"
+
+
+def test_train_production_mesh_raises_not_implemented():
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="step 15"):
+        train.main(["--smoke", "--device", "cpu", "--production-mesh"])

@@ -75,7 +75,7 @@ def test_rope_matches_reference(theta):
     x = rng.normal(size=(2, 9, 3, 8)).astype(np.float32)
     pos = np.arange(9, dtype=np.int32) + 5
     np.testing.assert_allclose(
-        L.rope(_t(x), _t(pos), theta).numpy(),
+        L.rope(_t(x), L.rope_tables(_t(pos), 8, theta)).numpy(),
         np.asarray(JL.rope(jnp.asarray(x), jnp.asarray(pos), theta)),
         **LAYER_TOL)
 
@@ -179,7 +179,8 @@ def test_attn_decode_matches_reference(case):
     got_y, got_c = L.attn_decode(
         L.AttnParams(*map(_t, w)), cfg, _t(x),
         L.KVCache(_t(kc).to(tdt), _t(vc).to(tdt), _t(kpos)), pos,
-        window=window)
+        L.rope_tables(torch.full((1,), pos, dtype=torch.int32), D,
+                      cfg.rope_theta), window=window)
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
                                **MODEL_TOL)
     np.testing.assert_array_equal(got_c.kpos.numpy(),
