@@ -22,7 +22,12 @@ failure raises and the script exits non-zero without a result line:
    mask bitwise equal to G without, a mu = 0 lane, per-lane gammas, lanes
    spread over the bank's entries, both gain rules, a false and a true
    relaunch flag, a mu = mu2 = 0 lane bitwise, a mu2 = 0 lane bitwise
-   equal to the variant without the direction).
+   equal to the variant without the direction).  The bank passes are
+   also held in the reference's rows form (``ops.row_wss_batched_rows``
+   on pre-gathered ``KR``, ``ops.update_wss_batched_rows`` on ``KRi``,
+   ``KRj``: the same kernels reading the rows as a bank of one-row
+   entries), bitwise equal to the bank form and within the tolerance of
+   their plain versions.
    Every variant of kernels 1 and 2 is also held at the edges of their
    tiling (``TILE_EDGES``: one column past a block, lane counts around a
    group, X streamed per group, one feature), and kernels 6 and 7 at the
@@ -207,6 +212,45 @@ failure raises and the script exits non-zero without a result line:
    and 5, under PyTorch's deterministic algorithms: parameters and
    optimizer state bitwise equal to an uninterrupted run.  The phase's time is
    printed.
+17. the MoE family (step 15c), ``mixtral-8x7b`` at full width (d_model
+   4096, 32 heads, 8 KV heads, d_ff 14336, 8 experts, top-2, window
+   4096, vocab 32000) at 2 of its 32 layers, from seeds: (a)
+   ``init_params`` in bf16 (parameter count beside ``param_count()``,
+   peak memory); (b) ``greedy_generate`` in bf16, batch 8, prompt 512, 32
+   new tokens, twice (tokens bitwise equal; prefill ms, decode ms a step,
+   tokens/s, peak memory), the aten ops of one decode step and the share
+   of (token, k) picks the prefill dropped at capacity factor 1.25, by
+   layer; (c) in f32 with capacity factor 8 (nothing drops), TF32 off,
+   prefill 256 and 8 teacher-forced decode steps against
+   ``forward_logits`` on all 264 (rtol = atol = 2e-3, batch 2), then the
+   same weights in bf16 against f32: the share of routing picks that
+   agree, max |diff| of the logits (printed, not gated: one flipped pick
+   moves a token's logits by a whole expert's output) and top-1 agreement
+   at least 0.9; (d) 4 training steps (``make_train_step``, bf16
+   parameters and compute, an f32 accumulator, Adafactor, remat full,
+   batch 4 x 512 in 2 microbatches): every loss, aux and gradient norm
+   finite, every parameter leaf changed, every expert's ``w_gate``
+   gradient nonzero on one microbatch; ms a step, tokens/s, peak memory,
+   the aux.
+18. the Mamba2 SSM family (step 15d), ``mamba2-370m`` at full width and
+   depth (48 layers, d_model 1024, 32 heads of 64, state 128, chunk 256,
+   vocab 50280, tied), from seeds: (a) ``init_params`` in bf16 (count,
+   peak memory); (b) ``greedy_generate`` in bf16, batch 8, prompt 512
+   (two chunks), 64 new tokens, twice and bitwise (prefill ms, decode ms
+   a step, the decode state's size, the aten ops of a decode step, peak
+   memory); (c) in f32 with TF32 off, prefill 256 and 8 decode steps
+   against the forward (2e-3), ``ssd_chunked`` at the model's head shapes
+   over two chunks against the per-step recurrence in f64 on the card
+   (rtol = atol = 1e-4), bf16 against f32 logits (max |diff| at most 0.5,
+   top-1 at least 0.75: ``SSM_BF16_MAX_DIFF``, ``SSM_BF16_TOP1``); (d)
+   ``repro_torch.launch.train.main`` in bf16,
+   AdamW, batch 8 x 512 in 2 microbatches, 4 steps, one save after the
+   last: every loss and gradient norm finite, every moment finite and
+   nonzero, every parameter leaf changed but those whose bf16 spacing is
+   far above the warmup's summed learning rate at every element
+   (printed); ms a step, tokens/s, peak memory, a save of the final state
+   timed apart.  Neither phase launches a kernel of the port: the tally
+   is checked unchanged.  Each phase's time is printed.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows over a
@@ -214,11 +258,11 @@ fit span one check chunk, which the loop runs eagerly, so no graph is
 captured inside them; the window over a compacted round spans replays
 only.
 
-Every counted run of phases 5-13, 15 and 16 (fits, grids, predicts and
+Every counted run of phases 5-13 and 15-18 (fits, grids, predicts and
 decisions, serving, the training launcher; not the bitwise repeat of
 phase 7, the probe's fused reference solve, the profiler windows or the
 timings) adds its launches to one tally, which the kernels' JSON record
-reports (phase 16 adds none);
+reports (phases 16-18 add none);
 a ``[gram]`` line splits the Gram's launches into bank and Gram builds
 (symmetric) and predicts and decisions (cross).  The line before the last is the
 kernels' JSON record; the last is the contract line ``{"ok": true,
@@ -688,8 +732,8 @@ def check_bank_a(a, dtype, label, errs):
     err = _close(f"bank pass A bmax {label}", bmax, pmax, TOL[dtype])
     n_ties = _same_picks(f"bank pass A barg {label}", barg, parg, vals,
                          dtype)
-    j_c, g_c = ops.row_wss_batched_rows(*args, impl="cuda")
-    j_t, g_t = ops.row_wss_batched_rows(*args, impl="torch")
+    j_c, g_c = ops.row_wss_batched_bank(*args, impl="cuda")
+    j_t, g_t = ops.row_wss_batched_bank(*args, impl="torch")
     err = max(err, _close(f"bank pass A gain {label}", g_c, g_t, TOL[dtype]))
     n_ties += _same_picks(f"bank pass A j {label}", j_c[:, None],
                           j_t[:, None], vals, dtype)
@@ -698,6 +742,21 @@ def check_bank_a(a, dtype, label, errs):
         assert int(j_c[-1]) == 0 and g_c[-1].item() == -math.inf, label
     newton = [b for b in range(0, B - (B > 1), 2)]
     assert (j_c[newton] == 5).all() and (j_t[newton] == 5).all(), label
+    # the reference's rows form: the lanes' rows gathered beforehand, read
+    # by the same kernel as a bank of B one-row entries, bitwise the bank
+    # form's; its plain version within the tolerance
+    KR = ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"]).contiguous()
+    rmax, rarg = rbf_row_wss.row_wss_batched_rows(KR, None, *args[2:])
+    j_r, g_r = ops.row_wss_batched_rows(KR, *args[2:], impl="cuda")
+    if not all(torch.equal(x, y) for x, y in ((rmax, bmax), (rarg, barg),
+                                              (j_r, j_c), (g_r, g_c))):
+        raise AssertionError(f"bank pass A {label}: the rows form differs "
+                             f"from the bank form")
+    j_rt, g_rt = ops.row_wss_batched_rows(KR, *args[2:], impl="torch")
+    err = max(err, _close(f"bank pass A rows form gain {label}", g_r, g_rt,
+                          TOL[dtype]))
+    n_ties += _same_picks(f"bank pass A rows form j {label}", j_r[:, None],
+                          j_rt[:, None], vals, dtype)
     errs.append(err)
     return n_ties
 
@@ -720,8 +779,8 @@ def check_bank_b(b, dtype, label, errs):
     vals = torch.where(b["alpha_new"] < b["U"], G_p, -math.inf)
     n_ties = _same_picks(f"bank pass B barg {label}", barg, parg, vals,
                          dtype)
-    _, i_c, gi_c, gdn_c = ops.update_wss_batched_rows(*args, impl="cuda")
-    _, i_t, gi_t, gdn_t = ops.update_wss_batched_rows(*args, impl="torch")
+    _, i_c, gi_c, gdn_c = ops.update_wss_batched_bank(*args, impl="cuda")
+    _, i_t, gi_t, gdn_t = ops.update_wss_batched_bank(*args, impl="torch")
     err = max(err, _close(f"bank pass B g_i {label}", gi_c, gi_t, TOL[dtype],
                           scale))
     err = max(err, _close(f"bank pass B g_dn {label}", gdn_c, gdn_t,
@@ -732,6 +791,27 @@ def check_bank_b(b, dtype, label, errs):
         assert int(i_c[-1]) == 0 and gi_c[-1].item() == -math.inf, label
     else:
         assert int(i_c[0]) == 5, label
+    # the reference's rows form (KRi, KRj), as in check_bank_a
+    KRi, KRj = (ref.bank_rows(b["gram"], b["gram_idx"], b[k]).contiguous()
+                for k in ("i_idx", "j_idx"))
+    state = [b[k] for k in ("G", "alpha_new", "L", "U")]
+    r_blocks = rbf_update_wss.update_wss_batched_rows(
+        (KRi, KRj), None, *state, None, None, b["mu"])
+    r_c = ops.update_wss_batched_rows(KRi, KRj, *state, b["mu"],
+                                      impl="cuda")
+    r_t = ops.update_wss_batched_rows(KRi, KRj, *state, b["mu"],
+                                      impl="torch")
+    bank_c = ops.update_wss_batched_bank(*args, impl="cuda")
+    if not all(torch.equal(x, y) for x, y in zip(
+            r_blocks + r_c, (G_k, bmax, barg, bmin) + bank_c)):
+        raise AssertionError(f"bank pass B {label}: the rows form differs "
+                             f"from the bank form")
+    for name, x, y in zip(("G", "g_i", "g_dn"), r_c[:1] + r_c[2:],
+                          r_t[:1] + r_t[2:]):
+        err = max(err, _close(f"bank pass B rows form {name} {label}", x, y,
+                              TOL[dtype], scale))
+    n_ties += _same_picks(f"bank pass B rows form i {label}",
+                          r_c[1][:, None], r_t[1][:, None], vals, dtype)
     errs.append(err)
     return n_ties
 
@@ -1057,7 +1137,7 @@ def check_new_a(src, a, act, dtype, label, errs, want, empty, dup):
         plain = lambda: ref.row_wss_batched_rows_blocks(*args, block_l=bl,
                                                         dup=dup, act=act)
         rows = ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"], dup)
-        disp = lambda impl: ops.row_wss_batched_rows(*args, impl=impl,
+        disp = lambda impl: ops.row_wss_batched_bank(*args, impl=impl,
                                                      dup=dup, act=act)
     vals = ref._wss_vals(rows, *[a[k] for k in (
         "G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i", "i_idx",
@@ -1102,7 +1182,7 @@ def check_new_b(src, b, act, dtype, label, errs, want, empty, dup):
                   else pb.update_wss_batched_rows)
         plain = lambda: ref.update_wss_batched_rows_blocks(
             *args, block_l=bl, dup=dup, act=act)
-        disp = lambda impl: ops.update_wss_batched_rows(*args, impl=impl,
+        disp = lambda impl: ops.update_wss_batched_bank(*args, impl=impl,
                                                         dup=dup, act=act)
     G_k, bmax, barg, bmin = (nomask(*args) if act is None else kern(act))
     G_p, pmax, parg, pmin = plain()
@@ -1219,7 +1299,7 @@ def check_conj(src, b, act, dtype, label, errs, want, empty, dup):
                                                        dup=dup, act=act)
         plain = lambda: ref.update_wss_batched_rows_blocks(
             *args, block_l=bl, dup=dup, act=act, dirv=dirv, mu2=mu2)
-        disp = lambda impl, **kw: ops.update_wss_batched_rows(
+        disp = lambda impl, **kw: ops.update_wss_batched_bank(
             *args, impl=impl, dup=dup, act=act, **kw)
     G_k, bmax, barg, bmin, r_k = kern()
     G_p, pmax, parg, pmin, r_p = plain()
@@ -4462,20 +4542,23 @@ def lm_prefill_decode(cfg, params, tokens, S, kv_dtype):
     return torch.cat(got, dim=1), cache
 
 
-def bf16_agrees(bf, full, label):
+def bf16_agrees(bf, full, label, tag="lm", max_diff=BF16_MAX_DIFF,
+                min_top1=BF16_TOP1):
     """bf16 logits against f32 ones of the same weights: max |diff| at
-    most ``BF16_MAX_DIFF`` and top-1 agreement at least ``BF16_TOP1``."""
+    most ``max_diff`` (not gated when None) and top-1 agreement at least
+    ``min_top1``."""
     diff = (bf.float() - full).abs()
     top1 = float((bf.argmax(-1) == full.argmax(-1)).double().mean())
-    say(f"[lm] {label}, bf16 against f32 logits of the same weights "
+    say(f"[{tag}] {label}, bf16 against f32 logits of the same weights "
         f"{tuple(full.shape)}: max abs diff {float(diff.max()):.4f} (limit "
-        f"{BF16_MAX_DIFF}), mean {float(diff.mean()):.5f}, top-1 agreement "
-        f"{top1:.4f} (limit {BF16_TOP1})")
-    assert float(diff.max()) <= BF16_MAX_DIFF, (label, float(diff.max()))
-    assert top1 >= BF16_TOP1, (label, top1)
+        f"{max_diff}), mean {float(diff.mean()):.5f}, top-1 agreement "
+        f"{top1:.4f} (limit {min_top1})")
+    if max_diff is not None:
+        assert float(diff.max()) <= max_diff, (label, float(diff.max()))
+    assert top1 >= min_top1, (label, top1)
 
 
-def lm_decode_check(cfg, params, B, S, extra, device, label):
+def lm_decode_check(cfg, params, B, S, extra, device, label, tag="lm"):
     """Prefill of ``S`` tokens and ``extra`` teacher-forced decode steps in
     f32 against ``forward_logits`` on all ``S + extra``: every logit within
     ``|a - b| <= LM_TOL + LM_TOL |b|``.  Returns the full forward's logits
@@ -4487,13 +4570,18 @@ def lm_decode_check(cfg, params, B, S, extra, device, label):
                                    torch.float32)
     err = (got - full).abs()
     worst = float((err / (LM_TOL + LM_TOL * full.abs())).max())
-    ring = cache.kv.kpos[0]
-    say(f"[lm] (c) {label}: prefill {S} + {extra} decode steps against "
+    if hasattr(cache, "kv"):
+        ring = cache.kv.kpos[0]
+        held = (f"cache slots {ring.numel()}, positions "
+                f"{int(ring.min())}..{int(ring.max())}")
+    else:
+        held = (f"state {tuple(cache.h.shape)} f32 and conv ring "
+                f"{tuple(cache.conv.shape)}")
+    say(f"[{tag}] (c) {label}: prefill {S} + {extra} decode steps against "
         f"forward_logits on {S + extra}, batch {B}, f32: max abs err "
         f"{float(err.max()):.3e} (max |logit| {float(full.abs().max()):.3f})"
         f", worst err / (atol + rtol |b|) {worst:.4f} (rtol = atol = "
-        f"{LM_TOL}); cache slots {ring.numel()}, positions "
-        f"{int(ring.min())}..{int(ring.max())}")
+        f"{LM_TOL}); {held}")
     assert worst <= 1.0, (label, worst)
     return full, batch
 
@@ -4508,19 +4596,57 @@ def decode_ops(cfg, params, cache, tok, pos) -> int:
     return len(rec.ops)
 
 
+def serve_twice(cfg, params, B, S, new, device, label):
+    """Greedy bf16 serving of a seeded prompt, twice, tokens bitwise equal,
+    no kernel of the port launched: (prompt, ServeConfig, walls, peak
+    bytes, tokens)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.train.serve_step import greedy_generate
+    rng = np.random.default_rng(0)
+    prompt = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, S)), dtype=torch.int32,
+        device=device)}
+    sc = ServeConfig(seq_len=S + new, batch=B, param_dtype="bfloat16",
+                     compute_dtype="bfloat16", kv_dtype="bfloat16")
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(device)
+        gen, counts, wall = counted(
+            lambda: greedy_generate(cfg, sc, params, prompt, new,
+                                    device=device))
+        check_only(counts, {}, label)
+        runs.append((gen, wall, torch.cuda.max_memory_allocated(device)))
+    assert torch.equal(runs[0][0], runs[1][0]), f"{label}: tokens differ"
+    assert runs[0][0].shape == (B, new)
+    return (prompt, sc, [r[1] for r in runs], max(r[2] for r in runs),
+            runs[0][0])
+
+
+def prefill_ms(prefill, params, prompt, device, n=3):
+    """``n`` timed calls of ``prefill(params, prompt)``: (ms of each, the
+    last call's result)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        r = prefill(params, prompt)
+        torch.cuda.synchronize(device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out, r
+
+
 def phase_lm(device, timer, errs):
     """Phase 15: ``qwen2-0.5b`` at full width, random weights, served and
     probed; see the module docstring.  The Gram kernel's checks at the
     probe's shapes raise ``errs["gram_block"]`` to their error."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ServeConfig
     from repro_torch.core import multiclass as mc
     from repro_torch.core.solver import SolverConfig
     from repro_torch.kernels import gram_block, ref
     from repro_torch.models import registry
     from repro_torch.svm import probes
-    from repro_torch.train.serve_step import (_cast, greedy_generate,
-                                              greedy_prefill, make_prefill)
+    from repro_torch.train.serve_step import (_cast, greedy_prefill,
+                                              make_prefill)
     t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
     gb = 1e9
@@ -4543,43 +4669,22 @@ def phase_lm(device, timer, errs):
 
     # (b) greedy serving in bf16, twice
     B, S, new = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["new"]
-    rng = np.random.default_rng(0)
-    prompt = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab, (B, S)), dtype=torch.int32,
-        device=device)}
-    sc = ServeConfig(seq_len=S + new, batch=B, param_dtype="bfloat16",
-                     compute_dtype="bfloat16", kv_dtype="bfloat16")
-    runs = []
-    for _ in range(2):
-        torch.cuda.reset_peak_memory_stats(device)
-        gen, counts, wall = counted(
-            lambda: greedy_generate(cfg, sc, params, prompt, new,
-                                    device=device))
-        check_only(counts, {}, "lm serve")
-        runs.append((gen, wall, torch.cuda.max_memory_allocated(device)))
-    assert torch.equal(runs[0][0], runs[1][0]), "greedy tokens differ"
-    assert runs[0][0].shape == (B, new)
-    prefill = make_prefill(cfg, sc)
-    t_pre = []
-    for _ in range(3):
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        served, _ = prefill(params, prompt)
-        torch.cuda.synchronize(device)
-        t_pre.append(time.perf_counter() - t0)
-    walls = [r[1] for r in runs]
-    ms_pre = min(t_pre) * 1e3
+    prompt, sc, walls, peak, gen = serve_twice(cfg, params, B, S, new,
+                                               device, "lm serve")
+    t_pre, (served, _) = prefill_ms(make_prefill(cfg, sc), params, prompt,
+                                    device)
+    ms_pre = min(t_pre)
     ms_tok = (min(walls) * 1e3 - ms_pre) / (new - 1)
     say(f"[lm] (b) greedy_generate bf16, batch {B}, prompt {S}, {new} new "
         f"tokens: walls {walls[0]:.4f} s, {walls[1]:.4f} s (tokens bitwise "
         f"equal); prefill alone {ms_pre:.3f} ms (min of "
-        f"{', '.join(f'{t * 1e3:.3f}' for t in t_pre)}); decode "
+        f"{', '.join(f'{t:.3f}' for t in t_pre)}); decode "
         f"{ms_tok:.3f} ms a step of {B} tokens ((best wall - prefill) / "
         f"{new - 1}); {B * new / min(walls):.1f} tokens/s end to end, "
         f"{B * 1e3 / ms_tok:.1f} tokens/s decoding; peak "
-        f"{max(r[2] for r in runs) / gb:.3f} GB; no kernel of the port "
+        f"{peak / gb:.3f} GB; no kernel of the port "
         f"launched (the LM path reaches no Pallas site); first sequence "
-        f"{runs[0][0][0, :12].tolist()}")
+        f"{gen[0, :12].tolist()}")
     # the host's load: the aten ops one decode step dispatches
     p16, cache, tok = greedy_prefill(cfg, sc, params, prompt, device=device)
     n_ops = decode_ops(cfg, p16, cache, tok, S)
@@ -4680,14 +4785,14 @@ def phase_lm(device, timer, errs):
     item = 8
     n, d, m = nt, cfg.d_model, P["n"] - nt
     g = probe.gamma
-    for tag, kern, plain, nbytes, nops, sym in (
+    for tag, kern, plain, lib, nbytes, nops, sym in (
             (f"Gram {n}^2 x {d} f64, symmetric",
              lambda: gram_block.gram_cross(Xtr, Xtr, g),
-             lambda: ref.gram_cross(Xtr, Xtr, g),
+             lambda: ref.gram_cross(Xtr, Xtr, g), lambda: Xtr @ Xtr.T,
              (n * n + n * d) * item, n * (n + 1) * d + 6 * n * n, True),
             (f"predict {m} x {n} x {d} f64, cross",
              lambda: gram_block.gram_cross(Xte, Xtr, g),
-             lambda: ref.gram_cross(Xte, Xtr, g),
+             lambda: ref.gram_cross(Xte, Xtr, g), lambda: Xte @ Xtr.T,
              (m * n + (m + n) * d) * item, 2 * m * n * d + 6 * m * n,
              False)):
         # the kernel's result at the main path's shapes against the plain
@@ -4705,10 +4810,13 @@ def phase_lm(device, timer, errs):
             + (", bitwise equal to its transpose" if sym else ""))
         del K_k, K_p
         ms_k, ms_p = timer.ms(kern, 10), timer.ms(plain, 5)
+        ms_l = timer.ms(lib, 10)
         bms, by = bound_ms(nbytes, nops, torch.float64)
         say(f"[time] gram_block, the probe's {tag}: kernel {ms_k:.5f} ms, "
-            f"plain {ms_p:.5f} ms, bound {bms:.5f} ms by {by}, share "
-            f"{bms / ms_k:.4f} (inputs warm in the L2)")
+            f"plain {ms_p:.5f} ms, cuBLAS's product alone ("
+            f"{'X @ X.T' if sym else 'Xq @ X.T'}) {ms_l:.5f} ms, bound "
+            f"{bms:.5f} ms by {by}, share {bms / ms_k:.4f} (inputs warm in "
+            f"the L2)")
     del feats, Xtr, Xte, probe, fused, params
     say(f"[lm] phase 15: {time.perf_counter() - t_phase:.1f} s")
 
@@ -5041,6 +5149,421 @@ def phase_train(device):
         f"kernel of the port launched in it")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the MoE family, mixtral-8x7b at full width and 2 layers
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x7b"
+# at its 32 layers the model is about 90 GB in bf16 and fits no card; at 2
+# it is about 3.2 G parameters, 6.3 GB in bf16
+MOE_LAYERS = 2
+# (b) bf16 serving at the config's capacity factor 1.25 (160 slots an
+# expert at S = 512)
+MOE_SERVE = dict(batch=8, prompt=512, new=32)
+# (c) f32 with capacity factor 8, so that nothing drops: prefill +
+# teacher-forced decode against the full forward, then bf16 against f32
+MOE_F32 = dict(batch=2, prompt=256, extra=8, capacity_factor=8.0)
+# (d) bf16 parameters and compute, an f32 accumulator, Adafactor
+MOE_TRAIN = dict(batch=4, seq=512, microbatches=2, steps=4)
+
+
+def moe_drop_share(p, cfg, x) -> float:
+    """The share of the (token, k) picks of ``moe.moe_apply(p, cfg, x)``
+    that the capacity cut drops."""
+    from repro_torch.models import moe
+    _, _, idx = moe.route(p, cfg, x)
+    B, S, K = idx.shape
+    onehot = torch.nn.functional.one_hot(idx, cfg.n_experts).reshape(
+        B, S * K, -1)
+    pos = (torch.cumsum(onehot, 1) - onehot).reshape(B, S, K, -1)
+    slot = torch.take_along_dim(pos, idx[..., None], dim=-1)
+    return float((slot >= moe.capacity(cfg, S)).double().mean())
+
+
+@contextlib.contextmanager
+def moe_spy(fn):
+    """``fn(p, cfg, x)`` on the arguments of every ``moe.moe_apply`` call
+    (one a layer, in order) while the context is open."""
+    from repro_torch.models import moe
+    orig = moe.moe_apply
+
+    def spy(p, cfg, x):
+        fn(p, cfg, x)
+        return orig(p, cfg, x)
+
+    moe.moe_apply = spy
+    try:
+        yield
+    finally:
+        moe.moe_apply = orig
+
+
+def phase_moe(device):
+    """Phase 17: ``mixtral-8x7b`` at full width and ``MOE_LAYERS`` layers
+    from seeds, served and trained; see the module docstring."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.models import moe, registry
+    from repro_torch.train.serve_step import (_cast, greedy_prefill,
+                                              make_prefill)
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import leaves, leaves_with_path
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    gb = 1e9
+
+    # (a) parameters in bf16 on the card
+    torch.cuda.reset_peak_memory_stats(device)
+    params = registry.init_params(0, cfg, torch.bfloat16, device=device)
+    torch.cuda.synchronize(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    peak = torch.cuda.max_memory_allocated(device)
+    say(f"[moe] (a) {cfg.name} at {cfg.n_layers} of 32 layers: {n_params} "
+        f"parameters (cfg.param_count() {cfg.param_count()} + {cfg.d_model} "
+        f"for the final norm), d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, {cfg.n_experts} "
+        f"experts, top-{cfg.top_k}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab}; bf16, {n_params * 2 / gb:.3f} GB, peak "
+        f"{peak / gb:.3f} GB")
+    assert n_params == cfg.param_count() + cfg.d_model
+
+    # (b) greedy serving in bf16, twice
+    B, S, new = MOE_SERVE["batch"], MOE_SERVE["prompt"], MOE_SERVE["new"]
+    prompt, sc, walls, peak, gen = serve_twice(cfg, params, B, S, new,
+                                               device, "moe serve")
+    prefill = make_prefill(cfg, sc)
+    t_pre, _ = prefill_ms(prefill, params, prompt, device)
+    ms_pre = min(t_pre)
+    ms_tok = (min(walls) * 1e3 - ms_pre) / (new - 1)
+    say(f"[moe] (b) greedy_generate bf16, batch {B}, prompt {S}, {new} new "
+        f"tokens: walls {walls[0]:.4f} s, {walls[1]:.4f} s (tokens bitwise "
+        f"equal); prefill alone {ms_pre:.3f} ms (min of "
+        f"{', '.join(f'{t:.3f}' for t in t_pre)}); decode {ms_tok:.3f} ms a "
+        f"step of {B} tokens; {B * new / min(walls):.1f} tokens/s end to "
+        f"end, {B * 1e3 / ms_tok:.1f} tokens/s decoding; peak "
+        f"{peak / gb:.3f} GB; first sequence {gen[0, :12].tolist()}")
+    shares = []
+    with moe_spy(lambda p, c, x: shares.append(moe_drop_share(p, c, x))):
+        prefill(params, prompt)
+    assert len(shares) == cfg.n_layers
+    p16, cache, tok = greedy_prefill(cfg, sc, params, prompt, device=device)
+    n_ops = decode_ops(cfg, p16, cache, tok, S)
+    say(f"[moe] (b) capacity {moe.capacity(cfg, S)} slots an expert at "
+        f"S = {S} (capacity factor {cfg.capacity_factor}): share of "
+        f"(token, k) picks the prefill dropped, by layer "
+        f"{', '.join(f'{x:.4f}' for x in shares)}; one decode step "
+        f"dispatches {n_ops} aten ops (views included), "
+        f"{ms_tok * 1e3 / n_ops:.1f} us of the step each")
+    del params, p16, cache, tok
+
+    # (c) f32, TF32 off, nothing dropped: prefill + decode against the full
+    # forward; then the same weights in bf16 against f32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    F = MOE_F32
+    cfg8 = dataclasses.replace(cfg, capacity_factor=F["capacity_factor"])
+    torch.cuda.reset_peak_memory_stats(device)
+    params32 = registry.init_params(1, cfg8, torch.float32, device=device)
+    _, batch = lm_decode_check(cfg8, params32, F["batch"], F["prompt"],
+                               F["extra"], device, f"capacity factor "
+                               f"{F['capacity_factor']} (no drop)", "moe")
+    picks = {"f32": [], "bf16": []}
+
+    def rec(key):
+        return lambda p, c, x: picks[key].append(moe.route(p, c, x)[2])
+
+    with moe_spy(rec("f32")):
+        full, _ = registry.forward_logits(params32, cfg8, batch)
+    params16 = _cast(params32, torch.bfloat16)
+    del params32
+    with moe_spy(rec("bf16")):
+        bf, _ = registry.forward_logits(params16, cfg8, batch)
+    agree = [float((a[..., :, None] == b[..., None, :]).any(-1)
+                   .double().mean())
+             for a, b in zip(picks["f32"], picks["bf16"])]
+    say(f"[moe] (c) routing of the bf16 forward against the f32 one, "
+        f"{tuple(picks['f32'][0].shape)} picks a layer: share of (token, "
+        f"k) picks whose expert the f32 forward also picked, by layer "
+        f"{', '.join(f'{x:.4f}' for x in agree)}")
+    bf16_agrees(bf, full, f"(c) forward_logits, capacity factor "
+                f"{F['capacity_factor']}", "moe", max_diff=None)
+    say(f"[moe] (c) peak {torch.cuda.max_memory_allocated(device) / gb:.3f} "
+        f"GB (f32 weights, then bf16)")
+    del params16, full, bf, batch, picks
+
+    # (d) training: bf16, f32 accumulator, Adafactor, remat="full"
+    T = MOE_TRAIN
+    tc = TrainConfig(seq_len=T["seq"], global_batch=T["batch"],
+                     microbatches=T["microbatches"], param_dtype="bfloat16",
+                     compute_dtype="bfloat16", accum_dtype="float32",
+                     accum_mode="outside", remat="full",
+                     optimizer="adafactor")
+    torch.cuda.reset_peak_memory_stats(device)
+    state = init_state(0, cfg, tc, device=device)
+    p0 = state.params
+    step_fn = make_train_step(cfg, tc)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=T["seq"],
+                           global_batch=T["batch"])
+    rows = []
+    for s in range(T["steps"]):
+        batch = train.batch_at(data, cfg, s, device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize(device)
+        rows.append(((time.perf_counter() - t0) * 1e3, float(m["loss"]),
+                     float(m["aux"]), float(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = float(np.median([r[0] for r in rows[1:]]))
+    say(f"[moe] (d) {T['steps']} training steps, bf16 with an f32 "
+        f"accumulator, Adafactor, remat full, batch {T['batch']} x "
+        f"{T['seq']} in {T['microbatches']} microbatches: ms a step "
+        f"{', '.join(f'{r[0]:.3f}' for r in rows)} (median of steps 1-"
+        f"{T['steps'] - 1} {ms:.3f}); {T['batch'] * T['seq'] * 1e3 / ms:.1f}"
+        f" tokens/s; peak {peak / gb:.3f} GB; losses "
+        f"{', '.join(f'{r[1]:.4f}' for r in rows)}; aux "
+        f"{', '.join(f'{r[2]:.4f}' for r in rows)} (top_k {cfg.top_k} when "
+        f"balanced); grad norms {', '.join(f'{r[3]:.4f}' for r in rows)}")
+    assert all(math.isfinite(x) for r in rows for x in r[1:]), rows
+    unchanged = [p for (p, a), b in zip(leaves_with_path(state.params),
+                                        leaves(p0)) if torch.equal(a, b)]
+    assert not unchanged, f"parameters unchanged by training: {unchanged}"
+    del p0
+    mb = {k: v[:T["batch"] // T["microbatches"]] for k, v in batch.items()}
+    _, grads = grads_of(cfg, state.params, mb)
+    gw = dict(zip([p for p, _ in leaves_with_path(state.params)],
+                  grads))["blocks/moe/w_gate"]
+    per_expert = gw.float().abs().amax(dim=(2, 3))         # (layers, E)
+    say(f"[moe] (d) every parameter leaf changed; max |grad w_gate| by "
+        f"(layer, expert) on one microbatch "
+        f"{[[f'{x:.3e}' for x in row] for row in per_expert.tolist()]}")
+    assert bool((per_expert > 0).all()), per_expert
+    del state, grads, gw, batch, mb
+    check_only(kernels.launches(), {}, "phase 17")
+    say(f"[moe] phase 17: {time.perf_counter() - t_phase:.1f} s; no kernel "
+        f"of the port launched in it")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the Mamba2 SSM family, mamba2-370m at full width and depth
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-370m"
+# (b) bf16 serving: a 512-token prompt is two of the config's 256-step
+# chunks
+SSM_SERVE = dict(batch=8, prompt=512, new=64)
+SSM_F32 = dict(batch=2, prompt=256, extra=8)
+# (c) ssd_chunked at the model's head shapes (32 heads of 64, state 128,
+# two chunks of 256) against the per-step recurrence in f64
+SSD_CHECK = dict(batch=2, seq=512)
+SSD_TOL = 1e-4
+# (c) bf16 against f32 logits of the same weights.  The dense family's
+# limits (0.2, 0.9) do not hold for this model at 48 layers: its first
+# full-width reading gave max |diff| 0.2559 and top-1 0.8390 (H100 80GB
+# HBM3 at 700 W) with every decay in f32; the drift grows with the depth
+# of bf16 weights and activations.  These limits are about 2x and 1.5x
+# that reading's distance from exact.
+SSM_BF16_MAX_DIFF = 0.5
+SSM_BF16_TOP1 = 0.75
+# (d) the launcher: bf16, AdamW, 8 x 512 in 2 microbatches
+SSM_TRAIN = dict(batch=8, seq=512, microbatches=2, steps=4)
+
+
+def ssm_param_total(cfg) -> int:
+    """The parameters of ``models.ssm`` at ``cfg`` (``cfg.param_count()``
+    is an approximation that leaves out ``w_dt``, ``A_log``, ``D``, the
+    norms and the conv's B and C channels)."""
+    d, V, K = cfg.d_model, cfg.vocab, cfg.conv_kernel
+    din = cfg.ssm_expand * d
+    H, N = din // cfg.ssm_head_dim, cfg.ssm_state
+    ch = din + 2 * N
+    block = d + d * din + d * ch + d * H + 3 * H + K * ch + ch + din + din * d
+    return V * d * (1 if cfg.tie_embeddings else 2) + cfg.n_layers * block + d
+
+
+def ssd_against_recurrence(cfg, device):
+    """``ssd_chunked`` at the model's head shapes in f32 against the
+    per-step recurrence in f64 on the card: (max |y err|, max |h err|,
+    worst err / (atol + rtol |b|))."""
+    from repro_torch.models import ssm
+    din, H, P, N = ssm._dims(cfg)
+    B, S = SSD_CHECK["batch"], SSD_CHECK["seq"]
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    # dt log-uniform in [1e-3, 1e-1] as at init, A = -(1..H)
+    dt = torch.exp(torch.rand((B, S, H), generator=g, device=device)
+                   * math.log(100.0) + math.log(1e-3))
+    dA = dt * -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    xdt = normal(B, S, H, P) * dt[..., None]
+    Bm, Cm = normal(B, S, N), normal(B, S, N)
+    y, h = ssm.ssd_chunked(xdt, dA, Bm, Cm, cfg.ssm_chunk)
+    x64, a64, b64, c64 = (t.double() for t in (xdt, dA, Bm, Cm))
+    hr = torch.zeros((B, H, P, N), dtype=torch.float64, device=device)
+    ys = []
+    for t in range(S):
+        hr = (hr * torch.exp(a64[:, t])[..., None, None]
+              + x64[:, t, :, :, None] * b64[:, t, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", hr, c64[:, t]))
+    yr = torch.stack(ys, 1)
+    worst = max(float(((a.double() - b).abs()
+                       / (SSD_TOL + SSD_TOL * b.abs())).max())
+                for a, b in ((y, yr), (h, hr)))
+    return (float((y.double() - yr).abs().max()),
+            float((h.double() - hr).abs().max()), worst)
+
+
+def phase_ssm(device):
+    """Phase 18: ``mamba2-370m`` at full width and depth from seeds, served
+    and trained; see the module docstring."""
+    import io
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer
+    from repro_torch.train.serve_step import (_cast, greedy_prefill,
+                                              make_prefill)
+    from repro_torch.tree import leaves, leaves_with_path
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    cfg = get_config(SSM_ARCH)
+    gb = 1e9
+
+    # (a) parameters in bf16 on the card
+    torch.cuda.reset_peak_memory_stats(device)
+    params = registry.init_params(0, cfg, torch.bfloat16, device=device)
+    torch.cuda.synchronize(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    peak = torch.cuda.max_memory_allocated(device)
+    say(f"[ssm] (a) {cfg.name}: {n_params} parameters (cfg.param_count() "
+        f"{cfg.param_count()}, an approximation), {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, "
+        f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+        f"{cfg.ssm_chunk}, vocab {cfg.vocab}, tied; bf16, peak "
+        f"{peak / gb:.3f} GB")
+    assert n_params == ssm_param_total(cfg), (n_params, ssm_param_total(cfg))
+
+    # (b) greedy serving in bf16, twice
+    B, S, new = SSM_SERVE["batch"], SSM_SERVE["prompt"], SSM_SERVE["new"]
+    prompt, sc, walls, peak, gen = serve_twice(cfg, params, B, S, new,
+                                               device, "ssm serve")
+    t_pre, _ = prefill_ms(make_prefill(cfg, sc), params, prompt, device)
+    ms_pre = min(t_pre)
+    ms_tok = (min(walls) * 1e3 - ms_pre) / (new - 1)
+    p16, cache, tok = greedy_prefill(cfg, sc, params, prompt, device=device)
+    state_gb = (cache.h.numel() * 4 + cache.conv.numel() * 2) / gb
+    n_ops = decode_ops(cfg, p16, cache, tok, S)
+    say(f"[ssm] (b) greedy_generate bf16, batch {B}, prompt {S} (two "
+        f"chunks), {new} new tokens: walls {walls[0]:.4f} s, "
+        f"{walls[1]:.4f} s (tokens bitwise equal); prefill alone "
+        f"{ms_pre:.3f} ms (min of {', '.join(f'{t:.3f}' for t in t_pre)}); "
+        f"decode {ms_tok:.3f} ms a step of {B} tokens; "
+        f"{B * new / min(walls):.1f} tokens/s end to end, "
+        f"{B * 1e3 / ms_tok:.1f} tokens/s decoding; decode state "
+        f"{state_gb:.3f} GB (h {tuple(cache.h.shape)} f32, conv ring "
+        f"{tuple(cache.conv.shape)} bf16); peak {peak / gb:.3f} GB; one "
+        f"decode step dispatches {n_ops} aten ops, "
+        f"{ms_tok * 1e3 / n_ops:.1f} us of the step each; first sequence "
+        f"{gen[0, :12].tolist()}")
+    del params, p16, cache, tok
+
+    # (c) f32, TF32 off: prefill + decode against the full forward, the
+    # scan against the recurrence, bf16 against f32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    F = SSM_F32
+    torch.cuda.reset_peak_memory_stats(device)
+    params32 = registry.init_params(1, cfg, torch.float32, device=device)
+    full, batch = lm_decode_check(cfg, params32, F["batch"], F["prompt"],
+                                  F["extra"], device, "the SSD state and "
+                                  "conv ring", "ssm")
+    y_err, h_err, worst = ssd_against_recurrence(cfg, device)
+    din = cfg.ssm_expand * cfg.d_model
+    say(f"[ssm] (c) ssd_chunked f32, batch {SSD_CHECK['batch']} x "
+        f"{SSD_CHECK['seq']} ({SSD_CHECK['seq'] // cfg.ssm_chunk} chunks), "
+        f"{din // cfg.ssm_head_dim} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, dt log-uniform in [1e-3, 1e-1], A = "
+        f"-(1..{din // cfg.ssm_head_dim}), "
+        f"against the per-step recurrence in f64: max abs err y "
+        f"{y_err:.3e}, final state {h_err:.3e}; worst err / (atol + rtol "
+        f"|b|) {worst:.4f} (rtol = atol = {SSD_TOL})")
+    assert worst <= 1.0, worst
+    bf, _ = registry.forward_logits(_cast(params32, torch.bfloat16), cfg,
+                                    batch)
+    bf16_agrees(bf, full, "(c) forward_logits", "ssm",
+                max_diff=SSM_BF16_MAX_DIFF, min_top1=SSM_BF16_TOP1)
+    say(f"[ssm] (c) peak {torch.cuda.max_memory_allocated(device) / gb:.3f} "
+        f"GB (f32 weights, then bf16)")
+    del params32, full, bf, batch
+
+    # (d) the training launcher: bf16, AdamW, one save after the last step
+    T = SSM_TRAIN
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--arch", SSM_ARCH, "--batch", str(T["batch"]), "--seq",
+                str(T["seq"]), "--microbatches", str(T["microbatches"]),
+                "--steps", str(T["steps"]), "--ckpt", ckpt, "--device",
+                str(device)]
+        torch.cuda.reset_peak_memory_stats(device)
+        with contextlib.redirect_stdout(buf):
+            run, counts, wall = counted(lambda: train.main(argv))
+        check_only(counts, {}, "ssm train")
+        peak = torch.cuda.max_memory_allocated(device)
+    for line in buf.getvalue().splitlines():
+        say(f"[ssm] (d) | {line}")
+    assert all(math.isfinite(x) for x in run.losses + run.grad_norms), \
+        (run.losses, run.grad_norms)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, T["steps"], run.state)
+        t_save = time.perf_counter() - t0
+    ms = [s * 1e3 for s in run.step_s]
+    ms_step = float(np.median(ms[1:]))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(run.state)) / gb
+    say(f"[ssm] (d) launch.train bf16, AdamW, batch {T['batch']} x "
+        f"{T['seq']} in {T['microbatches']} microbatches: {T['steps']} "
+        f"steps in {wall:.3f} s; ms a step {', '.join(f'{m:.3f}' for m in ms)}"
+        f" (median of steps 1-{T['steps'] - 1} {ms_step:.3f}); "
+        f"{T['batch'] * T['seq'] * 1e3 / ms_step:.1f} tokens/s; peak "
+        f"{peak / gb:.3f} GB; the final state ({state_gb:.3f} GB) saved "
+        f"apart in {t_save:.3f} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in run.losses)}; grad norms "
+        f"{', '.join(f'{x:.4f}' for x in run.grad_norms)}")
+    idle = [p for p, m in leaves_with_path(run.state.opt) if p != "step"
+            and not (bool(torch.isfinite(m).all())
+                     and bool(m.abs().max() > 0))]
+    assert not idle, f"moments zero or not finite: {idle}"
+    # a leaf can keep its bf16 value only where the warmup's summed
+    # learning rate (AdamW's step is about lr an element) stays far below
+    # half its bf16 spacing (at least |p| / 512) at every element
+    tc = TrainConfig()
+    lr_sum = sum(float(optimizer.lr_schedule(tc, torch.tensor(s)))
+                 for s in range(T["steps"]))
+    p0 = dict(leaves_with_path(registry.init_params(0, cfg, torch.bfloat16,
+                                                    device=device)))
+    still = {p: float(p0[p].float().abs().min()) for p, a in
+             leaves_with_path(run.state.params) if torch.equal(a, p0[p])}
+    say(f"[ssm] (d) every moment finite and nonzero; leaves whose bf16 "
+        f"values training left as they were (smallest |p|; summed lr "
+        f"{lr_sum:.3e}): {still or 'none'}")
+    for path, smallest in still.items():
+        assert smallest / 512 > 10 * lr_sum, (path, smallest, lr_sum)
+    del run, p0
+    check_only(kernels.launches(), {}, "phase 18")
+    say(f"[ssm] phase 18: {time.perf_counter() - t_phase:.1f} s; no kernel "
+        f"of the port launched in it")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -5118,6 +5641,10 @@ def main(argv=None) -> int:
     phase_train(device)
     say(f"[time] LM training phase done at "
         f"{time.perf_counter() - t_start:.1f} s")
+    phase_moe(device)
+    say(f"[time] MoE phase done at {time.perf_counter() - t_start:.1f} s")
+    phase_ssm(device)
+    say(f"[time] SSM phase done at {time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
     say(f"[gram] launches over phases 5-13 and 15: {n_gram}; bank and Gram "

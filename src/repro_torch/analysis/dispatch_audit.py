@@ -77,8 +77,8 @@ SOLVE_FRAMES = ("solve_fused_batched_qp", "_batched_loop", "solve_lanes",
 # boundary, kernels/ops.py)
 INDEX_ARGS = {"rbf_row_wss": ("i_idx",),
               "rbf_row_wss_batched": ("i_idx",),
-              "row_wss_batched_rows": ("i_idx",),
-              "update_wss_batched_rows": ("i_idx", "j_idx")}
+              "row_wss_batched_bank": ("i_idx",),
+              "update_wss_batched_bank": ("i_idx", "j_idx")}
 
 PORT = pathlib.Path(__file__).resolve().parents[1]      # src/repro_torch
 ANALYSIS = pathlib.Path(__file__).resolve().parent

@@ -39,6 +39,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C signature of each kernel entry (the _f32 and _f64 variants share it).
 SIGNATURES = {
     # XT sqn G alpha L U XQ sqq a_i L_i U_i g_i i_idx use_exact gammas
@@ -55,11 +56,13 @@ SIGNATURES = {
     # | l d device | stream
     "rbf_update_wss": [_P] * 15 + [_I] * 3 + [_P],
     # gram gram_idx G alpha L U a_i L_i U_i g_i i_idx use_exact act bmax
-    # barg | B H l device | stream
-    "row_wss_batched_rows": [_P] * 15 + [_I] * 4 + [_P],
-    # gram gram_idx i_idx j_idx G alpha_new L U mu act dirv mu2 G_out bmax
-    # barg bmin r_out | B H l device | stream
-    "update_wss_batched_rows": [_P] * 17 + [_I] * 4 + [_P],
+    # barg | B H l | bank_stride row_stride | device | stream  (gram_idx
+    # NULL: pre-gathered rows)
+    "row_wss_batched_rows": [_P] * 15 + [_I] * 3 + [_LL] * 2 + [_I, _P],
+    # gram_i gram_j gram_idx i_idx j_idx G alpha_new L U mu act dirv mu2
+    # G_out bmax barg bmin r_out | B H l | bank_stride row_stride | device
+    # | stream  (gram_idx, i_idx and j_idx NULL: pre-gathered rows)
+    "update_wss_batched_rows": [_P] * 18 + [_I] * 3 + [_LL] * 2 + [_I, _P],
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }

@@ -76,12 +76,20 @@ def dirv_ptr(dirv, mu2, G, H: int):
 MAX_BANK_LANES = 65535
 
 
-def check_bank(gram, gram_idx, B: int, l: int, dtype, device) -> None:
-    """The (n_stack, l, l) Gram bank and its (B,) int64 lane index."""
-    if not isinstance(gram, torch.Tensor) or gram.ndim != 3:
-        raise ValueError("the Gram bank must be an (n_stack, l, l) tensor")
-    check_state("gram", gram, (gram.shape[0], l, l), dtype, device)
-    check_state("gram_idx", gram_idx, (B,), torch.int64, device)
+def bank_strides(name: str, gram, gram_idx, B: int, l: int, dtype,
+                 device) -> tuple:
+    """Check the rows a bank pass reads and return their (bank stride, row
+    stride) in values: the (n_stack, l, l) Gram bank with its (B,) int64
+    lane index, or with ``gram_idx`` None the lanes' pre-gathered (B, l)
+    rows, a bank of B entries of one row."""
     if B > MAX_BANK_LANES:
         raise ValueError(f"the bank passes take at most {MAX_BANK_LANES} "
                          f"lanes, got {B}")
+    if gram_idx is None:
+        check_state(name, gram, (B, l), dtype, device)
+        return l, 0
+    if not isinstance(gram, torch.Tensor) or gram.ndim != 3:
+        raise ValueError("the Gram bank must be an (n_stack, l, l) tensor")
+    check_state(name, gram, (gram.shape[0], l, l), dtype, device)
+    check_state("gram_idx", gram_idx, (B,), torch.int64, device)
+    return l * l, l

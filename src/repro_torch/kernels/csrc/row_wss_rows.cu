@@ -26,9 +26,12 @@
 // Design: the Pallas kernel takes the rows pre-gathered into a (B, l)
 // block; here each lane reads its row gram[gram_idx[b], i_idx[b], :] in
 // place, which saves the gather launch and 2 B l values of traffic per
-// iteration.  Lanes go along gridDim.y, one thread owns one base column,
-// and neighbouring threads read neighbouring columns of every row
-// (coalesced).  The gain, the mask and the block's first-max reduction
+// iteration.  The row of lane b starts at e bank_stride + i row_stride,
+// e = gram_idx[b]: the bank is (n_stack, l, l) with strides l l and l.
+// Pre-gathered rows KR (B, l), the reference's form, are a bank with a
+// null gram_idx (e = b), bank stride l and row stride 0.  Lanes go along
+// gridDim.y, one thread owns one base column, and neighbouring threads
+// read neighbouring columns of every row (coalesced).  The gain, the mask and the block's first-max reduction
 // stay in registers and shared memory; only (B, nb) pairs reach device
 // memory.  Global indices are h l + j; first-max is a total order on
 // (value, index), so half 0 wins a tie against half 1 and the lower index
@@ -51,7 +54,8 @@ row_wss_rows_kernel(const T* __restrict__ gram,
                     const int* __restrict__ i_idx,
                     const bool* __restrict__ use_exact,
                     const bool* __restrict__ act, T* __restrict__ bmax,
-                    int* __restrict__ barg, int l) {
+                    int* __restrict__ barg, int l, long long bank_stride,
+                    long long row_stride) {
   __shared__ T red_v[kWarps];
   __shared__ int red_i[kWarps];
 
@@ -64,7 +68,8 @@ row_wss_rows_kernel(const T* __restrict__ gram,
   if (j < l) {
     const int i = i_idx[lane];
     const int ib = (H == 2 && i >= l) ? i - l : i;
-    const size_t row = ((size_t)gram_idx[lane] * l + ib) * l;
+    const long long e = gram_idx != nullptr ? gram_idx[lane] : lane;
+    const size_t row = (size_t)e * bank_stride + (size_t)ib * row_stride;
     const T k = gram[row + j];
     const T q = fmax(T(2) - T(2) * k, T(kTau));  // RBF diag == 1
     const T ai = a_i[lane], gi = g_i[lane];
@@ -110,13 +115,15 @@ row_wss_rows_kernel(const T* __restrict__ gram,
   }
 }
 
-// act == nullptr selects the variants without the mask.
+// act == nullptr selects the variants without the mask; gram_idx ==
+// nullptr reads lane b's row from entry b (pre-gathered rows).
 template <typename T>
 int row_wss_rows(const T* gram, const long long* gram_idx, const T* G,
                  const T* alpha, const T* L, const T* U, const T* a_i,
                  const T* L_i, const T* U_i, const T* g_i, const int* i_idx,
                  const bool* use_exact, const bool* act, T* bmax, int* barg,
-                 int B, int H, int l, int device, void* stream) {
+                 int B, int H, int l, long long bank_stride,
+                 long long row_stride, int device, void* stream) {
   if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -125,7 +132,7 @@ int row_wss_rows(const T* gram, const long long* gram_idx, const T* G,
 #define REPRO_LAUNCH(HH, A)                                               \
   row_wss_rows_kernel<T, HH, A><<<grid, kBlockL, 0, s>>>(                 \
       gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,          \
-      use_exact, act, bmax, barg, l)
+      use_exact, act, bmax, barg, l, bank_stride, row_stride)
   if (H == 1 && act == nullptr) REPRO_LAUNCH(1, false);
   else if (H == 1) REPRO_LAUNCH(1, true);
   else if (act == nullptr) REPRO_LAUNCH(2, false);
@@ -145,10 +152,13 @@ int row_wss_batched_rows_f32(const float* gram, const long long* gram_idx,
                              const float* U_i, const float* g_i,
                              const int* i_idx, const bool* use_exact,
                              const bool* act, float* bmax, int* barg, int B,
-                             int H, int l, int device, void* stream) {
+                             int H, int l, long long bank_stride,
+                             long long row_stride, int device,
+                             void* stream) {
   return repro::row_wss_rows<float>(gram, gram_idx, G, alpha, L, U, a_i,
                                     L_i, U_i, g_i, i_idx, use_exact, act,
-                                    bmax, barg, B, H, l, device, stream);
+                                    bmax, barg, B, H, l, bank_stride,
+                                    row_stride, device, stream);
 }
 
 int row_wss_batched_rows_f64(const double* gram, const long long* gram_idx,
@@ -158,10 +168,13 @@ int row_wss_batched_rows_f64(const double* gram, const long long* gram_idx,
                              const double* U_i, const double* g_i,
                              const int* i_idx, const bool* use_exact,
                              const bool* act, double* bmax, int* barg, int B,
-                             int H, int l, int device, void* stream) {
+                             int H, int l, long long bank_stride,
+                             long long row_stride, int device,
+                             void* stream) {
   return repro::row_wss_rows<double>(gram, gram_idx, G, alpha, L, U, a_i,
                                      L_i, U_i, g_i, i_idx, use_exact, act,
-                                     bmax, barg, B, H, l, device, stream);
+                                     bmax, barg, B, H, l, bank_stride,
+                                     row_stride, device, stream);
 }
 
 }  // extern "C"

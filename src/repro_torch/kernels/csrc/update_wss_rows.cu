@@ -34,10 +34,15 @@
 // Design: as bank pass A (row_wss_rows.cu).  The Pallas kernel takes KRi
 // and KRj pre-gathered; here each lane reads rows i and j of its bank
 // entry in place, which saves the gather launch and 4 B l values of
-// traffic per iteration.  Lanes go along gridDim.y, one thread owns one
-// base column.  G is written out of place; a lane with mu == 0 (and
-// mu2 == 0) writes its G back bitwise unchanged (G - 0 * r - 0 * dirv ==
-// G for finite dirv), which is how the solver freezes converged lanes.
+// traffic per iteration.  Row i of lane b starts at gram_i + e bank_stride
+// + i row_stride, e = gram_idx[b], row j at gram_j the same way: the bank
+// passes gram_i == gram_j with strides l l and l.  Pre-gathered KRi and
+// KRj (B, l), the reference's form, pass as gram_i and gram_j with a null
+// gram_idx (e = b), null i_idx and j_idx, bank stride l and row stride 0.
+// Lanes go along gridDim.y, one thread owns one base column.  G is
+// written out of place; a lane with mu == 0 (and mu2 == 0) writes its G
+// back bitwise unchanged (G - 0 * r - 0 * dirv == G for finite dirv),
+// which is how the solver freezes converged lanes.
 // Global indices are h l + j, first-max a total order on (value, index);
 // after hard compaction l is the bucketed row count.  Offsets into the
 // bank are size_t.  The cross-block reductions stay in PyTorch
@@ -48,7 +53,8 @@ namespace repro {
 
 template <typename T, int H, bool ACT, bool CONJ>
 __global__ void __launch_bounds__(kBlockL)
-update_wss_rows_kernel(const T* __restrict__ gram,
+update_wss_rows_kernel(const T* __restrict__ gram_i,
+                       const T* __restrict__ gram_j,
                        const long long* __restrict__ gram_idx,
                        const int* __restrict__ i_idx,
                        const int* __restrict__ j_idx,
@@ -59,7 +65,8 @@ update_wss_rows_kernel(const T* __restrict__ gram,
                        const T* __restrict__ dirv,
                        const T* __restrict__ mu2, T* __restrict__ G_out,
                        T* __restrict__ bmax, int* __restrict__ barg,
-                       T* __restrict__ bmin, T* __restrict__ r_out, int l) {
+                       T* __restrict__ bmin, T* __restrict__ r_out, int l,
+                       long long bank_stride, long long row_stride) {
   __shared__ T red_v[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ T red_m[kWarps];
@@ -72,14 +79,16 @@ update_wss_rows_kernel(const T* __restrict__ gram,
   int vi = j;  // out-of-range columns lose every tie to real ones
   T m = pos_inf<T>();
   if (j < l) {
-    int ri = i_idx[lane], rj = j_idx[lane];
+    int ri = i_idx != nullptr ? i_idx[lane] : 0;
+    int rj = j_idx != nullptr ? j_idx[lane] : 0;
     if (H == 2) {
       if (ri >= l) ri -= l;
       if (rj >= l) rj -= l;
     }
-    const size_t entry = (size_t)gram_idx[lane] * l;
-    const T ki = gram[(entry + ri) * l + j];
-    const T kj = gram[(entry + rj) * l + j];
+    const long long e = gram_idx != nullptr ? gram_idx[lane] : lane;
+    const size_t entry = (size_t)e * bank_stride;
+    const T ki = gram_i[entry + (size_t)ri * row_stride + j];
+    const T kj = gram_j[entry + (size_t)rj * row_stride + j];
     const T r = ki - kj;
     const T mul = mu[lane];
     T dv = T(0), m2 = T(0);
@@ -122,14 +131,17 @@ update_wss_rows_kernel(const T* __restrict__ gram,
 }
 
 // act == nullptr selects the variants without the mask, dirv == nullptr
-// those without the conjugate direction (mu2 and r_out are then unused).
+// those without the conjugate direction (mu2 and r_out are then unused);
+// gram_idx == nullptr reads lane b's rows from entry b (pre-gathered rows).
 template <typename T>
-int update_wss_rows(const T* gram, const long long* gram_idx,
+int update_wss_rows(const T* gram_i, const T* gram_j,
+                    const long long* gram_idx,
                     const int* i_idx, const int* j_idx, const T* G,
                     const T* alpha, const T* L, const T* U, const T* mu,
                     const bool* act, const T* dirv, const T* mu2, T* G_out,
                     T* bmax, int* barg, T* bmin, T* r_out, int B, int H,
-                    int l, int device, void* stream) {
+                    int l, long long bank_stride, long long row_stride,
+                    int device, void* stream) {
   if (H != 1 && H != 2) return (int)cudaErrorInvalidValue;
   if (dirv != nullptr && (mu2 == nullptr || r_out == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -139,8 +151,8 @@ int update_wss_rows(const T* gram, const long long* gram_idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(HH, A, C)                                             \
   update_wss_rows_kernel<T, HH, A, C><<<grid, kBlockL, 0, s>>>(            \
-      gram, gram_idx, i_idx, j_idx, G, alpha, L, U, mu, act, dirv, mu2,    \
-      G_out, bmax, barg, bmin, r_out, l)
+      gram_i, gram_j, gram_idx, i_idx, j_idx, G, alpha, L, U, mu, act,     \
+      dirv, mu2, G_out, bmax, barg, bmin, r_out, l, bank_stride, row_stride)
 #define REPRO_MASKED(HH, C)                                                \
   if (act == nullptr) REPRO_LAUNCH(HH, false, C);                          \
   else REPRO_LAUNCH(HH, true, C)
@@ -158,7 +170,8 @@ int update_wss_rows(const T* gram, const long long* gram_idx,
 
 extern "C" {
 
-int update_wss_batched_rows_f32(const float* gram, const long long* gram_idx,
+int update_wss_batched_rows_f32(const float* gram_i, const float* gram_j,
+                                const long long* gram_idx,
                                 const int* i_idx, const int* j_idx,
                                 const float* G, const float* alpha,
                                 const float* L, const float* U,
@@ -166,14 +179,18 @@ int update_wss_batched_rows_f32(const float* gram, const long long* gram_idx,
                                 const float* dirv, const float* mu2,
                                 float* G_out, float* bmax, int* barg,
                                 float* bmin, float* r_out, int B, int H,
-                                int l, int device, void* stream) {
-  return repro::update_wss_rows<float>(gram, gram_idx, i_idx, j_idx, G,
-                                       alpha, L, U, mu, act, dirv, mu2,
-                                       G_out, bmax, barg, bmin, r_out, B, H,
-                                       l, device, stream);
+                                int l, long long bank_stride,
+                                long long row_stride, int device,
+                                void* stream) {
+  return repro::update_wss_rows<float>(gram_i, gram_j, gram_idx, i_idx,
+                                       j_idx, G, alpha, L, U, mu, act, dirv,
+                                       mu2, G_out, bmax, barg, bmin, r_out,
+                                       B, H, l, bank_stride, row_stride,
+                                       device, stream);
 }
 
-int update_wss_batched_rows_f64(const double* gram,
+int update_wss_batched_rows_f64(const double* gram_i,
+                                const double* gram_j,
                                 const long long* gram_idx, const int* i_idx,
                                 const int* j_idx, const double* G,
                                 const double* alpha, const double* L,
@@ -182,11 +199,13 @@ int update_wss_batched_rows_f64(const double* gram,
                                 const double* mu2, double* G_out,
                                 double* bmax, int* barg, double* bmin,
                                 double* r_out, int B, int H, int l,
+                                long long bank_stride, long long row_stride,
                                 int device, void* stream) {
-  return repro::update_wss_rows<double>(gram, gram_idx, i_idx, j_idx, G,
-                                        alpha, L, U, mu, act, dirv, mu2,
-                                        G_out, bmax, barg, bmin, r_out, B, H,
-                                        l, device, stream);
+  return repro::update_wss_rows<double>(gram_i, gram_j, gram_idx, i_idx,
+                                        j_idx, G, alpha, L, U, mu, act, dirv,
+                                        mu2, G_out, bmax, barg, bmin, r_out,
+                                        B, H, l, bank_stride, row_stride,
+                                        device, stream);
 }
 
 }  // extern "C"

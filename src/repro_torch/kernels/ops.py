@@ -29,10 +29,16 @@ are at base width: the doubled operator's direction is a tiled base row,
 which the reference carries tiled (B, 2l); one base value serves both
 halves, and on the card the ``*_conj`` variants launch.
 
-Unlike the reference's rows variants, which take rows gathered from the
-bank, :func:`row_wss_batched_rows` and :func:`update_wss_batched_rows`
+:func:`row_wss_batched_rows` and :func:`update_wss_batched_rows` take the
+reference's arguments, rows gathered from the bank beforehand (``KR``;
+``KRi``, ``KRj``).  The solvers call the bank forms,
+:func:`row_wss_batched_bank` and :func:`update_wss_batched_bank`, which
 take the bank and the per-lane indices: the CUDA passes read the rows in
-place.
+place, and no gather runs.  Both forms launch the same two kernels.
+
+Every pass wrapper takes the reference's ``block_l=`` and ignores it: the
+CUDA passes fix their block of columns when they are built
+(:data:`repro_torch.kernels.build.BLOCK_L`).
 """
 
 from __future__ import annotations
@@ -74,8 +80,8 @@ def _first_max(bmax, barg):
 
 
 def rbf_row_wss(X, sqn, G, alpha, L, U, xq, a_i, L_i, U_i, g_i, i_idx,
-                use_exact, gamma, *, impl: str = "auto", XT=None, k_out=None,
-                run=None):
+                use_exact, gamma, *, impl: str = "auto", block_l: int = 1024,
+                XT=None, k_out=None, run=None):
     """Single-lane pass A -> (k_i (l,), j (0-d int32), gain_j).
 
     On the card the row is stored into ``k_out`` when given.  ``run``, a
@@ -83,6 +89,7 @@ def rbf_row_wss(X, sqn, G, alpha, L, U, xq, a_i, L_i, U_i, g_i, i_idx,
     row is replaced only where ``run`` is true (on the card a false flag
     turns the launch into a no-op), and ``(j, gain)`` are then undefined.
     """
+    del block_l
     if resolve_impl(impl, G.device) == "torch":
         out = ref_ops.rbf_row_wss(X, sqn, G, alpha, L, U, xq, a_i, L_i, U_i,
                                   g_i, i_idx, use_exact, gamma)
@@ -97,11 +104,12 @@ def rbf_row_wss(X, sqn, G, alpha, L, U, xq, a_i, L_i, U_i, g_i, i_idx,
 
 
 def rbf_update_wss(X, sqn, G, k_i, alpha_new, L, U, xq_j, mu, gamma, *,
-                   impl: str = "auto", XT=None):
+                   impl: str = "auto", block_l: int = 1024, XT=None):
     """Single-lane pass B with the stored row ``k_i`` ->
     (G_new (l,), i_next (0-d int32), g_i_next, g_dn).
 
     ``mu == 0`` leaves G bitwise unchanged."""
+    del block_l
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_update_wss(X, sqn, G, k_i, xq_j, mu, alpha_new, L,
                                       U, gamma)
@@ -114,8 +122,10 @@ def rbf_update_wss(X, sqn, G, k_i, alpha_new, L, U, xq_j, mu, gamma, *,
 
 def rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq, a_i, L_i, U_i,
                         g_i, i_idx, use_exact, gammas, *, impl: str = "auto",
-                        XT=None, dup: bool = False, act=None):
+                        block_l: int = 1024, XT=None, dup: bool = False,
+                        act=None):
     """Batched pass A: per-lane WSS2 selection -> (j (B,) int32, gain)."""
+    del block_l
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_row_wss_batched(X, sqn, G, alpha, L, U, XQ, sqq,
                                            a_i, L_i, U_i, g_i, i_idx,
@@ -143,13 +153,15 @@ def _pass_b_out(out):
 
 
 def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
-                           mu, gammas, *, impl: str = "auto", XT=None,
-                           dup: bool = False, act=None, dirv=None, mu2=None):
+                           mu, gammas, *, impl: str = "auto",
+                           block_l: int = 1024, XT=None, dup: bool = False,
+                           act=None, dirv=None, mu2=None):
     """Batched pass B -> (G_new (B, n), i_next (B,) int32, g_i_next, g_dn),
     and ``r`` (B, l) fifth with the direction ``dirv`` (B, l)/``mu2``.
 
     A lane with ``mu == 0`` (and ``mu2 == 0``) leaves G bitwise
     unchanged."""
+    del block_l
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.rbf_update_wss_batched(X, sqn, G, alpha_new, L, U,
                                               XQi, sqqi, XQj, sqqj, mu,
@@ -168,12 +180,10 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
     return _pass_b_out(out)
 
 
-def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                         i_idx, use_exact, *, impl: str = "auto",
-                         dup: bool = False, act=None):
-    """Batched pass A over the Gram bank: lane b's kernel row is
-    ``gram[gram_idx[b], i_idx[b]]`` (of ``i_idx[b] mod l`` with
-    ``dup=True``) -> (j (B,) int32, gain)."""
+def _bank_a(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+            use_exact, impl, dup, act):
+    """Pass A over bank rows: ``gram[gram_idx[b], i_idx[b]]``, or with
+    ``gram_idx`` None the pre-gathered (B, l) rows ``gram``."""
     if resolve_impl(impl, G.device) == "torch":
         return ref_ops.row_wss_batched_from_k(
             ref_ops.bank_rows(gram, gram_idx, i_idx, dup), G, alpha, L, U,
@@ -189,17 +199,36 @@ def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
     return _first_max(bmax, barg)
 
 
-def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
-                            mu, *, impl: str = "auto", dup: bool = False,
-                            act=None, dirv=None, mu2=None):
-    """Batched pass B over the Gram bank -> (G_new (B, n), i_next (B,)
-    int32, g_i_next, g_dn), and ``r`` (B, l) fifth with the direction
-    ``dirv`` (B, l)/``mu2``.  A lane with ``mu == 0`` (and ``mu2 == 0``)
-    leaves G bitwise unchanged."""
+def row_wss_batched_rows(KR, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+                         use_exact, *, impl: str = "auto",
+                         block_l: int = 1024, dup: bool = False, act=None):
+    """Batched pass A from pre-gathered base rows ``KR`` (B, l), the
+    reference's form -> (j (B,) int32, gain).  On the card the bank
+    kernel reads ``KR`` as a bank of B one-row entries."""
+    del block_l
+    return _bank_a(KR, None, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+                   use_exact, impl, dup, act)
+
+
+def row_wss_batched_bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
+                         i_idx, use_exact, *, impl: str = "auto",
+                         dup: bool = False, act=None):
+    """Batched pass A over the Gram bank: lane b's kernel row is
+    ``gram[gram_idx[b], i_idx[b]]`` (of ``i_idx[b] mod l`` with
+    ``dup=True``), read in place -> (j (B,) int32, gain)."""
+    return _bank_a(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
+                   i_idx, use_exact, impl, dup, act)
+
+
+def _bank_b(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, impl, dup,
+            act, dirv, mu2):
+    """Pass B over bank rows; with ``gram_idx`` None ``gram`` is the pair
+    of pre-gathered rows ``(KRi, KRj)``."""
     if resolve_impl(impl, G.device) == "torch":
+        gi, gj = gram if gram_idx is None else (gram, gram)
         return ref_ops.update_wss_batched_from_rows(
-            G, ref_ops.bank_rows(gram, gram_idx, i_idx, dup),
-            ref_ops.bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L,
+            G, ref_ops.bank_rows(gi, gram_idx, i_idx, dup),
+            ref_ops.bank_rows(gj, gram_idx, j_idx, dup), mu, alpha_new, L,
             U, act, dirv, mu2)
     args = (gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu)
     if dirv is not None:
@@ -214,12 +243,38 @@ def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
     return _pass_b_out(out)
 
 
+def update_wss_batched_rows(KRi, KRj, G, alpha_new, L, U, mu, *,
+                            impl: str = "auto", block_l: int = 1024,
+                            dup: bool = False, act=None, dirv=None,
+                            mu2=None):
+    """Batched pass B from pre-gathered base rows ``KRi``, ``KRj`` (B, l),
+    the reference's form -> (G_new (B, n), i_next (B,) int32, g_i_next,
+    g_dn), and ``r`` (B, l) fifth with the direction ``dirv``/``mu2``.  On
+    the card the bank kernel reads them as banks of B one-row entries."""
+    del block_l
+    return _bank_b((KRi, KRj), None, G, alpha_new, L, U, None, None, mu,
+                   impl, dup, act, dirv, mu2)
+
+
+def update_wss_batched_bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
+                            mu, *, impl: str = "auto", dup: bool = False,
+                            act=None, dirv=None, mu2=None):
+    """Batched pass B over the Gram bank -> (G_new (B, n), i_next (B,)
+    int32, g_i_next, g_dn), and ``r`` (B, l) fifth with the direction
+    ``dirv`` (B, l)/``mu2``.  A lane with ``mu == 0`` (and ``mu2 == 0``)
+    leaves G bitwise unchanged."""
+    return _bank_b(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
+                   impl, dup, act, dirv, mu2)
+
+
 def source_row_wss(src: RowSource, G, alpha, L, U, i_idx, a_i, L_i, U_i,
-                   g_i, use_exact, *, impl: str = "auto", act=None):
+                   g_i, use_exact, *, impl: str = "auto",
+                   block_l: int = 1024, act=None):
     """Batched pass A against a :class:`RowSource`, within the active set
     ``act`` when given -> (j (B,), gain (B,))."""
+    del block_l
     if src.is_bank:
-        return row_wss_batched_rows(src.gram, src.gram_idx, G, alpha, L, U,
+        return row_wss_batched_bank(src.gram, src.gram_idx, G, alpha, L, U,
                                     a_i, L_i, U_i, g_i, i_idx, use_exact,
                                     impl=impl, dup=src.dup, act=act)
     XQ, sqq = src.query(i_idx)
@@ -229,7 +284,8 @@ def source_row_wss(src: RowSource, G, alpha, L, U, i_idx, a_i, L_i, U_i,
 
 
 def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
-                      *, impl: str = "auto", act=None, dirv=None, mu2=None):
+                      *, impl: str = "auto", block_l: int = 1024, act=None,
+                      dirv=None, mu2=None):
     """Batched pass B against a :class:`RowSource`, its scans within the
     active set ``act`` when given (the update of G is never masked), with
     the Conjugate-SMO direction ``dirv`` (B, l) and step ``mu2`` (B,) when
@@ -238,8 +294,9 @@ def source_update_wss(src: RowSource, G, alpha_new, L, U, i_idx, j_idx, mu,
     Returns (G_new (B, n), i_next (B,), g_i_next (B,), g_dn (B,)), and
     ``r = k_i - k_j`` (B, l) fifth with ``dirv``.
     """
+    del block_l
     if src.is_bank:
-        return update_wss_batched_rows(src.gram, src.gram_idx, G, alpha_new,
+        return update_wss_batched_bank(src.gram, src.gram_idx, G, alpha_new,
                                        L, U, i_idx, j_idx, mu, impl=impl,
                                        dup=src.dup, act=act, dirv=dirv,
                                        mu2=mu2)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref, tally
-from repro_torch.kernels.checks import (act_ptr, check_bank,
+from repro_torch.kernels.checks import (act_ptr, bank_strides,
                                         check_lane_scalars, check_state,
                                         dtype_bits, on_card)
 
@@ -191,7 +191,7 @@ def _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
     B, n = G.shape
     l = n // H
     dtype = G.dtype
-    check_bank(gram, gram_idx, B, l, dtype, G.device)
+    strides = bank_strides("gram", gram, gram_idx, B, l, dtype, G.device)
     for name, t in (("G", G), ("alpha", alpha), ("L", L), ("U", U)):
         check_state(name, t, (B, H * l), dtype, G.device)
     check_lane_scalars(B, G.device, dtype, a_i=a_i, L_i=L_i, U_i=U_i,
@@ -203,10 +203,12 @@ def _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
     bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
     barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
     fn = build.entry("row_wss_batched_rows", dtype_bits(dtype))
-    ptrs = [t.data_ptr() for t in (gram, gram_idx, G, alpha, L, U, a_i, L_i,
-                                   U_i, g_i, i_idx, use_exact)]
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
+                      i_idx, use_exact)]
     err = fn(*ptrs, aptr, bmax.data_ptr(), barg.data_ptr(), B, H, l,
-             G.device.index, torch.cuda.current_stream(G.device).cuda_stream)
+             *strides, G.device.index,
+             torch.cuda.current_stream(G.device).cuda_stream)
     build.check(err, "row_wss_batched_rows")
     return bmax, barg
 
@@ -218,7 +220,9 @@ def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
     Lane b's kernel row is ``gram[gram_idx[b], i_idx[b]]``, read by the
     kernel in place.  ``gram_idx`` is (B,) int64, checked against the bank
     by :func:`repro_torch.kernels.row_source.bank_source`; the other
-    arguments are as in :func:`rbf_row_wss_batched`.  Returns
+    arguments are as in :func:`rbf_row_wss_batched`.  With ``gram_idx``
+    None, ``gram`` is the lanes' rows pre-gathered, (B, l) (the
+    reference's ``KR``), read as a bank of B entries of one row.  Returns
     (bmax (B, nb), barg (B, nb) int32), ``nb = ceil(l / BLOCK_L)``.
     """
     if not on_card(G, "bank pass A"):

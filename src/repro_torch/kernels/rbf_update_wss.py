@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref, tally
-from repro_torch.kernels.checks import (act_ptr, check_bank,
+from repro_torch.kernels.checks import (act_ptr, bank_strides,
                                         check_lane_scalars, check_state,
                                         dirv_ptr, dtype_bits, on_card)
 
@@ -226,21 +226,30 @@ def _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, H: int,
     B, n = G.shape
     l = n // H
     dtype = G.dtype
-    check_bank(gram, gram_idx, B, l, dtype, G.device)
+    if gram_idx is None:
+        gram_i, gram_j = gram
+        strides = bank_strides("KRi", gram_i, None, B, l, dtype, G.device)
+        bank_strides("KRj", gram_j, None, B, l, dtype, G.device)
+    else:
+        gram_i = gram_j = gram
+        strides = bank_strides("gram", gram, gram_idx, B, l, dtype,
+                               G.device)
+        check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx,
+                           j_idx=j_idx)
     for name, t in (("G", G), ("alpha_new", alpha_new), ("L", L), ("U", U)):
         check_state(name, t, (B, H * l), dtype, G.device)
     check_lane_scalars(B, G.device, dtype, mu=mu)
-    check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx, j_idx=j_idx)
     aptr = act_ptr(act, G)
     dptr, m2ptr = dirv_ptr(dirv, mu2, G, H)
     G_out, bmax, barg, bmin, r_out = _outputs(G, l, dirv is not None)
     fn = build.entry("update_wss_batched_rows", dtype_bits(dtype))
-    ptrs = [t.data_ptr() for t in (gram, gram_idx, i_idx, j_idx, G,
-                                   alpha_new, L, U, mu)]
+    rows = (None,) * 3 if gram_idx is None else (gram_idx, i_idx, j_idx)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (gram_i, gram_j, *rows, G, alpha_new, L, U, mu)]
     err = fn(*ptrs, aptr, dptr, m2ptr,
              *[t.data_ptr() for t in (G_out, bmax, barg, bmin)],
              None if r_out is None else r_out.data_ptr(),
-             B, H, l, G.device.index,
+             B, H, l, *strides, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
     build.check(err, "update_wss_batched_rows")
     out = (G_out, bmax, barg, bmin)
@@ -254,7 +263,10 @@ def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
     Lane b's rows are ``gram[gram_idx[b], i_idx[b]]`` and
     ``gram[gram_idx[b], j_idx[b]]``, read by the kernel in place;
     ``i_idx``/``j_idx`` are (B,) int32, ``gram_idx`` (B,) int64 and ``mu``
-    (B,) in the data dtype.  G is written out of place.  Returns
+    (B,) in the data dtype.  With ``gram_idx`` None, ``gram`` is the pair
+    of pre-gathered rows ``(KRi, KRj)``, each (B, l) (the reference's
+    form), and ``i_idx``/``j_idx`` are not read (None will do).  G is
+    written out of place.  Returns
     (G_new (B, l), bmax (B, nb), barg (B, nb) int32, bmin (B, nb)).
     """
     if not on_card(G, "bank pass B"):

@@ -241,10 +241,13 @@ def rbf_update_wss_batched(X, sqn, G, alpha_new, L, U, XQi, sqqi, XQj, sqqj,
 def bank_rows(gram, gram_idx, idx, dup: bool = False):
     """Rows ``gram[gram_idx, idx]`` of the Gram bank -> (B, l), or the
     doubled operator's tiled (B, 2l) rows (``idx`` folded onto the base
-    axis) with ``dup=True``."""
-    if not dup:
-        return gram[gram_idx, idx.long()]
-    return tile_rows(gram[gram_idx, idx.long() % gram.shape[-1]])
+    axis) with ``dup=True``.  With ``gram_idx`` None, ``gram`` holds the
+    lanes' (B, l) base rows already (``idx`` is not read)."""
+    if gram_idx is None:
+        k = gram
+    else:
+        k = gram[gram_idx, idx.long() % gram.shape[-1]]
+    return tile_rows(k) if dup else k
 
 
 def gram_cross(X1, X2, gamma, *, out=None):
@@ -348,7 +351,10 @@ def update_wss_batched_rows_blocks(gram, gram_idx, G, alpha_new, L, U,
                                    dup: bool = False, act=None, dirv=None,
                                    mu2=None):
     """Bank pass B as the kernel returns it: (G_new, bmax, barg, bmin), and
-    the base-width ``r`` with the base-width direction ``dirv``."""
-    return _blocks_b(G, bank_rows(gram, gram_idx, i_idx, dup),
-                     bank_rows(gram, gram_idx, j_idx, dup), mu, alpha_new, L,
+    the base-width ``r`` with the base-width direction ``dirv``.  With
+    ``gram_idx`` None, ``gram`` is the pair of pre-gathered rows
+    ``(KRi, KRj)``."""
+    gi, gj = gram if gram_idx is None else (gram, gram)
+    return _blocks_b(G, bank_rows(gi, gram_idx, i_idx, dup),
+                     bank_rows(gj, gram_idx, j_idx, dup), mu, alpha_new, L,
                      U, block_l, dup, act, dirv, mu2)

@@ -1,5 +1,8 @@
 """Model zoo of the port (``repro.models``): the dense GQA decoder
-(:mod:`~repro_torch.models.transformer`) and the ViT-stub VLM on it
-(:mod:`~repro_torch.models.vlm`), forward, training loss and serving,
-behind :mod:`~repro_torch.models.registry`.  The other families are
-configs only so far (the registry refuses them)."""
+(:mod:`~repro_torch.models.transformer`), the ViT-stub VLM on it
+(:mod:`~repro_torch.models.vlm`), the top-k MoE decoder
+(:mod:`~repro_torch.models.moe`) and the Mamba2 SSD LM
+(:mod:`~repro_torch.models.ssm`): forward, training loss and serving,
+behind :mod:`~repro_torch.models.registry`.  The hybrid and
+encoder-decoder families are configs only so far (the registry refuses
+them)."""

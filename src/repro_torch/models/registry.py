@@ -1,7 +1,8 @@
 """Unified model API across families (the port of
 ``repro.models.registry``: the forward, the training loss and serving).
 
-The dense and VLM families run here.  The MoE, SSM, hybrid and
+The dense, VLM, MoE and SSM (Mamba2) families run here; the MoE forward
+returns its load-balance aux, which :func:`loss_fn` adds.  The hybrid and
 encoder-decoder families are configs only so far: every call that needs
 their model raises ``NotImplementedError`` naming the family and its
 ROADMAP step.  ``demo_batch`` is data for any family, drawn exactly as
@@ -17,11 +18,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer, vlm
+from repro_torch.models import moe, ssm, transformer, vlm
 
-_MODULES = {"dense": transformer, "vlm": vlm}
+_MODULES = {"dense": transformer, "vlm": vlm, "moe": moe, "ssm": ssm}
 # ROADMAP step 15's sub-step that ports each remaining family
-_UNPORTED = {"moe": "15c", "ssm": "15d", "hybrid": "15d", "encdec": "15d"}
+_UNPORTED = {"hybrid": "15d", "encdec": "15d"}
 
 
 def get_module(cfg: ModelConfig):
@@ -67,8 +68,11 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
 
 def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any],
                    remat: str = "none"):
-    """Family-dispatched forward.  Returns (logits, aux_loss)."""
+    """Family-dispatched forward.  Returns (logits, aux_loss): the MoE
+    family's mean load-balance aux over its layers, 0.0 for the others."""
     mod = get_module(cfg)
+    if cfg.family == "moe":
+        return mod.apply(params, cfg, batch["tokens"], remat=remat)
     if cfg.family == "vlm":
         return mod.apply(params, cfg, batch["tokens"], batch["patches"],
                          remat=remat), 0.0
@@ -77,9 +81,10 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any],
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any],
             remat: str = "none", aux_weight: float = 0.01):
-    """Next-token cross entropy (+ the MoE load-balance aux, 0 for the
-    dense and VLM families): the logits in float32, ``logsumexp`` minus
-    the gold logit, averaged.  Returns (loss, {"nll", "aux"})."""
+    """Next-token cross entropy (+ ``aux_weight`` times the MoE
+    load-balance aux, 0 for the other families): the logits in float32,
+    ``logsumexp`` minus the gold logit, averaged.  Returns (loss, {"nll",
+    "aux"})."""
     logits, aux = forward_logits(params, cfg, batch, remat)
     logits = logits.float()
     labels = batch["labels"].long()

@@ -15,6 +15,7 @@ from repro_torch.models import transformer as T
 
 init_params = T.init_params
 init_cache = T.init_cache
+param_shapes = T.param_shapes
 
 
 def apply(params, cfg, tokens, patch_embeds, *, remat: str = "none",

@@ -15,8 +15,10 @@ new :class:`TrainState` and writes nothing of the state it is given
 (autograd runs on detached aliases of the parameters).  So a caller may
 keep an old state, restart from it (``runtime.fault.run_resilient``
 restarts from its ``init_state``) or snapshot it while later steps run.
-Metrics are 0-d tensors on the device; nothing in a step reads back to
-the host.
+Metrics are 0-d tensors on the device (the reference's ``loss``,
+``grad_norm`` and ``lr``, and ``aux``, the MoE load-balance aux averaged
+over the microbatches, 0 for the other families); nothing in a step reads
+back to the host.
 """
 
 from __future__ import annotations
@@ -76,17 +78,25 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
                          f"got {tc.accum_mode!r}")
 
     def loss_of(params, mb):
-        return registry.loss_fn(_cast(params, cdt), cfg, mb, remat=tc.remat)
+        """(loss, the MoE aux as a detached float32 0-d tensor)."""
+        loss, parts = registry.loss_fn(_cast(params, cdt), cfg, mb,
+                                       remat=tc.remat)
+        aux = parts["aux"]
+        if torch.is_tensor(aux):
+            return loss, aux.detach().float()
+        return loss, torch.full((), aux, dtype=torch.float32,
+                                device=loss.device)
 
     def grads_of(params, batch):
-        """(loss, gradients in the parameter dtype; float32 for
-        ``accum_mode="outside"``)."""
+        """(loss, aux, gradients in the parameter dtype; float32 for
+        ``accum_mode="outside"``); loss and aux are means over the
+        microbatches."""
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         flat = leaves(live)
         M = tc.microbatches
         if M <= 1:
-            loss, _ = loss_of(live, batch)
-            return loss.detach(), unflatten(
+            loss, aux = loss_of(live, batch)
+            return loss.detach(), aux, unflatten(
                 params, torch.autograd.grad(loss, flat))
         mbs = _microbatches(batch, M)
         if tc.accum_mode == "inside_grad":
@@ -94,25 +104,30 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
             # accumulates into the parameter-dtype gradients
             total = torch.zeros((), dtype=torch.float32,
                                 device=flat[0].device)
+            aux_total = torch.zeros_like(total)
             for mb in mbs:
-                loss, _ = loss_of(live, mb)
+                loss, aux = loss_of(live, mb)
                 (loss / M).backward()
                 total = total + loss.detach()
-            return total / M, tree_map(lambda p: p.grad, live)
+                aux_total = aux_total + aux
+            return total / M, aux_total / M, tree_map(lambda p: p.grad,
+                                                      live)
         acc = [torch.zeros(p.shape, dtype=adt, device=p.device)
                for p in flat]
-        losses = []
+        losses, auxs = [], []
         for mb in mbs:
-            loss, _ = loss_of(live, mb)
+            loss, aux = loss_of(live, mb)
             g = torch.autograd.grad(loss, flat)
             acc = [a + gg.to(adt) for a, gg in zip(acc, g)]
             losses.append(loss.detach())
-        return torch.mean(torch.stack(losses)), unflatten(
-            params, [a.float() / M for a in acc])
+            auxs.append(aux)
+        return torch.mean(torch.stack(losses)), torch.mean(
+            torch.stack(auxs)), unflatten(params, [a.float() / M
+                                                   for a in acc])
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         params = state.params
-        loss, grads = grads_of(params, batch)
+        loss, aux, grads = grads_of(params, batch)
         with torch.no_grad():
             ef = state.ef
             if tc.compress_grads:
@@ -123,6 +138,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
                                                  tc, lr)
         new_state = TrainState(params=new_params, opt=new_opt, ef=ef,
                                step=state.step + 1)
-        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                           "aux": aux}
 
     return train_step

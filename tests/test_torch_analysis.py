@@ -94,9 +94,9 @@ def test_invariance_audit_sees_a_shape_dependent_body():
 def test_index_arguments_reach_the_kernels_as_int32():
     rec, _ = dispatch_audit.record_body("bank", dtype=torch.float32)
     assert {(f, a) for f, a, _ in rec.index_args} == {
-        ("row_wss_batched_rows", "i_idx"),
-        ("update_wss_batched_rows", "i_idx"),
-        ("update_wss_batched_rows", "j_idx")}
+        ("row_wss_batched_bank", "i_idx"),
+        ("update_wss_batched_bank", "i_idx"),
+        ("update_wss_batched_bank", "j_idx")}
     assert {dt for _, _, dt in rec.index_args} == {torch.int32}
 
 

@@ -96,7 +96,7 @@ def _bank_t(bank):
 def test_bank_pass_a_matches_reference(impl):
     bank, a, _ = _bank_state()
     gram, gidx = _bank_t(bank)
-    j_t, gain_t = ops.row_wss_batched_rows(gram, gidx, *_t(a, PASS_A))
+    j_t, gain_t = ops.row_wss_batched_bank(gram, gidx, *_t(a, PASS_A))
     assert j_t.dtype == torch.int32
     KR = jnp.asarray(bank[GIDX, a["i_idx"]])
     j_j, gain_j = jops.row_wss_batched_rows(KR, *_j(a, PASS_A), impl=impl,
@@ -114,7 +114,7 @@ def test_bank_pass_b_matches_reference(impl):
     bank, _, b = _bank_state()
     gram, gidx = _bank_t(bank)
     mu = torch.as_tensor(b["mu"])
-    G_t, i_t, gi_t, gdn_t = ops.update_wss_batched_rows(
+    G_t, i_t, gi_t, gdn_t = ops.update_wss_batched_bank(
         gram, gidx, *_t(b, PASS_B), *_t(b, ("i_idx", "j_idx")), mu)
     np.testing.assert_array_equal(G_t[0].numpy(), b["G"][0])   # mu = 0
     KRi = jnp.asarray(bank[GIDX, b["i_idx"]])
@@ -132,6 +132,83 @@ def test_bank_pass_b_matches_reference(impl):
     np.testing.assert_array_equal(i_t.numpy()[:-1], [TIE_A] * (B_ - 1))
 
 
+ROWS_CASES = {"plain": {}, "dup": {"dup": True}, "act": {"act": True},
+              "conj": {"conj": True}}
+
+
+def _rows_case(case):
+    """Pass A and pass B inputs of a rows-form case: the bank state, doubled
+    to (B, 2l) halves for ``dup``, with an active set for ``act`` and a
+    conjugate direction for ``conj``."""
+    bank, a, b = _bank_state(seed=5)
+    opt = ROWS_CASES[case]
+    rng = np.random.default_rng(6)
+    kw_a, kw_b = {}, {}
+    if opt.get("dup"):
+        for s_ in (a, b):
+            for k in ("G", "alpha", "alpha_new", "L", "U"):
+                if k in s_:
+                    s_[k] = np.concatenate([s_[k], s_[k][:, ::-1]], axis=1)
+        b["j_idx"] = (b["j_idx"] + L_).astype(np.int32)
+        kw_a = kw_b = dict(dup=True)
+    if opt.get("act"):
+        act = rng.uniform(size=a["G"].shape) < 0.7
+        kw_a = kw_b = dict(act=act)
+    if opt.get("conj"):
+        kw_b = dict(dirv=rng.normal(size=(B_, L_)), mu2=rng.normal(size=B_))
+    return bank, a, b, kw_a, kw_b
+
+
+def _kw(kw, to):
+    return {k: (to(v) if isinstance(v, np.ndarray) else v)
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("case", ROWS_CASES)
+def test_rows_forms_match_reference(case, monkeypatch):
+    """``ops.row_wss_batched_rows``/``update_wss_batched_rows`` take the
+    reference's pre-gathered rows ``KR``/``KRi, KRj`` and agree with its
+    ``impl="jnp"``; with ``impl="cuda"`` they reach the bank kernels'
+    wrappers (their plain versions on CPU tensors), bitwise the same."""
+    bank, a, b, kw_a, kw_b = _rows_case(case)
+    base_i = b["i_idx"] % L_
+    KR = bank[GIDX, a["i_idx"] % L_]
+    KRi, KRj = bank[GIDX, base_i], bank[GIDX, b["j_idx"] % L_]
+    t_a = ops.row_wss_batched_rows(torch.as_tensor(KR), *_t(a, PASS_A),
+                                   block_l=128, **_kw(kw_a, torch.as_tensor))
+    j_a = jops.row_wss_batched_rows(jnp.asarray(KR), *_j(a, PASS_A),
+                                    impl="jnp", **_kw(kw_a, jnp.asarray))
+    np.testing.assert_array_equal(t_a[0].numpy(), np.asarray(j_a[0]))
+    np.testing.assert_allclose(t_a[1].numpy(), np.asarray(j_a[1]), rtol=RTOL)
+    mu = b["mu"]
+    t_b = ops.update_wss_batched_rows(
+        torch.as_tensor(KRi), torch.as_tensor(KRj), *_t(b, PASS_B),
+        torch.as_tensor(mu), block_l=128, **_kw(kw_b, torch.as_tensor))
+    jkw = _kw(kw_b, jnp.asarray)
+    if "dup" in kw_b and "dirv" in jkw:
+        jkw["dirv"] = jnp.tile(jkw["dirv"], (1, 2))
+    j_b = jops.update_wss_batched_rows(
+        jnp.asarray(KRi), jnp.asarray(KRj), *_j(b, PASS_B), jnp.asarray(mu),
+        impl="jnp", **jkw)
+    assert len(t_b) == len(j_b)
+    scale = float(np.abs(b["G"]).max())
+    for k, (got, want) in enumerate(zip(t_b, j_b)):
+        if got.dtype == torch.int32:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        else:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=RTOL, atol=RTOL * scale,
+                                       err_msg=str(k))
+    monkeypatch.setattr(ops, "resolve_impl", lambda impl, device: "cuda")
+    c_a = ops.row_wss_batched_rows(torch.as_tensor(KR), *_t(a, PASS_A),
+                                   **_kw(kw_a, torch.as_tensor))
+    c_b = ops.update_wss_batched_rows(
+        torch.as_tensor(KRi), torch.as_tensor(KRj), *_t(b, PASS_B),
+        torch.as_tensor(mu), **_kw(kw_b, torch.as_tensor))
+    for got, want in zip(c_a + c_b, t_a + t_b):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_cpu_bank_wrappers_run_the_plain_blocks():
     """On CPU tensors the bank kernel wrappers return the plain per-block
     outputs, whose cross-block reduction equals the full-row versions, and
@@ -144,7 +221,7 @@ def test_cpu_bank_wrappers_run_the_plain_blocks():
     assert bmax.shape == (B_, -(-L_ // 128)) and barg.dtype == torch.int32
     # the tie across blocks: both copies lead their blocks
     assert bmax[0, 0] == bmax[0, -1] and int(barg[0, -1]) == L_ + TIE_B
-    full = ops.row_wss_batched_rows(gram, gidx, *_t(a, PASS_A), impl="torch")
+    full = ops.row_wss_batched_bank(gram, gidx, *_t(a, PASS_A), impl="torch")
     for got, want in zip(ops._first_max(bmax, barg), full):
         np.testing.assert_array_equal(got.numpy(), want.numpy())
 
@@ -152,7 +229,7 @@ def test_cpu_bank_wrappers_run_the_plain_blocks():
             torch.as_tensor(b["mu"]))
     G_blk, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows(
         gram, gidx, *args)
-    full = ops.update_wss_batched_rows(gram, gidx, *args, impl="torch")
+    full = ops.update_wss_batched_bank(gram, gidx, *args, impl="torch")
     i_blk, gi_blk = ops._first_max(bmax, barg)
     for got, want in zip((G_blk, i_blk, gi_blk, bmin.amin(dim=1)), full):
         np.testing.assert_array_equal(got.numpy(), want.numpy())

@@ -145,7 +145,7 @@ def _port(src, s, dup, act, conj=True):
                   mu2=torch.as_tensor(s["mu2"]))
     if src == "rbf":
         return ops.rbf_update_wss_batched(*_t(s, PASS_B), **kw)
-    return ops.update_wss_batched_rows(
+    return ops.update_wss_batched_bank(
         torch.as_tensor(s["bank"]), torch.as_tensor(GIDX), *_t(s, STATE),
         *_t(s, ("i_idx", "j_idx", "mu")), **kw)
 

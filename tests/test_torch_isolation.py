@@ -305,6 +305,98 @@ def test_tile_knobs_are_accepted_and_ignored(entry):
             f.name
 
 
+def _pass_inputs(seed=0, B=3, l=40, d=3):
+    """Small f64 pass inputs: X, two gammas' bank, and lane state."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn((l, d), generator=g, dtype=torch.float64)
+    gammas = torch.tensor([0.3, 0.7, 0.3], dtype=torch.float64)
+    bank = torch.stack([ref.gram_cross(X, X, 0.3), ref.gram_cross(X, X, 0.7)])
+    C = 2.0
+    y = torch.where(torch.rand((B, l), generator=g) < 0.5, -1.0, 1.0).double()
+    L, U = torch.clamp_max(C * y, 0.0), torch.clamp_min(C * y, 0.0)
+    alpha = L + (U - L) * torch.rand((B, l), generator=g, dtype=torch.float64)
+    G = torch.randn((B, l), generator=g, dtype=torch.float64)
+    i_idx = torch.tensor([1, 7, 30], dtype=torch.int32)
+    j_idx = torch.tensor([5, 0, 12], dtype=torch.int32)
+    lanes = torch.arange(B)
+    return dict(X=X, sqn=(X * X).sum(-1), gammas=gammas, bank=bank,
+                gidx=torch.tensor([0, 1, 0]), G=G, alpha=alpha, L=L, U=U,
+                i_idx=i_idx, j_idx=j_idx, a_i=alpha[lanes, i_idx.long()],
+                L_i=L[lanes, i_idx.long()], U_i=U[lanes, i_idx.long()],
+                g_i=G[lanes, i_idx.long()] + 1.0,
+                use_exact=torch.tensor([True, False, True]),
+                mu=torch.tensor([0.0, 0.2, -0.1], dtype=torch.float64))
+
+
+def _pass_call(wrapper, kw):
+    """One call of an ``ops`` pass wrapper on :func:`_pass_inputs`."""
+    from repro_torch.kernels import ref, row_source
+    s = _pass_inputs()
+    X, sqn, gm = s["X"], s["sqn"], s["gammas"]
+    lane_a = [s[k] for k in ("a_i", "L_i", "U_i", "g_i")]
+    state = [s[k] for k in ("G", "alpha", "L", "U")]
+    iq, jq = s["i_idx"].long(), s["j_idx"].long()
+    rows_i = ref.bank_rows(s["bank"], s["gidx"], s["i_idx"])
+    rows_j = ref.bank_rows(s["bank"], s["gidx"], s["j_idx"])
+    one = [t[0] for t in state]
+    if wrapper == "rbf_row_wss":
+        return ops.rbf_row_wss(X, sqn, *one, X[1], *[t[0] for t in lane_a],
+                               s["i_idx"][0], s["use_exact"][0], 0.3, **kw)
+    if wrapper == "rbf_update_wss":
+        k_i = ref.rbf_row(X, sqn, X[1], 0.3)
+        return ops.rbf_update_wss(X, sqn, one[0], k_i, *one[1:], X[5],
+                                  s["mu"][1], 0.3, **kw)
+    if wrapper == "rbf_row_wss_batched":
+        return ops.rbf_row_wss_batched(X, sqn, *state, X[iq], sqn[iq],
+                                       *lane_a, s["i_idx"], s["use_exact"],
+                                       gm, **kw)
+    if wrapper == "rbf_update_wss_batched":
+        return ops.rbf_update_wss_batched(X, sqn, *state, X[iq], sqn[iq],
+                                          X[jq], sqn[jq], s["mu"], gm, **kw)
+    if wrapper == "source_row_wss":
+        src = row_source.bank_source(s["bank"], s["gidx"])
+        return ops.source_row_wss(src, *state, s["i_idx"], *lane_a,
+                                  s["use_exact"], **kw)
+    if wrapper == "source_update_wss":
+        src = row_source.rbf_source(X, gm, 3)
+        return ops.source_update_wss(src, *state, s["i_idx"], s["j_idx"],
+                                     s["mu"], **kw)
+    if wrapper == "row_wss_batched_rows":
+        return ops.row_wss_batched_rows(rows_i, *state, *lane_a, s["i_idx"],
+                                        s["use_exact"], **kw)
+    assert wrapper == "update_wss_batched_rows"
+    return ops.update_wss_batched_rows(rows_i, rows_j, *state, s["mu"], **kw)
+
+
+@pytest.mark.parametrize("wrapper", [
+    "rbf_row_wss", "rbf_update_wss", "rbf_row_wss_batched",
+    "rbf_update_wss_batched", "source_row_wss", "source_update_wss",
+    "row_wss_batched_rows", "update_wss_batched_rows"])
+def test_pass_wrappers_take_the_reference_s_arguments(wrapper):
+    """Every ``ops`` pass wrapper accepts the reference's ``block_l`` and
+    ignores it; the rows forms take the reference's pre-gathered rows and
+    agree bitwise with the bank forms reading the same rows in place."""
+    got = _pass_call(wrapper, dict(block_l=256))
+    want = _pass_call(wrapper, {})
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if wrapper in ("row_wss_batched_rows", "update_wss_batched_rows"):
+        s = _pass_inputs()
+        state = [s[k] for k in ("G", "alpha", "L", "U")]
+        if wrapper == "row_wss_batched_rows":
+            bank = ops.row_wss_batched_bank(
+                s["bank"], s["gidx"], *state,
+                *[s[k] for k in ("a_i", "L_i", "U_i", "g_i", "i_idx",
+                                 "use_exact")])
+        else:
+            bank = ops.update_wss_batched_bank(
+                s["bank"], s["gidx"], *state, s["i_idx"], s["j_idx"],
+                s["mu"])
+        for a, b in zip(want, bank):
+            assert torch.equal(a, b)
+
+
 def test_no_error_names_the_multi_gpu_step():
     """The lane-sharded engine and the row-sharded solver are ported:
     nothing in the package still refuses them as a later slice."""

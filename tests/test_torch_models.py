@@ -32,9 +32,7 @@ LAYER_TOL = dict(rtol=1e-6, atol=1e-6)
 MODEL_TOL = dict(rtol=1e-5, atol=1e-5)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
 SERVED = ("qwen2-0.5b", "deepseek-7b", "internvl2-1b")
-UNPORTED = {"mixtral-8x7b": "moe", "grok-1-314b": "moe",
-            "mamba2-370m": "ssm", "recurrentgemma-2b": "hybrid",
-            "whisper-tiny": "encdec"}
+UNPORTED = {"recurrentgemma-2b": "hybrid", "whisper-tiny": "encdec"}
 
 
 def _t(a):

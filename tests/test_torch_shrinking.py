@@ -192,7 +192,7 @@ def _port_a(src, a, act, bank, dup, impl="torch"):
     if src == "rbf":
         return ops.rbf_row_wss_batched(*_t(a, PASS_A), impl=impl, dup=dup,
                                        act=act)
-    return ops.row_wss_batched_rows(torch.as_tensor(bank),
+    return ops.row_wss_batched_bank(torch.as_tensor(bank),
                                     torch.as_tensor(GIDX), *_t(a, BANK_A),
                                     impl=impl, dup=dup, act=act)
 
@@ -214,7 +214,7 @@ def _port_b(src, b, act, bank, i_idx, j_idx, dup, impl="torch"):
     if src == "rbf":
         return ops.rbf_update_wss_batched(*_t(b, PASS_B), impl=impl,
                                           dup=dup, act=act)
-    return ops.update_wss_batched_rows(
+    return ops.update_wss_batched_bank(
         torch.as_tensor(bank), torch.as_tensor(GIDX),
         *_t(b, ("G", "alpha_new", "L", "U")), torch.as_tensor(i_idx),
         torch.as_tensor(j_idx), torch.as_tensor(b["mu"]), impl=impl,

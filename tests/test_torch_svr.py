@@ -205,7 +205,7 @@ def test_doubled_bank_passes_match_reference(impl):
     gidx = torch.tensor([1, 0, 1])
     keys = ("G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i", "i_idx",
             "use_exact")
-    j_t, g_t = ops.row_wss_batched_rows(gram, gidx, *_t(a, keys), dup=True)
+    j_t, g_t = ops.row_wss_batched_bank(gram, gidx, *_t(a, keys), dup=True)
     KR = jnp.asarray(gram.numpy())[jnp.asarray([1, 0, 1]),
                                    jnp.asarray(a["i_idx"] % 257)]
     j_j, g_j = jops.row_wss_batched_rows(KR, *_j(a, keys[:-2]),
@@ -216,7 +216,7 @@ def test_doubled_bank_passes_match_reference(impl):
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-12)
     i_idx = torch.as_tensor(a["i_idx"])
     j_idx = torch.tensor([3, 400, 256], dtype=torch.int32)
-    out_t = ops.update_wss_batched_rows(
+    out_t = ops.update_wss_batched_bank(
         gram, gidx, *_t(b, ("G", "alpha_new", "L", "U")), i_idx, j_idx,
         torch.as_tensor(b["mu"]), dup=True)
     rows = jnp.asarray(gram.numpy())[jnp.asarray([1, 0, 1, 1, 0, 1]),
@@ -242,18 +242,18 @@ def test_doubled_bank_passes_on_the_card_backend_match_plain(monkeypatch):
     keys = ("G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i", "i_idx",
             "use_exact")
     with pytest.raises(ValueError, match="impl='cuda'"):
-        ops.row_wss_batched_rows(gram, gidx, *_t(a, keys), impl="cuda",
+        ops.row_wss_batched_bank(gram, gidx, *_t(a, keys), impl="cuda",
                                  dup=True)
-    want_a = ops.row_wss_batched_rows(gram, gidx, *_t(a, keys),
+    want_a = ops.row_wss_batched_bank(gram, gidx, *_t(a, keys),
                                       impl="torch", dup=True)
     args_b = (gram, gidx, *_t(b, ("G", "alpha_new", "L", "U")),
               torch.as_tensor(a["i_idx"]), torch.tensor([3, 77],
                                                         dtype=torch.int32),
               torch.as_tensor(b["mu"]))
-    want_b = ops.update_wss_batched_rows(*args_b, impl="torch", dup=True)
+    want_b = ops.update_wss_batched_bank(*args_b, impl="torch", dup=True)
     monkeypatch.setattr(ops, "resolve_impl", lambda impl, device: "cuda")
-    got_a = ops.row_wss_batched_rows(gram, gidx, *_t(a, keys), dup=True)
-    got_b = ops.update_wss_batched_rows(*args_b, dup=True)
+    got_a = ops.row_wss_batched_bank(gram, gidx, *_t(a, keys), dup=True)
+    got_b = ops.update_wss_batched_bank(*args_b, dup=True)
     for got, want in zip(got_a + got_b, want_a + want_b):
         np.testing.assert_array_equal(got.numpy(), want.numpy())
 

@@ -340,7 +340,7 @@ def test_remat_full_gradients_bitwise_equal_none():
 
 
 def test_unported_families_raise_in_loss_fn():
-    for arch, step in (("mixtral-8x7b", "15c"), ("mamba2-370m", "15d"),
+    for arch, step in (("recurrentgemma-2b", "15d"),
                        ("whisper-tiny", "15d")):
         with pytest.raises(NotImplementedError, match=step):
             R.loss_fn(None, get_smoke(arch), {})
