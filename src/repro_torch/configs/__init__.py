@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
 A copy of ``repro.configs``: every architecture's ``CONFIG`` and
-``smoke()`` are data, so the registry can name a family whose model the
-port does not run yet (:mod:`repro_torch.models.registry` refuses it).
+``smoke()`` are data; :mod:`repro_torch.models.registry` runs each
+family's model.
 """
 
 from __future__ import annotations

@@ -2,9 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny
 
 The port of ``repro.launch.serve``: the same flags and printed lines;
-float32 on the CPU, bfloat16 on the card, random weights from seed 0.
+float32 on the CPU, bfloat16 on the card, random weights from seed 0;
+a VLM prompt also gets patch embeddings and an encoder-decoder one frame
+embeddings, drawn after the tokens as the reference draws them.
 ``--production-mesh`` raises ``NotImplementedError``: the meshes and
 ``sharding/`` are ROADMAP step 15 (15e).
 """
@@ -57,6 +60,10 @@ def main(argv=None):
     if cfg.family == "vlm":
         prompt["patches"] = torch.as_tensor(
             rng.normal(size=(args.batch, cfg.vision_tokens,
+                             cfg.d_model)) * 0.02, dtype=tdt, device=dev)
+    if cfg.family == "encdec":
+        prompt["frames"] = torch.as_tensor(
+            rng.normal(size=(args.batch, cfg.encoder_seq,
                              cfg.d_model)) * 0.02, dtype=tdt, device=dev)
 
     t0 = time.perf_counter()

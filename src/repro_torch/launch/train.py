@@ -10,9 +10,9 @@ from step N``, ``done``), plus ``--device``.  float32 on the CPU and
 bfloat16 parameters and compute on the card, as the reference chooses by
 backend; float32 optimizer state and accumulation, ``remat="full"``,
 random weights from seed 0, data from :class:`SyntheticTokens` (seed 0;
-VLM patch embeddings drawn from the step's seed).  It resumes from the
-newest committed checkpoint under ``--ckpt`` and saves every
-``--save-every`` steps and after the last.  ``--production-mesh`` raises
+VLM patch and encoder-decoder frame embeddings drawn from the step's
+seed).  It resumes from the newest committed checkpoint under ``--ckpt``
+and saves every ``--save-every`` steps and after the last.  ``--production-mesh`` raises
 ``NotImplementedError``: meshes and ``sharding/`` are ROADMAP step 15
 (15e).  :func:`main` returns the final state and the per-step record.
 """
@@ -54,12 +54,15 @@ class TrainRun:
 
 def batch_at(data: SyntheticTokens, cfg, step: int, device):
     """The step's batch on ``device``; a VLM also gets patch embeddings
-    (normal, std 0.02, from the step's seed)."""
+    and an encoder-decoder frame embeddings (normal, std 0.02, from the
+    step's seed)."""
     batch = data.batch_at(step)
-    if cfg.family == "vlm":
+    rows = {"vlm": ("patches", cfg.vision_tokens),
+            "encdec": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if rows is not None:
         rng = np.random.default_rng([data.seed, step])
-        batch["patches"] = (rng.normal(size=(
-            data.global_batch, cfg.vision_tokens, cfg.d_model)) * 0.02
+        batch[rows[0]] = (rng.normal(size=(
+            data.global_batch, rows[1], cfg.d_model)) * 0.02
         ).astype(np.float32)
     return to_device(batch, device)
 

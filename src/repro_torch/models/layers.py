@@ -300,9 +300,18 @@ class MLPParams(NamedTuple):
     w_down: torch.Tensor   # (f, d)
 
 
-def mlp_apply(p: MLPParams, x):
-    """The gated SiLU MLP of the dense and VLM families."""
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+def mlp_apply(p: MLPParams, x, activation="silu"):
+    """The gated MLP: SiLU (the dense, VLM and MoE families) or
+    ``"gelu"``, which is ``jax.nn.gelu``'s default, the tanh form (the
+    hybrid and encoder-decoder families)."""
+    act = F.silu if activation == "silu" else gelu
+    return (act(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+def gelu(x):
+    """``jax.nn.gelu`` as the reference calls it (``approximate=True``):
+    the tanh form, not the exact erf one (they differ by up to 4.7e-4)."""
+    return F.gelu(x, approximate="tanh")
 
 
 # ---------------------------------------------------------------------------

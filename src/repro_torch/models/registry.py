@@ -1,12 +1,13 @@
 """Unified model API across families (the port of
 ``repro.models.registry``: the forward, the training loss and serving).
 
-The dense, VLM, MoE and SSM (Mamba2) families run here; the MoE forward
-returns its load-balance aux, which :func:`loss_fn` adds.  The hybrid and
-encoder-decoder families are configs only so far: every call that needs
-their model raises ``NotImplementedError`` naming the family and its
-ROADMAP step.  ``demo_batch`` is data for any family, drawn exactly as
-the reference draws it, so one seed gives the reference's batch bitwise.
+Every family of the configs runs here: dense, VLM, MoE, SSM (Mamba2),
+hybrid (RecurrentGemma: RG-LRU and local MQA) and encoder-decoder
+(whisper).  The MoE forward returns its load-balance aux, which
+:func:`loss_fn` adds; the encoder-decoder takes ``batch["frames"]`` and
+the VLM ``batch["patches"]`` beside the tokens.  ``demo_batch`` is data
+for any family, drawn exactly as the reference draws it, so one seed
+gives the reference's batch bitwise.
 """
 
 from __future__ import annotations
@@ -18,18 +19,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import moe, ssm, transformer, vlm
+from repro_torch.models import encdec, moe, rglru, ssm, transformer, vlm
 
-_MODULES = {"dense": transformer, "vlm": vlm, "moe": moe, "ssm": ssm}
-# ROADMAP step 15's sub-step that ports each remaining family
-_UNPORTED = {"hybrid": "15d", "encdec": "15d"}
+_MODULES = {"dense": transformer, "vlm": vlm, "moe": moe, "ssm": ssm,
+            "hybrid": rglru, "encdec": encdec}
 
 
 def get_module(cfg: ModelConfig):
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
-            f"ROADMAP step {_UNPORTED[cfg.family]} (of step 15)")
     return _MODULES[cfg.family]
 
 
@@ -73,6 +69,9 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any],
     mod = get_module(cfg)
     if cfg.family == "moe":
         return mod.apply(params, cfg, batch["tokens"], remat=remat)
+    if cfg.family == "encdec":
+        return mod.apply(params, cfg, batch["tokens"], batch["frames"],
+                         remat=remat), 0.0
     if cfg.family == "vlm":
         return mod.apply(params, cfg, batch["tokens"], batch["patches"],
                          remat=remat), 0.0
@@ -108,6 +107,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], horizon: int,
             kv_dtype=torch.bfloat16):
     mod = get_module(cfg)
+    if cfg.family == "encdec":
+        return mod.prefill(params, cfg, batch["tokens"], batch["frames"],
+                           horizon, kv_dtype)
     if cfg.family == "vlm":
         return mod.prefill(params, cfg, batch["tokens"], batch["patches"],
                            horizon, kv_dtype)

@@ -26,10 +26,16 @@ from repro_torch.models import registry
 
 
 def extract_features(params, cfg, batch, pool: str = "mean") -> torch.Tensor:
-    """Pooled final hidden states (B, d_model), float32, of a dense or
-    VLM model, on the device of ``params``."""
+    """Pooled final hidden states (B, d_model), float32, of a model of any
+    family, on the device of ``params``."""
     mod = registry.get_module(cfg)
-    if cfg.family == "vlm":
+    if cfg.family == "moe":
+        hidden, _ = mod.apply(params, cfg, batch["tokens"],
+                              return_hidden=True)
+    elif cfg.family == "encdec":
+        hidden = mod.apply(params, cfg, batch["tokens"], batch["frames"],
+                           return_hidden=True)
+    elif cfg.family == "vlm":
         hidden = mod.apply(params, cfg, batch["tokens"], batch["patches"],
                            return_hidden=True)
     else:

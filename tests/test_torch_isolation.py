@@ -510,6 +510,36 @@ def test_importing_the_lm_serving_path_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_importing_the_hybrid_and_encdec_families_loads_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("import sys, repro_torch.models.rglru, repro_torch.models.encdec;"
+            " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-tiny"])
+@pytest.mark.parametrize("entry", ["init_params", "init_cache"])
+def test_hybrid_and_encdec_entry_points_without_a_card_raise(no_cuda, arch,
+                                                             entry):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves
+    cfg = get_smoke(arch)
+    call = {"init_params": lambda **kw: registry.init_params(0, cfg, **kw),
+            "init_cache": lambda **kw: registry.init_cache(cfg, 1, 8,
+                                                           **kw)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(device="cuda")
+    assert all(t.device.type == "cpu" for t in leaves(call(device="cpu")))
+
+
 def _lm_entry_call(entry, device):
     """One call of an LM-path entry point on the qwen2 smoke config."""
     from repro_torch.configs import get_smoke

@@ -32,7 +32,11 @@ LAYER_TOL = dict(rtol=1e-6, atol=1e-6)
 MODEL_TOL = dict(rtol=1e-5, atol=1e-5)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
 SERVED = ("qwen2-0.5b", "deepseek-7b", "internvl2-1b")
-UNPORTED = {"recurrentgemma-2b": "hybrid", "whisper-tiny": "encdec"}
+# the forward test's models: the served ones, the hybrid and the
+# encoder-decoder
+FORWARD = SERVED + ("recurrentgemma-2b", "whisper-tiny")
+# the input beside the tokens that each family's ``apply`` takes
+EXTRA = {"vlm": "patches", "encdec": "frames"}
 
 
 def _t(a):
@@ -189,7 +193,7 @@ def test_attn_decode_matches_reference(case):
             np.asarray(getattr(want_c, name), np.float32), **MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", FORWARD)
 def test_forward_logits_and_hidden_match_reference(arch):
     jcfg, cfg, jp, tp = _ref_params(arch)
     jb = JR.demo_batch(jcfg, batch=2, seq=24, seed=1)
@@ -198,8 +202,9 @@ def test_forward_logits_and_hidden_match_reference(arch):
     want, _ = JR.forward_logits(jp, jcfg, jb)
     assert got.shape == (2, 24, cfg.vocab) and aux == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
-    extra = [tb["patches"]] if cfg.family == "vlm" else []
-    jextra = [jb["patches"]] if cfg.family == "vlm" else []
+    key = EXTRA.get(cfg.family)
+    extra = [tb[key]] if key else []
+    jextra = [jb[key]] if key else []
     hid = R.get_module(cfg).apply(tp, cfg, tb["tokens"], *extra,
                                   return_hidden=True)
     jhid = JR.get_module(jcfg).apply(jp, jcfg, jb["tokens"], *jextra,
@@ -290,17 +295,16 @@ def test_init_cache_matches_reference():
                                           np.asarray(getattr(want.kv, name)))
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_not_implemented(arch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_config_has_a_model(arch):
+    """``get_module`` takes every config; the module's ``param_shapes`` are
+    the shapes of its ``init_params`` and of the reference's init."""
     cfg = get_smoke(arch)
-    calls = (lambda: R.get_module(cfg),
-             lambda: R.init_params(0, cfg, **CPU),
-             lambda: R.forward_logits(None, cfg, {}),
-             lambda: R.init_cache(cfg, 1, 8, **CPU),
-             lambda: R.prefill(None, cfg, {}, 8),
-             lambda: R.decode_step(None, cfg, None, None, 0))
-    for call in calls:
-        with pytest.raises(NotImplementedError) as err:
-            call()
-        assert UNPORTED[arch] in str(err.value)
-        assert cfg.name in str(err.value) and "step 15" in str(err.value)
+    mod = R.get_module(cfg)
+    got = L.tree_map(lambda t: tuple(t.shape), R.init_params(0, cfg, **CPU))
+    want = jax.eval_shape(lambda: JR.init_params(jax.random.PRNGKey(0),
+                                                 jget_smoke(arch)))
+    assert mod.param_shapes(cfg) == got
+    assert got == jax.tree.map(lambda s: None if s is None else
+                               tuple(s.shape), want,
+                               is_leaf=lambda s: s is None)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_smoke as jget_smoke
+from repro.configs import ARCHS, get_smoke as jget_smoke
 from repro.kernels import ops as jops
 from repro.models import registry as JR
 from repro.svm import probes as jprobes
@@ -105,7 +105,7 @@ def test_shared_gram_equals_k_copies_bitwise():
         assert torch.equal(getattr(got, name), want), name
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_extract_features_matches_reference(arch):
     jcfg, cfg = jget_smoke(arch), get_smoke(arch)
     jp = JR.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)

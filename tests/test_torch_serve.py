@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint.ckpt import _path_str
 from repro.configs import get_smoke as jget_smoke
 from repro.configs.base import ServeConfig as JServeConfig
 from repro.models import registry as JR
@@ -30,6 +31,7 @@ from repro_torch.configs.base import ServeConfig
 from repro_torch.models import registry as R
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.train import serve_step as ss
+from repro_torch.tree import leaves_with_path
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -57,7 +59,9 @@ def _setup(arch, prompt_len=16, **overrides):
 
 
 def _prompt(b, S):
-    return {k: v[:, :S] for k, v in b.items() if k != "labels"}
+    """The first S tokens of a batch with its patches or frames."""
+    return {k: v[:, :S] if k == "tokens" else v for k, v in b.items()
+            if k != "labels"}
 
 
 def _jitted(jcfg):
@@ -68,8 +72,11 @@ def _jitted(jcfg):
 
 
 # the dense model with full attention; the VLM with a window of 8, so its
-# ring wraps in the prefill (16 tokens) and on every decode step
-SERVE_CASES = {"qwen2-0.5b": {}, "internvl2-1b": {"sliding_window": 8}}
+# ring wraps in the prefill (16 tokens) and on every decode step; the
+# hybrid with a local window of 8 (the same); the encoder-decoder over
+# its frames
+SERVE_CASES = {"qwen2-0.5b": {}, "internvl2-1b": {"sliding_window": 8},
+               "recurrentgemma-2b": {"local_window": 8}, "whisper-tiny": {}}
 
 
 @pytest.mark.parametrize("arch", SERVE_CASES)
@@ -89,7 +96,13 @@ def test_prefill_and_serve_step_match_reference(arch):
         tl, tc = tstep(tp, tc, tb["tokens"][:, S + t:S + t + 1], S + t)
         assert tl.shape == (2, 1, cfg.vocab)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    np.testing.assert_array_equal(tc.kv.kpos.numpy(), np.asarray(jc.kv.kpos))
+    kpos = {p: t for p, t in leaves_with_path(tc) if p.endswith("kpos")}
+    want = jax.tree_util.tree_flatten_with_path(jc)[0]
+    want = {_path_str(p): np.asarray(x) for p, x in want
+            if _path_str(p).endswith("kpos")}
+    assert sorted(kpos) == sorted(want) and kpos
+    for p, t in kpos.items():
+        np.testing.assert_array_equal(t.numpy(), want[p])
 
 
 def _reference_greedy(jcfg, jp, prompt, steps):

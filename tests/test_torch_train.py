@@ -339,13 +339,6 @@ def test_remat_full_gradients_bitwise_equal_none():
         R.loss_fn(tp, cfg, tb, remat="some")
 
 
-def test_unported_families_raise_in_loss_fn():
-    for arch, step in (("recurrentgemma-2b", "15d"),
-                       ("whisper-tiny", "15d")):
-        with pytest.raises(NotImplementedError, match=step):
-            R.loss_fn(None, get_smoke(arch), {})
-
-
 # ---------------------------------------------------------------------------
 # the training step
 # ---------------------------------------------------------------------------
@@ -490,7 +483,8 @@ def test_synthetic_tokens_bitwise_equal_reference(shape):
             np.testing.assert_array_equal(a[k], b[k])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b",
+                                  "recurrentgemma-2b", "whisper-tiny"])
 def test_launch_train_smoke_and_resume(tmp_path, capsys, arch):
     from repro_torch.launch import train
     ck = str(tmp_path / "ck")
