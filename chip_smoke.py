@@ -281,6 +281,28 @@ failure raises and the script exits non-zero without a result line:
    a step, tokens/s, peak memory.  None of phases 17-20 launches a kernel
    of the port: the tally is checked unchanged.  Each phase's time is
    printed.
+21. meshes and sharding (step 15e), ``qwen2-0.5b`` at full width: (a)
+   ``make_host_mesh(1, 1)`` starts one NCCL rank and
+   ``repro_torch.launch.train.main`` (bf16, batch 8 x 512, 2
+   microbatches, 4 steps) takes the one-device path: losses and every
+   state leaf bitwise equal to the same steps without a mesh, under
+   deterministic algorithms; (b) the same weights as one-rank
+   ``Replicate`` DTensors (``tree_shardings``): 2 ``make_train_step``
+   steps and a 16-token greedy decode bitwise equal to plain tensors, ms
+   a step and a decode step of both (DTensor's host cost); (c)
+   ``restore_checkpoint(shardings=)`` of (a)'s checkpoint onto the mesh
+   bitwise; (d) with two or more cards, up to 4 NCCL ranks on an (n, 1)
+   and a (1, n) mesh: the first microbatch's gradient within the bf16
+   gradient gates of one card, 2 training steps; on one card a line says
+   the several-rank meshes ran in the CPU tests only; (e) in two
+   subprocesses started at the phase's start (each a fake 256-rank
+   group, fake CUDA tensors), the dry-run of ``qwen2-0.5b x
+   decode_32k``, ``mixtral-8x7b x long_500k``, ``mamba2-370m x
+   decode_32k`` and ``whisper-tiny x prefill_32k`` on the (16, 16)
+   production mesh and of the sharded solver at l = 1048576, d = 256:
+   each record ``ok``, its dominant term, roofline fraction and trace
+   time (terms reckoned at the H100's data-sheet peaks).  No kernel of
+   the port launches; the phase's time is printed.
 
 The solvers replay their loop body as CUDA graphs on the card
 (``repro_torch.core.solver_fused._drive``); the profiler windows over a
@@ -5960,6 +5982,351 @@ def phase_encdec(device):
         f"of the port launched in it")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: meshes and sharding (step 15e)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN = dict(batch=8, seq=512, microbatches=2, steps=4)
+MESH_DTENSOR = dict(steps=2, batch=8, prompt=64, new=16)
+MESH_CARDS = dict(max_cards=4, steps=2)
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k"), ("mixtral-8x7b", "long_500k"),
+                ("mamba2-370m", "decode_32k"), ("whisper-tiny", "prefill_32k"))
+SOLVER_DRYRUN = dict(l=1_048_576, d=256)
+SUBPROCESS_TIMEOUT = 600
+
+
+def mesh_train_config(T, fp32=False):
+    """The training launcher's config for ``T`` (``launch/train.py``)."""
+    from repro_torch.configs.base import TrainConfig
+    dt = "float32" if fp32 else "bfloat16"
+    return TrainConfig(seq_len=T["seq"], global_batch=T["batch"],
+                       microbatches=T["microbatches"], param_dtype=dt,
+                       compute_dtype=dt, accum_dtype="float32", remat="full")
+
+
+def dryrun_processes():
+    """Phase 21 (e), started in the background: the dry-run of
+    ``DRYRUN_CELLS`` and of the sharded solver on the (16, 16) production
+    mesh, in two subprocesses (half the cells each, the solver with the
+    second half), each with a fake 256-rank group and fake CUDA tensors
+    (they touch no card's memory and no NCCL group).  The last line of
+    each is the JSON list of its records."""
+    half = (len(DRYRUN_CELLS) + 1) // 2
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for cells, solver in ((DRYRUN_CELLS[:half], False),
+                          (DRYRUN_CELLS[half:], True)):
+        code = (
+            "import json\n"
+            "from repro_torch.launch import dryrun, dryrun_solver\n"
+            "mesh = dryrun.make_mesh_by_name('single')\n"
+            f"recs = [dryrun.run_cell(a, s, mesh, 'single') for a, s in "
+            f"{cells!r}]\n"
+            + (f"recs.append(dryrun_solver.run({SOLVER_DRYRUN['l']}, "
+               f"{SOLVER_DRYRUN['d']}, 'single'))\n" if solver else "")
+            + "print(json.dumps(recs, default=str))\n")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=str(ROOT)))
+    return procs
+
+
+def mesh_cards_rank(rank: int, world: int, dims, store: str, out: str,
+                    device_type: str = "cuda", smoke: bool = False):
+    """Phase 21 (d) on one rank: ``qwen2-0.5b`` (its smoke config with
+    ``smoke``) on a ``dims`` host mesh of ``world`` ranks (NCCL, one card a
+    rank; gloo for ``device_type="cpu"``): the gradient of the first
+    microbatch at the initial parameters, then ``MESH_CARDS['steps']``
+    training steps.  Rank 0 saves the loss, the flat float32 gradient and
+    the step losses to ``out``."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import axis_rules, full
+    from repro_torch.train.train_step import (init_state, make_train_step,
+                                              shard_state)
+    T = MESH_TRAIN
+    if device_type == "cuda":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group(
+        "nccl" if device_type == "cuda" else "gloo",
+        store=dist.FileStore(store, world), rank=rank, world_size=world,
+        timeout=timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh(*dims, device=dev)
+        cfg = (get_smoke if smoke else get_config)(LM_ARCH)
+        tc = mesh_train_config(T, fp32=device_type == "cpu")
+        data = SyntheticTokens(vocab=cfg.vocab, seq_len=T["seq"],
+                               global_batch=T["batch"])
+        with axis_rules(mesh):
+            state = shard_state(init_state(0, cfg, tc, device=dev), cfg,
+                                mesh)
+            mb = T["batch"] // T["microbatches"]
+            b = shard_batch({k: v[:mb] for k, v in
+                             train.host_batch(data, cfg, 0).items()}, mesh)
+            loss, g = grads_of(cfg, state.params, b)
+            flat = torch.cat([full(x).float().flatten() for x in g])
+            step_fn = make_train_step(cfg, tc)
+            losses = []
+            for s in range(MESH_CARDS["steps"]):
+                state, m = step_fn(state, shard_batch(
+                    train.host_batch(data, cfg, s), mesh))
+                losses.append(float(full(m["loss"])))
+        if rank == 0:
+            torch.save({"loss": float(full(loss)), "grad": flat.cpu(),
+                        "losses": losses}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_cards(world: int, dims, tmp: str, device_type="cuda",
+                   smoke=False) -> dict:
+    """Rank 0's record of :func:`mesh_cards_rank` on ``world`` ranks, one
+    subprocess a rank."""
+    store, out = os.path.join(tmp, f"store{dims}"), os.path.join(
+        tmp, f"rank0{dims}.pt")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+            " chip_smoke.mesh_cards_rank(int(sys.argv[2]), int(sys.argv[3]),"
+            " eval(sys.argv[4]), sys.argv[5], sys.argv[6], sys.argv[7],"
+            " sys.argv[8] == '1')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
+         repr(tuple(dims)), store, out, device_type, "1" if smoke else "0"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SUBPROCESS_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    return torch.load(out, weights_only=True)
+
+
+def phase_mesh(device):
+    """Phase 21: the host mesh, DTensor, re-partitioning, several cards
+    and the dry-run (step 15e); see the module docstring."""
+    import io
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Replicate,
+                                          distribute_tensor)
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.sharding import (axis_rules, full, map_logical,
+                                      tree_shardings)
+    from repro_torch.train.serve_step import greedy_decode, greedy_prefill
+    from repro_torch.train.train_step import (init_state, make_train_step,
+                                              state_shardings)
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    dry = dryrun_processes()
+    cfg = get_config(LM_ARCH)
+    T = MESH_TRAIN
+    tc = mesh_train_config(T, fp32=device.type == "cpu")
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=T["seq"],
+                           global_batch=T["batch"])
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(device)
+
+    def bitwise(a, b):
+        return all(torch.equal(full(x), full(y))
+                   for x, y in zip(leaves(a), leaves(b)))
+
+    def wrap(tree, shardings):
+        """(b)'s leaves as DTensors on their shardings' placements (on
+        one rank, every one ``Replicate``)."""
+        return map_logical(
+            lambda s, x: None if x is None
+            else distribute_tensor(x, mesh, s.placements), shardings, tree)
+
+    def replicated(batch):
+        return {k: distribute_tensor(v, mesh, [Replicate()] * mesh.ndim)
+                for k, v in batch.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the host mesh over the card, and the launcher on it
+        assert not dist.is_initialized()
+        mesh = make_host_mesh(1, 1, device=device)
+        try:
+            assert dist.get_backend() == ("nccl" if device.type == "cuda"
+                                          else "gloo")
+            assert dist.get_world_size() == 1
+            argv = ["--batch", str(T["batch"]), "--seq", str(T["seq"]),
+                    "--microbatches", str(T["microbatches"]), "--steps",
+                    str(T["steps"]), "--ckpt", tmp, "--device", str(device)]
+            buf = io.StringIO()
+            with deterministic("strict"):
+                with contextlib.redirect_stdout(buf):
+                    run, counts, wall = counted(lambda: train.main(argv))
+                check_only(counts, {}, "mesh train")
+                state = init_state(0, cfg, tc, device=device)
+                step_fn = make_train_step(cfg, tc)
+                losses = []
+                for s in range(T["steps"]):
+                    state, m = step_fn(state, train.batch_at(data, cfg, s,
+                                                             device))
+                    losses.append(float(m["loss"]))
+            assert "mesh: {'data': 1, 'model': 1}" in buf.getvalue()
+            assert type(run.state.params.embed) is torch.Tensor
+            assert run.losses == losses, (run.losses, losses)
+            assert bitwise(run.state, state), "launcher state differs"
+            say(f"[mesh] (a) make_host_mesh(1, 1): one NCCL rank; "
+                f"launch.train on it, {LM_ARCH} bf16, batch {T['batch']} x "
+                f"{T['seq']}, {T['microbatches']} microbatches, "
+                f"{T['steps']} steps in {wall:.3f} s, the one-device path "
+                f"(plain tensors): losses "
+                f"{', '.join(f'{x:.4f}' for x in losses)} and every state "
+                f"leaf bitwise equal to the same steps without a mesh "
+                f"(deterministic algorithms)")
+            del state
+
+            # (c) the launcher's checkpoint re-partitioned onto the mesh
+            back = restore_checkpoint(
+                tmp, T["steps"], run.state,
+                shardings=state_shardings(run.state, cfg, mesh))
+            assert bitwise(back, run.state), "re-partitioned state differs"
+            say(f"[mesh] (c) restore_checkpoint(shardings=) of (a)'s step "
+                f"{T['steps']} onto the (1, 1) mesh: {len(leaves(back))} "
+                f"leaves bitwise equal to the saved ones")
+            del back, run
+
+            # (b) the same weights as one-rank Replicate DTensors
+            D = MESH_DTENSOR
+            plain = init_state(0, cfg, tc, device=device)
+            wrapped = wrap(plain, state_shardings(plain, cfg, mesh))
+            assert all(isinstance(t, DTensor)
+                       for t in leaves(wrapped.params))
+            ms, out = {}, {}
+            with deterministic("strict"), axis_rules(mesh):
+                for tag, st in (("plain", plain), ("DTensor", wrapped)):
+                    times, ls = [], []
+                    for s in range(D["steps"]):
+                        b = shard_batch(train.host_batch(data, cfg, s),
+                                        mesh)
+                        if tag != "plain":
+                            b = replicated(b)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        st, m = step_fn(st, b)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        ls.append(float(full(m["loss"])))
+                    ms[tag] = times[-1] * 1e3
+                    out[tag] = (ls, st)
+                assert out["plain"][0] == out["DTensor"][0], out
+                assert bitwise(out["plain"][1], out["DTensor"][1])
+                del out, plain, wrapped
+                sc = ServeConfig(seq_len=D["prompt"] + D["new"],
+                                 batch=D["batch"])
+                prompt = {"tokens": registry.demo_batch(
+                    cfg, D["batch"], D["prompt"], device=device)["tokens"]}
+                p0 = registry.init_params(0, cfg, torch.bfloat16,
+                                          device=device)
+                toks, dec_ms = {}, {}
+                for tag in ("plain", "DTensor"):
+                    params, pr = p0, shard_batch(prompt, mesh)
+                    if tag != "plain":
+                        params = wrap(p0, tree_shardings(
+                            registry.param_logical(cfg), p0, mesh))
+                        pr = replicated(pr)
+                    with torch.no_grad():
+                        cp, cache, tok = greedy_prefill(cfg, sc, params, pr,
+                                                        device=device)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        toks[tag] = full(greedy_decode(
+                            cfg, cp, cache, tok, D["prompt"], D["new"]))
+                        torch.cuda.synchronize()
+                    dec_ms[tag] = (time.perf_counter() - t0) / (
+                        D["new"] - 1) * 1e3
+                assert torch.equal(toks["plain"], toks["DTensor"])
+            say(f"[mesh] (b) one-rank Replicate DTensors (tree_shardings, "
+                f"wrapped): {D['steps']} train steps bitwise equal to plain "
+                f"tensors (losses, every state leaf); ms a step (the "
+                f"second) plain {ms['plain']:.3f}, DTensor "
+                f"{ms['DTensor']:.3f} ({ms['DTensor'] / ms['plain']:.2f}x); "
+                f"greedy decode batch {D['batch']}, prompt {D['prompt']}, "
+                f"{D['new']} tokens equal; ms a decode step plain "
+                f"{dec_ms['plain']:.3f}, DTensor {dec_ms['DTensor']:.3f} "
+                f"({dec_ms['DTensor'] / dec_ms['plain']:.2f}x): the host "
+                f"cost of DTensor dispatch")
+        finally:
+            dist.destroy_process_group()
+
+        # (d) several cards
+        n = min(torch.cuda.device_count(), MESH_CARDS["max_cards"])
+        if n >= 2:
+            mb = T["batch"] // T["microbatches"]
+            b = {k: v[:mb] for k, v in
+                 train.batch_at(data, cfg, 0, device).items()}
+            l1, g1 = grads_of(cfg, registry.init_params(
+                0, cfg, torch.bfloat16, device=device), b)
+            one = torch.cat([g.float().flatten() for g in g1])
+            del g1
+            for dims in ((n, 1), (1, n)):
+                r = run_mesh_cards(n, dims, tmp)
+                g = r["grad"].to(device)
+                cos = float(torch.dot(g, one) / (g.norm() * one.norm()))
+                rdiff = abs(float(g.norm() / one.norm()) - 1.0)
+                say(f"[mesh] (d) {n} NCCL ranks on a {dims} mesh: loss "
+                    f"{r['loss']:.6f} (one card {float(l1):.6f}); gradient "
+                    f"cosine {cos:.6f} (limit {BF16_GRAD_COS}), norm "
+                    f"relative difference {rdiff:.6f} (limit "
+                    f"{BF16_GRAD_NORM_RDIFF}); {MESH_CARDS['steps']} steps, "
+                    f"losses {', '.join(f'{x:.4f}' for x in r['losses'])}")
+                assert cos >= BF16_GRAD_COS and rdiff <= BF16_GRAD_NORM_RDIFF
+                assert all(math.isfinite(x) for x in r["losses"])
+        else:
+            say("[mesh] (d) one card: the several-rank meshes ran in the CPU "
+                "tests only (tests/test_torch_mesh.py, 4 gloo ranks on a "
+                "(2, 2) mesh)")
+
+    # (e) the dry-run, started at the phase's start
+    recs = []
+    for p in dry:
+        stdout, stderr = p.communicate(timeout=SUBPROCESS_TIMEOUT)
+        assert p.returncode == 0, (stdout + stderr)[-4000:]
+        recs += json.loads(stdout.strip().splitlines()[-1])
+    for r in recs[:-1]:
+        assert r["ok"] and not r.get("skipped"), r.get("traceback", r)
+        ro = r["roofline"]
+        assert 0 < ro["roofline_fraction"] <= 1, ro
+        say(f"[mesh] (e) dry-run {r['arch']} x {r['shape']} on the (16, 16) "
+            f"mesh ({r['device']} fake tensors, a fake 256-rank group): "
+            f"dominant {ro['dominant']}, roofline fraction "
+            f"{ro['roofline_fraction']:.3e}; terms compute "
+            f"{ro['compute_s']:.3e} s, memory {ro['memory_s']:.3e} s, "
+            f"collective {ro['collective_s']:.3e} s (reckoned at the "
+            f"H100's data-sheet peaks); trace {r['time_compile_s']:.1f} s")
+    s = recs[-1]
+    p = s["per_iteration"]
+    say(f"[mesh] (e) dry-run pasmo-solver l={SOLVER_DRYRUN['l']} "
+        f"d={SOLVER_DRYRUN['d']} over 256 fake ranks: per iteration a "
+        f"device compute {p['compute_us']:.3f} us, memory "
+        f"{p['memory_us']:.3f} us, collective {p['collective_us']:.3f} us "
+        f"(reckoned); collectives {s['collectives']['counts']}; trace "
+        f"{s['time_compile_s']:.1f} s")
+    say(f"[mesh] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -6046,6 +6413,8 @@ def main(argv=None) -> int:
     phase_encdec(device)
     say(f"[time] encoder-decoder phase done at "
         f"{time.perf_counter() - t_start:.1f} s")
+    phase_mesh(device)
+    say(f"[time] mesh phase done at {time.perf_counter() - t_start:.1f} s")
     n_gram = MAIN_LAUNCHES["gram_block"]
     n_sym = MAIN_LAUNCHES["gram_symmetric"]
     say(f"[gram] launches over phases 5-13 and 15: {n_gram}; bank and Gram "

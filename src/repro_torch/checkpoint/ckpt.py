@@ -19,6 +19,12 @@ tensors.
 host allocator hands out again once an earlier snapshot is written) and
 writes it from a daemon thread, so the step loop does not wait on the
 disk; ``wait()`` drains the pending writes.
+
+On a mesh a DTensor leaf is saved as its full tensor (every rank gathers
+it; rank 0 writes), so the format stays ``torch/v1`` whatever the mesh.
+``restore_checkpoint(..., shardings=tree)`` cuts each full leaf onto its
+placements on each rank, with no communication: a one-device checkpoint
+restores onto a mesh, and a mesh checkpoint onto one device, bitwise.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import leaves_with_path, map_with_path, tree_map
+from repro_torch.sharding import full, place
+from repro_torch.tree import leaves, leaves_with_path, map_with_path, \
+    tree_map
 
 _STATE = "state.pt"
 FORMAT = "torch/v1"
@@ -51,7 +59,7 @@ def _host_copy(tree):
     cards = set()
 
     def copy(t):
-        t = torch.as_tensor(t).detach()
+        t = full(torch.as_tensor(t).detach())
         if not t.is_cuda:
             return t.clone()
         cards.add(t.device)
@@ -64,16 +72,35 @@ def _host_copy(tree):
     return out
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a running
+    process group, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, state: Any,
                     metadata: Optional[dict] = None) -> str:
-    """Synchronous save.  Returns the checkpoint path."""
+    """Synchronous save (DTensor leaves as full tensors; in a group of
+    several ranks rank 0 writes, then all wait for it).  Returns the
+    checkpoint path."""
+    import torch.distributed as dist
+    flat = {path: full(torch.as_tensor(t).detach()).cpu().contiguous()
+            for path, t in leaves_with_path(state)}
+    ckpt_dir = _write(directory, step, flat, metadata) if _writer() \
+        else _step_dir(directory, step)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+    return ckpt_dir
+
+
+def _write(directory: str, step: int, flat: dict,
+           metadata: Optional[dict]) -> str:
     ckpt_dir = _step_dir(directory, step)
     tmp_dir = ckpt_dir + ".tmp"
     if os.path.exists(tmp_dir):  # a stale torn write
         shutil.rmtree(tmp_dir)
     os.makedirs(tmp_dir)
-    flat = {path: torch.as_tensor(t).detach().cpu().contiguous()
-            for path, t in leaves_with_path(state)}
     torch.save(flat, os.path.join(tmp_dir, _STATE))
     with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
         json.dump({"step": step, "metadata": metadata or {},
@@ -103,13 +130,19 @@ def restore_checkpoint(directory: str, step: int, like: Any,
     """Restore into the structure of ``like`` (a tree of tensors): each
     leaf is read by its path, cast to ``like``'s dtype and put on
     ``device`` (the CUDA card by default; raises without one).
-    ``shardings``, an elastic re-partition onto a mesh in the reference,
-    comes with ROADMAP step 15e."""
+
+    ``shardings``, a tree of :class:`repro_torch.sharding.NamedSharding`
+    matching ``like``'s leaves, re-partitions instead: each leaf goes onto
+    its mesh and placements (:func:`repro_torch.sharding.place`), whatever
+    mesh wrote the checkpoint; ``device`` is then the meshes'."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...): meshes and sharding/ are "
-            "ROADMAP step 15 (15e); the port restores onto one device")
-    dev = resolve_device(device)
+        n_sh, n_like = len(leaves(shardings)), len(leaves(like))
+        if n_sh != n_like:
+            raise ValueError(f"shardings has {n_sh} leaves and like "
+                             f"{n_like}: one NamedSharding a leaf")
+        sh = iter(leaves(shardings))
+    else:
+        dev = resolve_device(device)
     ckpt_dir = _step_dir(directory, step)
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:
         fmt = json.load(f).get("format")
@@ -124,6 +157,8 @@ def restore_checkpoint(directory: str, step: int, like: Any,
             raise KeyError(f"checkpoint missing leaf {path}")
         want = torch.as_tensor(like_leaf).dtype
         # a copy even on the CPU in the same dtype: never a view of the file
+        if shardings is not None:
+            return place(arrays[path].to(dtype=want, copy=True), next(sh))
         return arrays[path].to(device=dev, dtype=want, copy=True)
 
     return map_with_path(leaf, like)
@@ -148,8 +183,9 @@ class AsyncCheckpointer:
                 return
             step, host_state, metadata = item
             try:
-                save_checkpoint(self.directory, step, host_state, metadata)
-                self._gc()
+                if _writer():
+                    _write(self.directory, step, host_state, metadata)
+                    self._gc()
             except Exception as e:  # raised again by wait()
                 self._errors.append(e)
             finally:
@@ -165,7 +201,9 @@ class AsyncCheckpointer:
     def save(self, step: int, state: Any, metadata: Optional[dict] = None):
         """Copy ``state`` to host memory (synchronous: the caller may write
         ``state`` as soon as this returns) and queue its write."""
-        self._q.put((int(step), _host_copy(state), metadata))
+        flat = {path: t.contiguous()
+                for path, t in leaves_with_path(_host_copy(state))}
+        self._q.put((int(step), flat, metadata))
 
     def wait(self):
         self._q.join()

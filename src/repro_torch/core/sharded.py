@@ -132,6 +132,34 @@ def solve_sharded(X, y, C, gamma, mesh=None,
                          "(plan_candidates == 1)")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
+    body, c, (yl, gap_ends, n_ranks) = sharded_iteration(
+        X, y, C, gamma, mesh, cfg, device=device, dtype=dtype)
+    # on the cards the chunks replay as CUDA graphs, collectives included
+    c, _ = solver_fused._drive(body, c, cfg.max_iter, check_every,
+                               solver_fused._use_graphs(yl))
+
+    # ---- finalize: f = 1/2 (y.a + G.a) (local dots, one sum) --------------
+    obj = (0.5 * (torch.dot(yl, c.alpha) + torch.dot(c.G, c.alpha)))
+    obj = obj.reshape(1)
+    dist.all_reduce(obj, group=mesh)
+    g_up, g_dn = gap_ends(c.alpha, c.G)
+    parts = [torch.empty_like(c.alpha) for _ in range(n_ranks)]
+    dist.all_gather(parts, c.alpha, group=mesh)
+    return ShardedResult(alpha=torch.cat(parts), iterations=c.t,
+                         objective=obj[0], kkt_gap=c.gap,
+                         converged=c.done, n_planning=c.n_planning,
+                         b=0.5 * (g_up + g_dn))
+
+
+def sharded_iteration(X, y, C, gamma, mesh=None,
+                      cfg: SolverConfig = SolverConfig(), *, device=None,
+                      dtype=None):
+    """The set-up of :func:`solve_sharded` on this rank: (``body``, the
+    initial carry, (the local labels, ``gap_ends``, the rank count)).
+    ``body(carry, refresh)`` is one iteration, its five collectives
+    included; :func:`solve_sharded` drives it, and the dry-run
+    (``repro_torch.launch.dryrun_solver``) traces it once.  Arguments as
+    :func:`solve_sharded` takes them."""
     dev = _rank_device(device)
     if dtype is None and torch.is_tensor(y) and y.is_floating_point():
         dtype = y.dtype
@@ -349,18 +377,4 @@ def solve_sharded(X, y, C, gamma, mesh=None,
                gap=g_up0 - g_dn0, pi=zi, pj=zi, qi=zi, qj=zi, x_pi=zd,
                x_pj=zd, x_qi=zd, x_qj=zd, n_hist=zt, p_smo=~no,
                prev_free=no, prev_ratio_ok=~no, n_planning=zt)
-    # on the cards the chunks replay as CUDA graphs, collectives included
-    c, _ = solver_fused._drive(body, c, cfg.max_iter, check_every,
-                               solver_fused._use_graphs(yl))
-
-    # ---- finalize: f = 1/2 (y.a + G.a) (local dots, one sum) --------------
-    obj = (0.5 * (torch.dot(yl, c.alpha) + torch.dot(c.G, c.alpha)))
-    obj = obj.reshape(1)
-    dist.all_reduce(obj, group=mesh)
-    g_up, g_dn = gap_ends(c.alpha, c.G)
-    parts = [torch.empty_like(c.alpha) for _ in range(n_ranks)]
-    dist.all_gather(parts, c.alpha, group=mesh)
-    return ShardedResult(alpha=torch.cat(parts), iterations=c.t,
-                         objective=obj[0], kkt_gap=c.gap,
-                         converged=c.done, n_planning=c.n_planning,
-                         b=0.5 * (g_up + g_dn))
+    return body, c, (yl, gap_ends, n_ranks)

@@ -6,8 +6,7 @@ reference's, so any step can be replayed after a restore without
 pipeline state (the checkpoint needs only the step counter).  The stream
 is markov-ish: each sequence follows a seeded hash of its previous token,
 low-entropy targets a model can learn.  :func:`to_device` puts a host
-batch on a device; placing it on a mesh (``shard_batch``) comes with
-ROADMAP step 15e.
+batch on a device; :func:`shard_batch` places it on a mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +43,24 @@ class SyntheticTokens:
         tokens = toks.astype(np.int32)
         labels = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1)
         return {"tokens": tokens, "labels": labels}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh,
+                rules=None) -> Dict[str, torch.Tensor]:
+    """Place a host batch (the same on every rank) onto ``mesh``: the
+    leading dimension by the ``batch`` rule, the others replicated.  Each
+    rank keeps its own rows, cut locally; on a one-device mesh the arrays
+    stay plain tensors (see :func:`repro_torch.sharding.place`)."""
+    from repro_torch.sharding import DEFAULT_RULES, NamedSharding, place, \
+        spec_for
+    rules = rules or DEFAULT_RULES
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        names = ("batch",) + (None,) * (v.ndim - 1)
+        sh = NamedSharding(mesh, spec_for(v.shape, names, mesh, rules))
+        out[k] = place(v, sh)
+    return out
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

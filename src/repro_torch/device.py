@@ -22,6 +22,8 @@ def resolve_device(device=None) -> torch.device:
                 "versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
+    if dev.type == "meta":          # shapes only: the dry-run's specs
+        return dev
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"device must be cuda or cpu, got {dev}")
     if dev.type == "cuda":

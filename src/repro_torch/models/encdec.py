@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import constrain, logical as lg
 
 
 class EncBlockParams(NamedTuple):
@@ -104,6 +105,25 @@ def param_shapes(cfg) -> EncDecParams:
         unembed=None if cfg.tie_embeddings else (V, d))
 
 
+def param_logical(cfg) -> EncDecParams:
+    enc = EncBlockParams(ln1=lg("embed"), attn=L.attn_logical(cfg),
+                         ln2=lg("embed"), mlp=L.mlp_logical(cfg))
+    dec = DecBlockParams(ln1=lg("embed"), self_attn=L.attn_logical(cfg),
+                         ln_x=lg("embed"), cross_attn=L.attn_logical(cfg),
+                         ln2=lg("embed"), mlp=L.mlp_logical(cfg))
+    return EncDecParams(
+        embed=L.embed_logical(), enc_blocks=T.stack_logical(enc),
+        enc_ln_f=lg("embed"), dec_blocks=T.stack_logical(dec),
+        ln_f=lg("embed"),
+        unembed=None if cfg.tie_embeddings else L.embed_logical())
+
+
+def cache_logical(cfg) -> EncDecCache:
+    ckv = lg("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return EncDecCache(self_kv=T.cache_logical(cfg).kv, cross_k=ckv,
+                       cross_v=ckv)
+
+
 def init_params(generator, cfg, dtype=torch.float32, *,
                 device=None) -> EncDecParams:
     """Random parameters of ``cfg``, the reference's distributions: dense
@@ -159,8 +179,8 @@ def _enc_block(cfg, positions, x, blk: EncBlockParams):
     h, _ = L.attn_apply(blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps),
                         positions, None, causal=False)
     x = x + h
-    return x + L.mlp_apply(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps),
-                           "gelu")
+    x = x + L.mlp_apply(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps), "gelu")
+    return constrain(x, "batch", "seq", "embed")
 
 
 def encode(params: EncDecParams, cfg, frames):
@@ -206,7 +226,7 @@ def _dec_block(cfg, positions, tables, enc_out, x, blk: DecBlockParams):
                           L.rms_norm(x, blk.ln_x, cfg.norm_eps), ck, cv)
     x = x + L.mlp_apply(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps),
                         "gelu")
-    return x, kv, (ck, cv)
+    return constrain(x, "batch", "seq", "embed"), kv, (ck, cv)
 
 
 def _decoder_in(params: EncDecParams, cfg, tokens):

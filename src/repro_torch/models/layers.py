@@ -19,7 +19,14 @@ cache in its storage dtype, accumulated in float32, masked scores
 ``NEG``.
 
 Parameter trees are NamedTuples whose leaves are tensors or ``None`` (an
-absent bias); :func:`repro_torch.tree.tree_map` walks them.
+absent bias); :func:`repro_torch.tree.tree_map` walks them.  Each has its
+logical annotation (``attn_logical``, ``mlp_logical``,
+``embed_logical``), and the activations are constrained at the
+reference's points (``repro_torch.sharding.constrain``: nothing on plain
+tensors).  On a mesh the leaves are DTensors; where DTensor has no rule
+or picks a layout the next op cannot take, a function runs on each
+rank's shards (``sharding.local_call``): the head projections,
+attention, the prefill cache and the decode step.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import constrain, is_dtensor, local_call, \
+    logical as lg
 from repro_torch.tree import tree_map  # noqa: F401  (the models' walker)
 
 NEG = -1e30
@@ -116,6 +125,9 @@ def attention(q, k, v, q_positions, k_positions, *, causal=True, window=0):
     a mask tensor other than cuDNN's (bf16 only), and the math backend
     then holds every (Sq, T) score; the repeat is a (B, T, H, D) copy, and
     its backward sums each group's gradients."""
+    if is_dtensor(q):
+        return _attention_on_shards(q, k, v, q_positions, k_positions,
+                                    causal=causal, window=window)
     Sq, T = q.shape[1], k.shape[1]
     H, KH = q.shape[2], k.shape[2]
     if KH != H:
@@ -136,6 +148,30 @@ def attention(q, k, v, q_positions, k_positions, *, causal=True, window=0):
     return out.transpose(1, 2)
 
 
+def _attention_on_shards(q, k, v, q_positions, k_positions, **kw):
+    """:func:`attention` of DTensors, computed on each rank's shard.
+    Attention is independent over the batch and over KV-head groups, so
+    each mesh dimension keeps q's batch sharding, or its head sharding
+    where the KV heads are sharded there too (q head h reads KV head
+    h // G, which then lies in the same shard); anything else, a partial
+    sum of v included, is gathered first.  The output comes back on those
+    placements.  (DTensor has no sharding rule for SDPA's CPU kernel; the
+    card runs the same local computation.)"""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = []
+    for a, b in zip(q.placements, k.placements):
+        if isinstance(a, Shard) and a.dim == 0:
+            pl.append(Shard(0))
+        elif isinstance(a, Shard) and a.dim == 2 and b == a:
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    return local_call(
+        lambda q, k, v: attention(q, k, v, q_positions, k_positions,
+                                  **kw).contiguous(),
+        q.device_mesh, (pl,) * 3, pl, q, k, v)
+
+
 def _repeat_heads(t, G: int):
     """(B, T, KH, D) -> (B, T, KH * G, D), each KV head repeated G times
     next to itself (an expand and a copy; no index gather, whose backward
@@ -154,10 +190,48 @@ class AttnParams(NamedTuple):
     bv: Optional[torch.Tensor]
 
 
+def attn_logical(cfg) -> AttnParams:
+    bias = cfg.qkv_bias
+    return AttnParams(
+        wq=lg("embed", "heads", "head_dim"),
+        wk=lg("embed", "kv_heads", "head_dim"),
+        wv=lg("embed", "kv_heads", "head_dim"),
+        wo=lg("heads", "head_dim", "embed"),
+        bq=lg("heads", "head_dim") if bias else None,
+        bk=lg("kv_heads", "head_dim") if bias else None,
+        bv=lg("kv_heads", "head_dim") if bias else None)
+
+
 def _proj(x, w):
     """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
+    if is_dtensor(w):
+        return _proj_on_shards(x, w)
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _proj_on_shards(x, w):
+    """:func:`_proj` of DTensors on each rank's shard: x's batch rows and
+    w's heads stay sharded, the contraction dimension is gathered (FSDP's
+    gather of the weight; its gradient comes back reduce-scattered).
+    DTensor's own matmul rule may shard the (H·hd) output columns over an
+    axis that does not divide H, and the split into heads is then
+    undefined."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    xp, wp, yp, xg, wg = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if isinstance(a, Shard) and a.dim == 0:      # batch rows
+            xp.append(a), wp.append(Replicate()), yp.append(a)
+            xg.append(a), wg.append(Partial())
+        elif isinstance(b, Shard) and b.dim == 1:    # heads
+            xp.append(Replicate()), wp.append(b), yp.append(Shard(2))
+            xg.append(Partial()), wg.append(b)
+        else:
+            xp.append(Replicate()), wp.append(Replicate())
+            yp.append(Replicate()), xg.append(Replicate())
+            wg.append(Replicate())
+    return local_call(_proj, w.device_mesh, (xp, wp), yp, x, w,
+                      grad_placements=(xg, wg))
 
 
 def attn_project(p: AttnParams, x):
@@ -176,15 +250,40 @@ def attn_qkv(p: AttnParams, x, tables):
 
     x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KH,hd)."""
     q, k, v = attn_project(p, x)
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "kv_heads", None)
     if tables is not None:
         q, k = rope(q, tables), rope(k, tables)
     return q, k, v
 
 
+def out_proj(p: AttnParams, o):
+    """``einsum("bshk,hkd->bsd", o, wo)`` as one matmul (decode's output
+    projection, unconstrained as the reference's ``attn_out_decode``)."""
+    return _merged(o, -2) @ _merged(p.wo, 0)
+
+
+def _merged(t, dim: int):
+    """``t.flatten(dim, dim + 1)``, the heads and head_dim merged.  A
+    DTensor merges on each rank's shard, keeping its heads and other
+    dimensions' shardings (the heads are the outer index, so a heads
+    shard is a shard of the merged dimension): DTensor's own view rule
+    would, in the backward, have to split a merged dimension sharded over
+    an axis that does not divide the heads."""
+    if not is_dtensor(t):
+        return t.flatten(dim, dim + 1)
+    from torch.distributed.tensor import Replicate, Shard
+    d = dim % t.ndim
+    pl = tuple(pl if isinstance(pl, Shard) and pl.dim != d + 1
+               else Replicate() for pl in t.placements)
+    out = tuple(Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim > d
+                else pl for pl in pl)
+    return local_call(lambda x: x.flatten(d, d + 1), t.device_mesh, (pl,),
+                      out, t)
+
+
 def attn_out(p: AttnParams, o):
-    """``einsum("bshk,hkd->bsd", o, wo)`` as one matmul."""
-    h, k, d = p.wo.shape
-    return o.flatten(-2) @ p.wo.reshape(h * k, d)
+    return constrain(out_proj(p, o), "batch", "seq", "embed")
 
 
 def attn_apply(p: AttnParams, cfg, x, positions, tables, *, causal=True,
@@ -219,7 +318,17 @@ def kv_cache_init(batch, capacity, kv_heads, head_dim, dtype,
 
 
 def kv_cache_from_prefill(k, v, positions, capacity, dtype) -> KVCache:
-    """Keep the last ``capacity`` tokens of a prefill (window semantics)."""
+    """Keep the last ``capacity`` tokens of a prefill (window semantics).
+    DTensor keys and values build their cache on each rank's shard (the
+    cache is per batch row and KV head): the cache's k and v come back
+    on k's placements, kpos replicated."""
+    if is_dtensor(k):
+        from torch.distributed.tensor import Replicate
+        pl, rep = tuple(k.placements), (Replicate(),) * k.device_mesh.ndim
+        return KVCache(*local_call(
+            lambda k, v: tuple(kv_cache_from_prefill(k, v, positions,
+                                                     capacity, dtype)),
+            k.device_mesh, (pl, pl), (pl, pl, rep), k, v))
     B, S = k.shape[:2]
     cache = kv_cache_init(B, capacity, k.shape[2], k.shape[3], dtype,
                           k.device)
@@ -246,13 +355,29 @@ def attn_decode(p: AttnParams, cfg, x, cache: KVCache, pos: int, tables,
     ``cfg`` has no RoPE.  The new k, v and position are written into
     ``cache`` in place, at slot ``pos % Tc`` (the reference donates its
     cache for the same update).  Returns (y, cache)."""
-    B = x.shape[0]
     q, k, v = attn_qkv(p, x, tables)
-    Tc, KH = cache.k.shape[1], cache.k.shape[2]
+    if is_dtensor(cache.k):
+        # per batch row and KV head: run on each rank's shard of the
+        # cache, in place in its own storage (q, k, v follow its placements)
+        pl, kp = tuple(cache.k.placements), tuple(cache.kpos.placements)
+        o = local_call(
+            lambda *a: _decode_attend(*a, pos, window), cache.k.device_mesh,
+            (pl,) * 5 + (kp,), pl, q, k, v, cache.k, cache.v, cache.kpos)
+    else:
+        o = _decode_attend(q, k, v, cache.k, cache.v, cache.kpos, pos,
+                           window)
+    return out_proj(p, o), cache
+
+
+def _decode_attend(q, k, v, cache_k, cache_v, kpos, pos: int, window):
+    """The new token's k, v and position written at slot ``pos % Tc``,
+    then its attention over the cache -> o (B, 1, H, D) in q's dtype."""
+    B = q.shape[0]
+    Tc, KH = cache_k.shape[1], cache_k.shape[2]
     slot = pos % Tc
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
-    cache.kpos[slot] = pos
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    kpos[slot] = pos
     H, D = q.shape[2], q.shape[3]
     G = H // KH
     scale = 1.0 / math.sqrt(D)
@@ -262,22 +387,20 @@ def attn_decode(p: AttnParams, cfg, x, cache: KVCache, pos: int, tables,
     # view: the queries sit block-diagonally over the KV heads (the other
     # heads' blocks add exact zeros), and of the outputs only the diagonal
     # blocks are kept.
-    qb = torch.zeros((B, KH, G, KH, D), dtype=cache.k.dtype,
-                     device=x.device)
+    qb = torch.zeros((B, KH, G, KH, D), dtype=cache_k.dtype,
+                     device=q.device)
     qb.diagonal(dim1=1, dim2=3).copy_(
         q.reshape(B, KH, G, D).permute(0, 2, 3, 1))
     s = _dots_f32(qb.reshape(B, H, KH * D),
-                  cache.k.reshape(B, Tc, KH * D).transpose(1, 2)) * scale
-    kp = cache.kpos
-    mask = (kp >= 0) & (kp <= pos)
+                  cache_k.reshape(B, Tc, KH * D).transpose(1, 2)) * scale
+    mask = (kpos >= 0) & (kpos <= pos)
     if window > 0:
-        mask &= kp > pos - window
+        mask &= kpos > pos - window
     s = torch.where(mask[None, None, :], s, NEG)
     pattn = torch.softmax(s, dim=-1)
-    o = _dots_f32(pattn.to(cache.v.dtype), cache.v.reshape(B, Tc, KH * D))
+    o = _dots_f32(pattn.to(cache_v.dtype), cache_v.reshape(B, Tc, KH * D))
     o = o.reshape(B, KH, G, KH, D).diagonal(dim1=1, dim2=3)
-    o = o.permute(0, 3, 1, 2).reshape(B, 1, H, D).to(x.dtype)
-    return attn_out(p, o), cache
+    return o.permute(0, 3, 1, 2).reshape(B, 1, H, D).to(q.dtype)
 
 
 def _dots_f32(a, b):
@@ -300,12 +423,19 @@ class MLPParams(NamedTuple):
     w_down: torch.Tensor   # (f, d)
 
 
+def mlp_logical(cfg) -> MLPParams:
+    return MLPParams(w_gate=lg("embed", "mlp"), w_up=lg("embed", "mlp"),
+                     w_down=lg("mlp", "embed"))
+
+
 def mlp_apply(p: MLPParams, x, activation="silu"):
     """The gated MLP: SiLU (the dense, VLM and MoE families) or
     ``"gelu"``, which is ``jax.nn.gelu``'s default, the tanh form (the
     hybrid and encoder-decoder families)."""
     act = F.silu if activation == "silu" else gelu
-    return (act(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    g = constrain(x @ p.w_gate, "batch", "seq", "mlp")
+    y = (act(g) * (x @ p.w_up)) @ p.w_down
+    return constrain(y, "batch", "seq", "embed")
 
 
 def gelu(x):
@@ -318,10 +448,33 @@ def gelu(x):
 # embeddings / logits
 # ---------------------------------------------------------------------------
 
+def embed_logical():
+    return lg("vocab", "embed")
+
+
 def embed_lookup(table, tokens):
-    return F.embedding(tokens, table)
+    return constrain(F.embedding(tokens, _gathered(table, (0, 1))),
+                     "batch", "seq", "embed")
 
 
 def logits_proj(table_or_w, x):
     """Final projection; ``table_or_w`` is (V, d) (tied or untied)."""
-    return x @ table_or_w.T
+    return constrain(x @ _gathered(table_or_w, (1,)).T,
+                     "batch", "seq", "vocab")
+
+
+def _gathered(table, dims):
+    """A DTensor table with its shards along ``dims`` gathered (FSDP's
+    gather before use; the backward reduce-scatters the gradient back onto
+    the table's own placements, so the lookup's and the projection's
+    gradients of a tied table meet in one layout).  The lookup gathers
+    the vocabulary too: DTensor's masked-partial lookup on a
+    vocabulary-sharded table mis-reduces when the tokens are sharded over
+    another mesh dimension (torch 2.13).  The projection keeps the
+    vocabulary sharded.  A plain tensor as it is."""
+    if not is_dtensor(table):
+        return table
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim in dims else pl
+            for pl in table.placements]
+    return table.redistribute(table.device_mesh, want)

@@ -10,8 +10,8 @@ exclusive cumsum over the flattened (S·K) order; a capacity cut
 tensors are (B, S, E, C) in the activations' dtype, and the experts' gated
 SiLU MLPs are batched matmuls over the expert axis, as the reference's
 einsums are: none of it is a Pallas kernel there.  The reference pins
-its layouts to a mesh (``constrain``); on one device that does nothing,
-and meshes are ROADMAP step 15e.
+its layouts to a mesh at the same six points (``constrain``); on one
+device that does nothing.
 
 Attention, the ring cache and the logits are the dense model's
 (:mod:`repro_torch.models.transformer`).
@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import constrain, logical as lg
 
 
 class MoEParams(NamedTuple):
@@ -105,6 +106,25 @@ def init_params(generator, cfg, dtype=torch.float32, *,
         unembed=None if s.unembed is None else embed(s.unembed))
 
 
+def moe_logical(cfg) -> MoEParams:
+    return MoEParams(router=lg("embed", None),
+                     w_gate=lg("expert", None, "moe_ff"),
+                     w_up=lg("expert", None, "moe_ff"),
+                     w_down=lg("expert", "moe_ff", None))
+
+
+def param_logical(cfg) -> MoEModelParams:
+    block = MoEBlockParams(ln1=lg("embed"), attn=L.attn_logical(cfg),
+                           ln2=lg("embed"), moe=moe_logical(cfg))
+    return MoEModelParams(
+        embed=L.embed_logical(), blocks=T.stack_logical(block),
+        ln_f=lg("embed"),
+        unembed=None if cfg.tie_embeddings else L.embed_logical())
+
+
+cache_logical = T.cache_logical
+
+
 def capacity(cfg, seq: int) -> int:
     """Slots an expert takes per sequence: ``capacity_factor · top_k · seq
     / n_experts`` rounded up to a multiple of 8, at least 8, at most
@@ -154,12 +174,23 @@ def moe_apply(p: MoEParams, cfg, x):
         dispatch = dispatch + dpk
         combine = combine + gate_vals[:, :, k, None, None].to(x.dtype) * dpk
 
-    # (E, B·C, d): the tokens each expert takes, in slot order
-    xin = torch.einsum("bsec,bsd->ebcd", dispatch, x).reshape(E, B * C, d)
-    h = torch.bmm(F.silu(torch.bmm(xin, p.w_gate))
-                  * torch.bmm(xin, p.w_up), p.w_down)
-    y = torch.einsum("bsec,ebcd->bsd", combine, h.reshape(E, B, C, d))
-    return y, aux
+    # (E, B, C, d): the tokens each expert takes, in slot order; the
+    # experts' matmuls run over its (E, B·C, d) view
+    xin = constrain(torch.einsum("bsec,bsd->ebcd", dispatch, x),
+                    "expert", "batch", None, None)
+    f = p.w_gate.shape[-1]
+    xin = xin.reshape(E, B * C, d)
+    g = constrain(torch.bmm(xin, p.w_gate).reshape(E, B, C, f),
+                  "expert", "batch", None, "moe_ff")
+    h = torch.bmm(F.silu(g).reshape(E, B * C, f) * torch.bmm(xin, p.w_up),
+                  p.w_down)
+    h = constrain(h.reshape(E, B, C, d), "expert", "batch", None, None)
+    # einsum("bsec,ebcd->bsd") as one batched matmul over (e, c), e the
+    # outer index of the merged dimension (einsum's own order would merge
+    # a sharded e inside c, which DTensor has no matmul rule for)
+    y = torch.bmm(combine.reshape(B, S, E * C),
+                  h.permute(1, 0, 2, 3).reshape(B, E * C, d))
+    return constrain(y, "batch", "seq", "embed"), aux
 
 
 def _block_apply(cfg, positions, tables, x, blk: MoEBlockParams):
@@ -170,7 +201,7 @@ def _block_apply(cfg, positions, tables, x, blk: MoEBlockParams):
                          window=cfg.sliding_window)
     x = x + h
     y, aux = moe_apply(blk.moe, cfg, L.rms_norm(x, blk.ln2, cfg.norm_eps))
-    return x + y, aux, kv
+    return constrain(x + y, "batch", "seq", "embed"), aux, kv
 
 
 def apply(params: MoEModelParams, cfg, tokens, *, remat: str = "none",

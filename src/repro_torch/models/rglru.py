@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import constrain, logical as lg
 from repro_torch.models.ssm import _causal_conv
 
 _C = 8.0  # RG-LRU gate sharpness constant (Griffin)
@@ -104,6 +105,41 @@ def _rec_shapes(cfg, n) -> RecBlockParams:
         conv_b=(n, w), lam=(n, w), w_a=(n, w, w), b_a=(n, w),
         w_i=(n, w, w), b_i=(n, w), w_out=(n, w, d), ln2=(n, d),
         mlp=L.MLPParams(w_gate=(n, d, f), w_up=(n, d, f), w_down=(n, f, d)))
+
+
+def _rec_logical(cfg) -> RecBlockParams:
+    return RecBlockParams(
+        ln1=lg("embed"), w_x=lg("embed", "mlp"), w_gate=lg("embed", "mlp"),
+        conv_w=lg("conv", "mlp"), conv_b=lg("mlp"), lam=lg("mlp"),
+        w_a=lg("mlp", None), b_a=lg("mlp"), w_i=lg("mlp", None),
+        b_i=lg("mlp"), w_out=lg("mlp", "embed"), ln2=lg("embed"),
+        mlp=L.mlp_logical(cfg))
+
+
+def _attn_logical(cfg) -> AttnBlockParams:
+    return AttnBlockParams(ln1=lg("embed"), attn=L.attn_logical(cfg),
+                           ln2=lg("embed"), mlp=L.mlp_logical(cfg))
+
+
+def param_logical(cfg) -> GriffinParams:
+    n_tail = layout(cfg)[1]
+    triple = TripleParams(rec1=_rec_logical(cfg), rec2=_rec_logical(cfg),
+                          attn=_attn_logical(cfg))
+    return GriffinParams(
+        embed=L.embed_logical(),
+        triples=T.stack_logical(triple),
+        tail=T.stack_logical(_rec_logical(cfg)) if n_tail else None,
+        ln_f=lg("embed"),
+        unembed=None if cfg.tie_embeddings else L.embed_logical())
+
+
+def cache_logical(cfg) -> GriffinCache:
+    n_tail = layout(cfg)[1]
+    rec = RecState(h=lg("layers", "batch", "mlp"),
+                   conv=lg("layers", "batch", None, "mlp"))
+    kv = T.cache_logical(cfg).kv
+    return GriffinCache(rec1=rec, rec2=rec, attn=kv,
+                        tail=rec if n_tail else None)
 
 
 def param_shapes(cfg) -> GriffinParams:
@@ -251,7 +287,7 @@ def _rec_apply(p: RecBlockParams, cfg, x, state: Optional[RecState] = None):
     ``state``'s so that a one-token step keeps a full window."""
     u = L.rms_norm(x, p.ln1, cfg.norm_eps)
     gate = L.gelu(u @ p.w_gate)
-    xb = u @ p.w_x
+    xb = constrain(u @ p.w_x, "batch", "seq", "mlp")
     if state is not None:
         ring = torch.cat([state.conv.to(xb.dtype), xb], dim=1)
         conv = _causal_conv(ring, p.conv_w, p.conv_b)[:, state.conv.shape[1]:]
@@ -260,10 +296,14 @@ def _rec_apply(p: RecBlockParams, cfg, x, state: Optional[RecState] = None):
         ring = xb
         conv = _causal_conv(xb, p.conv_w, p.conv_b)
         h0 = None
-    r_gate = torch.sigmoid(conv @ p.w_a + p.b_a)
-    i_gate = torch.sigmoid(conv @ p.w_i + p.b_i)
+    # on a mesh the gates' products are partial sums over the sharded
+    # width; they are reduced onto it before the sharded biases add
+    r_gate = torch.sigmoid(
+        constrain(conv @ p.w_a, "batch", "seq", "mlp") + p.b_a)
+    i_gate = torch.sigmoid(
+        constrain(conv @ p.w_i, "batch", "seq", "mlp") + p.b_i)
     y, h_last = _rglru(conv, r_gate, i_gate, p.lam, h0)
-    x = x + (y * gate) @ p.w_out
+    x = x + constrain((y * gate) @ p.w_out, "batch", "seq", "embed")
     x = x + L.mlp_apply(p.mlp, L.rms_norm(x, p.ln2, cfg.norm_eps), "gelu")
     return x, RecState(h=h_last, conv=ring[:, -(cfg.conv_kernel - 1):, :])
 

@@ -33,6 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import constrain, is_dtensor, local_call, \
+    logical as lg
 
 
 class SSMBlockParams(NamedTuple):
@@ -61,6 +63,26 @@ class SSMCache(NamedTuple):
 
     h: torch.Tensor        # (layers, B, H, P, N) float32
     conv: torch.Tensor     # (layers, B, K-1, din + 2N)
+
+
+def block_logical(cfg) -> SSMBlockParams:
+    return SSMBlockParams(
+        ln=lg("embed"), w_z=lg("embed", "mlp"), w_xbc=lg("embed", "mlp"),
+        w_dt=lg("embed", None), dt_bias=lg(None), A_log=lg(None),
+        D=lg(None), conv_w=lg("conv", "mlp"), conv_b=lg("mlp"),
+        norm=lg("mlp"), w_out=lg("mlp", "embed"))
+
+
+def param_logical(cfg) -> SSMParams:
+    return SSMParams(
+        embed=L.embed_logical(), blocks=T.stack_logical(block_logical(cfg)),
+        ln_f=lg("embed"),
+        unembed=None if cfg.tie_embeddings else L.embed_logical())
+
+
+def cache_logical(cfg) -> SSMCache:
+    return SSMCache(h=lg("layers", "batch", "heads", None, None),
+                    conv=lg("layers", "batch", None, "mlp"))
 
 
 def _dims(cfg):
@@ -134,13 +156,50 @@ def init_params(generator, cfg, dtype=torch.float32, *,
 
 def _causal_conv(x, w, b):
     """Depthwise causal conv: x (B, S, ch), w (K, ch), summed in the
-    reference's k order."""
+    reference's k order.  DTensors run it on each rank's shard
+    (:func:`_causal_conv_on_shards`)."""
+    if is_dtensor(x):
+        return _causal_conv_on_shards(x, w, b)
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = xp[:, 0:S] * w[0]
     for k in range(1, K):
         out = out + xp[:, k:k + S] * w[k]
     return out + b
+
+
+def _causal_conv_on_shards(x, w, b):
+    """:func:`_causal_conv` of DTensors on each rank's shard: the conv is
+    independent over batch rows and channels, so x keeps its batch
+    sharding, and its channel sharding where w's channels shard the same
+    way; the rest is gathered first (the padding of a sharded DTensor
+    fails in some torch releases' redistribution).  Weights replicated
+    over a batch-sharded mesh dimension get ``Partial`` gradients
+    there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    wpl = w.placements if is_dtensor(w) else \
+        (Replicate(),) * x.device_mesh.ndim
+    xp, wp, bp, wg, bg = [], [], [], [], []
+    for a, c in zip(x.placements, wpl):
+        if isinstance(a, Shard) and a.dim == 0:
+            xp.append(a), wp.append(Replicate()), bp.append(Replicate())
+            wg.append(Partial()), bg.append(Partial())
+        elif isinstance(a, Shard) and a.dim == 2 and c == Shard(1):
+            xp.append(a), wp.append(c), bp.append(Shard(0))
+            wg.append(c), bg.append(Shard(0))
+        else:
+            for lst in (xp, wp, bp, wg, bg):
+                lst.append(Replicate())
+    return local_call(_causal_conv, x.device_mesh, (xp, wp, bp), xp, x, w,
+                      b, grad_placements=(xp, wg, bg))
+
+
+def _batch_placements(t):
+    """``t``'s batch (dim 0) sharding kept, every other mesh dimension
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(pl if isinstance(pl, Shard) and pl.dim == 0
+                 else Replicate() for pl in t.placements)
 
 
 def _segsum_exp(a_cum):
@@ -164,7 +223,15 @@ def ssd_chunked(xdt, dA, Bm, Cm, chunk, h0=None):
     Bm, Cm: (B, S, N) shared across heads (single group);
     h0: (B, H, P, N) float32 initial state, zeros when None.
     Chunks of Q = min(chunk, S) steps, one chunk of S when Q does not
-    divide S.  Returns (y (B, S, H, P) float32, h_final (B, H, P, N))."""
+    divide S.  Returns (y (B, S, H, P) float32, h_final (B, H, P, N)).
+    DTensors scan on each rank's batch rows (every row is independent;
+    the other mesh dimensions are gathered first)."""
+    if is_dtensor(xdt):
+        pl = _batch_placements(xdt)
+        args = (xdt, dA, Bm, Cm) + (() if h0 is None else (h0,))
+        return local_call(
+            lambda *a: ssd_chunked(*a[:4], chunk, *a[4:]), xdt.device_mesh,
+            (pl,) * len(args), (pl, pl), *args)
     Bsz, S, H, P = xdt.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -213,7 +280,7 @@ def _block_apply(p: SSMBlockParams, cfg, x, h0=None, conv_state=None):
     din, H, P, N = _dims(cfg)
     u = L.rms_norm(x, p.ln, cfg.norm_eps)
     z = u @ p.w_z
-    xbc = u @ p.w_xbc
+    xbc = constrain(u @ p.w_xbc, "batch", "seq", "mlp")
     if conv_state is not None:
         xbc_ext = torch.cat([conv_state, xbc], dim=1)
         conv = _causal_conv(xbc_ext, p.conv_w, p.conv_b)[
@@ -234,7 +301,7 @@ def _block_apply(p: SSMBlockParams, cfg, x, h0=None, conv_state=None):
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
     out = y @ p.w_out
     conv_tail = xbc[:, -(cfg.conv_kernel - 1):, :]
-    return out, h_final, conv_tail
+    return constrain(out, "batch", "seq", "embed"), h_final, conv_tail
 
 
 def _residual(cfg, x, blk: SSMBlockParams):

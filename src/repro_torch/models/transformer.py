@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.sharding import constrain, logical as lg, map_logical
 from repro_torch.tree import leaves, unflatten
 
 
@@ -61,6 +62,20 @@ def param_shapes(cfg) -> DenseParams:
                             w_down=(n, f, d))),
         ln_f=(d,),
         unembed=None if cfg.tie_embeddings else (V, d))
+
+
+def stack_logical(tree):
+    """Prepend the 'layers' axis to every leaf annotation."""
+    return map_logical(lambda x, _: lg("layers", *x.names), tree, tree)
+
+
+def param_logical(cfg) -> DenseParams:
+    block = BlockParams(ln1=lg("embed"), attn=L.attn_logical(cfg),
+                        ln2=lg("embed"), mlp=L.mlp_logical(cfg))
+    return DenseParams(
+        embed=L.embed_logical(), blocks=stack_logical(block),
+        ln_f=lg("embed"),
+        unembed=None if cfg.tie_embeddings else L.embed_logical())
 
 
 def generator_on(generator, device: torch.device) -> torch.Generator:
@@ -156,7 +171,7 @@ def _block_apply(cfg, positions, tables, x, blk: BlockParams):
     h, _ = L.attn_apply(blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps),
                         positions, tables, causal=True,
                         window=cfg.sliding_window)
-    return _mlp_residual(x + h, blk, cfg)
+    return constrain(_mlp_residual(x + h, blk, cfg), "batch", "seq", "embed")
 
 
 def apply(params: DenseParams, cfg, tokens, *, remat: str = "none",
@@ -208,6 +223,13 @@ def init_cache(cfg, batch, horizon, dtype=torch.bfloat16, *,
         lambda t: t.expand((cfg.n_layers,) + t.shape).clone(), one))
 
 
+def cache_logical(cfg) -> Cache:
+    return Cache(kv=L.KVCache(
+        k=lg("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        v=lg("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        kpos=lg("layers", "kv_seq")))
+
+
 def prefill(params: DenseParams, cfg, tokens, horizon,
             kv_dtype=torch.bfloat16,
             prefix_embeds: Optional[torch.Tensor] = None):
@@ -222,7 +244,7 @@ def prefill(params: DenseParams, cfg, tokens, horizon,
         h, (k, v) = L.attn_apply(
             blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps), positions,
             tables, causal=True, window=cfg.sliding_window)
-        x = _mlp_residual(x + h, blk, cfg)
+        x = constrain(_mlp_residual(x + h, blk, cfg), "batch", "seq", "embed")
         kvs.append(L.kv_cache_from_prefill(k, v, positions, cap, kv_dtype))
     kv = L.KVCache(*(torch.stack(leaves) for leaves in zip(*kvs)))
     return _unembed(params, cfg, x), Cache(kv=kv)

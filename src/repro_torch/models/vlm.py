@@ -16,6 +16,8 @@ from repro_torch.models import transformer as T
 init_params = T.init_params
 init_cache = T.init_cache
 param_shapes = T.param_shapes
+param_logical = T.param_logical
+cache_logical = T.cache_logical
 
 
 def apply(params, cfg, tokens, patch_embeds, *, remat: str = "none",

@@ -30,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.sharding import is_dtensor
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.compression import ef_compress_grads
 from repro_torch.train.serve_step import DTYPES, _cast
@@ -60,14 +61,78 @@ def init_state(generator, cfg: ModelConfig, tc: TrainConfig, *,
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def state_shardings(state: TrainState, cfg: ModelConfig, mesh, rules=None):
+    """A :class:`repro_torch.sharding.NamedSharding` for every leaf of
+    ``state``, as the reference's launcher places a state: parameters,
+    the optimizer's leaves shaped like their parameters (AdamW's and
+    SGDM's moments, Adafactor's unfactored ones) and the error-feedback
+    residuals by the parameters' logical axes; every other leaf (step
+    counters, Adafactor's factored moments) replicated."""
+    from repro_torch.sharding import (DEFAULT_RULES, NamedSharding, P,
+                                      tree_shardings)
+    sh = tree_shardings(registry.param_logical(cfg), state.params, mesh,
+                        rules or DEFAULT_RULES)
+
+    def rep(t):
+        return NamedSharding(mesh, P(*[None] * t.ndim))
+
+    def by_shape(tree):
+        if len(leaves(tree)) != len(leaves(sh)):
+            return tree_map(rep, tree)
+        return tree_map(lambda t, s, p: s if t.shape == p.shape else rep(t),
+                        tree, sh, state.params)
+
+    opt = state.opt._replace(**{f: by_shape(getattr(state.opt, f))
+                                for f in state.opt._fields})
+    return TrainState(params=sh, opt=opt,
+                      ef=None if state.ef is None else sh,
+                      step=rep(state.step))
+
+
+def shard_state(state: TrainState, cfg: ModelConfig, mesh,
+                rules=None) -> TrainState:
+    """``state`` placed by :func:`state_shardings`; on a one-device mesh
+    every leaf stays a plain tensor."""
+    from repro_torch.sharding import place_tree
+    return place_tree(state, state_shardings(state, cfg, mesh, rules))
+
+
 def _microbatches(batch: Dict[str, Any], M: int) -> list:
     for k, v in batch.items():
         if v.shape[0] % M:
             raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a "
                              f"multiple of microbatches={M}")
-    split = {k: v.reshape((M, v.shape[0] // M) + tuple(v.shape[1:]))
-             for k, v in batch.items()}
-    return [{k: v[m] for k, v in split.items()} for m in range(M)]
+    out = [{} for _ in range(M)]
+    for k, v in batch.items():
+        if is_dtensor(v):
+            # microbatch m is rows [m B/M, (m+1) B/M), as on one device:
+            # gathered (a batch is small), cut, and each cut placed back
+            # on the batch's placements (local slices, no communication)
+            from torch.distributed.tensor import Replicate
+            pl, mesh = v.placements, v.device_mesh
+            whole = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+            n = v.shape[0] // M
+            for m in range(M):
+                out[m][k] = whole[m * n:(m + 1) * n].redistribute(mesh, pl)
+        else:
+            split = v.reshape((M, v.shape[0] // M) + tuple(v.shape[1:]))
+            for m in range(M):
+                out[m][k] = split[m]
+    return out
+
+
+def _on_placements_of(new: TrainState, old: TrainState) -> TrainState:
+    """``new`` with every DTensor leaf on the placements of its leaf in
+    ``old``, as the reference's step returns its state on the state's
+    shardings.  The update's arithmetic follows DTensor's propagation,
+    which may leave a leaf where its gradient was, not where the
+    parameter was (a stacked (layers, d) norm weight sharded over its
+    layers), and the next step's layer split cannot take that."""
+    def keep(n, o):
+        if is_dtensor(n) and tuple(n.placements) != tuple(o.placements):
+            return n.redistribute(o.device_mesh, o.placements)
+        return n
+    return tree_map(keep, new, old)
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
@@ -138,6 +203,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
                                                  tc, lr)
         new_state = TrainState(params=new_params, opt=new_opt, ef=ef,
                                step=state.step + 1)
+        if is_dtensor(state.step):
+            new_state = _on_placements_of(new_state, state)
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr,
                            "aux": aux}
 

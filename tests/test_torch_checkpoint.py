@@ -71,9 +71,34 @@ def test_restore_casts_to_like_and_names_missing_leaves(tmp_path):
     assert torch.equal(r["w"], state["w"].to(torch.bfloat16))
     with pytest.raises(KeyError, match="missing leaf v"):
         restore_checkpoint(str(tmp_path), 1, {"v": torch.zeros(1)}, **CPU)
-    with pytest.raises(NotImplementedError, match="15e"):
+    # shardings must name every leaf of like
+    with pytest.raises(ValueError, match="one NamedSharding a leaf"):
         restore_checkpoint(str(tmp_path), 1, like, shardings={"w": None},
                            **CPU)
+
+
+class _OneDeviceMesh:
+    """A one-device mesh's face (no process group): its axis sizes and
+    device type."""
+    shape = {"data": 1, "model": 1}
+    device_type = "cpu"
+
+
+def test_restore_onto_a_one_device_mesh_is_bitwise_and_plain(tmp_path):
+    """``shardings=`` on a one-device mesh: every placement replicates,
+    so each leaf comes back a plain tensor, bitwise the saved one, cast to
+    like's dtype (the multi-rank re-partitions are in
+    ``test_torch_mesh.py``)."""
+    from repro_torch.sharding import NamedSharding, P
+    state = {"w": torch.randn(4, 6, generator=torch.Generator().manual_seed(0)),
+             "nested": {"b": torch.arange(5, dtype=torch.int32)}}
+    save_checkpoint(str(tmp_path), 2, state)
+    mesh = _OneDeviceMesh()
+    sh = {"w": NamedSharding(mesh, P("data", None)),
+          "nested": {"b": NamedSharding(mesh, P(None))}}
+    r = restore_checkpoint(str(tmp_path), 2, state, shardings=sh)
+    assert type(r["w"]) is torch.Tensor
+    _tree_equal(r, state)
 
 
 def test_train_state_keys_are_the_reference_s(tmp_path):

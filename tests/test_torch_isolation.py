@@ -9,6 +9,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -575,9 +576,67 @@ def test_lm_entry_points_without_a_card_raise(no_cuda, entry):
 
 
 def test_serve_production_mesh_raises_not_implemented():
+    """``--production-mesh`` builds the (16, 16) mesh: on a one-rank world
+    that raises ``RuntimeError`` naming the 256 ranks it needs, and the
+    one-rank group the launcher started is gone afterwards."""
+    import torch.distributed as dist
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="step 15"):
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         serve.main(["--smoke", "--device", "cpu", "--production-mesh"])
+    assert not dist.is_initialized()
+
+
+def test_production_mesh_shapes_on_a_fake_world(tmp_path):
+    """In a fake group of 256 (and 512) ranks the production meshes have
+    the reference's shapes and axis names; a 4-rank world refuses them."""
+    code = textwrap.dedent("""
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.launch.mesh import make_host_mesh, \
+            make_production_mesh
+        dist.init_process_group("fake", rank=0, world_size=256,
+                                store=FakeStore())
+        m = make_production_mesh()
+        assert m.mesh_dim_names == ("data", "model"), m
+        assert tuple(m.shape) == (16, 16)
+        try:
+            make_production_mesh(multi_pod=True)
+        except RuntimeError as e:
+            assert "needs 512 ranks" in str(e) and "has 256" in str(e)
+        else:
+            raise SystemExit("the two-pod mesh on 256 ranks did not raise")
+        h = make_host_mesh(128, 2)
+        assert tuple(h.shape) == (128, 2)
+        dist.destroy_process_group()
+        dist.init_process_group("fake", rank=0, world_size=512,
+                                store=FakeStore())
+        m = make_production_mesh(multi_pod=True)
+        assert m.mesh_dim_names == ("pod", "data", "model")
+        assert tuple(m.shape) == (2, 16, 16)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                       capture_output=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), \
+        r.stdout + r.stderr
+
+
+def test_importing_the_mesh_path_loads_no_jax():
+    """The sharding rules, the meshes, the cost counter, the roofline,
+    the dry-runs and the report load neither jax nor the reference."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("import sys, repro_torch.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.cost_analysis, repro_torch.launch.roofline, "
+            "repro_torch.launch.dryrun, repro_torch.launch.dryrun_solver, "
+            "repro_torch.launch.report; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_importing_the_training_path_loads_no_jax():
@@ -628,6 +687,24 @@ def test_train_entry_points_without_a_card_raise(no_cuda, entry, tmp_path):
 
 
 def test_train_production_mesh_raises_not_implemented():
+    """``--production-mesh`` builds the (16, 16) mesh: on a one-rank world
+    that raises ``RuntimeError`` naming the 256 ranks it needs."""
+    import torch.distributed as dist
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="step 15"):
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         train.main(["--smoke", "--device", "cpu", "--production-mesh"])
+    assert not dist.is_initialized()
+
+
+def test_launchers_take_the_one_device_path(tmp_path, capsys):
+    """Alone, each launcher serves or trains on a (1, 1) host mesh whose
+    leaves stay plain tensors, and leaves no process group behind."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve, train
+    serve.main(["--smoke", "--device", "cpu", "--tokens", "4"])
+    assert "first sequence" in capsys.readouterr().out
+    run = train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                      "--ckpt", str(tmp_path)])
+    assert "mesh: {'data': 1, 'model': 1} (cpu)" in capsys.readouterr().out
+    assert type(run.state.params.embed) is torch.Tensor
+    assert not dist.is_initialized()

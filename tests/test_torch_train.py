@@ -505,7 +505,8 @@ def test_launch_train_smoke_and_resume(tmp_path, capsys, arch):
     assert "resumed from step 4" in out and out.rstrip().endswith("done")
     assert run2.start == 4 and len(run2.losses) == 2
     assert int(run2.state.step) == 6
-    with pytest.raises(NotImplementedError, match="15e"):
+    # the production mesh needs 256 ranks; this world has one
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         train.main(argv + ["--production-mesh"])
 
 
