@@ -22,12 +22,14 @@ failure raises and the script exits non-zero without a result line:
    mask bitwise equal to G without, a mu = 0 lane, per-lane gammas, lanes
    spread over the bank's entries, both gain rules, a false and a true
    relaunch flag, a mu = mu2 = 0 lane bitwise, a mu2 = 0 lane bitwise
-   equal to the variant without the direction).  The bank passes are
-   also held in the reference's rows form (``ops.row_wss_batched_rows``
-   on pre-gathered ``KR``, ``ops.update_wss_batched_rows`` on ``KRi``,
-   ``KRj``: the same kernels reading the rows as a bank of one-row
-   entries), bitwise equal to the bank form and within the tolerance of
-   their plain versions.
+   equal to the variant without the direction).  The bank passes, which
+   fold each lane's cross-block pick into their launch and return the
+   lanes' results, are held in every variant at ``BANK_SHAPES`` (B = 1,
+   3, 18 and 90 at l = 16384, an odd l = 1001, l = 300), and in the
+   reference's rows form (``ops.row_wss_batched_rows`` on pre-gathered
+   ``KR``, ``ops.update_wss_batched_rows`` on ``KRi``, ``KRj``: the same
+   kernels reading the rows as a bank of one-row entries, also off
+   16-byte alignment), bitwise equal to the bank form.
    Every variant of kernels 1 and 2 is also held at the edges of their
    tiling (``TILE_EDGES``: one column past a block, lane counts around a
    group, X streamed per group, one feature), and kernels 6 and 7 at the
@@ -773,99 +775,108 @@ BANK_B = ("gram", "gram_idx", "G", "alpha_new", "L", "U", "i_idx", "j_idx",
           "mu")
 
 
-def check_bank_a(a, dtype, label, errs):
-    from repro_torch.kernels import build, ops, rbf_row_wss, ref
+def unaligned(t):
+    """A contiguous copy of ``t`` one element past 16-byte alignment: the
+    bank passes then take their scalar loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_bank_a(a, dtype, label, errs, act=None, dup=False):
+    """Kernel 4 (``act``: its masked variant; ``dup``: H = 2) against its
+    plain version: the lanes' (j, gain) the kernel returns, its pick
+    folded into the launch, within the tolerance and with exact indices
+    (f32: near-ties), the dispatch the kernel's result itself; then the
+    reference's rows form, pre-gathered rows read as a bank of one-row
+    entries (and the same rows off 16-byte alignment, the scalar loads),
+    bitwise the bank form.  Returns (f32 near-ties, the kernel's
+    result)."""
+    from repro_torch.kernels import ops, rbf_row_wss, ref
     args = [a[k] for k in BANK_A]
-    bmax, barg = rbf_row_wss.row_wss_batched_rows(*args)
-    pmax, parg = ref.row_wss_batched_rows_blocks(*args,
-                                                 block_l=build.BLOCK_L)
-    vals = ref._wss_vals(ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"]),
-                         *[a[k] for k in BANK_A[2:]])
-    err = _close(f"bank pass A bmax {label}", bmax, pmax, TOL[dtype])
-    n_ties = _same_picks(f"bank pass A barg {label}", barg, parg, vals,
-                         dtype)
-    j_c, g_c = ops.row_wss_batched_bank(*args, impl="cuda")
-    j_t, g_t = ops.row_wss_batched_bank(*args, impl="torch")
-    err = max(err, _close(f"bank pass A gain {label}", g_c, g_t, TOL[dtype]))
-    n_ties += _same_picks(f"bank pass A j {label}", j_c[:, None],
-                          j_t[:, None], vals, dtype)
-    B = a["G"].shape[0]
-    if B > 1:
-        assert int(j_c[-1]) == 0 and g_c[-1].item() == -math.inf, label
-    newton = [b for b in range(0, B - (B > 1), 2)]
-    assert (j_c[newton] == 5).all() and (j_t[newton] == 5).all(), label
-    # the reference's rows form: the lanes' rows gathered beforehand, read
-    # by the same kernel as a bank of B one-row entries, bitwise the bank
-    # form's; its plain version within the tolerance
+    if act is not None:
+        kern = lambda *x: rbf_row_wss.row_wss_batched_rows_act(*x, act,
+                                                               dup=dup)
+    elif dup:
+        kern = rbf_row_wss.row_wss_batched_rows_h2
+    else:
+        kern = rbf_row_wss.row_wss_batched_rows
+    j_c, g_c = kern(*args)
+    j_t, g_t = ref.row_wss_batched_bank(*args, dup=dup, act=act)
+    vals = ref._wss_vals(ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"],
+                                       dup), *[a[k] for k in BANK_A[2:]],
+                         act)
+    err = _close(f"bank pass A gain {label}", g_c, g_t, TOL[dtype])
+    n_ties = _same_picks(f"bank pass A j {label}", j_c[:, None],
+                         j_t[:, None], vals, dtype)
+    disp = ops.row_wss_batched_bank(*args, impl="cuda", dup=dup, act=act)
     KR = ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"]).contiguous()
-    rmax, rarg = rbf_row_wss.row_wss_batched_rows(KR, None, *args[2:])
-    j_r, g_r = ops.row_wss_batched_rows(KR, *args[2:], impl="cuda")
-    if not all(torch.equal(x, y) for x, y in ((rmax, bmax), (rarg, barg),
-                                              (j_r, j_c), (g_r, g_c))):
-        raise AssertionError(f"bank pass A {label}: the rows form differs "
-                             f"from the bank form")
-    j_rt, g_rt = ops.row_wss_batched_rows(KR, *args[2:], impl="torch")
-    err = max(err, _close(f"bank pass A rows form gain {label}", g_r, g_rt,
-                          TOL[dtype]))
-    n_ties += _same_picks(f"bank pass A rows form j {label}", j_r[:, None],
-                          j_rt[:, None], vals, dtype)
+    rows = [kern(R, None, *args[2:]) for R in (KR, unaligned(KR))]
+    rows.append(ops.row_wss_batched_rows(KR, *args[2:], impl="cuda",
+                                         dup=dup, act=act))
+    for got in (disp, *rows):
+        if not all(torch.equal(x, y) for x, y in zip(got, (j_c, g_c))):
+            raise AssertionError(f"bank pass A {label}: the dispatch or a "
+                                 f"rows form differs from the bank form")
     errs.append(err)
-    return n_ties
+    return n_ties, (j_c, g_c)
 
 
-def check_bank_b(b, dtype, label, errs):
-    from repro_torch.kernels import build, ops, rbf_update_wss, ref
+def check_bank_b(b, dtype, label, errs, act=None, dup=False, dirv=None,
+                 mu2=None):
+    """Kernel 5 (``act``, ``dup``, and the conjugate direction ``dirv``/
+    ``mu2``: its variants) against its plain version: G, the lanes'
+    (i_next, g_i_next, g_dn) folded into the launch, and r; the mu = 0
+    lane's G bitwise (lane 0, where mu = mu2 = 0); the dispatch the
+    kernel's result itself; the rows
+    form, aligned and off 16-byte alignment, bitwise the bank form.
+    Returns (f32 near-ties, the kernel's result)."""
+    from repro_torch.kernels import ops, rbf_update_wss as pb, ref
     args = [b[k] for k in BANK_B]
-    G_k, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows(*args)
-    G_p, pmax, parg, pmin = ref.update_wss_batched_rows_blocks(
-        *args, block_l=build.BLOCK_L)
-    if not torch.equal(G_k[0], b["G"][0]):
+    kw = dict(dup=dup, act=act, dirv=dirv, mu2=mu2)
+    if dirv is not None:
+        kern = lambda *x: pb.update_wss_batched_rows_conj(*x, dirv, mu2,
+                                                          dup=dup, act=act)
+    elif act is not None:
+        kern = lambda *x: pb.update_wss_batched_rows_act(*x, act, dup=dup)
+    elif dup:
+        kern = pb.update_wss_batched_rows_h2
+    else:
+        kern = pb.update_wss_batched_rows
+    got = kern(*args)
+    want = ref.update_wss_batched_bank(*args, **kw)
+    frozen = b["mu"][0] == 0 and (mu2 is None or mu2[0] == 0)
+    if bool(frozen) and not torch.equal(got[0][0], b["G"][0]):
         raise AssertionError(f"bank pass B {label}: the mu = 0 lane's G "
                              f"changed")
     scale = float(b["G"].abs().max())
-    err = _close(f"bank pass B G {label}", G_k, G_p, TOL[dtype], scale)
-    err = max(err, _close(f"bank pass B bmax {label}", bmax, pmax,
-                          TOL[dtype], scale))
-    err = max(err, _close(f"bank pass B bmin {label}", bmin, pmin,
-                          TOL[dtype], scale))
-    vals = torch.where(b["alpha_new"] < b["U"], G_p, -math.inf)
-    n_ties = _same_picks(f"bank pass B barg {label}", barg, parg, vals,
-                         dtype)
-    _, i_c, gi_c, gdn_c = ops.update_wss_batched_bank(*args, impl="cuda")
-    _, i_t, gi_t, gdn_t = ops.update_wss_batched_bank(*args, impl="torch")
-    err = max(err, _close(f"bank pass B g_i {label}", gi_c, gi_t, TOL[dtype],
-                          scale))
-    err = max(err, _close(f"bank pass B g_dn {label}", gdn_c, gdn_t,
-                          TOL[dtype], scale))
-    n_ties += _same_picks(f"bank pass B i {label}", i_c[:, None],
-                          i_t[:, None], vals, dtype)
-    if G_k.shape[0] > 1:
-        assert int(i_c[-1]) == 0 and gi_c[-1].item() == -math.inf, label
-    else:
-        assert int(i_c[0]) == 5, label
-    # the reference's rows form (KRi, KRj), as in check_bank_a
+    err = 0.0
+    for name, k in (("G", 0), ("g_i", 2), ("g_dn", 3)):
+        err = max(err, _close(f"bank pass B {name} {label}", got[k],
+                              want[k], TOL[dtype], scale))
+    if dirv is not None:
+        err = max(err, _close(f"bank pass B r {label}", got[4], want[4],
+                              TOL[dtype], 1.0))
+    up = b["alpha_new"] < b["U"]
+    vals = torch.where(up if act is None else up & act, want[0], -math.inf)
+    n_ties = _same_picks(f"bank pass B i {label}", got[1][:, None],
+                         want[1][:, None], vals, dtype)
+    disp = ops.update_wss_batched_bank(*args, impl="cuda", **kw)
     KRi, KRj = (ref.bank_rows(b["gram"], b["gram_idx"], b[k]).contiguous()
                 for k in ("i_idx", "j_idx"))
     state = [b[k] for k in ("G", "alpha_new", "L", "U")]
-    r_blocks = rbf_update_wss.update_wss_batched_rows(
-        (KRi, KRj), None, *state, None, None, b["mu"])
-    r_c = ops.update_wss_batched_rows(KRi, KRj, *state, b["mu"],
-                                      impl="cuda")
-    r_t = ops.update_wss_batched_rows(KRi, KRj, *state, b["mu"],
-                                      impl="torch")
-    bank_c = ops.update_wss_batched_bank(*args, impl="cuda")
-    if not all(torch.equal(x, y) for x, y in zip(
-            r_blocks + r_c, (G_k, bmax, barg, bmin) + bank_c)):
-        raise AssertionError(f"bank pass B {label}: the rows form differs "
-                             f"from the bank form")
-    for name, x, y in zip(("G", "g_i", "g_dn"), r_c[:1] + r_c[2:],
-                          r_t[:1] + r_t[2:]):
-        err = max(err, _close(f"bank pass B rows form {name} {label}", x, y,
-                              TOL[dtype], scale))
-    n_ties += _same_picks(f"bank pass B rows form i {label}",
-                          r_c[1][:, None], r_t[1][:, None], vals, dtype)
+    rows = [kern((Ri, Rj), None, *state, None, None, b["mu"])
+            for Ri, Rj in ((KRi, KRj), (unaligned(KRi), unaligned(KRj)))]
+    rows.append(ops.update_wss_batched_rows(KRi, KRj, *state, b["mu"],
+                                            impl="cuda", **kw))
+    for other in (disp, *rows):
+        if len(other) != len(got) or not all(
+                torch.equal(x, y) for x, y in zip(other, got)):
+            raise AssertionError(f"bank pass B {label}: the dispatch or a "
+                                 f"rows form differs from the bank form")
     errs.append(err)
-    return n_ties
+    return n_ties, got
 
 
 def check_gram(X1, X2, gamma, dtype, label, errs):
@@ -1168,29 +1179,24 @@ def _expected(B, plain, hidden, newton_only):
 def check_new_a(src, a, act, dtype, label, errs, want, empty, dup):
     """A new pass A variant (the ``act`` variants of kernels 1 and 4, or
     kernel 4's H = 2 variant when ``act`` is None) against its plain
-    version: per-block outputs, the dispatched pick, the edge cases."""
+    version (kernel 1: per-block outputs and the dispatched pick; kernel 4:
+    :func:`check_bank_a`), then the edge cases."""
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import rbf_row_wss as pa
+    if src == "bank":
+        n_ties, (j_c, g_c) = check_bank_a(a, dtype, f"{label} A", errs,
+                                          act, dup)
+        check_edges(j_c, g_c, want, empty, label)
+        return n_ties
     bl = build.BLOCK_L
-    if src == "rbf":
-        args = [a[k] for k in PASS_A_KEYS]
-        kern = lambda: pa.rbf_row_wss_batched_act(*args, act, dup=dup)
-        plain = lambda: ref.rbf_row_wss_batched_blocks(*args, block_l=bl,
-                                                       dup=dup, act=act)
-        rows = ref.rbf_rows_batched(a["X"], a["sqn"], a["XQ"], a["sqq"],
-                                    a["gammas"], dup=dup)
-        disp = lambda impl: ops.rbf_row_wss_batched(*args, impl=impl,
-                                                    dup=dup, act=act)
-    else:
-        args = [a[k] for k in BANK_A]
-        kern = ((lambda: pa.row_wss_batched_rows_act(*args, act, dup=dup))
-                if act is not None
-                else (lambda: pa.row_wss_batched_rows_h2(*args)))
-        plain = lambda: ref.row_wss_batched_rows_blocks(*args, block_l=bl,
-                                                        dup=dup, act=act)
-        rows = ref.bank_rows(a["gram"], a["gram_idx"], a["i_idx"], dup)
-        disp = lambda impl: ops.row_wss_batched_bank(*args, impl=impl,
-                                                     dup=dup, act=act)
+    args = [a[k] for k in PASS_A_KEYS]
+    kern = lambda: pa.rbf_row_wss_batched_act(*args, act, dup=dup)
+    plain = lambda: ref.rbf_row_wss_batched_blocks(*args, block_l=bl,
+                                                   dup=dup, act=act)
+    rows = ref.rbf_rows_batched(a["X"], a["sqn"], a["XQ"], a["sqq"],
+                                a["gammas"], dup=dup)
+    disp = lambda impl: ops.rbf_row_wss_batched(*args, impl=impl, dup=dup,
+                                                act=act)
     vals = ref._wss_vals(rows, *[a[k] for k in (
         "G", "alpha", "L", "U", "a_i", "L_i", "U_i", "g_i", "i_idx",
         "use_exact")], act)
@@ -1202,40 +1208,48 @@ def check_new_a(src, a, act, dtype, label, errs, want, empty, dup):
     err = max(err, _close(f"{label} A gain", g_c, g_t, TOL[dtype]))
     n_ties += _same_picks(f"{label} A j", j_c[:, None], j_t[:, None], vals,
                           dtype)
-    for b, j in want.items():
-        assert int(j_c[b]) == j and int(j_t[b]) == j, (label, b, j, j_c)
-    for b in empty:
-        assert int(j_c[b]) == 0 and g_c[b].item() == -math.inf, (label, b)
+    check_edges(j_c, g_c, want, empty, label)
+    check_edges(j_t, g_t, want, {}, label)
     errs.append(err)
     return n_ties
+
+
+def check_edges(j, g, want, empty, label):
+    """The picks the edge cases fix ({lane: index}) and the lanes whose
+    pick must be index 0 at -inf."""
+    for b, idx in want.items():
+        assert int(j[b]) == idx, (label, b, idx, j)
+    for b in empty:
+        assert int(j[b]) == 0 and g[b].item() == -math.inf, (label, b)
 
 
 def check_new_b(src, b, act, dtype, label, errs, want, empty, dup):
     """A new pass B variant (the ``act`` variants of kernels 2 and 5, or
     kernel 5's H = 2 variant when ``act`` is None) against its plain
-    version; G with the mask must equal G without it bitwise, and the
-    mu = 0 lane's G must come back bitwise."""
+    version (kernel 2: per-block outputs and the dispatched picks; kernel
+    5: :func:`check_bank_b`); G with the mask must equal G without it
+    bitwise, and the mu = 0 lane's G must come back bitwise."""
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import rbf_update_wss as pb
-    bl = build.BLOCK_L
-    if src == "rbf":
-        args = [b[k] for k in PASS_B_KEYS]
-        kern = lambda m: pb.rbf_update_wss_batched_act(*args, m, dup=dup)
-        nomask = (pb.rbf_update_wss_batched_h2 if dup
-                  else pb.rbf_update_wss_batched)
-        plain = lambda: ref.rbf_update_wss_batched_blocks(
-            *args, block_l=bl, dup=dup, act=act)
-        disp = lambda impl: ops.rbf_update_wss_batched(*args, impl=impl,
-                                                       dup=dup, act=act)
-    else:
-        args = [b[k] for k in BANK_B]
-        kern = lambda m: pb.update_wss_batched_rows_act(*args, m, dup=dup)
+    if src == "bank":
+        n_ties, got = check_bank_b(b, dtype, f"{label} B", errs, act, dup)
         nomask = (pb.update_wss_batched_rows_h2 if dup
                   else pb.update_wss_batched_rows)
-        plain = lambda: ref.update_wss_batched_rows_blocks(
-            *args, block_l=bl, dup=dup, act=act)
-        disp = lambda impl: ops.update_wss_batched_bank(*args, impl=impl,
-                                                        dup=dup, act=act)
+        if act is not None and not torch.equal(
+                got[0], nomask(*[b[k] for k in BANK_B])[0]):
+            raise AssertionError(f"{label} B: G with the mask differs from "
+                                 f"G without it")
+        check_edges(got[1], got[2], want, empty, label)
+        return n_ties
+    bl = build.BLOCK_L
+    args = [b[k] for k in PASS_B_KEYS]
+    kern = lambda m: pb.rbf_update_wss_batched_act(*args, m, dup=dup)
+    nomask = (pb.rbf_update_wss_batched_h2 if dup
+              else pb.rbf_update_wss_batched)
+    plain = lambda: ref.rbf_update_wss_batched_blocks(
+        *args, block_l=bl, dup=dup, act=act)
+    disp = lambda impl: ops.rbf_update_wss_batched(*args, impl=impl,
+                                                   dup=dup, act=act)
     G_k, bmax, barg, bmin = (nomask(*args) if act is None else kern(act))
     G_p, pmax, parg, pmin = plain()
     if act is not None and not torch.equal(G_k, nomask(*args)[0]):
@@ -1257,52 +1271,33 @@ def check_new_b(src, b, act, dtype, label, errs, want, empty, dup):
                           scale))
     n_ties += _same_picks(f"{label} B i", i_c[:, None], i_t[:, None], vals,
                           dtype)
-    for k, i in want.items():
-        assert int(i_c[k]) == i and int(i_t[k]) == i, (label, k, i, i_c)
-    for k in empty:
-        assert int(i_c[k]) == 0 and gi_c[k].item() == -math.inf, (label, k)
+    check_edges(i_c, gi_c, want, empty, label)
+    check_edges(i_t, gi_t, want, {}, label)
     errs.append(err)
     return n_ties
 
 
-def check_slice4(l, d, B, n_stack, dtype, device, label, errs,
-                 halves=(False, True), sources=("rbf", "bank"),
+def check_slice4(l, d, B, dtype, device, label, errs, halves=(False, True),
                  gamma_span=16.0):
-    """The six variants of this slice at one shape: the ``act`` variants of
-    kernels 1, 2, 4 and 5 with one state half and (``True`` in
-    ``halves``) with two, and then the H = 2 bank passes (kernels 4 and
-    5); only the rbf (kernels 1, 2) or bank (4, 5) ones with
-    ``sources``."""
+    """The ``act`` variants of kernels 1 and 2 at one shape, with one state
+    half and (``True`` in ``halves``) with two (kernels 4 and 5:
+    :func:`check_bank_lanes`)."""
     n_ties = 0
     for dup in halves:
         n = 2 * l if dup else l
         # the exact tie of both passes: (lower, higher) index
         lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
         act = act_mask(B, n, (lo, hi), l + B + dup, device)
-        wa = _expected(B, lo, hi, True)
-        wb = _expected(B, lo, hi, False)
-        h = "H=2" if dup else "H=1"
-        for src in sources:
-            if src == "rbf":
-                a, b = (dup_state if dup else kernel_state)(
-                    l, d, B, l + d + B, dtype, device, gamma_span)
-            else:
-                a, b = bank_state(l, B, n_stack, l + B, dtype, device,
-                                  dup=dup)
-            tag = f"{src} {h} act {label}"
-            n_ties += check_new_a(src, a, act, dtype, tag,
-                                  errs[f"{NEW_A[src]}_act"], *wa, dup)
-            n_ties += check_new_b(src, b, act, dtype, tag,
-                                  errs[f"{NEW_B[src]}_act"], *wb, dup)
-            if src == "bank" and dup:
-                tag = f"bank H=2 {label}"
-                n_ties += check_new_a(src, a, None, dtype, tag,
-                                      errs["row_wss_batched_rows_h2"],
-                                      *_expected(B, lo, None, True), dup)
-                n_ties += check_new_b(src, b, None, dtype, tag,
-                                      errs["update_wss_batched_rows_h2"],
-                                      *_expected(B, lo, None, False), dup)
-            del a, b
+        a, b = (dup_state if dup else kernel_state)(
+            l, d, B, l + d + B, dtype, device, gamma_span)
+        tag = f"rbf H={2 if dup else 1} act {label}"
+        n_ties += check_new_a("rbf", a, act, dtype, tag,
+                              errs["rbf_row_wss_batched_act"],
+                              *_expected(B, lo, hi, True), dup)
+        n_ties += check_new_b("rbf", b, act, dtype, tag,
+                              errs["rbf_update_wss_batched_act"],
+                              *_expected(B, lo, hi, False), dup)
+        del a, b
     return n_ties
 
 
@@ -1325,10 +1320,11 @@ def conj_inputs(b, l, B, seed, device):
 
 def check_conj(src, b, act, dtype, label, errs, want, empty, dup):
     """A conjugate variant of kernel 2 or 5 (H = 1 or 2, with or without
-    the mask) against its plain version: G, the block values and r; with
-    B > 2 the mu = mu2 = 0 lane's G bitwise and the mu2 = 0 lane's G
-    bitwise that of the variant without the direction (with B <= 2 every
-    lane moves); the dispatched picks and edge cases."""
+    the mask) against its plain version (kernel 2: G, the block values and
+    r; kernel 5: :func:`check_bank_b`); with B > 2 the mu = mu2 = 0 lane's
+    G bitwise and the mu2 = 0 lane's G bitwise that of the variant without
+    the direction (with B <= 2 every lane moves); the dispatched picks and
+    edge cases."""
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import rbf_update_wss as pb
     bl = build.BLOCK_L
@@ -1337,35 +1333,23 @@ def check_conj(src, b, act, dtype, label, errs, want, empty, dup):
     if not edges:
         b = dict(b, mu=torch.full_like(b["mu"], 0.7))
     dirv, mu2 = conj_inputs(b, l, B, l + B + dup, b["G"].device)
-    if src == "rbf":
-        args = [b[k] for k in PASS_B_KEYS]
-        kern = lambda: pb.rbf_update_wss_batched_conj(*args, dirv, mu2,
-                                                      dup=dup, act=act)
-        plain = lambda: ref.rbf_update_wss_batched_blocks(
-            *args, block_l=bl, dup=dup, act=act, dirv=dirv, mu2=mu2)
-        disp = lambda impl, **kw: ops.rbf_update_wss_batched(
-            *args, impl=impl, dup=dup, act=act, **kw)
-    else:
-        args = [b[k] for k in BANK_B]
-        kern = lambda: pb.update_wss_batched_rows_conj(*args, dirv, mu2,
-                                                       dup=dup, act=act)
-        plain = lambda: ref.update_wss_batched_rows_blocks(
-            *args, block_l=bl, dup=dup, act=act, dirv=dirv, mu2=mu2)
-        disp = lambda impl, **kw: ops.update_wss_batched_bank(
-            *args, impl=impl, dup=dup, act=act, **kw)
-    G_k, bmax, barg, bmin, r_k = kern()
-    G_p, pmax, parg, pmin, r_p = plain()
-    G_nodir = disp("cuda")[0]
-    if edges and not torch.equal(G_k[0], b["G"][0]):
-        raise AssertionError(f"{label} conj B: the mu = mu2 = 0 lane's G "
-                             f"changed")
-    if edges and not torch.equal(G_k[1], G_nodir[1]):
-        raise AssertionError(f"{label} conj B: the mu2 = 0 lane's G "
-                             f"differs from the variant without dirv")
-    moving = slice(2 if edges else 0, None)
-    if torch.equal(G_k[moving], G_nodir[moving]):
-        raise AssertionError(f"{label} conj B: mu2 != 0 left G as without "
-                             f"dirv")
+    if src == "bank":
+        n_ties, got = check_bank_b(b, dtype, f"{label} conj B", errs, act,
+                                   dup, dirv, mu2)
+        G_nodir = ops.update_wss_batched_bank(*[b[k] for k in BANK_B],
+                                              impl="cuda", dup=dup,
+                                              act=act)[0]
+        conj_moves(got[0], G_nodir, b["G"], edges, label)
+        check_edges(got[1], got[2], want, empty, label)
+        return n_ties
+    args = [b[k] for k in PASS_B_KEYS]
+    disp = lambda impl, **kw: ops.rbf_update_wss_batched(
+        *args, impl=impl, dup=dup, act=act, **kw)
+    G_k, bmax, barg, bmin, r_k = pb.rbf_update_wss_batched_conj(
+        *args, dirv, mu2, dup=dup, act=act)
+    G_p, pmax, parg, pmin, r_p = ref.rbf_update_wss_batched_blocks(
+        *args, block_l=bl, dup=dup, act=act, dirv=dirv, mu2=mu2)
+    conj_moves(G_k, disp("cuda")[0], b["G"], edges, label)
     scale = float(b["G"].abs().max())
     err = _close(f"{label} conj B G", G_k, G_p, TOL[dtype], scale)
     err = max(err, _close(f"{label} conj B bmax", bmax, pmax, TOL[dtype],
@@ -1386,40 +1370,48 @@ def check_conj(src, b, act, dtype, label, errs, want, empty, dup):
                           TOL[dtype], 1.0))
     n_ties += _same_picks(f"{label} conj B i", i_c[:, None], i_t[:, None],
                           vals, dtype)
-    for k, i in want.items():
-        assert int(i_c[k]) == i and int(i_t[k]) == i, (label, k, i, i_c)
-    for k in empty:
-        assert int(i_c[k]) == 0 and gi_c[k].item() == -math.inf, (label, k)
+    check_edges(i_c, gi_c, want, empty, label)
+    check_edges(i_t, gi_t, want, {}, label)
     errs.append(err)
     return n_ties
 
 
-def check_slice5(l, d, B, n_stack, dtype, device, label, errs,
-                 halves=(False, True), sources=("rbf", "bank"),
+def conj_moves(G_k, G_nodir, G, edges, label):
+    """With ``edges`` (B > 2) lane 0 (mu = mu2 = 0) keeps ``G`` bitwise and
+    lane 1 (mu2 = 0) equals the variant without the direction bitwise; the
+    lanes with mu2 != 0 move."""
+    if edges and not torch.equal(G_k[0], G[0]):
+        raise AssertionError(f"{label} conj B: the mu = mu2 = 0 lane's G "
+                             f"changed")
+    if edges and not torch.equal(G_k[1], G_nodir[1]):
+        raise AssertionError(f"{label} conj B: the mu2 = 0 lane's G "
+                             f"differs from the variant without dirv")
+    moving = slice(2 if edges else 0, None)
+    if torch.equal(G_k[moving], G_nodir[moving]):
+        raise AssertionError(f"{label} conj B: mu2 != 0 left G as without "
+                             f"dirv")
+
+
+def check_slice5(l, d, B, dtype, device, label, errs, halves=(False, True),
                  gamma_span=16.0):
-    """The conjugate variants of kernels 2 and 5 (or those of ``sources``)
-    at one shape: one state half and (``True`` in ``halves``) two, each
-    with and without the active-set mask."""
+    """The conjugate variants of kernel 2 at one shape: one state half and
+    (``True`` in ``halves``) two, each with and without the active-set
+    mask (kernel 5's: :func:`check_bank_lanes`)."""
     n_ties = 0
     for dup in halves:
         n = 2 * l if dup else l
         lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
-        for src in sources:
-            if src == "rbf":
-                _, b = (dup_state if dup else kernel_state)(
-                    l, d, B, l + d + B + 1, dtype, device, gamma_span)
-            else:
-                b = bank_state(l, B, n_stack, l + B + 1, dtype, device,
-                               dup=dup)[1]
-            for masked in (False, True):
-                act = (act_mask(B, n, (lo, hi), l + B + dup, device)
-                       if masked else None)
-                tag = (f"{src} H={2 if dup else 1}"
-                       f"{' act' if masked else ''} {label}")
-                n_ties += check_conj(
-                    src, b, act, dtype, tag, errs[f"{NEW_B[src]}_conj"],
-                    *_expected(B, lo, hi if masked else None, False), dup)
-            del b
+        _, b = (dup_state if dup else kernel_state)(
+            l, d, B, l + d + B + 1, dtype, device, gamma_span)
+        for masked in (False, True):
+            act = (act_mask(B, n, (lo, hi), l + B + dup, device)
+                   if masked else None)
+            tag = f"rbf H={2 if dup else 1}{' act' if masked else ''} {label}"
+            n_ties += check_conj(
+                "rbf", b, act, dtype, tag,
+                errs["rbf_update_wss_batched_conj"],
+                *_expected(B, lo, hi if masked else None, False), dup)
+        del b
     return n_ties
 
 
@@ -1453,10 +1445,9 @@ def check_tile_edge(l, d, B, dtype, device, label, errs):
     n += check_h2(a, b, dtype, label, errs["rbf_row_wss_batched_h2"],
                   errs["rbf_update_wss_batched_h2"])
     del a, b
-    n += check_slice4(l, d, B, 1, dtype, device, label, errs,
-                      sources=("rbf",), gamma_span=span)
-    return n + check_slice5(l, d, B, 1, dtype, device, label, errs,
-                            sources=("rbf",), gamma_span=span)
+    n += check_slice4(l, d, B, dtype, device, label, errs, gamma_span=span)
+    return n + check_slice5(l, d, B, dtype, device, label, errs,
+                            gamma_span=span)
 
 
 # The edges of kernels 6 and 7's segments and copies: a segment short of
@@ -1481,8 +1472,44 @@ GRAM_SYM_EDGES = (tuple((l, d) for l in (127, 129, 1001)
                         for d in (1, 37, 128, 1000))
                   + ((N_TRAIN, D), (N_TRAIN, 37)))
 
-NEW_A = {"rbf": "rbf_row_wss_batched", "bank": "row_wss_batched_rows"}
-NEW_B = {"rbf": "rbf_update_wss_batched", "bank": "update_wss_batched_rows"}
+# Kernels 4 and 5 in every variant at these (l, B, bank entries): the
+# grid's B = 90, the e-SVR grid's B = 18, B = 3 (64-thread blocks) and
+# B = 1 (32-thread blocks) at l = 16384; an odd l (the scalar loads) at
+# B = 90 and 1; l = 300 at B = 19.
+BANK_SHAPES = ((N_TRAIN, 90, 3), (N_TRAIN, 18, 3), (N_TRAIN, 3, 3),
+               (N_TRAIN, 1, 1), (1001, 90, 3), (1001, 1, 1), (300, 19, 3))
+
+
+def check_bank_lanes(l, B, n_stack, dtype, device, label, errs):
+    """Every variant of the bank passes at one shape, one state half and
+    two: kernel 4 plain and ``act``, kernel 5 plain, ``act``, conjugate and
+    conjugate with ``act`` (:func:`check_bank_a`, :func:`check_bank_b`),
+    with the edge cases of :func:`bank_state` and :func:`act_mask`."""
+    n_ties = 0
+    for dup in (False, True):
+        n = 2 * l if dup else l
+        lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
+        a, b = bank_state(l, B, n_stack, l + B, dtype, device, dup=dup)
+        act = act_mask(B, n, (lo, hi), l + B + dup, device)
+        for masked in (False, True):
+            m = act if masked else None
+            hidden = hi if masked else None
+            tag = (f"bank H={2 if dup else 1}{' act' if masked else ''} "
+                   f"{label}")
+            suffix = "_act" if masked else "_h2" if dup else ""
+            n_ties += check_new_a("bank", a, m, dtype, tag,
+                                  errs["row_wss_batched_rows" + suffix],
+                                  *_expected(B, lo, hidden, True), dup)
+            n_ties += check_new_b("bank", b, m, dtype, tag,
+                                  errs["update_wss_batched_rows" + suffix],
+                                  *_expected(B, lo, hidden, False), dup)
+            n_ties += check_conj("bank", b, m, dtype, tag,
+                                 errs["update_wss_batched_rows_conj"],
+                                 *_expected(B, lo, hidden, False), dup)
+        del a, b, act
+    return n_ties
+
+
 PASS_A_KEYS = ("X", "sqn", "G", "alpha", "L", "U", "XQ", "sqq", "a_i", "L_i",
                "U_i", "g_i", "i_idx", "use_exact", "gammas")
 PASS_B_KEYS = ("X", "sqn", "G", "alpha_new", "L", "U", "XQi", "sqqi", "XQj",
@@ -1537,18 +1564,15 @@ def phase_kernels(device) -> dict:
             say(f"[kernels] gram symmetric ok (into bank[1] of 3, bitwise "
                 f"equal to its transpose, bank[0] and bank[2] untouched): "
                 f"{label}")
-        for l, B, n_stack, kind in ((N_TRAIN, GRID_B, 3, "main"),
-                                    (1000, 1, 1, "odd"), (300, 19, 3, "odd")):
-            label = (f"{kind} l={l} B={B} bank={n_stack} "
-                     f"{str(dtype)[6:]}")
-            a, b = bank_state(l, B, n_stack, seed=l + B, dtype=dtype,
-                              device=device)
-            ta = check_bank_a(a, dtype, label, errs["row_wss_batched_rows"])
-            tb = check_bank_b(b, dtype, label,
-                              errs["update_wss_batched_rows"])
-            del a, b
-            say(f"[kernels] bank pass A ok ({ta} f32 near-ties), bank pass "
-                f"B ok ({tb} f32 near-ties): {label}")
+        for l, B, n_stack in BANK_SHAPES:
+            label = f"l={l} B={B} bank={n_stack} {str(dtype)[6:]}"
+            n = check_bank_lanes(l, B, n_stack, dtype, device, label, errs)
+            say(f"[kernels] every variant of kernels 4 and 5 (H = 1, 2, "
+                f"act, conjugate; lane results, the pick in the launch) ok, "
+                f"the rows form bitwise the bank form aligned and off "
+                f"16-byte alignment (ties across blocks and halves, hidden "
+                f"argmax, all-false and all-masked lanes, mu = 0 and "
+                f"mu = mu2 = 0 bitwise) ({n} f32 near-ties): {label}")
         for l, d, kind in ((N_TRAIN, D, "main"), (1000, 37, "odd"),
                            (300, 5, "odd"), *SINGLE_EDGES):
             label = f"{kind} l={l} d={d} {str(dtype)[6:]}"
@@ -1572,36 +1596,32 @@ def phase_kernels(device) -> dict:
                 f"lower index, mu = 0 bitwise) ({n} f32 near-ties): {label}")
         # main shapes: the (C, gamma) grid's (one state half) and the
         # e-SVR grid's (two)
-        for l, d, B, n_stack, halves, kind in (
-                (N_TRAIN, D, GRID_B, 3, (False,), "main"),
-                (N_TRAIN, D, SVR_B, 3, (True,), "main"),
-                (1000, 37, 1, 1, (False, True), "odd"),
-                (300, 5, 19, 3, (False, True), "odd")):
-            label = (f"{kind} l={l} d={d} B={B} bank={n_stack} "
-                     f"{str(dtype)[6:]}")
-            n = check_slice4(l, d, B, n_stack, dtype, device, label, errs,
-                             halves)
-            say(f"[kernels] act variants of kernels 1, 2, 4, 5 (H = 1, 2) "
-                f"and H=2 bank passes ok (all-false lane, hidden argmax, "
+        for l, d, B, halves, kind in (
+                (N_TRAIN, D, GRID_B, (False,), "main"),
+                (N_TRAIN, D, SVR_B, (True,), "main"),
+                (1000, 37, 1, (False, True), "odd"),
+                (300, 5, 19, (False, True), "odd")):
+            label = f"{kind} l={l} d={d} B={B} {str(dtype)[6:]}"
+            n = check_slice4(l, d, B, dtype, device, label, errs, halves)
+            say(f"[kernels] act variants of kernels 1 and 2 (H = 1, 2) "
+                f"ok (all-false lane, hidden argmax, "
                 f"ties across blocks and halves, G with the mask bitwise "
                 f"equal to G without, mu = 0 bitwise) ({n} f32 "
                 f"near-ties): {label}")
-        # slice 5: the conjugate variants of kernels 2 and 5 at the main
-        # paths' shapes (the SVC's B = 10 and the grids' B = 90 at H = 1,
-        # the SVR's and the e-SVR lane's B = 1 at H = 2, each a lane group
-        # of its own in kernel 2) and at odd ones
-        for l, d, B, n_stack, halves, kind in (
-                (N_TRAIN, D, K, 3, (False,), "main"),
-                (N_TRAIN, D, GRID_B, 3, (False,), "main"),
-                (N_TRAIN, D, 1, 1, (True,), "main"),
-                (N_TRAIN, D, SVR_B, 3, (True,), "main"),
-                (1000, 37, 3, 1, (False, True), "odd"),
-                (300, 5, 19, 3, (False, True), "odd")):
-            label = (f"{kind} l={l} d={d} B={B} bank={n_stack} "
-                     f"{str(dtype)[6:]}")
-            n = check_slice5(l, d, B, n_stack, dtype, device, label, errs,
-                             halves)
-            say(f"[kernels] conjugate variants of kernels 2 and 5 (H = 1, "
+        # slice 5: the conjugate variants of kernel 2 at the main paths'
+        # shapes (the SVC's B = 10 and the grids' B = 90 at H = 1, the
+        # SVR's B = 1 at H = 2, each a lane group of its own) and at odd
+        # ones
+        for l, d, B, halves, kind in (
+                (N_TRAIN, D, K, (False,), "main"),
+                (N_TRAIN, D, GRID_B, (False,), "main"),
+                (N_TRAIN, D, 1, (True,), "main"),
+                (N_TRAIN, D, SVR_B, (True,), "main"),
+                (1000, 37, 3, (False, True), "odd"),
+                (300, 5, 19, (False, True), "odd")):
+            label = f"{kind} l={l} d={d} B={B} {str(dtype)[6:]}"
+            n = check_slice5(l, d, B, dtype, device, label, errs, halves)
+            say(f"[kernels] conjugate variants of kernel 2 (H = 1, "
                 f"2, with and without act) ok (r, mu = mu2 = 0 lane "
                 f"bitwise, mu2 = 0 lane bitwise equal to the variant "
                 f"without dirv, mu2 != 0 lanes moved, ties, all-false "
@@ -2461,21 +2481,18 @@ def grid_kernel_times(device, timer):
         cases = {
             "row_wss_batched_rows": (
                 lambda c: rbf_row_wss.row_wss_batched_rows(*args_a[c]),
-                lambda c: ref.row_wss_batched_rows_blocks(*args_a[c],
-                                                          block_l=bl),
+                lambda c: ref.row_wss_batched_bank(*args_a[c]),
                 # B bank rows + 4 state rows, 4 lane vectors, the int32 i,
-                # int64 bank index and flag in; (B, nb) max and arg out
-                5 * B * l * item + 4 * B * item + 13 * B
-                + B * nb * (item + 4),
+                # int64 bank index and flag in; (B,) gain and j out
+                5 * B * l * item + 4 * B * item + 13 * B + B * (item + 4),
                 20 * B * l),
             "update_wss_batched_rows": (
                 lambda c: rbf_update_wss.update_wss_batched_rows(*args_b[c]),
-                lambda c: ref.update_wss_batched_rows_blocks(*args_b[c],
-                                                             block_l=bl),
+                lambda c: ref.update_wss_batched_bank(*args_b[c]),
                 # 2 B bank rows + 4 state rows in, G out, mu, i, j, bank
-                # index in; (B, nb) max, arg and min out
+                # index in; (B,) next i, its G and the gap's min out
                 7 * B * l * item + B * item + 16 * B
-                + B * nb * (2 * item + 4),
+                + B * (2 * item + 4),
                 6 * B * l),
             "rbf_row_wss_batched": (
                 lambda c: rbf_row_wss.rbf_row_wss_batched(*args_ra[c],
@@ -3513,18 +3530,20 @@ def conj_kernel_times(device, timer):
         if src == "rbf":
             _, b = (dup_state if dup else kernel_state)(l, d, B, 1, dtype,
                                                         device)
-            keys, fn_c, fn_p = PASS_B_KEYS, pb.rbf_update_wss_batched_conj, \
-                ref.rbf_update_wss_batched_blocks
+            keys, fn_c = PASS_B_KEYS, pb.rbf_update_wss_batched_conj
+            fn_p = lambda *x, **kw: ref.rbf_update_wss_batched_blocks(
+                *x, block_l=bl, **kw)
             base_bytes = ((l * d + l + 4 * B * n + 2 * B * d + 4 * B) * item
                           + B * n * item + B * nb * (2 * item + 4))
             nops = 4 * B * l * d + 12 * B * n
         else:
             b = bank_state(l, B, 3 if B > 1 else 1, 1, dtype, device,
                            dup=dup)[1]
-            keys, fn_c, fn_p = BANK_B, pb.update_wss_batched_rows_conj, \
-                ref.update_wss_batched_rows_blocks
+            keys, fn_c = BANK_B, pb.update_wss_batched_rows_conj
+            fn_p = ref.update_wss_batched_bank
+            # (B,) next i, its G and the gap's min out
             base_bytes = ((2 * B * l + 5 * B * n + B) * item + 16 * B
-                          + B * nb * (2 * item + 4))
+                          + B * (2 * item + 4))
             nops = 6 * B * n
         if masked:
             base_bytes += B * n
@@ -3544,8 +3563,8 @@ def conj_kernel_times(device, timer):
               for c in copies]
         kern = lambda c: fn_c(*args[c], base[c], mu2s[c], dup=dup,
                               act=acts[c], **xt[c])
-        plain = lambda c: fn_p(*args[c], block_l=bl, dup=dup, act=acts[c],
-                               dirv=base[c], mu2=mu2s[c])
+        plain = lambda c: fn_p(*args[c], dup=dup, act=acts[c], dirv=base[c],
+                               mu2=mu2s[c])
         if masked:
             nodir = (lambda c: (pb.rbf_update_wss_batched_act if src == "rbf"
                                 else pb.update_wss_batched_rows_act)(
@@ -3565,11 +3584,17 @@ def conj_kernel_times(device, timer):
                 t[k] = v if rnd == 0 else min(t[k], v)
         bms, by = bound_ms(nbytes, nops + 2 * B * n, dtype)
         nodir_bms = bound_ms(base_bytes, nops, dtype)[0]
+        # beside the B = 1 variant, whose bytes take less than a launch: a
+        # launch that does nothing (PyTorch's spin kernel for 0 cycles)
+        noop = ""
+        if B == 1:
+            noop_ms = timer.ms(lambda: torch.cuda._sleep(0), 100)
+            noop = f"; a no-op launch {noop_ms:.5f} ms"
         say(f"[time] conjugate pass B {src} H={H}{' act' if masked else ''} "
             f"B={B} f64: kernel {t['ms']:.5f} ms, without the direction "
             f"{t['nodir_ms']:.5f} ms (bound {nodir_bms:.5f}), plain "
             f"{t['plain_ms']:.5f} ms, bound {bms:.5f} ms by {by} "
-            f"({nbytes / 1e6:.3f} MB; cycling through {nc} copies)")
+            f"({nbytes / 1e6:.3f} MB; cycling through {nc} copies){noop}")
         recs[(src, H, masked, B)] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
                                          bound_ms=bms, bound_by=by)
         del b, copies, args, base, mu2s, acts, xt
@@ -3630,13 +3655,14 @@ def slice4_kernel_times(device, timer):
             lo, hi = (l - 3, l + 5) if dup else (5, l - 3)
             ba, bb = bank_state(l, B, 3, 1, dtype, device, dup=dup)
             # bank A: B rows of l, 4 state rows, 4 lane vectors, i, bank
-            # index, flag in; (B, nb) max and arg out.  Bank B: 2 B rows,
-            # 4 state rows in, G out, mu, i, j, bank index in; (B, nb) max,
-            # arg and min out.  The mask adds B n bytes to each.
+            # index, flag in; (B,) gain and j out.  Bank B: 2 B rows, 4
+            # state rows in, G out, mu, i, j, bank index in; (B,) next i,
+            # its G and the gap's min out.  The mask adds B n bytes to
+            # each.
             bytes_a = ((B * l + 4 * B * n + 4 * B) * item + 13 * B
-                       + B * nb * (item + 4))
+                       + B * (item + 4))
             bytes_b = ((2 * B * l + 5 * B * n + B) * item + 16 * B
-                       + B * nb * (2 * item + 4))
+                       + B * (2 * item + 4))
             nc = n_cold(bytes_a)
             A = [[c[k] for k in BANK_A] for c in cold_copies(ba, nc, n)]
             Bk = [[c[k] for k in BANK_B] for c in cold_copies(bb, nc, n)]
@@ -3646,25 +3672,25 @@ def slice4_kernel_times(device, timer):
                 "row_wss_batched_rows_act": (
                     lambda c: pa.row_wss_batched_rows_act(*A[c], acts[c],
                                                           dup=dup),
-                    lambda c: ref.row_wss_batched_rows_blocks(
-                        *A[c], block_l=bl, dup=dup, act=acts[c]),
+                    lambda c: ref.row_wss_batched_bank(*A[c], dup=dup,
+                                                       act=acts[c]),
                     bytes_a + B * n, 20 * B * n),
                 "update_wss_batched_rows_act": (
                     lambda c: pb.update_wss_batched_rows_act(*Bk[c], acts[c],
                                                              dup=dup),
-                    lambda c: ref.update_wss_batched_rows_blocks(
-                        *Bk[c], block_l=bl, dup=dup, act=acts[c]),
+                    lambda c: ref.update_wss_batched_bank(*Bk[c], dup=dup,
+                                                          act=acts[c]),
                     bytes_b + B * n, 6 * B * n),
             }
             if dup:
                 cases["row_wss_batched_rows_h2"] = (
                     lambda c: pa.row_wss_batched_rows_h2(*A[c]),
-                    lambda c: ref.row_wss_batched_rows_blocks(
-                        *A[c], block_l=bl, dup=True), bytes_a, 20 * B * n)
+                    lambda c: ref.row_wss_batched_bank(*A[c], dup=True),
+                    bytes_a, 20 * B * n)
                 cases["update_wss_batched_rows_h2"] = (
                     lambda c: pb.update_wss_batched_rows_h2(*Bk[c]),
-                    lambda c: ref.update_wss_batched_rows_blocks(
-                        *Bk[c], block_l=bl, dup=True), bytes_b, 6 * B * n)
+                    lambda c: ref.update_wss_batched_bank(*Bk[c], dup=True),
+                    bytes_b, 6 * B * n)
             else:
                 a, b = kernel_state(l, d, B, 1, dtype, device)
                 ca, cb = cold_copies(a, nc), cold_copies(b, nc)

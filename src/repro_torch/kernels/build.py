@@ -29,8 +29,10 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-# Columns of l per thread block in the pass A / pass B kernels; must equal
-# kBlockL in csrc/common.cuh (checked when the library loads).
+# Columns of l per thread block in the rbf pass A / pass B kernels; must
+# equal kBlockL in csrc/common.cuh (checked when the library loads).  The
+# bank passes size their blocks at each launch (launch_lanes in
+# csrc/bank_pass.cuh).
 BLOCK_L = 128
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math: it swaps exp and division for approximations, and the
@@ -55,14 +57,15 @@ SIGNATURES = {
     # XT sqn G k_i alpha L U xqj sqqj mu gamma G_out bmax barg bmin
     # | l d device | stream
     "rbf_update_wss": [_P] * 15 + [_I] * 3 + [_P],
-    # gram gram_idx G alpha L U a_i L_i U_i g_i i_idx use_exact act bmax
-    # barg | B H l | bank_stride row_stride | device | stream  (gram_idx
-    # NULL: pre-gathered rows)
-    "row_wss_batched_rows": [_P] * 15 + [_I] * 3 + [_LL] * 2 + [_I, _P],
+    # gram gram_idx G alpha L U a_i L_i U_i g_i i_idx use_exact act part_v
+    # part_i tickets j gain | B H l nb_cap | bank_stride row_stride |
+    # device | stream  (gram_idx NULL: pre-gathered rows)
+    "row_wss_batched_rows": [_P] * 18 + [_I] * 4 + [_LL] * 2 + [_I, _P],
     # gram_i gram_j gram_idx i_idx j_idx G alpha_new L U mu act dirv mu2
-    # G_out bmax barg bmin r_out | B H l | bank_stride row_stride | device
-    # | stream  (gram_idx, i_idx and j_idx NULL: pre-gathered rows)
-    "update_wss_batched_rows": [_P] * 18 + [_I] * 3 + [_LL] * 2 + [_I, _P],
+    # G_out part_v part_i part_m tickets i_next g_i_next g_dn r_out | B H
+    # l nb_cap | bank_stride row_stride | device | stream  (gram_idx, i_idx
+    # and j_idx NULL: pre-gathered rows)
+    "update_wss_batched_rows": [_P] * 22 + [_I] * 4 + [_LL] * 2 + [_I, _P],
     # X1 X2 s1 s2 out | gamma | m n d device | stream
     "gram_block": [_P] * 5 + [ctypes.c_double] + [_I] * 4 + [_P],
 }

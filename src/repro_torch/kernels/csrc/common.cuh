@@ -12,10 +12,11 @@
 
 namespace repro {
 
-// Columns of the example axis l in one block of the pass A / pass B
+// Columns of the example axis l in one block of the rbf pass A / pass B
 // kernels' per-block outputs (and in one thread block: one column per
-// thread in the bank and single-lane kernels, a micro-tiled block in the
-// batched rbf kernels, rbf_tile.cuh).  The Python side reads it back
+// thread in the single-lane kernels, a micro-tiled block in the batched
+// rbf kernels, rbf_tile.cuh).  The bank passes size their own blocks
+// (bank_pass.cuh) and return lane results.  The Python side reads it back
 // through repro_block_l() and refuses a library that disagrees.
 constexpr int kBlockL = 128;
 constexpr int kWarps = kBlockL / 32;

@@ -10,10 +10,12 @@
 
 Nothing falls back: a kernel that fails to build or launch raises.
 
-The CUDA passes return per-block reductions; the cross-block step,
-:func:`_first_max`, stays here, as the reference keeps it outside its
-kernels.  Working-set indices stay int32 at every kernel boundary; Gram
-bank indices are int64.
+The rbf CUDA passes (kernels 1, 2, 6 and 7) return per-block reductions,
+and their cross-block step, :func:`_first_max`, stays here, as the
+reference keeps it outside its kernels.  The Gram-bank passes (kernels 4
+and 5) fold it into their one launch and return each lane's result, so
+the bank dispatchers hand it on as it comes.  Working-set indices stay
+int32 at every kernel boundary; Gram bank indices are int64.
 
 ``dup=True`` runs the batched passes on the doubled ε-SVR operator's
 (B, 2l) lane state over the base ``X`` or the base Gram bank: on the card
@@ -184,19 +186,15 @@ def _bank_a(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
             use_exact, impl, dup, act):
     """Pass A over bank rows: ``gram[gram_idx[b], i_idx[b]]``, or with
     ``gram_idx`` None the pre-gathered (B, l) rows ``gram``."""
-    if resolve_impl(impl, G.device) == "torch":
-        return ref_ops.row_wss_batched_from_k(
-            ref_ops.bank_rows(gram, gram_idx, i_idx, dup), G, alpha, L, U,
-            a_i, L_i, U_i, g_i, i_idx, use_exact, act)
     args = (gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
             use_exact)
+    if resolve_impl(impl, G.device) == "torch":
+        return ref_ops.row_wss_batched_bank(*args, dup=dup, act=act)
     if act is not None:
-        bmax, barg = pass_a.row_wss_batched_rows_act(*args, act, dup=dup)
-    elif dup:
-        bmax, barg = pass_a.row_wss_batched_rows_h2(*args)
-    else:
-        bmax, barg = pass_a.row_wss_batched_rows(*args)
-    return _first_max(bmax, barg)
+        return pass_a.row_wss_batched_rows_act(*args, act, dup=dup)
+    if dup:
+        return pass_a.row_wss_batched_rows_h2(*args)
+    return pass_a.row_wss_batched_rows(*args)
 
 
 def row_wss_batched_rows(KR, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
@@ -224,23 +222,18 @@ def _bank_b(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, impl, dup,
             act, dirv, mu2):
     """Pass B over bank rows; with ``gram_idx`` None ``gram`` is the pair
     of pre-gathered rows ``(KRi, KRj)``."""
-    if resolve_impl(impl, G.device) == "torch":
-        gi, gj = gram if gram_idx is None else (gram, gram)
-        return ref_ops.update_wss_batched_from_rows(
-            G, ref_ops.bank_rows(gi, gram_idx, i_idx, dup),
-            ref_ops.bank_rows(gj, gram_idx, j_idx, dup), mu, alpha_new, L,
-            U, act, dirv, mu2)
     args = (gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu)
+    if resolve_impl(impl, G.device) == "torch":
+        return ref_ops.update_wss_batched_bank(*args, dup=dup, act=act,
+                                               dirv=dirv, mu2=mu2)
     if dirv is not None:
-        out = pass_b.update_wss_batched_rows_conj(*args, dirv, mu2, dup=dup,
-                                                  act=act)
-    elif act is not None:
-        out = pass_b.update_wss_batched_rows_act(*args, act, dup=dup)
-    elif dup:
-        out = pass_b.update_wss_batched_rows_h2(*args)
-    else:
-        out = pass_b.update_wss_batched_rows(*args)
-    return _pass_b_out(out)
+        return pass_b.update_wss_batched_rows_conj(*args, dirv, mu2,
+                                                   dup=dup, act=act)
+    if act is not None:
+        return pass_b.update_wss_batched_rows_act(*args, act, dup=dup)
+    if dup:
+        return pass_b.update_wss_batched_rows_h2(*args)
+    return pass_b.update_wss_batched_rows(*args)
 
 
 def update_wss_batched_rows(KRi, KRj, G, alpha_new, L, U, mu, *,

@@ -5,11 +5,13 @@ halves; ``csrc/rbf_row_wss_single.cu``: single-lane with the row stored) or read
 wrappers launch the variants that take a (B, n) bool active-set mask
 (soft shrinking), with one state half or two (``dup=True``).
 
-On CUDA tensors each launches its kernel on the current stream and returns
-the per-block (max, first argmax) pairs; on CPU tensors it runs the plain
-version (:func:`repro_torch.kernels.ref.rbf_row_wss_batched_blocks`,
-:func:`repro_torch.kernels.ref.rbf_row_wss_blocks`,
-:func:`repro_torch.kernels.ref.row_wss_batched_rows_blocks`).  There is no
+On CUDA tensors each launches its kernel on the current stream; on CPU
+tensors it runs the plain version.  The rbf passes return the per-block
+(max, first argmax) pairs (plain versions
+:func:`repro_torch.kernels.ref.rbf_row_wss_batched_blocks`,
+:func:`repro_torch.kernels.ref.rbf_row_wss_blocks`); the bank passes fold
+the cross-block pick into their launch and return the lanes' (j, gain)
+(:func:`repro_torch.kernels.ref.row_wss_batched_bank`).  There is no
 fallback from one to the other.  Each wrapper's ``launches`` attribute
 counts its kernel launches.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref, tally
+from repro_torch.kernels import build, lane_pick, ref, tally
 from repro_torch.kernels.checks import (act_ptr, bank_strides,
                                         check_lane_scalars, check_state,
                                         dtype_bits, on_card)
@@ -187,7 +189,7 @@ rbf_row_wss.launches = 0
 def _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
           use_exact, H: int, act=None):
     """Launch bank pass A over ``H`` state halves, within the active set
-    ``act`` when given."""
+    ``act`` when given: one launch, the lanes' picks folded in."""
     B, n = G.shape
     l = n // H
     dtype = G.dtype
@@ -199,18 +201,20 @@ def _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
     check_lane_scalars(B, G.device, torch.int32, i_idx=i_idx)
     check_lane_scalars(B, G.device, torch.bool, use_exact=use_exact)
     aptr = act_ptr(act, G)
-    nb = -(-l // build.BLOCK_L)
-    bmax = torch.empty((B, nb), dtype=dtype, device=G.device)
-    barg = torch.empty((B, nb), dtype=torch.int32, device=G.device)
+    part_v, part_i, nb_cap = lane_pick.partials(B, l, dtype, G.device, 1)
+    j = torch.empty((B,), dtype=torch.int32, device=G.device)
+    gain = torch.empty((B,), dtype=dtype, device=G.device)
     fn = build.entry("row_wss_batched_rows", dtype_bits(dtype))
     ptrs = [None if t is None else t.data_ptr()
             for t in (gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
                       i_idx, use_exact)]
-    err = fn(*ptrs, aptr, bmax.data_ptr(), barg.data_ptr(), B, H, l,
-             *strides, G.device.index,
+    err = fn(*ptrs, aptr,
+             *[t.data_ptr() for t in (part_v, part_i,
+                                      lane_pick.tickets(G.device), j, gain)],
+             B, H, l, nb_cap, *strides, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
     build.check(err, "row_wss_batched_rows")
-    return bmax, barg
+    return j, gain
 
 
 def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
@@ -223,12 +227,12 @@ def row_wss_batched_rows(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i,
     arguments are as in :func:`rbf_row_wss_batched`.  With ``gram_idx``
     None, ``gram`` is the lanes' rows pre-gathered, (B, l) (the
     reference's ``KR``), read as a bank of B entries of one row.  Returns
-    (bmax (B, nb), barg (B, nb) int32), ``nb = ceil(l / BLOCK_L)``.
+    the lanes' picks (j (B,) int32, gain (B,)): the kernel reduces across
+    its blocks in the same launch.
     """
     if not on_card(G, "bank pass A"):
-        return ref.row_wss_batched_rows_blocks(
-            gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
-            use_exact, block_l=build.BLOCK_L)
+        return ref.row_wss_batched_bank(gram, gram_idx, G, alpha, L, U, a_i,
+                                        L_i, U_i, g_i, i_idx, use_exact)
     out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
                 use_exact, 1)
     tally.count(row_wss_batched_rows)
@@ -245,12 +249,12 @@ def row_wss_batched_rows_h2(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i,
     As :func:`row_wss_batched_rows`, with (B, 2l) state over the
     (n_stack, l, l) base bank and ``i_idx`` a doubled index in [0, 2l):
     lane b reads the base row ``gram[gram_idx[b], i_idx[b] mod l]``.
-    Returns (bmax (B, nb), barg (B, nb) int32) with doubled indices.
+    Returns (j (B,) int32, a doubled index, gain (B,)).
     """
     if not on_card(G, "bank pass A"):
-        return ref.row_wss_batched_rows_blocks(
-            gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
-            use_exact, block_l=build.BLOCK_L, dup=True)
+        return ref.row_wss_batched_bank(gram, gram_idx, G, alpha, L, U, a_i,
+                                        L_i, U_i, g_i, i_idx, use_exact,
+                                        dup=True)
     out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
                 use_exact, 2)
     tally.count(row_wss_batched_rows_h2)
@@ -265,12 +269,13 @@ def row_wss_batched_rows_act(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i,
                              dup: bool = False):
     """Bank pass A within a per-lane active set (soft shrinking): as
     :func:`row_wss_batched_rows` (or :func:`row_wss_batched_rows_h2` with
-    ``dup=True``), with ``act`` a (B, n) bool mask.  Returns
-    (bmax (B, nb), barg (B, nb) int32)."""
+    ``dup=True``), with ``act`` a (B, n) bool mask; a lane with no active
+    candidate returns index 0 and -inf.  Returns (j (B,) int32, gain
+    (B,))."""
     if not on_card(G, "bank pass A"):
-        return ref.row_wss_batched_rows_blocks(
-            gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
-            use_exact, block_l=build.BLOCK_L, dup=dup, act=act)
+        return ref.row_wss_batched_bank(gram, gram_idx, G, alpha, L, U, a_i,
+                                        L_i, U_i, g_i, i_idx, use_exact,
+                                        dup=dup, act=act)
     out = _bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
                 use_exact, 2 if dup else 1, act)
     tally.count(row_wss_batched_rows_act)

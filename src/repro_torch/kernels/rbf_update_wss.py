@@ -11,13 +11,15 @@ previous direction's base-width row ``dirv`` and per-lane ``mu2``, add
 ``- mu2 dirv`` to the update and return the base row difference
 ``r = k_i - k_j`` as a fifth output.
 
-On CUDA tensors each launches its kernel on the current stream and returns
-the new gradient with the per-block next-i (max, first argmax) and gap
-minimum; on CPU tensors it runs the plain version
-(:func:`repro_torch.kernels.ref.rbf_update_wss_batched_blocks`,
-:func:`repro_torch.kernels.ref.rbf_update_wss_blocks`,
-:func:`repro_torch.kernels.ref.update_wss_batched_rows_blocks`).  There is
-no fallback from one to the other.  Each wrapper's ``launches`` attribute
+On CUDA tensors each launches its kernel on the current stream; on CPU
+tensors it runs the plain version.  The rbf passes return the new gradient
+with the per-block next-i (max, first argmax) and gap minimum (plain
+versions :func:`repro_torch.kernels.ref.rbf_update_wss_batched_blocks`,
+:func:`repro_torch.kernels.ref.rbf_update_wss_blocks`); the bank passes
+fold the cross-block reductions into their launch and return the new
+gradient with the lanes' (i_next, g_i_next, g_dn)
+(:func:`repro_torch.kernels.ref.update_wss_batched_bank`).  There is no
+fallback from one to the other.  Each wrapper's ``launches`` attribute
 counts its kernel launches.
 """
 
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref, tally
+from repro_torch.kernels import build, lane_pick, ref, tally
 from repro_torch.kernels.checks import (act_ptr, bank_strides,
                                         check_lane_scalars, check_state,
                                         dirv_ptr, dtype_bits, on_card)
@@ -222,7 +224,8 @@ def _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, H: int,
           act=None, dirv=None, mu2=None):
     """Launch bank pass B over ``H`` state halves, its scans within the
     active set ``act`` when given, with the conjugate direction
-    ``dirv``/``mu2`` when given (then ``r`` is returned fifth)."""
+    ``dirv``/``mu2`` when given (then ``r`` is returned fifth): one
+    launch, the lanes' picks and minima folded in."""
     B, n = G.shape
     l = n // H
     dtype = G.dtype
@@ -241,18 +244,27 @@ def _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, H: int,
     check_lane_scalars(B, G.device, dtype, mu=mu)
     aptr = act_ptr(act, G)
     dptr, m2ptr = dirv_ptr(dirv, mu2, G, H)
-    G_out, bmax, barg, bmin, r_out = _outputs(G, l, dirv is not None)
+    part_v, part_m, part_i, nb_cap = lane_pick.partials(B, l, dtype,
+                                                        G.device, 2)
+    G_out = torch.empty_like(G)
+    i_next = torch.empty((B,), dtype=torch.int32, device=G.device)
+    g_i_next = torch.empty((B,), dtype=dtype, device=G.device)
+    g_dn = torch.empty((B,), dtype=dtype, device=G.device)
+    r_out = (torch.empty((B, l), dtype=dtype, device=G.device)
+             if dirv is not None else None)
     fn = build.entry("update_wss_batched_rows", dtype_bits(dtype))
     rows = (None,) * 3 if gram_idx is None else (gram_idx, i_idx, j_idx)
     ptrs = [None if t is None else t.data_ptr()
             for t in (gram_i, gram_j, *rows, G, alpha_new, L, U, mu)]
     err = fn(*ptrs, aptr, dptr, m2ptr,
-             *[t.data_ptr() for t in (G_out, bmax, barg, bmin)],
+             *[t.data_ptr() for t in (G_out, part_v, part_i, part_m,
+                                      lane_pick.tickets(G.device), i_next,
+                                      g_i_next, g_dn)],
              None if r_out is None else r_out.data_ptr(),
-             B, H, l, *strides, G.device.index,
+             B, H, l, nb_cap, *strides, G.device.index,
              torch.cuda.current_stream(G.device).cuda_stream)
     build.check(err, "update_wss_batched_rows")
-    out = (G_out, bmax, barg, bmin)
+    out = (G_out, i_next, g_i_next, g_dn)
     return out if r_out is None else out + (r_out,)
 
 
@@ -266,13 +278,13 @@ def update_wss_batched_rows(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx,
     (B,) in the data dtype.  With ``gram_idx`` None, ``gram`` is the pair
     of pre-gathered rows ``(KRi, KRj)``, each (B, l) (the reference's
     form), and ``i_idx``/``j_idx`` are not read (None will do).  G is
-    written out of place.  Returns
-    (G_new (B, l), bmax (B, nb), barg (B, nb) int32, bmin (B, nb)).
+    written out of place.  Returns (G_new (B, l), i_next (B,) int32,
+    g_i_next (B,), g_dn (B,)): the kernel reduces across its blocks in the
+    same launch.
     """
     if not on_card(G, "bank pass B"):
-        return ref.update_wss_batched_rows_blocks(
-            gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
-            block_l=build.BLOCK_L)
+        return ref.update_wss_batched_bank(gram, gram_idx, G, alpha_new, L,
+                                           U, i_idx, j_idx, mu)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, 1)
     tally.count(update_wss_batched_rows)
     return out
@@ -288,13 +300,12 @@ def update_wss_batched_rows_h2(gram, gram_idx, G, alpha_new, L, U, i_idx,
     As :func:`update_wss_batched_rows`, with (B, 2l) state over the
     (n_stack, l, l) base bank and doubled indices ``i_idx``/``j_idx``: the
     rows are the base rows of ``i mod l`` and ``j mod l``, and both halves
-    take the same update.  Returns (G_new (B, 2l), bmax (B, nb),
-    barg (B, nb) int32 with doubled indices, bmin (B, nb)).
+    take the same update.  Returns (G_new (B, 2l), i_next (B,) int32, a
+    doubled index, g_i_next, g_dn).
     """
     if not on_card(G, "bank pass B"):
-        return ref.update_wss_batched_rows_blocks(
-            gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
-            block_l=build.BLOCK_L, dup=True)
+        return ref.update_wss_batched_bank(gram, gram_idx, G, alpha_new, L,
+                                           U, i_idx, j_idx, mu, dup=True)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu, 2)
     tally.count(update_wss_batched_rows_h2)
     return out
@@ -308,12 +319,12 @@ def update_wss_batched_rows_act(gram, gram_idx, G, alpha_new, L, U, i_idx,
     """Bank pass B with its scans within a per-lane active set (soft
     shrinking): as :func:`update_wss_batched_rows` (or
     :func:`update_wss_batched_rows_h2` with ``dup=True``), with ``act`` a
-    (B, n) bool mask that the update of G ignores.  Returns (G_new, bmax,
-    barg int32, bmin)."""
+    (B, n) bool mask that the update of G ignores.  Returns (G_new,
+    i_next int32, g_i_next, g_dn)."""
     if not on_card(G, "bank pass B"):
-        return ref.update_wss_batched_rows_blocks(
-            gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
-            block_l=build.BLOCK_L, dup=dup, act=act)
+        return ref.update_wss_batched_bank(gram, gram_idx, G, alpha_new, L,
+                                           U, i_idx, j_idx, mu, dup=dup,
+                                           act=act)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
                 2 if dup else 1, act)
     tally.count(update_wss_batched_rows_act)
@@ -330,11 +341,11 @@ def update_wss_batched_rows_conj(gram, gram_idx, G, alpha_new, L, U, i_idx,
     :func:`update_wss_batched_rows` (``dup=True``: the H = 2 halves;
     ``act``: scans within the mask), with the (B, l) base-width direction
     ``dirv`` and per-lane ``mu2`` as in :func:`rbf_update_wss_batched_conj`.
-    Returns (G_new, bmax, barg int32, bmin, r (B, l))."""
+    Returns (G_new, i_next int32, g_i_next, g_dn, r (B, l))."""
     if not on_card(G, "bank pass B"):
-        return ref.update_wss_batched_rows_blocks(
-            gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
-            block_l=build.BLOCK_L, dup=dup, act=act, dirv=dirv, mu2=mu2)
+        return ref.update_wss_batched_bank(gram, gram_idx, G, alpha_new, L,
+                                           U, i_idx, j_idx, mu, dup=dup,
+                                           act=act, dirv=dirv, mu2=mu2)
     out = _bank(gram, gram_idx, G, alpha_new, L, U, i_idx, j_idx, mu,
                 2 if dup else 1, act, dirv, mu2)
     tally.count(update_wss_batched_rows_conj)

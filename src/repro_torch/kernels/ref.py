@@ -10,11 +10,14 @@ with ``dup=True`` the state is the doubled ε-SVR operator's (n = 2l) over
 the base (l, d) ``X``: the row of coordinate ``k`` is the base row of
 ``k mod l``, tiled (:func:`tile_rows`).
 
-The ``*_blocks`` functions are the plain versions of what the CUDA passes
-themselves return: the per-block (max, first argmax) and min over
+The ``*_blocks`` functions are the plain versions of what the rbf CUDA
+passes themselves return: the per-block (max, first argmax) and min over
 ``block_l`` columns, before the cross-block reduction in
 :mod:`repro_torch.kernels.ops`.  With doubled state a block covers the
-same ``block_l`` base columns in both halves, half 0 before half 1.
+same ``block_l`` base columns in both halves, half 0 before half 1.  The
+bank passes fold that reduction into their launch, so their plain
+versions, :func:`row_wss_batched_bank` and :func:`update_wss_batched_bank`,
+return the lanes' results.
 
 ``act``, an optional (B, n) bool active-set mask (soft shrinking), restricts
 pass A's j-candidates and pass B's next-i scan and gap endpoints; pass B's
@@ -250,6 +253,31 @@ def bank_rows(gram, gram_idx, idx, dup: bool = False):
     return tile_rows(k) if dup else k
 
 
+def row_wss_batched_bank(gram, gram_idx, G, alpha, L, U, a_i, L_i, U_i,
+                         g_i, i_idx, use_exact, dup: bool = False,
+                         act=None):
+    """Bank pass A: the WSS2 pick from the lanes' bank rows (:func:`bank_rows`;
+    with ``gram_idx`` None, ``gram`` holds the (B, l) rows) -> (j (B,)
+    int32, gain (B,)), what the bank kernel returns."""
+    return row_wss_batched_from_k(bank_rows(gram, gram_idx, i_idx, dup), G,
+                                  alpha, L, U, a_i, L_i, U_i, g_i, i_idx,
+                                  use_exact, act)
+
+
+def update_wss_batched_bank(gram, gram_idx, G, alpha_new, L, U, i_idx,
+                            j_idx, mu, dup: bool = False, act=None,
+                            dirv=None, mu2=None):
+    """Bank pass B from the lanes' bank rows i and j -> (G_new, i_next
+    int32, g_i_next, g_dn), and ``r`` with the direction ``dirv``, what the
+    bank kernel returns.  With ``gram_idx`` None, ``gram`` is the pair of
+    pre-gathered (B, l) rows ``(KRi, KRj)``."""
+    gi, gj = gram if gram_idx is None else (gram, gram)
+    return update_wss_batched_from_rows(
+        G, bank_rows(gi, gram_idx, i_idx, dup),
+        bank_rows(gj, gram_idx, j_idx, dup), mu, alpha_new, L, U, act, dirv,
+        mu2)
+
+
 def gram_cross(X1, X2, gamma, *, out=None):
     """Cross Gram matrix k(X1, X2) -> (l1, l2), written into ``out`` when
     given."""
@@ -334,27 +362,3 @@ def rbf_update_wss_batched_blocks(X, sqn, G, alpha_new, L, U, XQi, sqqi,
     k_i, k_j = _rows_ij(X, sqn, XQi, sqqi, XQj, sqqj, gammas, dup)
     return _blocks_b(G, k_i, k_j, mu, alpha_new, L, U, block_l, dup, act,
                      dirv, mu2)
-
-
-def row_wss_batched_rows_blocks(gram, gram_idx, G, alpha, L, U, a_i, L_i,
-                                U_i, g_i, i_idx, use_exact, *, block_l: int,
-                                dup: bool = False, act=None):
-    """Bank pass A as the kernel returns it: per-block (bmax, barg)."""
-    k = bank_rows(gram, gram_idx, i_idx, dup)
-    return block_first_max(_wss_vals(k, G, alpha, L, U, a_i, L_i, U_i, g_i,
-                                     i_idx, use_exact, act), block_l,
-                           2 if dup else 1)
-
-
-def update_wss_batched_rows_blocks(gram, gram_idx, G, alpha_new, L, U,
-                                   i_idx, j_idx, mu, *, block_l: int,
-                                   dup: bool = False, act=None, dirv=None,
-                                   mu2=None):
-    """Bank pass B as the kernel returns it: (G_new, bmax, barg, bmin), and
-    the base-width ``r`` with the base-width direction ``dirv``.  With
-    ``gram_idx`` None, ``gram`` is the pair of pre-gathered rows
-    ``(KRi, KRj)``."""
-    gi, gj = gram if gram_idx is None else (gram, gram)
-    return _blocks_b(G, bank_rows(gi, gram_idx, i_idx, dup),
-                     bank_rows(gj, gram_idx, j_idx, dup), mu, alpha_new, L,
-                     U, block_l, dup, act, dirv, mu2)

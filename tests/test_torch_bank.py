@@ -1,9 +1,11 @@
 """The Gram-bank row source: the port's plain bank pass A and pass B and
 their ``ops`` dispatchers against the JAX package's
 ``row_wss_batched_rows``/``update_wss_batched_rows`` (``impl="jnp"`` and
-the Pallas kernels in interpret mode), the per-block outputs the CUDA bank
-passes return, the bank supplier of ``RowSource``, and the Gram kernel's
-``out=``.
+the Pallas kernels in interpret mode), the lane results the CUDA bank
+passes return (their pick folded into the launch) in every variant and
+both dtypes, against the reference and against the earlier per-block form
+reduced by ``ops._first_max``, the bank supplier of ``RowSource``, and the
+Gram kernel's ``out=``.
 
 State: l = 300 (not a multiple of 128), B = 5 lanes over a 2-entry bank,
 ``use_exact`` both ways, an all-masked lane, a duplicated point that ties
@@ -209,32 +211,238 @@ def test_rows_forms_match_reference(case, monkeypatch):
         np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+def _parent_form_a(gram, gidx, args, dup=False, act=None):
+    """Pass A as the bank kernel and its dispatch gave it before the pick
+    was folded into the kernel: the per-block first max of the plain
+    values over 128-column blocks, reduced across blocks by
+    ``ops._first_max``."""
+    vals = ref._wss_vals(ref.bank_rows(gram, gidx, args[8], dup), *args,
+                         act)
+    return ops._first_max(*ref.block_first_max(vals, 128, 2 if dup else 1))
+
+
+def _parent_form_b(gram, gidx, args, dup=False, act=None, dirv=None,
+                   mu2=None):
+    """Pass B in the same earlier form: per-block outputs reduced by
+    ``ops._first_max`` and ``amin``."""
+    G, alpha_new, L, U, i_idx, j_idx, mu = args
+    out = ref._blocks_b(G, ref.bank_rows(gram, gidx, i_idx, dup),
+                        ref.bank_rows(gram, gidx, j_idx, dup), mu, alpha_new,
+                        L, U, 128, dup, act, dirv, mu2)
+    return (out[0], *ops._first_max(out[1], out[2]),
+            out[3].amin(dim=1)) + tuple(out[4:])
+
+
 def test_cpu_bank_wrappers_run_the_plain_blocks():
-    """On CPU tensors the bank kernel wrappers return the plain per-block
-    outputs, whose cross-block reduction equals the full-row versions, and
-    launch nothing."""
+    """On CPU tensors the bank kernel wrappers return the lanes' plain
+    results, which their kernels now reduce across blocks in the launch:
+    bitwise the ``ops`` dispatch on ``impl="torch"`` and the earlier
+    per-block outputs reduced by ``ops._first_max``; and they launch
+    nothing."""
     before = (rbf_row_wss.row_wss_batched_rows.launches,
               rbf_update_wss.update_wss_batched_rows.launches)
     bank, a, b = _bank_state(seed=4)
     gram, gidx = _bank_t(bank)
-    bmax, barg = rbf_row_wss.row_wss_batched_rows(gram, gidx, *_t(a, PASS_A))
-    assert bmax.shape == (B_, -(-L_ // 128)) and barg.dtype == torch.int32
-    # the tie across blocks: both copies lead their blocks
-    assert bmax[0, 0] == bmax[0, -1] and int(barg[0, -1]) == L_ + TIE_B
+    got = rbf_row_wss.row_wss_batched_rows(gram, gidx, *_t(a, PASS_A))
+    assert got[0].shape == (B_,) and got[0].dtype == torch.int32
+    # the tie across blocks goes to the lower index
+    assert int(got[0][0]) == TIE_A
     full = ops.row_wss_batched_bank(gram, gidx, *_t(a, PASS_A), impl="torch")
-    for got, want in zip(ops._first_max(bmax, barg), full):
-        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for x, y, z in zip(got, full, _parent_form_a(gram, gidx, _t(a, PASS_A))):
+        assert torch.equal(x, y) and torch.equal(x, z)
 
     args = (*_t(b, PASS_B), *_t(b, ("i_idx", "j_idx")),
             torch.as_tensor(b["mu"]))
-    G_blk, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows(
-        gram, gidx, *args)
+    got = rbf_update_wss.update_wss_batched_rows(gram, gidx, *args)
+    assert len(got) == 4 and got[1].shape == (B_,)
     full = ops.update_wss_batched_bank(gram, gidx, *args, impl="torch")
-    i_blk, gi_blk = ops._first_max(bmax, barg)
-    for got, want in zip((G_blk, i_blk, gi_blk, bmin.amin(dim=1)), full):
-        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for x, y, z in zip(got, full, _parent_form_b(gram, gidx, args)):
+        assert torch.equal(x, y) and torch.equal(x, z)
     assert before == (rbf_row_wss.row_wss_batched_rows.launches,
                       rbf_update_wss.update_wss_batched_rows.launches)
+
+
+# The bank passes' lane results in every variant: one state half or two,
+# with and without the mask, pass B with and without the conjugate
+# direction, at an l that is not a multiple of 128 and an odd one, in both
+# dtypes.  Values: rtol 1e-12 (f64) and 1e-5 (f32) against the reference,
+# indices exactly; against the earlier per-block form, bitwise.
+LANE_VARIANTS = {"h1": (False, False, False), "h2": (True, False, False),
+                 "h1_act": (False, True, False), "h2_act": (True, True, False),
+                 "h1_conj": (False, False, True),
+                 "h2_conj": (True, False, True),
+                 "h1_act_conj": (False, True, True),
+                 "h2_act_conj": (True, True, True)}
+LANE_TOL = {"f64": 1e-12, "f32": 1e-5}
+
+
+def _lane_state(l, dup, dtype, seed):
+    """Bank pass inputs at ``l`` over a 2-entry bank, B_ = 5 lanes, with
+    the edge cases: points 5 and l-3 coincide (their bank rows and columns
+    set equal), so their coordinates tie exactly across the first and last
+    block, and with ``dup`` half 1 at 5 carries half 0's state at l-3, a
+    tie across the halves and blocks whose lower doubled index l-3 must
+    win; the tie carries the best gain (pass A) and the largest G (pass
+    B); the last lane is all-masked in pass A and has an empty I_up in pass
+    B; lane 0 takes mu = mu2 = 0 and must keep its G bitwise.  The mask
+    hides the lower tie index in lane 0 and all of lane 1.  Returns
+    (gram, gram_idx, pass A args, pass B args, act, dirv, mu2, (lo, hi))
+    as tensors of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    B, ta, tb = B_, 5, l - 3
+    lo, hi = (l - 3, l + 5) if dup else (ta, tb)
+    n = 2 * l if dup else l
+    X = rng.normal(size=(l, D_))
+    X[tb] = X[ta]
+    sq = (X * X).sum(axis=1)
+    d2 = np.maximum(sq[:, None] + sq[None, :] - 2.0 * X @ X.T, 0.0)
+    bank = np.exp(-GAMMAS[:, None, None] * d2)
+    bank[:, :, tb] = bank[:, :, ta]
+    bank[:, tb, :] = bank[:, ta, :]
+    C = rng.choice([0.5, 1.0, 10.0], size=(B, 1))
+    if dup:
+        zero = np.zeros((B, l))
+        L = np.concatenate([zero, zero - C], axis=1)
+        U = np.concatenate([zero + C, zero], axis=1)
+    else:
+        y = rng.choice([-1.0, 1.0], size=(B, l))
+        L, U = np.minimum(0.0, y * C), np.maximum(0.0, y * C)
+    frac = rng.uniform(size=(B, n))
+    frac = np.where(rng.uniform(size=(B, n)) < 0.4, np.round(frac), frac)
+    frac[:, [lo, hi]] = 0.5
+    alpha = L + (U - L) * frac
+    G = rng.normal(size=(B, n))
+    G[:, lo] = G.min(axis=1) - 5.0
+    for arr in (G, alpha, L, U):
+        arr[:, hi] = arr[:, lo]
+    lanes = np.arange(B)
+    i_idx = rng.integers(ta + 1, tb, size=B) + (l if dup else 0)
+    if dup:
+        alpha[lanes, i_idx - l] = L[lanes, i_idx - l]
+    j_idx = rng.integers(0, n, size=B)
+    alpha_a, alpha_b, G_b = alpha.copy(), alpha.copy(), G.copy()
+    alpha_a[-1] = L[-1]
+    alpha_b[-1] = U[-1]
+    G_b[:, [lo, hi]] = G.max(axis=1, keepdims=True) + 10.0
+    mu = rng.normal(size=B)
+    mu[0] = 0.0
+    dirv = rng.normal(scale=0.1, size=(B, l))
+    dirv[:, tb] = dirv[:, ta]
+    mu2 = rng.normal(scale=0.5, size=B)
+    mu2[0] = 0.0
+    act = rng.uniform(size=(B, n)) < 0.85
+    act[:, [lo, hi]] = True
+    act[0, lo] = False
+    act[1] = False
+    t = lambda x: torch.tensor(x, dtype=dtype)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)
+    args_a = (t(G), t(alpha_a), t(L), t(U), t(alpha_a[lanes, i_idx]),
+              t(L[lanes, i_idx]), t(U[lanes, i_idx]),
+              t(G[lanes, i_idx] + 1.0), i32(i_idx),
+              torch.tensor(lanes % 2 == 1))
+    args_b = (t(G_b), t(alpha_b), t(L), t(U), i32(i_idx), i32(j_idx), t(mu))
+    return (t(bank), torch.as_tensor(GIDX), args_a, args_b,
+            torch.tensor(act), t(dirv), t(mu2), (lo, hi))
+
+
+def _close(got, want, rtol, scale=0.0):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
+                               atol=rtol * scale)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("l", [300, 131])
+@pytest.mark.parametrize("variant", ["h1", "h2", "h1_act", "h2_act"])
+def test_bank_pass_a_lane_results(variant, l, dtype):
+    """Bank pass A's wrapper (its plain version on CPU tensors) returns the
+    lanes' (j, gain): bitwise the earlier per-block form reduced by
+    ``ops._first_max``, and the reference's ``row_wss_batched_rows`` on
+    ``impl="jnp"``; the ties, the hidden argmax and the empty lanes as the
+    state fixes them."""
+    dup, masked, _ = LANE_VARIANTS[variant]
+    torch_dtype = torch.float64 if dtype == "f64" else torch.float32
+    gram, gidx, args, _, act, _, _, (lo, hi) = _lane_state(
+        l, dup, torch_dtype, seed=l + 10 * dup + masked)
+    act = act if masked else None
+    if masked:
+        got = rbf_row_wss.row_wss_batched_rows_act(gram, gidx, *args, act,
+                                                   dup=dup)
+    elif dup:
+        got = rbf_row_wss.row_wss_batched_rows_h2(gram, gidx, *args)
+    else:
+        got = rbf_row_wss.row_wss_batched_rows(gram, gidx, *args)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch_dtype
+    for x, y in zip(got, _parent_form_a(gram, gidx, args, dup, act)):
+        assert torch.equal(x, y)
+    KR = gram.numpy()[GIDX, args[8].numpy() % l]
+    want = jops.row_wss_batched_rows(
+        jnp.asarray(KR), *(jnp.asarray(x.numpy()) for x in args),
+        impl="jnp", dup=dup, act=None if act is None else jnp.asarray(act))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    _close(got[1], want[1], LANE_TOL[dtype])
+    j = got[0].tolist()
+    assert j[0] == (hi if masked else lo) and j[2] == lo
+    for k in ([1, B_ - 1] if masked else [B_ - 1]):
+        assert j[k] == 0 and got[1][k].item() == -np.inf
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("l", [300, 131])
+@pytest.mark.parametrize("variant", list(LANE_VARIANTS))
+def test_bank_pass_b_lane_results(variant, l, dtype):
+    """Bank pass B's wrappers (plain versions on CPU tensors) return G and
+    the lanes' (i_next, g_i_next, g_dn), and r with the direction: bitwise
+    the earlier per-block form reduced by ``ops._first_max`` and ``amin``,
+    within the tolerance of the reference's ``update_wss_batched_rows`` on
+    ``impl="jnp"``; the mu = mu2 = 0 lane's G bitwise, the ties, the hidden
+    argmax and the empty lanes as the state fixes them."""
+    dup, masked, conj = LANE_VARIANTS[variant]
+    torch_dtype = torch.float64 if dtype == "f64" else torch.float32
+    gram, gidx, _, args, act, dirv, mu2, (lo, hi) = _lane_state(
+        l, dup, torch_dtype, seed=l + 10 * dup + masked + 100 * conj)
+    act = act if masked else None
+    kw = dict(dirv=dirv, mu2=mu2) if conj else {}
+    if conj:
+        got = rbf_update_wss.update_wss_batched_rows_conj(
+            gram, gidx, *args, dirv, mu2, dup=dup, act=act)
+    elif masked:
+        got = rbf_update_wss.update_wss_batched_rows_act(gram, gidx, *args,
+                                                         act, dup=dup)
+    elif dup:
+        got = rbf_update_wss.update_wss_batched_rows_h2(gram, gidx, *args)
+    else:
+        got = rbf_update_wss.update_wss_batched_rows(gram, gidx, *args)
+    assert len(got) == 4 + conj and got[1].dtype == torch.int32
+    for x, y in zip(got, _parent_form_b(gram, gidx, args, dup, act, **kw)):
+        assert torch.equal(x, y)
+    assert torch.equal(got[0][0], args[0][0])          # mu = mu2 = 0
+    G, alpha_new, L, U, i_idx, j_idx, mu = (x.numpy() for x in args)
+    rows = gram.numpy()[np.concatenate([GIDX, GIDX]),
+                        np.concatenate([i_idx, j_idx]) % l]
+    jkw = {} if act is None else dict(act=jnp.asarray(act.numpy()))
+    if conj:
+        d = dirv.numpy()
+        jkw.update(dirv=jnp.asarray(np.tile(d, (1, 2)) if dup else d),
+                   mu2=jnp.asarray(mu2.numpy()))
+    want = jops.update_wss_batched_rows(
+        jnp.asarray(rows[:B_]), jnp.asarray(rows[B_:]), jnp.asarray(G),
+        jnp.asarray(alpha_new), jnp.asarray(L), jnp.asarray(U),
+        jnp.asarray(mu), impl="jnp", dup=dup, **jkw)
+    assert len(want) == len(got)
+    scale = float(np.abs(G).max())
+    tol = LANE_TOL[dtype]
+    _close(got[0], want[0], tol, scale)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    _close(got[2], want[2], tol, scale)
+    _close(got[3], want[3], tol, scale)
+    if conj:
+        r_full = ref.tile_rows(got[4]) if dup else got[4]
+        _close(r_full, want[4], tol, 1.0)
+    i = got[1].tolist()
+    assert i[0] == (hi if masked else lo) and i[2] == lo and i[3] == lo
+    for k in ([1, B_ - 1] if masked else [B_ - 1]):
+        assert i[k] == 0 and got[2][k].item() == -np.inf
 
 
 def test_bank_source_matches_reference():

@@ -1,9 +1,10 @@
 """The Conjugate-SMO step (``SolverConfig(algorithm="smo",
 step="conjugate")``) in the port against the JAX package.
 
-Pass B's conjugate variants (the plain versions and the per-block forms
-the CUDA kernels return, rbf and bank rows, one state half and the doubled
-ε-SVR operator, with and without an ``act`` mask) against
+Pass B's conjugate variants (the plain versions and the forms the CUDA
+kernels return: per-block for rbf rows, the lanes' results for bank rows;
+one state half and the doubled ε-SVR operator, with and without an
+``act`` mask) against
 ``repro.kernels.ops`` on ``impl="jnp"`` and the Pallas kernels in
 interpret mode (``block_l=64``); then the fused loop: the reference's
 trajectory on well-conditioned problems, fewer iterations than PA-SMO on the chess board, grid
@@ -151,19 +152,19 @@ def _port(src, s, dup, act, conj=True):
 
 
 def _port_blocks(src, s, dup, act):
-    """The conjugate wrappers' plain per-block versions (CPU tensors),
-    reduced as the dispatch reduces the kernels' outputs."""
+    """The conjugate wrappers' plain versions (CPU tensors) as they return
+    them: the rbf pass's per-block outputs, reduced as the dispatch
+    reduces them; the bank pass's lane results (its kernel folds the
+    reductions in)."""
     dirv = torch.as_tensor(s["base"])
     mu2 = torch.as_tensor(s["mu2"])
-    if src == "rbf":
-        out = rbf_update_wss.rbf_update_wss_batched_conj(
-            *_t(s, PASS_B), dirv, mu2, dup=dup, act=act)
-    else:
-        out = rbf_update_wss.update_wss_batched_rows_conj(
+    if src == "bank":
+        return rbf_update_wss.update_wss_batched_rows_conj(
             torch.as_tensor(s["bank"]), torch.as_tensor(GIDX),
             *_t(s, STATE), *_t(s, ("i_idx", "j_idx", "mu")), dirv, mu2,
             dup=dup, act=act)
-    G, bmax, barg, bmin, r = out
+    G, bmax, barg, bmin, r = rbf_update_wss.rbf_update_wss_batched_conj(
+        *_t(s, PASS_B), dirv, mu2, dup=dup, act=act)
     return G, *ops._first_max(bmax, barg), bmin.amin(dim=1), r
 
 

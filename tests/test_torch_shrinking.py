@@ -198,16 +198,15 @@ def _port_a(src, a, act, bank, dup, impl="torch"):
 
 
 def _port_blocks_a(src, a, act, bank, dup):
-    """The per-block outputs of the act kernels' plain versions, reduced
-    as the dispatch reduces the kernels' outputs."""
+    """The act kernels' plain versions as the wrappers return them: the
+    rbf pass's per-block outputs, reduced as the dispatch reduces them;
+    the bank pass's lane results (its kernel folds the pick in)."""
     if src == "rbf":
-        out = rbf_row_wss.rbf_row_wss_batched_act(*_t(a, PASS_A), act,
-                                                  dup=dup)
-    else:
-        out = rbf_row_wss.row_wss_batched_rows_act(
-            torch.as_tensor(bank), torch.as_tensor(GIDX), *_t(a, BANK_A),
-            act, dup=dup)
-    return ops._first_max(*out)
+        return ops._first_max(*rbf_row_wss.rbf_row_wss_batched_act(
+            *_t(a, PASS_A), act, dup=dup))
+    return rbf_row_wss.row_wss_batched_rows_act(
+        torch.as_tensor(bank), torch.as_tensor(GIDX), *_t(a, BANK_A), act,
+        dup=dup)
 
 
 def _port_b(src, b, act, bank, i_idx, j_idx, dup, impl="torch"):
@@ -225,12 +224,11 @@ def _port_blocks_b(src, b, act, bank, i_idx, j_idx, dup):
     if src == "rbf":
         G, bmax, barg, bmin = rbf_update_wss.rbf_update_wss_batched_act(
             *_t(b, PASS_B), act, dup=dup)
-    else:
-        G, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows_act(
-            torch.as_tensor(bank), torch.as_tensor(GIDX),
-            *_t(b, ("G", "alpha_new", "L", "U")), torch.as_tensor(i_idx),
-            torch.as_tensor(j_idx), torch.as_tensor(b["mu"]), act, dup=dup)
-    return (G, *ops._first_max(bmax, barg), bmin.amin(dim=1))
+        return (G, *ops._first_max(bmax, barg), bmin.amin(dim=1))
+    return rbf_update_wss.update_wss_batched_rows_act(
+        torch.as_tensor(bank), torch.as_tensor(GIDX),
+        *_t(b, ("G", "alpha_new", "L", "U")), torch.as_tensor(i_idx),
+        torch.as_tensor(j_idx), torch.as_tensor(b["mu"]), act, dup=dup)
 
 
 def _ref_a(src, a, act, bank, dup, impl):
@@ -304,19 +302,19 @@ def test_masked_pass_b_matches_reference(src, dup):
 
 
 def test_doubled_bank_blocks_match_reference_interpret():
-    """The H = 2 bank wrappers without a mask (their plain per-block
-    versions on CPU tensors) against the reference's interpret kernels."""
+    """The H = 2 bank wrappers without a mask (their plain versions on CPU
+    tensors, the lanes' results) against the reference's interpret
+    kernels."""
     a, b, _, bank, i_idx, j_idx, lo, _ = _state(True, seed=31)
     gram, gidx = torch.as_tensor(bank), torch.as_tensor(GIDX)
-    j, g = ops._first_max(*rbf_row_wss.row_wss_batched_rows_h2(
-        gram, gidx, *_t(a, BANK_A)))
+    j, g = rbf_row_wss.row_wss_batched_rows_h2(gram, gidx, *_t(a, BANK_A))
     j_j, g_j = jops.row_wss_batched_rows(
         _bank_rows(bank, a["i_idx"], True), *_j(a, BANK_A),
         impl="interpret", block_l=64, dup=True)
     np.testing.assert_array_equal(j.numpy(), np.asarray(j_j))
     np.testing.assert_allclose(g.numpy(), np.asarray(g_j), rtol=RTOL)
     assert int(j[0]) == lo
-    G, bmax, barg, bmin = rbf_update_wss.update_wss_batched_rows_h2(
+    got = rbf_update_wss.update_wss_batched_rows_h2(
         gram, gidx, *_t(b, ("G", "alpha_new", "L", "U")),
         torch.as_tensor(i_idx), torch.as_tensor(j_idx),
         torch.as_tensor(b["mu"]))
@@ -324,7 +322,6 @@ def test_doubled_bank_blocks_match_reference_interpret():
         _bank_rows(bank, i_idx, True), _bank_rows(bank, j_idx, True),
         *_j(b, ("G", "alpha_new", "L", "U", "mu")), impl="interpret",
         block_l=64, dup=True)
-    got = (G, *ops._first_max(bmax, barg), bmin.amin(dim=1))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(out_j[1]))
     for k in (0, 2, 3):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(out_j[k]),
