@@ -1,0 +1,52 @@
+"""The single fit: ``repro_torch.svm.SVC(C, gamma="scale").fit`` (one-vs-
+rest, a lane a class, rows from ``X``: kernels 1 and 2), then
+``decision_function`` on the held-out points (kernel 3, cross)."""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+from portbench import solving
+from portbench.work import (gram_block, rbf_row_wss_batched,
+                            rbf_update_wss_batched, solve)
+from repro_torch import svm
+
+
+def prepare(conf: dict, cell: dict, inputs: dict, device) -> SimpleNamespace:
+    hyper = conf[cell["hyper"]]
+    if list(hyper["gamma_factors"]) != [1.0] or len(hyper["Cs"]) != 1:
+        raise ValueError("a single fit takes gamma='scale' and one C")
+    return SimpleNamespace(conf=conf, X=inputs["X"], y=inputs["y"],
+                           Xq=inputs["Xq"], C=float(hyper["Cs"][0]),
+                           k=conf["n_classes"], device=device)
+
+
+def fit(ctx, max_iter):
+    cfg = solving.solver_config(ctx.conf, max_iter)
+    return svm.SVC(C=ctx.C, gamma="scale", algorithm=cfg.algorithm,
+                   eps=cfg.eps, max_iter=cfg.max_iter, device=ctx.device,
+                   dtype=ctx.X.dtype).fit(ctx.X, ctx.y)
+
+
+def decide(ctx, clf) -> dict:
+    D = clf.decision_function(ctx.Xq).T                       # (k, m)
+    return solving.host_lanes(clf.fit_result_, D, ctx.X.shape[0])
+
+
+def launch_work(ctx) -> dict:
+    l, d = ctx.X.shape
+    m, item = ctx.Xq.shape[0], ctx.X.element_size()
+    return {"rbf_row_wss_batched": rbf_row_wss_batched.need(l, d, ctx.k, 1,
+                                                            item),
+            "rbf_update_wss_batched": rbf_update_wss_batched.need(
+                l, d, ctx.k, 1, item),
+            "gram_block": gram_block.cross(m, l, d, item)}
+
+
+def need_s(ctx, out: dict) -> float:
+    l, d = ctx.X.shape
+    dtype = ctx.conf["dtype"]
+    return (solve.loop_s(out["iterations"].tolist(), l=l, d=d, H=1,
+                         dtype=dtype, bank=False)
+            + solve.decision_s([ctx.k], m=ctx.Xq.shape[0], l=l, d=d,
+                               dtype=dtype))
