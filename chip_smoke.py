@@ -2135,9 +2135,9 @@ def phase_full(device, timer):
 def device_events(prof):
     """The device events of a ``torch.profiler`` window, split into the
     loop's kernels and the one-off work (copies, sets, Gram builds)."""
-    # record_function ranges (the fit's and the ring's phase scopes) show
-    # up on the device's track too, under their host names: they are
-    # spans, not kernels
+    # record_function ranges (a span recorder's spans, when one is
+    # active) show up on the device's track too, under their host names:
+    # they are spans, not kernels
     avgs = prof.key_averages()
     host = {e.key for e in avgs
             if e.device_type == torch.autograd.DeviceType.CPU}
@@ -3032,46 +3032,48 @@ class ChunkProbe:
     """Watches ``solve_fused_chunked_qp`` while installed: each round's
     lane bucket and kept rows (the padded coordinates are those with ``L
     = U = 0``), from its chunk solves, and the host's wall time inside
-    each of the driver's ``chunked.*`` profiler ranges, from a stand-in
-    for ``record_function`` that reads the clock at both ends.  It adds no
-    synchronization: work a range queues on the card without waiting for
+    each of the driver's ``chunked.*`` spans (``split``), from a span
+    recorder (``telemetry.recording``) around the run.  The recorder adds
+    no synchronization: work a span queues on the card without waiting for
     it (the slice's copies, the rebuild's matvec) is waited for, and
-    counted, in the next range that reads a result back.  ``solves``: (round
-    key, host seconds) of each chunk solve, which ends on the loop's last
-    read of the card."""
+    counted, in the next span that reads a result back.  ``solves``:
+    (round key, host seconds) of each chunk solve, which ends on the
+    loop's last read of the card."""
 
     def __enter__(self):
+        from repro_torch import telemetry
         from repro_torch.core import solver_fused
         self.mod = solver_fused
-        self.orig = (solver_fused.solve_fused_batched_qp,
-                     solver_fused.record_function)
-        self.rows, self.lanes, self.split, self.solves = [], [], {}, []
+        self.orig = solver_fused.solve_fused_batched_qp
+        self.rows, self.lanes, self.solves = [], [], []
+        self.diag = telemetry.Diagnostics(ring=None)
+        self.recording = telemetry.recording(self.diag)
+        self.recording.__enter__()
 
         def spy(X, P, L, U, *args, **kw):
             self.lanes.append(P.shape[0])
             self.rows.append(((L != 0) | (U != 0)).any(0).sum())
             gram = kw.get("gram")
             t0 = time.perf_counter()
-            out = self.orig[0](X, P, L, U, *args, **kw)
+            out = self.orig(X, P, L, U, *args, **kw)
             self.solves.append(((tuple(P.shape), None if gram is None
                                  else gram.data_ptr()),
                                 time.perf_counter() - t0))
             return out
 
-        @contextlib.contextmanager
-        def timed(name):
-            t0 = time.perf_counter()
-            yield
-            self.split[name] = (self.split.get(name, 0.0)
-                                + time.perf_counter() - t0)
-
         solver_fused.solve_fused_batched_qp = spy
-        solver_fused.record_function = timed
         return self
 
     def __exit__(self, *exc):
-        (self.mod.solve_fused_batched_qp,
-         self.mod.record_function) = self.orig
+        self.recording.__exit__(*exc)
+        self.mod.solve_fused_batched_qp = self.orig
+
+    @property
+    def split(self) -> dict:
+        """{span: host seconds} of the driver's ``chunked.*`` spans."""
+        rows = self.diag.spans.summary()["spans"]
+        return {k: v["host_ms"] / 1e3 for k, v in rows.items()
+                if k.startswith("chunked.")}
 
     def split_text(self, wall: float) -> str:
         return ", ".join(f"{k.removeprefix('chunked.')} {v:.3f} s "

@@ -38,11 +38,14 @@ pass B kernels on the card); in :func:`solve_grid_compacted` each chunk
 starts a fresh direction, as the reference's chunk seam does.
 
 ``diagnostics=`` (a :class:`repro_torch.telemetry.Diagnostics`) on the
-fused drivers turns on the flight recorder: the solve runs in a phase
-scope, every lane's ring is drained into the handle's sink keyed by its
-hyper-parameters in the caller's order, and the (gamma, class, C) grids'
-``trace``/``n_trace`` carry the Fig. 3 mu/mu* channel.  The classic
-``impl=None`` drivers refuse it, as the reference's do.
+fused drivers turns on the flight recorder: the call records its spans
+(``fit``, ending in a phase event, ``fit.prep``, ``grid.bank``, the
+loop's chunks; :mod:`repro_torch.telemetry.spans`), every lane's ring is
+drained into the handle's sink keyed by its hyper-parameters in the
+caller's order, and the (gamma, class, C) grids' ``trace``/``n_trace``
+carry the Fig. 3 mu/mu* channel.  The classic ``impl=None`` drivers
+refuse it, as the reference's do; ``telemetry.recording(diag)`` records
+the spans of either engine, and :func:`grid_decision`'s ``decide``.
 
 The fused engine does not track the per-step counters ``n_free`` /
 ``n_clipped`` / ``n_reverted``: they carry the ``UNTRACKED`` (-1)
@@ -55,7 +58,6 @@ Axis convention for stacked results: ``(n_gamma, n_class, n_C, ...)``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from types import SimpleNamespace
 
@@ -68,9 +70,10 @@ from repro_torch.core.solver import (SolveResult, SolverConfig,
                                      resolve_shrink_cfg, solve_lanes)
 from repro_torch.core.solver_fused import (FusedResult, _pow2,
                                            solve_fused_chunked_qp)
-from repro_torch.device import resolve_device, resolve_dtype, synchronize
+from repro_torch.device import resolve_device, resolve_dtype
 from repro_torch.kernels import ops, row_source
 from repro_torch.telemetry import ring as ring_mod
+from repro_torch.telemetry import spans
 
 UNTRACKED = -1  # sentinel for counters the fused iteration never tracks
 
@@ -133,13 +136,6 @@ def _drain_grid_ring(diagnostics, ring, meta, result):
     return diagnostics.drain_ring(flat, meta, flat_res)
 
 
-def _scope(diagnostics, name, **meta):
-    """The driver's phase scope, or nothing without ``diagnostics``."""
-    if diagnostics is None:
-        return contextlib.nullcontext()
-    return diagnostics.scope(name, **meta)
-
-
 def _ring_config(diagnostics):
     return None if diagnostics is None else diagnostics.ring_config
 
@@ -184,9 +180,19 @@ def _grid_inputs(X, Y, Cs, gammas, device, dtype):
             np.asarray(gammas, dtype=np.float64).reshape(-1))
 
 
+def _gram_bank(X, gammas, impl: str):
+    """``ops.gram_bank``, as the span ``grid.bank`` while a recorder is
+    active."""
+    rec = spans.active()
+    if rec is None:
+        return ops.gram_bank(X, gammas, impl=impl)
+    with rec.span("grid.bank", X.device):
+        return ops.gram_bank(X, gammas, impl=impl)
+
+
 def _bank_kw(X, gammas, lanes_per_gamma: int, impl: str) -> dict:
     """The shared (n_gamma, l, l) Gram bank and each lane's entry."""
-    bank = ops.gram_bank(X, gammas, impl=impl)
+    bank = _gram_bank(X, gammas, impl)
     gidx = torch.arange(len(gammas), device=X.device).repeat_interleave(
         lanes_per_gamma)
     return dict(gram=bank, gram_idx=gidx)
@@ -260,7 +266,7 @@ def _classic_lanes(X, Y, gammas):
     :class:`~repro_torch.core.qp.StackedKernel` over the Gram bank (the
     Gram kernel on the card)."""
     k = Y.shape[0]
-    bank = ops.gram_bank(X, gammas, impl="auto")
+    bank = _gram_bank(X, gammas, "auto")
     g = torch.arange(len(gammas), dtype=torch.int32,
                      device=X.device).repeat_interleave(k)
     return Y.repeat(len(gammas), 1), qp_mod.StackedKernel(bank, g)
@@ -443,43 +449,46 @@ def solve_grid(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(), *,
 
     ``diagnostics`` (a :class:`repro_torch.telemetry.Diagnostics`; fused
     engine only, ``impl=None`` raises ``ValueError``) turns on the flight
-    recorder: the solve runs in a ``solve_grid_fused`` phase scope (the
-    card synchronised before it closes), every lane's ring is drained
-    into the handle's sink keyed by (gamma, class, C) in the caller's
-    order, and ``trace``/``n_trace`` carry the Fig. 3 planning-ratio
-    channel.
+    recorder: the call records its spans (its ``fit`` span ends in a
+    ``solve_grid_fused`` phase event), every lane's ring is drained into
+    the handle's sink keyed by (gamma, class, C) in the caller's order,
+    and ``trace``/``n_trace`` carry the Fig. 3 planning-ratio channel.
     """
     del block_l
     mesh = _lane_mesh(impl, mesh, devices)
     if impl is None:
         _check_classic_diagnostics(diagnostics)
-    X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
-    dev = X.device
-    order = np.argsort(Cs_np, kind="stable")
-    ring = None
-    if impl is None:
-        res = _solve_grid_classic(
-            X, Y, Cs_np[order], gammas_np,
-            resolve_shrink_cfg(cfg, True) if shrinking else cfg, warm_start)
-    else:
-        with _scope(diagnostics, "solve_grid_fused",
-                    lanes=len(gammas_np) * Y.shape[0] * len(Cs_np)):
+    phase = "solve_grid_classic" if impl is None else "solve_grid_fused"
+    with spans.fit_span(diagnostics, phase, resolve_device(device)) as sp:
+        X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device,
+                                              dtype)
+        dev = X.device
+        if sp is not None:
+            sp.meta.update(lanes=len(gammas_np) * Y.shape[0] * len(Cs_np))
+        order = np.argsort(Cs_np, kind="stable")
+        ring = None
+        if impl is None:
+            res = _solve_grid_classic(
+                X, Y, Cs_np[order], gammas_np,
+                resolve_shrink_cfg(cfg, True) if shrinking else cfg,
+                warm_start)
+        else:
             res, ring, _ = _solve_grid_fused(
                 X, Y, Cs_np[order], gammas_np, cfg,
                 ops.resolve_impl(impl, dev), precompute, shrinking,
                 diagnostics=diagnostics, mesh=mesh)
-            if diagnostics is not None:
-                synchronize(dev)
-    if np.any(order != np.arange(len(Cs_np))):
-        inv = torch.as_tensor(np.argsort(order, kind="stable"), device=dev)
-        res = SolveResult(**{f.name: getattr(res, f.name).index_select(2, inv)
-                             for f in dataclasses.fields(res)})
+        if np.any(order != np.arange(len(Cs_np))):
+            inv = torch.as_tensor(np.argsort(order, kind="stable"),
+                                  device=dev)
+            res = SolveResult(**{
+                f.name: getattr(res, f.name).index_select(2, inv)
+                for f in dataclasses.fields(res)})
+            if ring is not None:
+                ring = _ring_map(lambda x: x.index_select(2, inv), ring)
         if ring is not None:
-            ring = _ring_map(lambda x: x.index_select(2, inv), ring)
-    if ring is not None:
-        _drain_grid_ring(diagnostics, ring,
-                         _grid_meta(gammas_np, Y.shape[0], Cs_np), res)
-    return res
+            _drain_grid_ring(diagnostics, ring,
+                             _grid_meta(gammas_np, Y.shape[0], Cs_np), res)
+        return res
 
 
 def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
@@ -499,13 +508,24 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
     ``mesh``/``devices`` are as in :func:`solve_grid` (the deal's cost is
     the box width ``1/(nu l)``: the small-nu stragglers spread over the
     slabs); ``block_l`` is accepted and ignored.  ``diagnostics`` turns on
-    the flight recorder as in :func:`solve_grid` (scope
+    the flight recorder as in :func:`solve_grid` (phase
     ``solve_grid_oneclass``, lanes keyed by (gamma, nu)).  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
     ``(n_gamma, n_nu)``; the decision offset is ``rho = -b``.
     """
     del block_l
     mesh = _lane_mesh(impl, mesh, devices)
+    with spans.fit_span(diagnostics, "solve_grid_oneclass",
+                        resolve_device(device)) as sp:
+        return _solve_oneclass(X, nus, gammas, cfg, impl, precompute,
+                               shrinking, mesh, diagnostics, device, dtype,
+                               sp)
+
+
+def _solve_oneclass(X, nus, gammas, cfg, impl, precompute, shrinking, mesh,
+                    diagnostics, device, dtype, sp) -> FusedResult:
+    """The body of :func:`solve_grid_oneclass` inside its ``fit`` span
+    ``sp`` (``None`` while nothing records)."""
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     l = X.shape[0]
@@ -513,6 +533,8 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
     nus_np = np.asarray(nus, np.float64).reshape(-1)
     gammas_np = np.asarray(gammas, np.float64).reshape(-1)
     nG, nN = len(gammas_np), len(nus_np)
+    if sp is not None:
+        sp.meta.update(lanes=nG * nN)
     A0 = torch.stack([qp_mod.oneclass_alpha0(l, nu, dtype, dev)
                       for nu in nus_np])                          # (nN, l)
     U_n = torch.stack([qp_mod.oneclass_qp(l, nu, dtype, dev).bounds.upper
@@ -530,15 +552,11 @@ def solve_grid_oneclass(X, nus, gammas, cfg: SolverConfig = SolverConfig(),
         G0 = -torch.cat([torch.stack([qp_mod.make_rbf(X, g).matvec(a)
                                       for a in A0]) for g in gammas_np])
     rc = _ring_config(diagnostics)
-    with _scope(diagnostics, "solve_grid_oneclass", lanes=nG * nN):
-        out = sharded_lanes.lane_solver(mesh)(X, zeros, zeros, Uf, gf, cfg, impl=impl,
-                                 alpha0=alpha0, G0=G0, shrinking=shrinking,
-                                 telemetry=rc, **bank_kw)
-        if rc is not None:
-            out, ring = out
-        if diagnostics is not None:
-            synchronize(dev)
+    out = sharded_lanes.lane_solver(mesh)(
+        X, zeros, zeros, Uf, gf, cfg, impl=impl, alpha0=alpha0, G0=G0,
+        shrinking=shrinking, telemetry=rc, **bank_kw)
     if rc is not None:
+        out, ring = out
         diagnostics.drain_ring(ring, [{"gamma": g, "nu": float(nu)}
                                       for g in gf[::nN].tolist()
                                       for nu in nus_np], out)
@@ -565,7 +583,7 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     on its own.  ``impl``, ``device``, ``dtype`` and ``mesh``/``devices``
     are as in :func:`solve_grid`; ``block_l`` is
     accepted and ignored.  ``diagnostics`` turns on the flight recorder as
-    in :func:`solve_grid` (scope ``solve_grid_svr``, lanes keyed by
+    in :func:`solve_grid` (phase ``solve_grid_svr``, lanes keyed by
     (gamma, epsilon, C)).  Returns a
     :class:`~repro_torch.core.solver_fused.FusedResult` with leading axes
     ``(n_gamma, n_eps, n_C)``; ``alpha`` is the doubled (..., 2l) dual,
@@ -573,6 +591,16 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     """
     del block_l
     mesh = _lane_mesh(impl, mesh, devices)
+    with spans.fit_span(diagnostics, "solve_grid_svr",
+                        resolve_device(device)) as sp:
+        return _solve_svr(X, y, Cs, epsilons, gammas, cfg, impl, precompute,
+                          shrinking, mesh, diagnostics, device, dtype, sp)
+
+
+def _solve_svr(X, y, Cs, epsilons, gammas, cfg, impl, precompute, shrinking,
+               mesh, diagnostics, device, dtype, sp) -> FusedResult:
+    """The body of :func:`solve_grid_svr` inside its ``fit`` span ``sp``
+    (``None`` while nothing records)."""
     X, dev = _as_data(X, device, dtype)
     dtype = X.dtype
     impl = ops.resolve_impl(impl, dev)
@@ -583,6 +611,8 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
         torch.as_tensor(np.asarray(v, np.float64).reshape(-1), dtype=dtype,
                         device=dev) for v in (Cs, epsilons, gammas_np))
     nG, nE, nC = len(gam_t), len(eps_t), len(Cs_t)
+    if sp is not None:
+        sp.meta.update(lanes=nG * nE * nC)
     zl = torch.zeros((nC, l), dtype=dtype, device=dev)
     # P varies along epsilon, the box along C
     P_e = torch.cat([y[None, :] - eps_t[:, None],
@@ -595,15 +625,11 @@ def solve_grid_svr(X, y, Cs, epsilons, gammas,
     bank_kw = (_bank_kw(X, gammas_np, nE * nC, impl)
                if _use_bank(impl, precompute, dev) else {})
     rc = _ring_config(diagnostics)
-    with _scope(diagnostics, "solve_grid_svr", lanes=nG * nE * nC):
-        out = sharded_lanes.lane_solver(mesh)(X, Pf, Lf, Uf, gf, cfg, impl=impl,
-                                 doubled=True, shrinking=shrinking,
-                                 telemetry=rc, **bank_kw)
-        if rc is not None:
-            out, ring = out
-        if diagnostics is not None:
-            synchronize(dev)
+    out = sharded_lanes.lane_solver(mesh)(
+        X, Pf, Lf, Uf, gf, cfg, impl=impl, doubled=True, shrinking=shrinking,
+        telemetry=rc, **bank_kw)
     if rc is not None:
+        out, ring = out
         # lane order (gamma, epsilon, C) row-major, as the result axes
         diagnostics.drain_ring(
             ring, [{"gamma": float(g), "epsilon": float(e), "C": float(Cv)}
@@ -644,35 +670,43 @@ def solve_grid_compacted(X, Y, Cs, gammas, cfg: SolverConfig = SolverConfig(),
     the compaction stays on the host between chunks.
 
     ``diagnostics`` (fused branch only; ``impl=None`` raises
-    ``ValueError``) turns on the flight recorder: the chunked driver emits
-    a ``chunk_solve`` phase event a round and ``straggler_warning``
-    events, the chunks' rings are merged into run-wide per-lane series,
-    and ``trace``/``n_trace`` carry the Fig. 3 planning-ratio channel as
-    in :func:`solve_grid`.
+    ``ValueError``) turns on the flight recorder: the call records its
+    spans as :func:`solve_grid` does (phase ``solve_grid_compacted``), the
+    chunked driver's rounds among them, and emits a ``chunk_solve`` phase
+    event a round and ``straggler_warning`` events, the chunks' rings are
+    merged into run-wide per-lane series, and ``trace``/``n_trace`` carry
+    the Fig. 3 planning-ratio channel as in :func:`solve_grid`.
     """
     del block_l
     mesh = _lane_mesh(impl, mesh, devices)
-    X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device, dtype)
     if impl is None:
         _check_classic_diagnostics(diagnostics)
-        return _compacted_classic(
-            X, Y, Cs_np, gammas_np,
-            resolve_shrink_cfg(cfg, True) if shrinking else cfg, chunk)
-    impl = ops.resolve_impl(impl, X.device)
-    res, ring, fr = _solve_grid_fused(X, Y, Cs_np, gammas_np, cfg, impl,
-                                      precompute, shrinking, chunk,
-                                      diagnostics, mesh)
-    if ring is not None:
-        # no C sort on this path: the lanes are in the caller's order
-        _drain_grid_ring(diagnostics, ring,
-                         _grid_meta(gammas_np, Y.shape[0], Cs_np),
-                         SimpleNamespace(
-                             iterations=res.iterations, kkt_gap=res.kkt_gap,
-                             converged=res.converged,
-                             n_planning=res.n_planning,
-                             n_unshrink=fr.n_unshrink.reshape(
-                                 res.iterations.shape)))
-    return res
+    with spans.fit_span(diagnostics, "solve_grid_compacted",
+                        resolve_device(device)) as sp:
+        X, Y, Cs_np, gammas_np = _grid_inputs(X, Y, Cs, gammas, device,
+                                              dtype)
+        if sp is not None:
+            sp.meta.update(lanes=len(gammas_np) * Y.shape[0] * len(Cs_np))
+        if impl is None:
+            return _compacted_classic(
+                X, Y, Cs_np, gammas_np,
+                resolve_shrink_cfg(cfg, True) if shrinking else cfg, chunk)
+        impl = ops.resolve_impl(impl, X.device)
+        res, ring, fr = _solve_grid_fused(X, Y, Cs_np, gammas_np, cfg, impl,
+                                          precompute, shrinking, chunk,
+                                          diagnostics, mesh)
+        if ring is not None:
+            # no C sort on this path: the lanes are in the caller's order
+            _drain_grid_ring(diagnostics, ring,
+                             _grid_meta(gammas_np, Y.shape[0], Cs_np),
+                             SimpleNamespace(
+                                 iterations=res.iterations,
+                                 kkt_gap=res.kkt_gap,
+                                 converged=res.converged,
+                                 n_planning=res.n_planning,
+                                 n_unshrink=fr.n_unshrink.reshape(
+                                     res.iterations.shape)))
+        return res
 
 
 def grid_decision(Xq, X, gammas, alpha: torch.Tensor, b: torch.Tensor, *,
@@ -683,16 +717,18 @@ def grid_decision(Xq, X, gammas, alpha: torch.Tensor, b: torch.Tensor, *,
     ``b``: (n_gamma, k, n_C).  ``Xq`` (m, d) and ``X`` (l, d) move to
     ``alpha``'s device and dtype.  Returns (n_gamma, k, n_C, m): the query
     cross-Gram is computed once per gamma (the Gram kernel on the card)
-    and shared by all (class, C) heads.
+    and shared by all (class, C) heads.  While a recorder is active the
+    call is its span ``decide``.
     """
     dev, dtype = alpha.device, alpha.dtype
-    Xq = torch.as_tensor(Xq, dtype=dtype, device=dev).contiguous()
-    X = torch.as_tensor(X, dtype=dtype, device=dev).contiguous()
-    gammas_np = np.asarray(gammas, np.float64).reshape(-1)
-    out = []
-    for g, gamma in enumerate(gammas_np):
-        Kq = ops.gram(Xq, X, float(gamma), impl=impl, device=dev,
-                      dtype=dtype)                           # (m, l)
-        out.append(torch.einsum("ml,kcl->kcm", Kq, alpha[g])
-                   + b[g][..., None])
-    return torch.stack(out)
+    with spans.decide_span(None, dev):
+        Xq = torch.as_tensor(Xq, dtype=dtype, device=dev).contiguous()
+        X = torch.as_tensor(X, dtype=dtype, device=dev).contiguous()
+        gammas_np = np.asarray(gammas, np.float64).reshape(-1)
+        out = []
+        for g, gamma in enumerate(gammas_np):
+            Kq = ops.gram(Xq, X, float(gamma), impl=impl, device=dev,
+                          dtype=dtype)                       # (m, l)
+            out.append(torch.einsum("ml,kcl->kcm", Kq, alpha[g])
+                       + b[g][..., None])
+        return torch.stack(out)

@@ -86,23 +86,22 @@ import dataclasses
 import functools
 import gc
 import threading
-import time
 from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch import kernels
 from repro_torch.core import qp as qp_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.qp import TAU
 from repro_torch.core.solver import DEFAULT_SHRINK_EVERY, SolverConfig
-from repro_torch.device import resolve_device, resolve_dtype, synchronize
+from repro_torch.device import resolve_device, resolve_dtype
 from repro_torch.kernels import ops, row_source
 from repro_torch.runtime.fault import StepMonitor
 from repro_torch.telemetry import ring as ring_mod
+from repro_torch.telemetry import spans
 from repro_torch.telemetry.ring import RingConfig, TelemetryRing
 
 # Host-check cadence of the loop: iterations between reads of any(~done).
@@ -257,6 +256,26 @@ def _running(s) -> bool:
     return bool(torch.any(~s.done))
 
 
+def _checked(rec, s) -> bool:
+    """:func:`_running` as the span ``loop.check``: the host's time
+    blocked on the read."""
+    with rec.span("loop.check"):
+        run = _running(s)
+    rec.count("loop.checks")
+    return run
+
+
+def _graph(rec, held: _Graphs, body, refresh: tuple):
+    """:meth:`_Graphs.graph`, a capture timed as the span
+    ``loop.capture`` of ``rec`` (when not ``None``)."""
+    if rec is None or refresh in held.cache:
+        return held.graph(body, refresh)
+    with rec.span("loop.capture"):
+        out = held.graph(body, refresh)
+    rec.count("loop.captures")
+    return out
+
+
 def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
            period: int = 0):
     """Run ``body(state, refresh)`` on the state ``s`` (a NamedTuple with a
@@ -279,13 +298,25 @@ def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
     entry's, from the entry's earlier rounds: the state ``s`` is copied
     into those buffers first, and every chunk shape captured there
     replays at once.  Returns (state, iterations run).
+
+    While a recorder is active (:mod:`repro_torch.telemetry.spans`) the
+    loop's start ends the fit's ``fit.prep``, and its chunks are spans:
+    ``loop.replay`` (host and device) a replay, ``loop.eager`` (host and
+    device) an eager chunk, ``loop.capture`` (host) a capture and
+    ``loop.check`` (host) a read of ``any(~done)``, with their counters.
+    Off, the recorder costs the loop one context-variable read and a test
+    a chunk.
     """
+    rec = spans.active()
+    running = _running if rec is None else functools.partial(_checked, rec)
+    if rec is not None:
+        rec.end_prep()
     ent = _ROUND.get()
     held = (ent.loop.graphs if ent is not None and ent.loop is not None
             and ent.loop.body is body else _Graphs())
     s = held.hold(s)
     t = 0
-    while t < max_iter and _running(s):
+    while t < max_iter and running(s):
         steps = min(check_every, max_iter - t)
         if period > 0:
             to_next = period - t % period    # up to the next refresh
@@ -295,16 +326,30 @@ def _drive(body, s, max_iter: int, check_every: int, graphs: bool,
                         for k in range(steps))
         if graphs and refresh in held.seen:
             s = held.hold(s, make=True)
-            graph, per_replay = held.graph(body, refresh)
-            graph.replay()
+            graph, per_replay = _graph(rec, held, body, refresh)
+            if rec is None:
+                graph.replay()
+            else:
+                with rec.span("loop.replay", s.done.device):
+                    graph.replay()
+                rec.count("loop.replays")
+                rec.count("loop.replayed_iters", steps)
             kernels.add_launches(per_replay)
         else:
             held.seen.add(refresh)
-            for r in refresh:
-                s = body(s, r)
+            # ``s`` is rebound each iteration, so the state before it can
+            # be freed at once
+            if rec is None:
+                for r in refresh:
+                    s = body(s, r)
+            else:
+                with rec.span("loop.eager", s.done.device):
+                    for r in refresh:
+                        s = body(s, r)
+                rec.count("loop.eager_iters", steps)
             s = held.hold(s, make=graphs and held.reuse)
             if graphs and held.reuse:
-                held.graph(body, refresh)    # the next run replays it
+                _graph(rec, held, body, refresh)  # the next run replays it
         t += steps
     return s, t
 
@@ -1011,26 +1056,25 @@ def _batched_loop(X, P, L, U, gamma, cfg: SolverConfig, impl: str, gram,
             return new_s
 
         # ---- flight recorder: O(B) masked writes, no host read ------------
-        with record_function("telemetry_ring"):
-            plan_kw = {}
-            if planning or conjugate:
-                # conjugate steps ride the planning channel (the modes
-                # exclude each other): mu1/mu* of each accepted step
-                if conjugate:
-                    ratio = mu1c / torch.where(torch.abs(mu_star) > 0,
-                                               mu_star, 1.0)
-                plan_kw = dict(plan_event=do_plan, ratio=ratio)
-            # the write rule masks both with ``active``: ``done`` there is
-            # the lanes that froze on this iteration, ``do_plan`` the
-            # accepted steps (one kernel each saved)
-            bufs = ring_mod.RingBuffers(*c[_N_STATE + 1:])
-            ring_mod.ring_write(
-                bufs, telemetry, t=c.step, active=active,
-                newly_done=done, gap=new_s.gap,
-                n_active=(act_new.sum(dim=1, dtype=torch.int32)
-                          if shrinking else n_full),
-                n_unshrink=n_unshrink, bases=ring_bases, **plan_kw)
-            c.step.add_(1)
+        plan_kw = {}
+        if planning or conjugate:
+            # conjugate steps ride the planning channel (the modes exclude
+            # each other): mu1/mu* of each accepted step
+            if conjugate:
+                ratio = mu1c / torch.where(torch.abs(mu_star) > 0, mu_star,
+                                           1.0)
+            plan_kw = dict(plan_event=do_plan, ratio=ratio)
+        # the write rule masks both with ``active``: ``done`` there is the
+        # lanes that froze on this iteration, ``do_plan`` the accepted
+        # steps (one kernel each saved)
+        bufs = ring_mod.RingBuffers(*c[_N_STATE + 1:])
+        ring_mod.ring_write(
+            bufs, telemetry, t=c.step, active=active, newly_done=done,
+            gap=new_s.gap,
+            n_active=(act_new.sum(dim=1, dtype=torch.int32) if shrinking
+                      else n_full),
+            n_unshrink=n_unshrink, bases=ring_bases, **plan_kw)
+        c.step.add_(1)
         return _TelState(*new_s, c.step, *bufs)
 
     def init(alpha0, G0):
@@ -1245,21 +1289,23 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     cache entry of its own (:meth:`_Entry.slab`), captured once per chunk
     shape however many rounds it serves.
 
-    ``diagnostics`` (a :class:`repro_torch.telemetry.Diagnostics`) turns
-    on the flight recorder here: each chunk solve emits a ``chunk_solve``
-    ``phase`` event (wall seconds after a device synchronisation, the
-    round, live lanes and kept rows), a
-    :class:`~repro_torch.runtime.fault.StepMonitor` over those times emits
-    ``straggler_warning`` events, and with ``diagnostics.ring_config`` the
-    chunks' rings are rebased to run-wide stamps and merged per lane, and
-    the return value is ``(FusedResult, TelemetryRing)``.  Without
-    ``diagnostics`` the driver adds no synchronisation.  The phases of a
-    round run
-    inside ``torch.profiler`` ranges named ``chunked.slice`` (the gathers
-    and the bank slice), ``chunked.solve`` (the chunk solve),
-    ``chunked.rebuild`` (the matvec rebuilds) and ``chunked.checks`` (the
-    host's checks and row shrink), so a profiler window splits a round's
-    time between them.  Returns a lane-flat :class:`FusedResult` whose
+    While a recorder is active (``diagnostics``, a
+    :class:`repro_torch.telemetry.Diagnostics`, or
+    :func:`repro_torch.telemetry.recording`), the phases of a round are its
+    spans (:mod:`repro_torch.telemetry.spans`):
+    ``chunked.slice`` (the gathers and the bank slice), ``chunked.solve``
+    (the chunk solve), ``chunked.rebuild`` (the matvec rebuilds) and
+    ``chunked.checks`` (the host's checks and row shrink); each chunk
+    solve emits a ``chunk_solve`` ``phase`` event (its seconds: the
+    device's time between the span's CUDA events, read once the round's
+    checks have read the card back, or the host's off the card; the
+    round, live lanes and kept rows), and a
+    :class:`~repro_torch.runtime.fault.StepMonitor` over those times
+    emits ``straggler_warning`` events.  The driver adds no
+    synchronisation.  With ``diagnostics.ring_config`` the chunks' rings
+    are rebased to run-wide stamps and merged per lane, and the return
+    value is ``(FusedResult, TelemetryRing)``.  Returns a lane-flat
+    :class:`FusedResult` whose
     ``iterations``/``n_planning``/``n_unshrink`` add up over chunks and
     whose ``G`` is exact on every coordinate.
     """
@@ -1310,17 +1356,23 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
     out_plan = np.zeros(B, np.int64)
     out_unshrink = np.zeros(B, np.int64)
 
-    # ---- flight recorder (host tier): no work without diagnostics --------
+    # ---- flight recorder: no work while no recorder is active ------------
     rc = None if diagnostics is None else diagnostics.ring_config
-    if diagnostics is not None:
+    rec = spans.recorder(diagnostics)
+    if rec is not None:
         monitor = StepMonitor(warmup_steps=1)
     if rc is not None:
         empty = ring_mod.ring_init(rc, B, torch.float64)
         tel = {k: getattr(empty, k).numpy() for k in ring_mod.FIELDS}
 
+    def span(name):
+        """The round's phase ``name``: a span of the recorder, or
+        nothing."""
+        return spans._NULL if rec is None else rec.span(name, dev)
+
     def reconstruct(idx):
         """Exact full-width G = P - Q alpha for the lanes ``idx``."""
-        with record_function("chunked.rebuild"):
+        with span("chunked.rebuild"):
             idx_t = torch.as_tensor(idx, device=dev)
             if bank:
                 src = row_source.bank_source(gram, gidx[idx_t], dup=doubled)
@@ -1361,7 +1413,9 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
             lambda: _chunk_buffers(cache, X, gram if bank else None, dtype,
                                    bsz, rb, doubled, whole))
         b = ent.bufs
-        with record_function("chunked.slice"):
+        if rec is not None:
+            rec.end_prep()
+        with span("chunked.slice"):
             lanes = torch.as_tensor(np.concatenate(
                 [live, np.repeat(live[:1], bsz - m_live)]), device=dev)
             cols = torch.cat([keep, keep + lb]) if doubled else keep
@@ -1393,10 +1447,7 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
                     b.gram[:, :m, m:].zero_()
                 bank_kw = dict(gram=b.gram, gram_idx=b.gidx)
             args = [gather(A) for A in (alpha, G)]
-        if diagnostics is not None:
-            synchronize(dev)
-            t0 = time.perf_counter()
-        with record_function("chunked.solve"), _solving(ent):
+        with span("chunked.solve") as solved, _solving(ent):
             res = chunk_solver(
                 b.X, b.P, b.L, b.U, b.gam, ccfg, impl=impl, alpha0=args[0],
                 G0=args[1], doubled=doubled, shrinking=shrinking,
@@ -1404,22 +1455,11 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
         del bank_kw, args
         if rc is not None:
             res, ring = res
-        if diagnostics is not None:
-            synchronize(dev)
-            dt = time.perf_counter() - t0
-            diagnostics.event("phase", name="chunk_solve", seconds=dt,
-                              round=rnd, lanes=m_live, rows=m)
-            # the EWMA deadline over chunk wall times
-            if monitor.record(dt):
-                diagnostics.event(
-                    "straggler_warning", round=rnd, seconds=dt,
-                    deadline=monitor.deadline, lanes=live.tolist(), rows=m)
-        if rc is not None:
             _merge_chunk_ring(rc, ring, live, out_iter[live],
                               out_unshrink[live], tel)
             del ring
 
-        with record_function("chunked.checks"):
+        with span("chunked.checks"):
             live_t = lanes[:m_live]
             ra = res.alpha[:m_live].to(f64)
             rg = res.G[:m_live].to(f64)
@@ -1434,6 +1474,18 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
             out_unshrink[live] += res.n_unshrink[:m_live].cpu().numpy()
             conv = res.converged[:m_live].cpu().numpy()
         del res
+        if rec is not None:
+            # the reads above waited for the chunk: its events are done
+            ms = rec.resolve(solved)
+            dt = (solved.host_ms if ms is None else ms) / 1e3
+            if rec.sink is not None:
+                rec.sink.emit("phase", name="chunk_solve", seconds=dt,
+                              round=rnd, lanes=m_live, rows=m)
+            # the EWMA deadline over the chunks' times
+            if monitor.record(dt) and rec.sink is not None:
+                rec.sink.emit(
+                    "straggler_warning", round=rnd, seconds=dt,
+                    deadline=monitor.deadline, lanes=live.tolist(), rows=m)
 
         # ---- retire converged lanes (full KKT check when rows dropped) ----
         need_unshrink = False
@@ -1442,7 +1494,7 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
         if len(cand):
             if m < lb:
                 reconstruct(cand)
-            with record_function("chunked.checks"):
+            with span("chunked.checks"):
                 ok = (finalize(cand) <= eps).cpu().numpy()
             out_conv[torch.as_tensor(cand[ok], device=dev)] = True
             failed = cand[~ok]
@@ -1457,7 +1509,7 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
             exh = live[exh_pos]
             if m < lb:
                 reconstruct(exh)
-            with record_function("chunked.checks"):
+            with span("chunked.checks"):
                 gap_e = finalize(exh)
                 out_conv[torch.as_tensor(exh, device=dev)] = gap_e <= eps
             retired[exh_pos] = True
@@ -1474,7 +1526,7 @@ def solve_fused_chunked_qp(X, P, L, U, gamma,
         elif shrinking and m > 1:
             # monotone row shrink from the exact kept-coordinate state: a
             # base row stays if any live lane still needs it
-            with record_function("chunked.checks"):
+            with span("chunked.checks"):
                 live_t = torch.as_tensor(live, device=dev)
                 cols = torch.cat([keep, keep + lb]) if doubled else keep
                 part = [A.index_select(0, live_t).index_select(1, cols)

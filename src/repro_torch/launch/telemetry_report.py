@@ -6,10 +6,14 @@
 
 Input is the artifact written by :class:`repro_torch.telemetry.Diagnostics`
 (``fingerprint`` / ``phase`` / ``lane`` / ``straggler_warning`` /
-``summary`` events, one JSON object per line).  Output sections:
+``span`` / ``span_summary`` / ``summary`` events, one JSON object per
+line).  Output sections:
 
 * environment fingerprint (what machine/backend produced the run);
-* host phase table (wall-clock per named scope);
+* host phase table (wall-clock per named phase, and the device ms of the
+  spans that carry the phase's label);
+* spans (from ``Diagnostics.finalize``): each span's count, host ms and
+  device ms, the counters, and the device's idle gaps between spans;
 * per-lane convergence table — iterations, KKT gap, planning-step and
   unshrink totals, keyed by the lane's hyper-parameters;
 * straggler diagnosis: which (gamma, C) cells dominate the wall-clock
@@ -42,7 +46,8 @@ def load_events(path: str) -> list[dict]:
 def split_events(events):
     """Bucket a raw event stream by type (unknown types are ignored)."""
     by = {"fingerprint": [], "phase": [], "lane": [],
-          "straggler_warning": [], "summary": []}
+          "straggler_warning": [], "span": [], "span_summary": [],
+          "summary": []}
     for e in events:
         by.get(e.get("event"), []).append(e)
     return by
@@ -74,18 +79,61 @@ def fingerprint_section(fps: list[dict]) -> str:
     return _table(["field", "value"], rows)
 
 
-def phase_section(phases: list[dict]) -> str:
+def _ms(v) -> str:
+    return "-" if v is None else f"{v:.3f}"
+
+
+def phase_section(phases: list[dict], spans: list[dict] = ()) -> str:
     if not phases:
         return "(no phase events)"
     agg: dict[str, list[float]] = {}
     for e in phases:
         agg.setdefault(e.get("name", "?"), []).append(
             float(e.get("seconds", 0.0)))
+    # the device ms of the spans labelled with each phase
+    dev: dict = {}
+    for e in spans:
+        if e.get("phase") is not None and e.get("device_ms") is not None:
+            dev[e["phase"]] = dev.get(e["phase"], 0.0) + e["device_ms"]
     rows = [[name, str(len(ts)), f"{sum(ts):.4f}",
-             f"{sum(ts) / len(ts):.4f}", f"{max(ts):.4f}"]
+             f"{sum(ts) / len(ts):.4f}", f"{max(ts):.4f}",
+             _ms(dev.get(name))]
             for name, ts in sorted(agg.items(),
                                    key=lambda kv: -sum(kv[1]))]
-    return _table(["phase", "calls", "total s", "mean s", "max s"], rows)
+    return _table(["phase", "calls", "total s", "mean s", "max s",
+                   "device ms"], rows)
+
+
+def span_section(spans: list[dict], summaries: list[dict]) -> str:
+    if not spans:
+        return "(no span events: spans are emitted by Diagnostics.finalize)"
+    agg: dict = {}
+    for e in spans:
+        row = agg.setdefault(e.get("name", "?"), [0, 0.0, None])
+        row[0] += int(e.get("count", 0))
+        row[1] += float(e.get("host_ms", 0.0))
+        if e.get("device_ms") is not None:
+            row[2] = (row[2] or 0.0) + e["device_ms"]
+    out = [_table(["span", "count", "host ms", "device ms"],
+                  [[k, str(n), f"{h:.3f}", _ms(d)]
+                   for k, (n, h, d) in agg.items()])]
+    if summaries:
+        s = summaries[-1]
+        counters = s.get("counters", {})
+        if counters:
+            out.append("\ncounters: " + ", ".join(
+                f"{k}={v}" for k, v in counters.items()))
+        gaps = s.get("gaps", {})
+        if gaps:
+            out.append("\n" + _table(
+                ["device idle gap", "ms"],
+                [[k, f"{v:.3f}"] for k, v in sorted(
+                    gaps.items(), key=lambda kv: -kv[1])]))
+        if s.get("idle_share") is not None:
+            out.append(f"\ndevice window {s['window_ms']:.3f} ms, busy "
+                       f"{s['busy_ms']:.3f} ms, idle "
+                       f"{s['idle_share']:.2f}%")
+    return "\n".join(out)
 
 
 def convergence_section(lanes: list[dict]) -> str:
@@ -180,7 +228,8 @@ def render_report(events: list[dict], *, top_k: int = 5,
     by = split_events(events)
     sections = [
         ("environment", fingerprint_section(by["fingerprint"])),
-        ("host phases", phase_section(by["phase"])),
+        ("host phases", phase_section(by["phase"], by["span"])),
+        ("spans", span_section(by["span"], by["span_summary"])),
         ("convergence", convergence_section(by["lane"])),
         ("stragglers", straggler_section(by["lane"],
                                          by["straggler_warning"], top_k)),

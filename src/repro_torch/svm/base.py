@@ -7,21 +7,22 @@ fused engine over several devices (``engine="sharded"``,
 (``engine="batched"``); ``"auto"`` picks the classic engine for the
 configs the fused one does not run, else the sharded engine when
 ``mesh``/``devices`` is given, else the fused engine.  ``diagnostics`` (a
-:class:`repro_torch.telemetry.Diagnostics`) records the fit as a phase
-and, on the fused and sharded engines with a ring, drains their lanes.
+:class:`repro_torch.telemetry.Diagnostics`) records the fit's spans (a
+``fit`` span, also a ``phase`` event) and, on the fused and sharded
+engines with a ring, drains their lanes; ``telemetry.recording(diag)``
+around a fit or a decision records the same spans.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
 from repro_torch.core import qp as qp_mod
 from repro_torch.core import sharded_lanes
 from repro_torch.core.solver import SolverConfig
-from repro_torch.device import resolve_dtype, synchronize
+from repro_torch.device import resolve_dtype
 from repro_torch.kernels import ops
+from repro_torch.telemetry import spans
 
 
 class SVMEstimatorBase:
@@ -67,24 +68,20 @@ class SVMEstimatorBase:
             return None
         return self.diagnostics.ring_config
 
-    @contextlib.contextmanager
-    def _fit_scope(self, name: str, device, **meta):
-        """The fit's phase scope, which waits for the card before it
-        closes; nothing without a handle."""
-        if self.diagnostics is None:
-            yield
-            return
-        with self.diagnostics.scope(name, **meta):
-            yield
-            synchronize(device)
-
     def _config(self) -> SolverConfig:
         return SolverConfig(algorithm=self.algorithm, step=self.step,
                             eps=self.eps, max_iter=self.max_iter,
                             plan_candidates=self.plan_candidates)
 
     def _resolve_gamma(self, X: torch.Tensor) -> float:
+        """``gamma``, with ``"scale"`` worked out from a host copy of
+        ``X`` (its bytes off the CPU counted as ``fit.host_copy_bytes``
+        while a recorder is active)."""
         if self.gamma == "scale":
+            rec = spans.active()
+            if rec is not None:
+                rec.count("fit.host_copy_bytes", 0 if X.device.type == "cpu"
+                          else X.numel() * X.element_size())
             var = float(X.detach().cpu().numpy().var())
             return 1.0 / (X.shape[1] * var) if var > 0 else 1.0
         return float(self.gamma)

@@ -29,6 +29,7 @@ from repro_torch.core.solver_fused import FusedResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.svm.base import SVMEstimatorBase
+from repro_torch.telemetry import spans
 
 
 class OneClassSVM(SVMEstimatorBase):
@@ -37,8 +38,9 @@ class OneClassSVM(SVMEstimatorBase):
     ``nu`` in (0, 1] upper-bounds the training-outlier fraction and
     lower-bounds the support-vector fraction.  The other knobs are as in
     :class:`repro_torch.svm.svc.SVC` (``engine`` and ``step="conjugate"``
-    with ``algorithm="smo"`` included); ``diagnostics`` records a
-    ``oneclass_fit`` phase and drains the fused engine's lane.
+    with ``algorithm="smo"`` included); ``diagnostics`` records the
+    fit's spans (its ``fit`` span ends in a ``oneclass_fit`` phase event)
+    and drains the fused engine's lane.
     """
 
     def __init__(self, nu: float = 0.5, gamma: Union[float, str] = "scale",
@@ -60,40 +62,42 @@ class OneClassSVM(SVMEstimatorBase):
     def fit(self, X, y=None) -> "OneClassSVM":
         del y
         dev = resolve_device(self.device)
+        with spans.fit_span(self.diagnostics, "oneclass_fit", dev) as sp:
+            return self._fit(X, dev, sp)
+
+    def _fit(self, X, dev, sp) -> "OneClassSVM":
         X = torch.as_tensor(X, dtype=self.dtype, device=dev).contiguous()
         l = X.shape[0]
         self.device_ = dev
         self.gamma_ = self._resolve_gamma(X)
         self.X_ = X
         self.engine_ = self._resolve_engine()
+        if sp is not None:
+            sp.meta.update(engine=self.engine_, rows=int(X.shape[0]))
         qp = qp_mod.oneclass_qp(l, self.nu, self.dtype, dev)
         a0 = qp_mod.oneclass_alpha0(l, self.nu, self.dtype, dev)
         tel = self._ring_config()
         ring = None
-        with self._fit_scope("oneclass_fit", dev, engine=self.engine_,
-                             rows=int(X.shape[0])):
-            if self.engine_ == "batched":
-                res = solve_qp(self._classic_kernel(X), qp, self._config(),
-                               alpha0=a0, device=dev, dtype=self.dtype)
+        if self.engine_ == "batched":
+            res = solve_qp(self._classic_kernel(X), qp, self._config(),
+                           alpha0=a0, device=dev, dtype=self.dtype)
+        else:
+            bank_kw = {}
+            if self.precompute and ops.resolve_impl(self.impl, dev) == "torch":
+                K = ops.gram(X, gamma=self.gamma_, impl=self.impl, device=dev,
+                             dtype=self.dtype)
+                G0 = -(K @ a0)
+                bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
+                    (1,), dtype=torch.int64, device=dev))
             else:
-                bank_kw = {}
-                if (self.precompute
-                        and ops.resolve_impl(self.impl, dev) == "torch"):
-                    K = ops.gram(X, gamma=self.gamma_, impl=self.impl,
-                                 device=dev, dtype=self.dtype)
-                    G0 = -(K @ a0)
-                    bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
-                        (1,), dtype=torch.int64, device=dev))
-                else:
-                    G0 = -qp_mod.make_rbf(X, self.gamma_).matvec(a0)
-                out = sharded_lanes.lane_solver(self._lane_mesh(dev))(
-                    X, qp.p[None], qp.bounds.lower[None],
-                    qp.bounds.upper[None], self.gamma_, self._config(),
-                    impl=self.impl, alpha0=a0[None], G0=G0[None],
-                    telemetry=tel, **bank_kw)
-                if tel is not None:
-                    out, ring = out
-                res = out.lane(0)
+                G0 = -qp_mod.make_rbf(X, self.gamma_).matvec(a0)
+            out = sharded_lanes.lane_solver(self._lane_mesh(dev))(
+                X, qp.p[None], qp.bounds.lower[None], qp.bounds.upper[None],
+                self.gamma_, self._config(), impl=self.impl,
+                alpha0=a0[None], G0=G0[None], telemetry=tel, **bank_kw)
+            if tel is not None:
+                out, ring = out
+            res = out.lane(0)
         if ring is not None:
             self.diagnostics.drain_ring(
                 ring, [{"gamma": self.gamma_, "nu": float(self.nu)}], out)
@@ -109,8 +113,9 @@ class OneClassSVM(SVMEstimatorBase):
     def decision_function(self, Xq) -> torch.Tensor:
         """Signed distance to the separating surface: >= 0 for inliers."""
         self._check_fitted()
-        Kq, squeeze = self._query_gram(Xq)
-        df = Kq @ self.alpha_ + self.b_
+        with spans.decide_span(self.diagnostics, self.device_):
+            Kq, squeeze = self._query_gram(Xq)
+            df = Kq @ self.alpha_ + self.b_
         return df[0] if squeeze else df
 
     def predict(self, Xq) -> np.ndarray:

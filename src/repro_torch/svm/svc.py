@@ -25,6 +25,7 @@ from repro_torch.core.solver import SolveResult
 from repro_torch.core.solver_fused import FusedResult
 from repro_torch.device import resolve_device
 from repro_torch.svm.base import SVMEstimatorBase
+from repro_torch.telemetry import spans
 
 
 class SVC(SVMEstimatorBase):
@@ -50,9 +51,10 @@ class SVC(SVMEstimatorBase):
     ``X``, as the reference's accelerator path does); the classic engine
     builds it on either (the Gram kernel on the card) and without it
     recomputes RBF rows from ``X``.  ``diagnostics`` (a
-    :class:`repro_torch.telemetry.Diagnostics`) records the fit as an
-    ``svc_fit`` phase and, on the fused engine with a ring, drains one
-    lane a class head (a binary fit's lone head is label 1).
+    :class:`repro_torch.telemetry.Diagnostics`) records the fit's spans
+    (its ``fit`` span ends in an ``svc_fit`` phase event) and, on the
+    fused engine with a ring, drains one lane a class head (a binary
+    fit's lone head is label 1).
     ``engine="sharded"`` deals the class heads over a lane mesh
     (:mod:`repro_torch.core.sharded_lanes`): the same fit, one loop a
     device slab; ``mesh``/``devices`` pin the mesh (default: every CUDA
@@ -95,6 +97,10 @@ class SVC(SVMEstimatorBase):
 
     def fit(self, X, y) -> "SVC":
         dev = resolve_device(self.device)
+        with spans.fit_span(self.diagnostics, "svc_fit", dev) as sp:
+            return self._fit(X, y, dev, sp)
+
+    def _fit(self, X, y, dev, sp) -> "SVC":
         X = torch.as_tensor(X, dtype=self.dtype, device=dev).contiguous()
         y = y.cpu().numpy() if torch.is_tensor(y) else np.asarray(y)
         self.classes_, y_idx = mc.class_index(y)
@@ -106,6 +112,8 @@ class SVC(SVMEstimatorBase):
         self.X_ = X
         cfg = self._config()
         self.engine_ = engine = self._resolve_engine()
+        if sp is not None:
+            sp.meta.update(engine=engine, n_class=k, rows=int(X.shape[0]))
 
         if k == 2 and np.asarray(self.C).size != 1:
             raise ValueError("per-class C requires more than two "
@@ -132,24 +140,21 @@ class SVC(SVMEstimatorBase):
 
         tel = self._ring_config()
         ring = None
-        with self._fit_scope("svc_fit", dev, engine=engine, n_class=k,
-                             rows=int(X.shape[0])):
-            if engine == "batched":
-                out = mc.solve_ovr(self._classic_kernel(X), Y, C_lanes, cfg,
-                                   device=dev, dtype=self.dtype)
-                res = (SolveResult(**{f.name: getattr(out, f.name)[0]
-                                      for f in dataclasses.fields(out)})
-                       if k == 2 else out)
-            else:
-                out = mc.solve_ovr_fused(X, Y, C_lanes, self.gamma_, cfg,
-                                         impl=self.impl,
-                                         precompute=self.precompute,
-                                         mesh=self._lane_mesh(dev),
-                                         device=dev, dtype=self.dtype,
-                                         telemetry=tel)
-                if tel is not None:
-                    out, ring = out
-                res = out.lane(0) if k == 2 else out
+        if engine == "batched":
+            out = mc.solve_ovr(self._classic_kernel(X), Y, C_lanes, cfg,
+                               device=dev, dtype=self.dtype)
+            res = (SolveResult(**{f.name: getattr(out, f.name)[0]
+                                  for f in dataclasses.fields(out)})
+                   if k == 2 else out)
+        else:
+            out = mc.solve_ovr_fused(X, Y, C_lanes, self.gamma_, cfg,
+                                     impl=self.impl,
+                                     precompute=self.precompute,
+                                     mesh=self._lane_mesh(dev), device=dev,
+                                     dtype=self.dtype, telemetry=tel)
+            if tel is not None:
+                out, ring = out
+            res = out.lane(0) if k == 2 else out
         if ring is not None:
             # one lane a class head (a binary fit's lone head is the
             # "classes_[1] vs rest" problem, label index 1)
@@ -171,20 +176,22 @@ class SVC(SVMEstimatorBase):
         """Binary: (m,) signed margin (positive -> ``classes_[1]``).
         Multiclass: (m, k) one-vs-rest scores."""
         self._check_fitted()
-        Kq, squeeze = self._query_gram(Xq)
-        if self.alpha_.ndim == 1:
-            df = Kq @ self.alpha_ + self.b_
-        else:
-            df = mc.ovr_decision(Kq, self.alpha_, self.b_)
+        with spans.decide_span(self.diagnostics, self.device_):
+            Kq, squeeze = self._query_gram(Xq)
+            if self.alpha_.ndim == 1:
+                df = Kq @ self.alpha_ + self.b_
+            else:
+                df = mc.ovr_decision(Kq, self.alpha_, self.b_)
         return df[0] if squeeze else df
 
     def predict(self, Xq) -> np.ndarray:
         self._check_fitted()
-        df = self.decision_function(Xq)
-        if self.alpha_.ndim == 1:
-            idx = (df >= 0).to(torch.int64)
-        else:
-            idx = torch.argmax(df, dim=-1)
+        with spans.decide_span(self.diagnostics, self.device_):
+            df = self.decision_function(Xq)
+            if self.alpha_.ndim == 1:
+                idx = (df >= 0).to(torch.int64)
+            else:
+                idx = torch.argmax(df, dim=-1)
         return self.classes_[idx.cpu().numpy()]
 
     def score(self, Xq, yq) -> float:

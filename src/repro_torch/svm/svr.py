@@ -28,6 +28,7 @@ from repro_torch.core.solver_fused import FusedResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.svm.base import SVMEstimatorBase
+from repro_torch.telemetry import spans
 
 
 class SVR(SVMEstimatorBase):
@@ -39,8 +40,9 @@ class SVR(SVMEstimatorBase):
     :class:`repro_torch.svm.svc.SVC`: ``engine`` picks the fused or the
     classic solver, ``step="conjugate"`` (with ``algorithm="smo"``) runs
     the Conjugate-SMO step, ``precompute`` (default ``True``) banks the
-    Gram matrix as there, and ``diagnostics`` records the fit as an
-    ``svr_fit`` phase (and drains its lane on the fused engine).  The fit
+    Gram matrix as there, and ``diagnostics`` records the fit's spans (its
+    ``fit`` span ends in an ``svr_fit`` phase event) and drains its lane
+    on the fused engine.  The fit
     is one lane, so ``engine="auto"`` never shards it; ``engine="sharded"``
     (with ``mesh``/``devices`` as in :class:`~repro_torch.svm.svc.SVC`)
     runs the lane through the sharded engine all the same.
@@ -66,36 +68,38 @@ class SVR(SVMEstimatorBase):
 
     def fit(self, X, y) -> "SVR":
         dev = resolve_device(self.device)
+        with spans.fit_span(self.diagnostics, "svr_fit", dev) as sp:
+            return self._fit(X, y, dev, sp)
+
+    def _fit(self, X, y, dev, sp) -> "SVR":
         X = torch.as_tensor(X, dtype=self.dtype, device=dev).contiguous()
         y = torch.as_tensor(y, dtype=self.dtype, device=dev).reshape(-1)
         self.device_ = dev
         self.gamma_ = self._resolve_gamma(X)
         self.X_ = X
         self.engine_ = self._resolve_engine()
+        if sp is not None:
+            sp.meta.update(engine=self.engine_, rows=int(X.shape[0]))
         qp = qp_mod.svr_qp(y, float(self.C), float(self.epsilon))
         tel = self._ring_config()
         ring = None
-        with self._fit_scope("svr_fit", dev, engine=self.engine_,
-                             rows=int(X.shape[0])):
-            if self.engine_ == "batched":
-                res = solve_qp(qp_mod.DoubledKernel(self._classic_kernel(X)),
-                               qp, self._config(), device=dev,
-                               dtype=self.dtype)
-            else:
-                bank_kw = {}
-                if (self.precompute
-                        and ops.resolve_impl(self.impl, dev) == "torch"):
-                    K = ops.gram(X, gamma=self.gamma_, impl=self.impl,
-                                 device=dev, dtype=self.dtype)
-                    bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
-                        (1,), dtype=torch.int64, device=dev))
-                out = sharded_lanes.lane_solver(self._lane_mesh(dev))(
-                    X, qp.p[None], qp.bounds.lower[None],
-                    qp.bounds.upper[None], self.gamma_, self._config(),
-                    impl=self.impl, doubled=True, telemetry=tel, **bank_kw)
-                if tel is not None:
-                    out, ring = out
-                res = out.lane(0)
+        if self.engine_ == "batched":
+            res = solve_qp(qp_mod.DoubledKernel(self._classic_kernel(X)), qp,
+                           self._config(), device=dev, dtype=self.dtype)
+        else:
+            bank_kw = {}
+            if self.precompute and ops.resolve_impl(self.impl, dev) == "torch":
+                K = ops.gram(X, gamma=self.gamma_, impl=self.impl, device=dev,
+                             dtype=self.dtype)
+                bank_kw = dict(gram=K[None], gram_idx=torch.zeros(
+                    (1,), dtype=torch.int64, device=dev))
+            out = sharded_lanes.lane_solver(self._lane_mesh(dev))(
+                X, qp.p[None], qp.bounds.lower[None], qp.bounds.upper[None],
+                self.gamma_, self._config(), impl=self.impl, doubled=True,
+                telemetry=tel, **bank_kw)
+            if tel is not None:
+                out, ring = out
+            res = out.lane(0)
         if ring is not None:
             self.diagnostics.drain_ring(
                 ring, [{"gamma": self.gamma_, "C": float(self.C),
@@ -111,8 +115,9 @@ class SVR(SVMEstimatorBase):
 
     def predict(self, Xq) -> torch.Tensor:
         self._check_fitted()
-        Kq, squeeze = self._query_gram(Xq)
-        f = Kq @ self.beta_ + self.b_
+        with spans.decide_span(self.diagnostics, self.device_):
+            Kq, squeeze = self._query_gram(Xq)
+            f = Kq @ self.beta_ + self.b_
         return f[0] if squeeze else f
 
     def score(self, Xq, yq) -> float:

@@ -6,8 +6,10 @@ Three tiers:
 * **device**: :class:`~repro_torch.telemetry.ring.TelemetryRing`, bounded
   per-lane ring buffers carried through the fused loop (masked writes
   that a CUDA graph replays; :mod:`repro_torch.telemetry.ring`);
-* **host**: the JSONL event sink, phase timers and profiler ranges, and
-  the environment fingerprint (:mod:`repro_torch.telemetry.sink`);
+* **host**: the JSONL event sink and the environment fingerprint
+  (:mod:`repro_torch.telemetry.sink`), and the spans and counters of the
+  solve path (:mod:`repro_torch.telemetry.spans`): host and CUDA-event
+  times, each span a profiler range while a profiler records;
 * **report**: ``python -m repro_torch.launch.telemetry_report`` renders
   convergence tables and a straggler diagnosis from the JSONL artifact.
 
@@ -16,6 +18,8 @@ the grid drivers, the chunked driver and the ``SVC``/``SVR``/
 ``OneClassSVM`` facades.  The batched engines take its
 :class:`~repro_torch.telemetry.ring.RingConfig` as ``telemetry=`` and
 return their rings, which the drivers drain into the handle's sink.
+``with recording(diag):`` records the spans of any call made inside into
+``diag``, as its ``diagnostics=`` argument would.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ from repro_torch.telemetry.ring import (RingConfig, TelemetryRing, ring_init,
 from repro_torch.telemetry.sink import (JsonlSink, _to_plain,
                                         env_fingerprint, fingerprint_diff,
                                         phase_scope, read_jsonl)
+from repro_torch.telemetry.spans import SpanRecorder, recording
 
 __all__ = [
     "Diagnostics", "RingConfig", "TelemetryRing", "ring_init",
     "ring_update", "ring_slice", "JsonlSink", "env_fingerprint",
-    "fingerprint_diff", "phase_scope", "read_jsonl",
+    "fingerprint_diff", "phase_scope", "read_jsonl", "SpanRecorder",
+    "recording",
 ]
 
 _RING_FIELDS = ("t", "gap", "n_active", "n_unshrink", "n_samples", "ratio",
@@ -52,22 +58,30 @@ class Diagnostics:
     ----------
     path : optional JSONL output path (``None`` keeps the events in
         memory: ``diag.sink.events``).
-    ring : the device tier's sampling geometry, or ``None`` to record host
-        phases only (the engines then run their ring-free loop).
+    ring : the device tier's sampling geometry, or ``None`` to record
+        spans only (the engines then run their ring-free loop).
+
+    ``spans`` is the handle's :class:`~repro_torch.telemetry.spans.
+    SpanRecorder`, which the calls it is passed to (or that run inside
+    :func:`recording`) record their spans and counters into.
     """
 
     def __init__(self, path=None, *, ring: RingConfig | None = RingConfig(),
                  sink: JsonlSink | None = None):
         self.ring_config = ring
         self.sink = sink if sink is not None else JsonlSink(path)
+        self.spans = SpanRecorder(self.sink)
         self.lanes: list[dict] = []
         self.sink.emit("fingerprint", **env_fingerprint())
 
     # -- host tier ---------------------------------------------------------
 
-    def scope(self, name: str, **meta):
-        """Wall-clock and profiler scope; emits a ``phase`` event."""
-        return phase_scope(name, self.sink, **meta)
+    def span_summary(self) -> dict:
+        """:meth:`~repro_torch.telemetry.spans.SpanRecorder.summary`:
+        each span's count, host and device ms, the counters, the device
+        timeline, its idle gaps and idle share.  Call it after the card
+        was synchronised."""
+        return self.spans.summary()
 
     def event(self, event: str, **payload):
         return self.sink.emit(event, **payload)
@@ -175,7 +189,10 @@ class Diagnostics:
         return s
 
     def finalize(self, top_k: int = 5) -> dict:
-        """Emit the ``summary`` event and close the sink's file."""
+        """Emit the spans' events (:meth:`~repro_torch.telemetry.spans.
+        SpanRecorder.emit`) and the ``summary`` event, and close the
+        sink's file."""
+        self.spans.emit()
         s = self.summary(top_k)
         self.sink.emit("summary", **s)
         self.sink.close()

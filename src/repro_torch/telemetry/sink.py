@@ -10,9 +10,9 @@ around it:
   can be told from a change of code;
 * :class:`JsonlSink`, an append-only structured event stream (one JSON
   object per line) that also keeps the events in memory;
-* :func:`phase_scope`, a wall-clock timer and a ``torch.profiler``
-  ``record_function`` range, so solver phases show up both in the JSONL
-  stream and in a profiler trace when one is taken.
+* :func:`phase_scope`, a wall-clock timer that emits a ``phase`` event,
+  and a span of the active recorder (:mod:`repro_torch.telemetry.spans`)
+  when one records.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from repro_torch.telemetry import spans
 
 FINGERPRINT_KEYS = ("torch_version", "cuda_version", "backend",
                     "device_kind", "device_count", "cpu_count", "host")
@@ -135,16 +136,16 @@ class JsonlSink:
 
 @contextlib.contextmanager
 def phase_scope(name: str, sink: JsonlSink | None = None, **meta):
-    """Wall-clock and profiler scope around a solver phase.
+    """Wall-clock scope around a solver phase.
 
-    Emits a ``phase`` event with the measured ``seconds`` on exit; the
-    ``record_function`` range shows the same span in a ``torch.profiler``
-    trace.  With ``sink=None`` it is a profiler range only.  The clock
-    reads host time: a caller timing device work synchronises before the
-    scope closes.
+    Emits a ``phase`` event with the host ``seconds`` on exit (nothing
+    with ``sink=None``); while a recorder is active
+    (:func:`repro_torch.telemetry.spans.active`) the phase is also one of
+    its spans, and so a ``torch.profiler`` range.
     """
+    rec = spans.active()
     t0 = time.perf_counter()
-    with record_function(name):
+    with (spans._NULL if rec is None else rec.span(name)):
         try:
             yield
         finally:

@@ -566,11 +566,15 @@ def test_chunked_hard_compaction_parity(precompute, monkeypatch):
     """Lane and row compaction between chunks of 32 iterations: the
     reference's objectives, every lane converged on the full set, and the
     rebuilt G exact on every coordinate.  A profiler window sees the
-    round's four phases as ranges."""
+    round's four phases as ranges: the spans of the recorder that is
+    active around the call."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.telemetry import Diagnostics, recording
     X, y, want = _chunked_problem(precompute)
     rounds = _spy_rounds(monkeypatch)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            recording(Diagnostics(ring=None)):
         res = grid.solve_grid_compacted(X, y, [2.0, 24.0], [0.4], CFG,
                                         chunk=32, impl="auto",
                                         precompute=precompute,

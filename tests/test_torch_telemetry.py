@@ -38,6 +38,7 @@ from repro_torch.telemetry import (Diagnostics, JsonlSink, RingConfig,
                                    fingerprint_diff, phase_scope, read_jsonl,
                                    ring_init, ring_slice, ring_update)
 from repro_torch.telemetry import ring as ring_mod
+from repro_torch.telemetry import spans
 
 F64 = torch.float64
 FIELDS = ring_mod.FIELDS
@@ -455,25 +456,32 @@ def test_step_monitor_flags_a_slow_step():
 
 
 class _Clock:
-    """A stand-in for the chunked driver's ``time`` module: each chunk
-    solve takes ``durations[k]`` seconds on this clock."""
+    """A stand-in for the span recorder's clock (``spans._clock``, in ns):
+    time moves only inside the chunk solves, ``durations[k]`` seconds in
+    the k-th (:meth:`around` wraps the chunk solver)."""
 
     def __init__(self, durations):
-        self.durations, self.now, self.calls = list(durations), 0.0, 0
+        self.durations, self.now, self.calls = list(durations), 0, 0
 
-    def perf_counter(self):
-        # called twice a chunk: at its start and at its end
-        if self.calls % 2:
-            self.now += self.durations[min(self.calls // 2,
-                                           len(self.durations) - 1)]
-        self.calls += 1
+    def __call__(self):
         return self.now
+
+    def around(self, solve):
+        def timed(*args, **kw):
+            out = solve(*args, **kw)
+            k = min(self.calls, len(self.durations) - 1)
+            self.now += int(self.durations[k] * 1e9)
+            self.calls += 1
+            return out
+        return timed
 
 
 def test_chunked_driver_emits_straggler_warnings(monkeypatch):
     X, Y = _grid_problem(l=32, seed=1)
     clock = _Clock([4.0, 1.0, 1.0, 1.0, 20.0, 1.0])
-    monkeypatch.setattr(solver_fused, "time", clock)
+    monkeypatch.setattr(spans, "_clock", clock)
+    monkeypatch.setattr(solver_fused, "solve_fused_batched_qp",
+                        clock.around(solver_fused.solve_fused_batched_qp))
     diag = Diagnostics(ring=None)
     res = grid.solve_grid_compacted(X, Y, [0.5, 2.0], [0.5, 1.0],
                                     SolverConfig(eps=1e-3, max_iter=400),
@@ -706,9 +714,27 @@ def test_reference_report_renders_the_port_file(tmp_path):
     for section in SECTIONS:
         assert section in text
     assert "backend | " in text
-    assert text.split("## host phases")[1] == report.render_report(
-        report.load_events(str(path)), trace_lane=0,
-        hist=True).split("## host phases")[1]
+
+    def sections(t):
+        return {sec.split("\n", 1)[0]: sec for sec in t.split("## ")[1:]}
+
+    theirs = sections(text)
+    ours = sections(report.render_report(report.load_events(str(path)),
+                                         trace_lane=0, hist=True))
+    # the port's phase table adds a device-ms column to the reference's,
+    # and its span section is its own; every other section is the same
+    assert set(ours) == set(theirs) | {"spans"}
+    for name, body in theirs.items():
+        if name == "environment":
+            continue
+        if name != "host phases":
+            assert ours[name] == body
+            continue
+        mine = [ln for ln in ours[name].splitlines() if ln.startswith("|")]
+        rows = [ln for ln in body.splitlines() if ln.startswith("|")]
+        assert len(mine) == len(rows)
+        for a, b in zip(mine[2:], rows[2:]):
+            assert a.startswith(b[:-1]) and a.count("|") == b.count("|") + 1
 
 
 def test_drain_reads_tensors_and_keeps_the_caps():
